@@ -1,0 +1,97 @@
+// Shared device helpers for the hand-written Hopper kernels.
+//
+// Every kernel here computes its matrix products through `mma_tile`: a warp
+// multiplies a 16-row tile of A by an 8-column tile of B, both held in shared
+// memory, and accumulates into four f32 registers per lane laid out as the
+// accumulator of `mma.sync.m16n8k16`:
+//
+//   lane = 4*g + t holds C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]
+//
+// A is row-major with row stride `lda`; B is given transposed (Bt, one row per
+// output column, the contraction axis contiguous) with row stride `ldb`.
+// bf16 operands go to the tensor cores (mma.sync, f32 accumulation); f32
+// operands run the same tile on the FMA units in full f32 (no TF32), so a
+// kernel body is written once for both types.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace st2v {
+
+typedef __nv_bfloat16 bf16;
+
+// Shared-memory rows are padded by 16 bytes so that the 8 row groups of a
+// fragment load fall into distinct banks.
+template <typename T> struct RowPad;
+template <> struct RowPad<float> { static constexpr int value = 4; };
+template <> struct RowPad<bf16> { static constexpr int value = 8; };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ void mma_tile(float c[4], const bf16* A, int lda,
+                                         const bf16* Bt, int ldb, int K) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* a_lo = A + g * lda + 2 * t;
+  const bf16* a_hi = a_lo + 8 * lda;
+  const bf16* b = Bt + g * ldb + 2 * t;
+  for (int k = 0; k < K; k += 16) {
+    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a_lo + k);
+    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a_hi + k);
+    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a_lo + k + 8);
+    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a_hi + k + 8);
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(b + k);
+    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(b + k + 8);
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+}
+
+__device__ __forceinline__ void mma_tile(float c[4], const float* A, int lda,
+                                         const float* Bt, int ldb, int K) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a_lo = A + g * lda;
+  const float* a_hi = a_lo + 8 * lda;
+  const float* b_lo = Bt + (2 * t) * ldb;
+  const float* b_hi = b_lo + ldb;
+  for (int k = 0; k < K; ++k) {
+    const float x0 = a_lo[k], x1 = a_hi[k], y0 = b_lo[k], y1 = b_hi[k];
+    c[0] = fmaf(x0, y0, c[0]);
+    c[1] = fmaf(x0, y1, c[1]);
+    c[2] = fmaf(x1, y0, c[2]);
+    c[3] = fmaf(x1, y1, c[3]);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Opt in to more than 48 KB of dynamic shared memory, then report the first
+// error of the launch sequence (0 when the kernel was accepted).
+template <typename Kernel>
+inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace st2v

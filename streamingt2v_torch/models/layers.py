@@ -1,0 +1,163 @@
+"""Parameter-holding layers in the JAX package's layouts.
+
+``Dense``, ``Conv`` and ``TimeConv`` carry the flax parameter names
+(``kernel``, ``bias``) so that a module's state-dict keys are the flax
+paths with ``/`` replaced by ``.``; their kernels are stored in PyTorch's
+layouts: Dense (out, in), Conv (out, in, kh, kw), and the (kt, 1, 1) time
+conv as the temporal-conv kernel's (kt, in, out).  Activations stay
+channel-last; a Conv permutes to an NCHW view only around the cuDNN call
+(the view of an NHWC tensor is already channels_last, so nothing copies).
+
+Like flax with ``dtype=None``, a layer computes in the wider of its
+input's and its parameters' dtypes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+def norm_params(module: nn.Module, name: str, c: int, device=None, dtype=None) -> None:
+    """Register ``{name}_scale`` (ones) and ``{name}_bias`` (zeros)."""
+    module.register_parameter(f"{name}_scale", _param((c,), device, dtype))
+    module.register_parameter(f"{name}_bias", _param((c,), device, dtype))
+
+
+def norm_pair(module: nn.Module, name: str) -> tuple:
+    return getattr(module, f"{name}_scale"), getattr(module, f"{name}_bias")
+
+
+def _common(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, w.dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: kernel (out, in), optional bias (out,)."""
+
+    def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
+                 zero_init: bool = False, device=None, dtype=None):
+        super().__init__()
+        self.zero_init = zero_init
+        self.kernel = _param((out_features, in_features), device, dtype)
+        self.bias = _param((out_features,), device, dtype) if bias else None
+
+    def fan_in(self) -> int:
+        return self.kernel.shape[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _common(x, self.kernel)
+        return F.linear(x.to(dt), self.kernel.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over channel-last (..., H, W, C); kernel
+    (out, in, kh, kw).  ``padding`` is 'SAME' (stride 1), 'VALID' or a
+    symmetric int."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
+                 stride: int = 1, padding: Union[str, int] = "SAME", bias: bool = True,
+                 zero_init: bool = False, device=None, dtype=None):
+        super().__init__()
+        if padding == "SAME":
+            if stride != 1:
+                raise ValueError("SAME padding is only used with stride 1")
+            padding = kernel_size // 2
+        elif padding == "VALID":
+            padding = 0
+        self.stride = stride
+        self.padding = padding
+        self.zero_init = zero_init
+        self.kernel = _param((out_channels, in_channels, kernel_size, kernel_size), device, dtype)
+        self.bias = _param((out_channels,), device, dtype) if bias else None
+
+    def fan_in(self) -> int:
+        return self.kernel[0].numel()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        dt = _common(x, self.kernel)
+        xn = x.reshape((-1,) + x.shape[-3:]).to(dt).permute(0, 3, 1, 2)
+        y = F.conv2d(xn, self.kernel.to(dt), None if self.bias is None else self.bias.to(dt),
+                     stride=self.stride, padding=self.padding)
+        y = y.permute(0, 2, 3, 1)
+        return y.reshape(lead + y.shape[1:])
+
+
+class TimeConv(nn.Module):
+    """flax ``nn.Conv`` with a (kt, 1, 1) kernel over (B, T, H, W, C), zero
+    SAME padding on T; kernel stored as (kt, in, out)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: Tuple[int, int, int], *,
+                 zero_init: bool = False, device=None, dtype=None):
+        super().__init__()
+        kt, kh, kw = kernel
+        if (kh, kw) != (1, 1) or kt % 2 != 1:
+            raise NotImplementedError(f"temporal kernel {kernel}: only odd (kt, 1, 1)")
+        self.zero_init = zero_init
+        self.kernel = _param((kt, in_channels, out_channels), device, dtype)
+        self.bias = _param((out_channels,), device, dtype)
+
+    def fan_in(self) -> int:
+        return self.kernel.shape[0] * self.kernel.shape[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain conv3d (cuDNN on the card)."""
+        dt = _common(x, self.kernel)
+        kt = self.kernel.shape[0]
+        w = self.kernel.to(dt).permute(2, 1, 0)[..., None, None]
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), w, self.bias.to(dt), padding=(kt // 2, 0, 0))
+        return y.permute(0, 2, 3, 4, 1)
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from ``generator``, following the flax initialisers:
+    lecun-normal kernels (zeros where the layer is zero-initialised), zero
+    biases, unit norm scales, zero blend factors; modules with other
+    initialisers define ``init_extra_(generator)``."""
+    done = set()
+    for m in module.modules():
+        if isinstance(m, (Dense, Conv, TimeConv)):
+            if m.zero_init:
+                m.kernel.zero_()
+            else:
+                std = 1.0 / math.sqrt(m.fan_in())
+                m.kernel.copy_(torch.randn(m.kernel.shape, generator=generator,
+                                           device=m.kernel.device) * std)
+            done.add(id(m.kernel))
+    for name, p in module.named_parameters():
+        if id(p) in done:
+            continue
+        if name.endswith("_scale"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    for m in module.modules():
+        extra = getattr(m, "init_extra_", None)
+        if extra is not None:
+            extra(generator)
+    return module
+
+
+def per_frame(h: torch.Tensor, fn) -> torch.Tensor:
+    """Apply a spatial function to (B, T, H, W, C) with frames folded into
+    the batch (per-frame statistics, 2x resampling)."""
+    out = fn(h.reshape((-1,) + h.shape[2:]))
+    return out.reshape(h.shape[:2] + out.shape[1:])
+
+
+def silu_f32(x: torch.Tensor) -> torch.Tensor:
+    """SiLU computed in f32, returned in x's dtype (the JAX package's idiom
+    for the embedding inputs)."""
+    return F.silu(x.float()).to(x.dtype)
+

@@ -1,0 +1,362 @@
+"""VideoUNet building blocks (counterpart of
+``streamingt2v_tpu/models/unet_blocks.py``), channel-last.
+
+  - ``FeedForward`` (GEGLU), ``CrossAttention``, ``BasicTransformerBlock``
+  - ``VideoTransformerBlock`` (temporal transformer)
+  - ``SpatialVideoTransformer`` (spatial + temporal pair, AlphaBlender)
+  - ``UNetResBlock``, ``TemporalUNetResBlock``, ``UNetVideoResBlock``
+  - UNet ``Downsample`` / ``Upsample``
+
+Layouts: 5-D activations (B, T, H, W, C); spatial modules fold T into the
+batch, the temporal transformer keeps the spatial-major (B*T, S, C) layout
+and folds only q/k/v/o to (B*S*H, T, D) around its attention.  The three
+kernels enter here: the GEGLU FF (K3) from ``FeedForward``, the temporal
+conv (K4) from ``_time_conv``, flash attention (K1) through the attention
+dispatcher, each only for tensors on a CUDA device and inside its gate.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from streamingt2v_torch.models.layers import (
+    Conv, Dense, TimeConv, _param, norm_pair, norm_params, silu_f32)
+from streamingt2v_torch.ops import attention, group_norm, layer_norm, timestep_embedding
+from streamingt2v_torch.ops.attention import attention_pre_split
+from streamingt2v_torch.ops.fused_ff import geglu_ff
+from streamingt2v_torch.ops.norms import group_norm_affine
+from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward: proj to 2*inner, a * gelu(b), project back.  On
+    a CUDA device, at >= 256 rows and inner % 128 == 0 (the JAX package's
+    Pallas gate), the whole pre-LN residual block is one K3 launch."""
+
+    def __init__(self, dim: int, dim_out: int, mult: int = 4, *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        inner = dim * mult
+        self.proj = Dense(dim, inner * 2, **fk)
+        self.out = Dense(inner, dim_out, **fk)
+
+    def forward(self, x: torch.Tensor, ln=None, residual: bool = False) -> torch.Tensor:
+        inner = self.out.kernel.shape[1]
+        n_rows = x.numel() // x.shape[-1]
+        if x.is_cuda and n_rows >= 256 and inner % 128 == 0:
+            return geglu_ff(
+                x.contiguous(), self.proj.kernel.to(x.dtype), self.proj.bias.float(),
+                self.out.kernel.to(x.dtype), self.out.bias.float(),
+                ln_scale=None if ln is None else ln[0].float(),
+                ln_bias=None if ln is None else ln[1].float(),
+                residual=residual)
+        x_in = x
+        if ln is not None:
+            x = layer_norm(x, ln[0], ln[1])
+        a, b = self.proj(x).chunk(2, dim=-1)
+        # exact (erf) GELU in f32
+        h = self.out(a * F.gelu(b.float()).to(b.dtype))
+        return x_in + h if residual else h
+
+
+class CrossAttention(nn.Module):
+    """q/k/v projections (no bias) + output projection; self-attention when
+    context is None.  ``pre``/``post`` adapt the layout around the attention
+    core; ``pre_split`` means ``pre`` already folded heads into the batch."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None, *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        inner = heads * dim_head
+        ctx = query_dim if context_dim is None else context_dim
+        self.heads = heads
+        self.to_q = Dense(query_dim, inner, bias=False, **fk)
+        self.to_k = Dense(ctx, inner, bias=False, **fk)
+        self.to_v = Dense(ctx, inner, bias=False, **fk)
+        self.to_out = Dense(inner, query_dim, **fk)
+
+    def forward(self, x, context=None, pre=None, post=None, pre_split: bool = False):
+        if context is not None and context.shape[1] == 1 and pre is None and post is None:
+            # one key: the softmax is exactly 1, so the output is v for
+            # every query (the SVD pooled-CLIP context)
+            out = self.to_out(self.to_v(context))
+            return out.expand(x.shape[0], x.shape[1], out.shape[-1])
+        ctx = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if pre is not None:
+            q, k, v = pre(q), pre(k), pre(v)
+        if pre_split:
+            o = attention_pre_split(q, k, v)
+        else:
+            o = attention(q, k, v, num_heads=self.heads)
+        if post is not None:
+            o = post(o)
+        return self.to_out(o)
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attn -> cross-attn -> GEGLU-FF, each pre-LN residual."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
+                 disable_self_attn: bool = False, use_apm: bool = False, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if use_apm:
+            raise NotImplementedError("APMContextMixer (use_apm=True) is not ported yet")
+        fk = dict(device=device, dtype=dtype)
+        self.disable_self_attn = disable_self_attn
+        for name in ("norm1", "norm2", "norm3"):
+            norm_params(self, name, dim, **fk)
+        self.attn1 = CrossAttention(dim, heads, dim_head,
+                                    context_dim if disable_self_attn else None, **fk)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, **fk)
+        self.ff = FeedForward(dim, dim, **fk)
+
+    def forward(self, x, context=None, *, pre=None, post=None, pre_split=False):
+        x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")),
+                           context if self.disable_self_attn else None,
+                           pre=pre, post=post, pre_split=pre_split)
+        x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context,
+                           pre=pre, post=post, pre_split=pre_split)
+        return self.ff(x, ln=norm_pair(self, "norm3"), residual=True)
+
+
+class VideoTransformerBlock(nn.Module):
+    """Temporal transformer block: ff_in -> temporal self-attn -> cross-attn
+    to the time context -> FF, residuals throughout.  Input is spatial-major
+    (B*T, S, C); only q/k/v/o are folded to (B*S*H, T, D)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
+                 ff_in: bool = True, disable_temporal_crossattention: bool = False, *,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.heads, self.dim_head = heads, dim_head
+        self.has_ff_in = ff_in
+        self.disable_temporal_crossattention = disable_temporal_crossattention
+        if ff_in:
+            norm_params(self, "norm_in", dim, **fk)
+            self.ff_in = FeedForward(dim, dim, **fk)
+        norm_params(self, "norm1", dim, **fk)
+        self.attn1 = CrossAttention(dim, heads, dim_head, **fk)
+        if not disable_temporal_crossattention:
+            norm_params(self, "norm2", dim, **fk)
+            self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, **fk)
+        norm_params(self, "norm3", dim, **fk)
+        self.ff = FeedForward(dim, dim, **fk)
+
+    def forward(self, x, context=None, *, batch: int, frames: int):
+        b, t, s = batch, frames, x.shape[1]
+        hd, dh = self.heads, self.dim_head
+
+        def to_time_split(z):  # (b t) s (h d) -> (b s h) t d
+            return z.reshape(b, t, s, hd, dh).permute(0, 2, 3, 1, 4).reshape(b * s * hd, t, dh)
+
+        def from_time_split(z):
+            return z.reshape(b, s, hd, t, dh).permute(0, 3, 1, 2, 4).reshape(b * t, s, hd * dh)
+
+        if self.has_ff_in:
+            x = self.ff_in(x, ln=norm_pair(self, "norm_in"), residual=True)
+        x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")), pre=to_time_split,
+                           post=from_time_split, pre_split=True)
+        if not self.disable_temporal_crossattention:
+            x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context)
+        return self.ff(x, ln=norm_pair(self, "norm3"), residual=True)
+
+
+def blend_with_images(mix_factor, spatial, temporal, image_only_indicator):
+    """UNet AlphaBlender: alpha = sigmoid(mix) weights the SPATIAL branch;
+    image rows take alpha = 1.  Indicator (B, T); branches (B, T, ..., C)."""
+    alpha = torch.sigmoid(mix_factor.float())
+    alpha = torch.where(image_only_indicator, torch.ones_like(alpha), alpha)
+    alpha = alpha.reshape(alpha.shape + (1,) * (spatial.ndim - alpha.ndim)).to(spatial.dtype)
+    return alpha * spatial + (1.0 - alpha) * temporal
+
+
+class SpatialVideoTransformer(nn.Module):
+    """Spatial transformer + parallel temporal stack per depth.  Input
+    (B, T, H, W, C); context (B, T, L, D).  The temporal blocks attend to
+    frame 0's context row."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 context_dim: Optional[int] = None, use_apm: bool = False,
+                 disable_temporal_crossattention: bool = False,
+                 max_time_embed_period: float = 10000.0, *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        c, inner = channels, heads * dim_head
+        self.depth = depth
+        self.disable_temporal_crossattention = disable_temporal_crossattention
+        self.max_time_embed_period = max_time_embed_period
+        norm_params(self, "norm", c, **fk)
+        self.proj_in = Dense(c, inner, **fk)
+        self.time_pos_embed_0 = Dense(c, c * 4, **fk)
+        self.time_pos_embed_2 = Dense(c * 4, c, **fk)
+        self.time_mixer_mix_factor = _param((1,), device, dtype)
+        for d in range(depth):
+            self.add_module(f"block_{d}", BasicTransformerBlock(
+                inner, heads, dim_head, context_dim, use_apm=use_apm, **fk))
+            self.add_module(f"time_block_{d}", VideoTransformerBlock(
+                inner, heads, dim_head, context_dim, ff_in=True,
+                disable_temporal_crossattention=disable_temporal_crossattention, **fk))
+        self.proj_out = Dense(inner, c, zero_init=True, **fk)
+
+    def forward(self, x, context, image_only_indicator):
+        b, t, hh, ww, c = x.shape
+        s = hh * ww
+        h = group_norm(x.reshape(b * t, hh, ww, c), *norm_pair(self, "norm"), eps=1e-6)
+        h = self.proj_in(h)
+        inner = h.shape[-1]
+
+        frame_ids = torch.arange(t, dtype=torch.float32, device=x.device)
+        t_emb = timestep_embedding(frame_ids, c, max_period=self.max_time_embed_period)
+        pos = self.time_pos_embed_2(F.silu(self.time_pos_embed_0(t_emb))).to(h.dtype)  # (T, C)
+
+        ctx_sp = context.reshape((b * t,) + context.shape[2:]) if context is not None else None
+        ctx_rep = None
+        if context is not None and not self.disable_temporal_crossattention:
+            ctx_time = context[:, 0]  # (B, L, D)
+            ctx_rep = ctx_time[:, None].expand((b, t) + ctx_time.shape[1:]).reshape(
+                (b * t,) + ctx_time.shape[1:])
+
+        h = h.reshape(b * t, s, inner)
+        for d in range(self.depth):
+            h = getattr(self, f"block_{d}")(h, ctx_sp)
+            h_time_in = h + pos[:, None, :].repeat(b, 1, 1)
+            h_time = getattr(self, f"time_block_{d}")(h_time_in, ctx_rep, batch=b, frames=t)
+            h = blend_with_images(self.time_mixer_mix_factor, h.reshape(b, t, s, inner),
+                                  h_time.reshape(b, t, s, inner),
+                                  image_only_indicator).reshape(b * t, s, inner)
+        h = self.proj_out(h)
+        return x + h.reshape(b, t, hh, ww, c)
+
+
+class UNetResBlock(nn.Module):
+    """openaimodel ResBlock (dims=2): GN(1e-5)+SiLU+conv, +emb,
+    GN+SiLU+zero-conv, 1x1 skip.  Input (N, H, W, C), emb (N, D)."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_dim: int, *,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        norm_params(self, "in_norm", in_channels, **fk)
+        self.in_conv = Conv(in_channels, out_channels, 3, **fk)
+        self.emb_proj = Dense(emb_dim, out_channels, **fk)
+        norm_params(self, "out_norm", out_channels, **fk)
+        self.out_conv = Conv(out_channels, out_channels, 3, zero_init=True, **fk)
+        self.skip = Conv(in_channels, out_channels, 1, **fk) if in_channels != out_channels else None
+
+    def forward(self, x, emb):
+        h = group_norm(x, *norm_pair(self, "in_norm"), eps=1e-5, act="silu")
+        h = self.in_conv(h)
+        h = h + self.emb_proj(silu_f32(emb))[:, None, None, :]
+        h = group_norm(h, *norm_pair(self, "out_norm"), eps=1e-5, act="silu")
+        h = self.out_conv(h)
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+def _time_conv(h: torch.Tensor, conv: TimeConv, *, res=None, res_w=None, gn=None):
+    """(kt,1,1) temporal conv of (B, T, H, W, C), optionally with the
+    GroupNorm(eps 1e-5)+SiLU prologue ``gn=(scale, bias)`` and the
+    ``res + res_w[b, t] * conv`` epilogue.  On a CUDA device the geometries
+    the JAX package sends to its Pallas kernel (H*W >= 64, kernel-sized T)
+    launch K4 with the GroupNorm folded into a per-(row, channel) affine."""
+    b, t, hh, ww, c = h.shape
+    kt, _, c_out = conv.kernel.shape
+    if h.is_cuda and hh * ww >= 64 and fits_temporal_conv(t, hh * ww, kt, b):
+        pa = pb = None
+        if gn is not None:
+            pa, pb = group_norm_affine(h, gn[0], gn[1], eps=1e-5)
+        out = temporal_conv(
+            h.reshape(b, t, hh * ww, c).contiguous(), conv.kernel.to(h.dtype).contiguous(),
+            conv.bias.float(),
+            None if res is None else res.reshape(b, t, hh * ww, c_out).contiguous(),
+            None if res_w is None else res_w.float().contiguous(), pa, pb)
+        return out.reshape(b, t, hh, ww, c_out)
+    if gn is not None:
+        h = group_norm(h, gn[0], gn[1], eps=1e-5, act="silu")
+    out = conv(h)
+    if res is not None:
+        out = res + res_w[:, :, None, None, None].to(res.dtype) * out
+    return out
+
+
+class TemporalUNetResBlock(nn.Module):
+    """openaimodel ResBlock with dims=3, kernel (3,1,1): the UNet
+    VideoResBlock's time stack.  Input (B, T, H, W, C), emb (B, T, D)."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
+                 kernel: Tuple[int, int, int] = (3, 1, 1), *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        norm_params(self, "in_norm", in_channels, **fk)
+        self.in_conv = TimeConv(in_channels, out_channels, kernel, **fk)
+        self.emb_proj = Dense(emb_dim, out_channels, **fk)
+        norm_params(self, "out_norm", out_channels, **fk)
+        self.skip = Conv(in_channels, out_channels, 1, **fk) if in_channels != out_channels else None
+        self.out_conv = TimeConv(out_channels, out_channels, kernel, zero_init=True, **fk)
+
+    def forward(self, x, emb, blend_weight=None):
+        """With ``blend_weight`` ((B, T) f32) returns
+        x + blend_weight * out_conv(...), fused into K4's epilogue."""
+        h = _time_conv(x, self.in_conv, gn=norm_pair(self, "in_norm"))
+        h = h + self.emb_proj(silu_f32(emb))[:, :, None, None, :]
+        if self.skip is not None:
+            x = self.skip(x)
+        if blend_weight is None:
+            blend_weight = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+        return _time_conv(h, self.out_conv, res=x, res_w=blend_weight,
+                          gn=norm_pair(self, "out_norm"))
+
+
+class UNetVideoResBlock(nn.Module):
+    """Spatial ResBlock + temporal ResBlock, AlphaBlended.  The blend
+    alpha*h + (1-alpha)*(h + conv) = h + (1-alpha)*conv (weight 0 on image
+    rows) is the temporal block's scaled residual."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
+                 video_kernel_size: Tuple[int, int, int] = (3, 1, 1), *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.spatial = UNetResBlock(in_channels, out_channels, emb_dim, **fk)
+        self.time_mixer_mix_factor = _param((1,), device, dtype)
+        self.time_stack = TemporalUNetResBlock(out_channels, out_channels, emb_dim,
+                                               video_kernel_size, **fk)
+
+    def forward(self, x, emb, image_only_indicator):
+        b, t, hh, ww, c = x.shape
+        h = self.spatial(x.reshape(b * t, hh, ww, c), emb.reshape(b * t, -1))
+        h = h.reshape(b, t, hh, ww, h.shape[-1])
+        alpha = torch.sigmoid(self.time_mixer_mix_factor.float())
+        bw = torch.where(image_only_indicator, torch.zeros_like(alpha), 1.0 - alpha)
+        return self.time_stack(h, emb, blend_weight=bw)
+
+
+class Downsample(nn.Module):
+    """Strided 3x3 conv with symmetric padding 1.  Input (N, H, W, C)."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, device=None, dtype=None):
+        super().__init__()
+        self.conv = Conv(in_channels, out_channels, 3, stride=2, padding=1,
+                         device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x + 3x3 conv.  Input (N, H, W, C)."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, device=None, dtype=None):
+        super().__init__()
+        self.conv = Conv(in_channels, out_channels, 3, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))

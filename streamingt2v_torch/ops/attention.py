@@ -1,0 +1,99 @@
+"""Attention dispatcher (counterpart of ``streamingt2v_tpu/ops/attention.py``).
+
+One entry point for every attention geometry of the pipeline: spatial
+self-attention (9216 tokens at the 72x128 latent), temporal attention (25
+frames over a huge batch), CLIP-token cross-attention, CAM per-pixel
+cross-attention (F x 7) and the single-head 512-dim VAE bottleneck.  The
+large geometries go to the flash kernel (K1) when the tensors lie on a
+CUDA device, exactly the geometries the JAX package sends to its Pallas
+kernel on a TPU; small ones take plain matrix products with an f32
+softmax.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from streamingt2v_torch.ops.flash_attention import flash_attention
+
+# Below this many score elements per (batch*head) the plain path is used.
+_FLASH_MIN_SCORE_ELEMS = 2048 * 2048
+# ... unless the total f32 scores of a rectangular geometry exceed this.
+_FLASH_MIN_SCORE_BYTES = 256 * 1024 * 1024
+# Tiny-L attention (temporal T=25, CAM 25x7) packs rows block-diagonally.
+_GROUP_MAX_LEN = 64
+NEG_INF_MASK = -1e30
+
+
+def _use_flash(bh: int, lq: int, lk: int, device: torch.device) -> bool:
+    if device.type != "cuda":
+        return False
+    if lq * lk >= _FLASH_MIN_SCORE_ELEMS:
+        return True
+    return lq >= 4096 and bh * lq * lk * 4 >= _FLASH_MIN_SCORE_BYTES
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain attention. q: (..., Lq, D), k/v: (..., Lk, D)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q, (k.to(v.dtype) * scale).transpose(-1, -2)).float()
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype), v)
+
+
+def _grouped_tiny_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+    """Exact attention for (B, Lq, D) with tiny Lq/Lk: G = 128 // max(L)
+    rows are packed into one product with a block-diagonal mask
+    (exp(-inf) = 0 drops every cross-member term)."""
+    b, lq, d = qf.shape
+    lk = kf.shape[1]
+    g = max(1, 128 // max(lq, lk))
+    pad = (-b) % g
+    if pad:
+        widths = (0, 0, 0, 0, 0, pad)
+        qf, kf, vf = (torch.nn.functional.pad(t, widths) for t in (qf, kf, vf))
+    n = qf.shape[0] // g
+    qg = qf.reshape(n, g * lq, d)
+    kg = kf.reshape(n, g * lk, d)
+    vg = vf.reshape(n, g * lk, d)
+    qi = torch.arange(g * lq, device=qf.device) // lq
+    kj = torch.arange(g * lk, device=qf.device) // lk
+    mask = torch.where(qi[:, None] == kj[None, :], 0.0, NEG_INF_MASK)
+    s = torch.matmul(qg, (kg.to(vg.dtype) * d ** -0.5).transpose(-1, -2)).float()
+    p = torch.softmax(s + mask, dim=-1)
+    o = torch.matmul(p.to(vg.dtype), vg).reshape(n * g, lq, d)
+    return o[:b] if pad else o
+
+
+def attention_pre_split(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+    """Attention on head-folded (B*H, L, D) tensors; returns the same layout."""
+    bh, lq, _ = qf.shape
+    lk = kf.shape[1]
+    if _use_flash(bh, lq, lk, qf.device):
+        return flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous())
+    if lq <= _GROUP_MAX_LEN and lk <= _GROUP_MAX_LEN and bh >= 256:
+        return _grouped_tiny_attention(qf, kf, vf)
+    return dot_product_attention(qf, kf, vf)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              num_heads: int = 1) -> torch.Tensor:
+    """Multi-head attention over flat (B, L, H*D) tensors."""
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    d = hd // num_heads
+    if num_heads * d != hd:
+        raise ValueError(f"{hd} channels do not split into {num_heads} heads")
+    qh = q.reshape(b, lq, num_heads, d).transpose(1, 2)
+    kh = k.reshape(b, lk, num_heads, d).transpose(1, 2)
+    vh = v.reshape(b, lk, num_heads, d).transpose(1, 2)
+    bh = b * num_heads
+    if _use_flash(bh, lq, lk, q.device):
+        o = flash_attention(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
+                            vh.reshape(bh, lk, d)).reshape(b, num_heads, lq, d)
+    elif lq <= _GROUP_MAX_LEN and lk <= _GROUP_MAX_LEN and bh >= 256:
+        o = _grouped_tiny_attention(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
+                                    vh.reshape(bh, lk, d)).reshape(b, num_heads, lq, d)
+    else:
+        o = dot_product_attention(qh, kh, vh)
+    return o.transpose(1, 2).reshape(b, lq, hd)

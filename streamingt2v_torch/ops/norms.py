@@ -1,0 +1,92 @@
+"""Normalization primitives over the trailing channel axis (channel-last).
+
+Counterpart of ``streamingt2v_tpu/ops/norms.py``.  Statistics are taken in
+float32 with the two-pass shifted variance E[(x - mean)^2] for GroupNorm
+(the JAX package's f32 path; its bf16 one-pass form with the robust
+fallback is a TPU bandwidth trade the port does not need) and the
+one-pass clamped form for LayerNorm, as the JAX package computes it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _grouped(x: torch.Tensor, num_groups: int) -> tuple:
+    """(N, ..., C) -> f32 view (N, L, G, C/G) and the clamped group count."""
+    c = x.shape[-1]
+    # clamp for the tiny test configs; production widths are >= 128
+    g = min(num_groups, c)
+    if c % g:
+        raise ValueError(f"channels {c} not divisible by {g} groups")
+    return x.float().reshape(x.shape[0], -1, g, c // g), g
+
+
+def _group_stats(xg: torch.Tensor, eps: float) -> tuple:
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm of (N, ..., C) with statistics over every non-batch axis
+    (so a 5-D (B, T, H, W, C) input reduces over T*H*W per batch row),
+    optionally fused with SiLU (``act='silu'``)."""
+    if act not in (None, "silu"):
+        raise ValueError(act)
+    xg, _ = _grouped(x, num_groups)
+    mean, inv = _group_stats(xg, eps)
+    out = ((xg - mean) * inv).reshape(x.shape) * scale.float() + bias.float()
+    if act == "silu":
+        out = F.silu(out)
+    return out.to(x.dtype)
+
+
+def group_norm_affine(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+) -> tuple:
+    """GroupNorm as a per-(batch row, channel) affine: f32 (a, b), each
+    (N, C), with group_norm(x, scale, bias) == x * a + b.  The temporal-conv
+    kernel applies it (plus SiLU) as it reads its input."""
+    xg, g = _grouped(x, num_groups)
+    mean, inv = _group_stats(xg, eps)
+    rep = x.shape[-1] // g
+    mean = mean.reshape(x.shape[0], g).repeat_interleave(rep, dim=1)
+    inv = inv.reshape(x.shape[0], g).repeat_interleave(rep, dim=1)
+    a = inv * scale.float()[None, :]
+    b = bias.float()[None, :] - mean * a
+    return a, b
+
+
+def layer_norm(
+    x: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf.square().mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        out = out * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

@@ -1,0 +1,110 @@
+"""K4: (kt,1,1) temporal convolution over (B, T, S, C) activations.
+
+Replaces the Pallas kernel ``_conv_body`` and its four variants
+``_kernel``, ``_kernel_res``, ``_kernel_pre``, ``_kernel_pre_res``
+(``streamingt2v_tpu/ops/temporal_conv.py:29-96``, launched from
+``_tc_pallas:197``) with the hand-written CUDA kernel in
+``csrc/temporal_conv.cu``:
+
+    xin = silu(x * pre_a[b] + pre_b[b])          optional GN+SiLU prologue
+    y[t] = sum_k xin[t + k - kt//2] W[k] + bias   zero SAME padding on T
+    out  = res + res_w[b, t] * y                  optional epilogue
+
+What bounds it on the H100: at the VAE decoder's 128-channel,
+589824-position levels it moves x and out once each and is bandwidth
+bound; at the UNet's 320-1280-channel levels it is a kt-tap matrix product
+on the tensor cores.  The kernel reads each (T, 16 positions, 32 channels)
+input tile once per 32-output-channel tile with the prologue applied on
+the way into shared memory (so the normalised activation never reaches
+device memory), keeps the kt weight taps beside it, accumulates every
+frame in f32 registers and applies bias and epilogue before its one store.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from streamingt2v_torch.ops import _native
+
+# the kernel keeps T x 32 output channels of accumulators in registers
+MAX_FRAMES = 32
+_TILE_S = 16
+_MAX_GRID = 65535
+
+
+def fits_temporal_conv(t: int, s: int, kt: int, batch: int) -> bool:
+    """Geometries the kernel takes: centred odd taps up to 5, at most 32
+    frames, and a launch grid inside CUDA's y/z limits."""
+    return (kt % 2 == 1 and kt <= 5 and 0 < t <= MAX_FRAMES
+            and -(-s // _TILE_S) <= _MAX_GRID and 0 < batch <= _MAX_GRID)
+
+
+def temporal_conv_reference(x, w, b, res=None, res_w=None, pre_a=None, pre_b=None):
+    """Plain version in f32 (the JAX package's ``_tc_reference``)."""
+    kt = w.shape[0]
+    lo = kt // 2
+    t = x.shape[1]
+    h = x.float()
+    if pre_a is not None:
+        h = torch.nn.functional.silu(h * pre_a[:, None, None, :] + pre_b[:, None, None, :])
+    hp = torch.nn.functional.pad(h, (0, 0, 0, 0, lo, kt - 1 - lo))
+    out = sum(torch.matmul(hp[:, k:k + t], w[k].float()) for k in range(kt)) + b.float()
+    if res is not None:
+        out = res.float() + res_w[:, :, None, None].float() * out
+    return out.to(x.dtype)
+
+
+def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  res: Optional[torch.Tensor] = None, res_w: Optional[torch.Tensor] = None,
+                  pre_a: Optional[torch.Tensor] = None,
+                  pre_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, T, S, C); w: (kt, C, C_out); b: (C_out,) f32 -> (B, T, S, C_out).
+
+    ``pre_a``/``pre_b`` ((B, C) f32) fuse ``silu(x * a + b)`` into the input
+    read; ``res`` ((B, T, S, C_out)) with ``res_w`` ((B, T) f32) fuses
+    ``res + res_w * conv`` into the store.  CPU tensors take the plain
+    version; CUDA tensors launch K4 (or raise)."""
+    if x.device.type == "cpu":
+        return temporal_conv_reference(x, w, b, res, res_w, pre_a, pre_b)
+    if not x.is_cuda:
+        raise ValueError(f"temporal_conv: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in _native.DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"temporal_conv: x and w must be one of f32/bf16, got {x.dtype}/{w.dtype}")
+    if x.ndim != 4 or w.ndim != 3 or w.shape[1] != x.shape[3]:
+        raise ValueError(f"temporal_conv: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+    bsz, t, s, c = x.shape
+    kt, _, c_out = w.shape
+    if not fits_temporal_conv(t, s, kt, bsz):
+        raise ValueError(f"temporal_conv: geometry B={bsz} T={t} S={s} kt={kt} not supported")
+    if (pre_a is None) != (pre_b is None) or (res is None) != (res_w is None):
+        raise ValueError("temporal_conv: pre_a/pre_b and res/res_w come in pairs")
+    f32 = [(b, (c_out,))]
+    if pre_a is not None:
+        f32 += [(pre_a, (bsz, c)), (pre_b, (bsz, c))]
+    if res is not None:
+        f32.append((res_w, (bsz, t)))
+        if res.shape != (bsz, t, s, c_out) or res.dtype != x.dtype:
+            raise ValueError(f"temporal_conv: res must be {(bsz, t, s, c_out)} {x.dtype}")
+    for tensor, shape in f32:
+        if tensor.dtype != torch.float32 or tuple(tensor.shape) != shape:
+            raise TypeError(f"temporal_conv: expected f32 {shape}, got {tensor.dtype} "
+                            f"{tuple(tensor.shape)}")
+    operands = [x, w] + [tensor for tensor, _ in f32] + ([] if res is None else [res])
+    if any(o.device != x.device or not o.is_contiguous() for o in operands):
+        raise ValueError("temporal_conv: operands must be contiguous on one device")
+    out = torch.empty((bsz, t, s, c_out), dtype=x.dtype, device=x.device)
+    rc = _native.library().st2v_temporal_conv(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        None if pre_a is None else pre_a.data_ptr(),
+        None if pre_b is None else pre_b.data_ptr(),
+        None if res is None else res.data_ptr(),
+        None if res_w is None else res_w.data_ptr(),
+        out.data_ptr(), bsz, t, s, c, c_out, kt, _native.DTYPE_CODE[x.dtype], _native.stream_of(x))
+    _native.check(rc, "temporal_conv")
+    temporal_conv.launches += 1
+    return out
+
+
+temporal_conv.launches = 0

@@ -1,0 +1,58 @@
+"""Weight bridge from the JAX package's flax variables to the port's modules.
+
+A port module's state-dict keys are the flax parameter paths with ``/``
+replaced by ``.``.  The layout transforms are mechanical:
+
+  Dense kernel  (in, out)            -> (out, in)
+  Conv kernel   (kh, kw, in, out)    -> (out, in, kh, kw)
+  time conv     (kt, 1, 1, in, out)  -> (kt, in, out)   (the K4 weight)
+  everything else (biases, norms, embeddings, projections) unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """{'a/b/kernel': array} (``utils/checkpoint.py`` ``flatten_params`` of a
+    flax ``params`` tree) -> a state dict in the port's names and layouts."""
+    out = {}
+    for path, value in flat.items():
+        a = np.asarray(value)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        if path.rsplit("/", 1)[-1] == "kernel":
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 5 and a.shape[1:3] == (1, 1):
+                a = a.reshape(a.shape[0], a.shape[3], a.shape[4])
+            else:
+                raise ValueError(f"{path}: no port layout for a kernel of shape {a.shape}")
+        out[path.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
+    """Fill every parameter of ``module`` from ``flat``, strictly: a key
+    missing on either side or a shape mismatch raises; values are cast to
+    each parameter's dtype and device."""
+    state = from_jax_params(flat)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing[:8]} (of {len(missing)}), "
+                       f"unused {extra[:8]} (of {len(extra)})")
+    for name, target in own.items():
+        if tuple(state[name].shape) != tuple(target.shape):
+            raise ValueError(f"{name}: shape {tuple(state[name].shape)} != {tuple(target.shape)}")
+        target.copy_(state[name])
+    return module

@@ -1,0 +1,265 @@
+"""PyTorch port, ops layer: each kernel's plain version against the JAX
+package's Pallas kernel in interpret mode, the other ops against their JAX
+counterparts, the dispatcher's routing, and the import boundary.
+
+Tolerances are stated relative to max |reference|: 1e-5 for the kernels'
+plain versions and the norms (f32 with a different summation order on
+each side), 1e-4 where the JAX side takes one-pass statistics."""
+
+import ast
+import importlib
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port_helpers import assert_close, t
+from streamingt2v_tpu.ops import norms as jax_norms
+from streamingt2v_tpu.ops.embedding import timestep_embedding as jax_timestep_embedding
+from streamingt2v_tpu.ops.flash_attention import flash_attention as jax_flash
+from streamingt2v_tpu.ops.fused_ff import geglu_ff as jax_geglu
+from streamingt2v_tpu.ops.temporal_conv import temporal_conv as jax_temporal_conv
+from streamingt2v_torch.ops import norms as port_norms
+from streamingt2v_torch.ops.embedding import timestep_embedding
+from streamingt2v_torch.ops.flash_attention import _kernel_head_dim, flash_attention
+from streamingt2v_torch.ops.fused_ff import geglu_ff
+from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
+
+# the ops packages re-export the function ``attention``; take the modules
+jax_attention_mod = importlib.import_module("streamingt2v_tpu.ops.attention")
+port_attention_mod = importlib.import_module("streamingt2v_torch.ops.attention")
+KERNEL_TOL = 1e-5
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+# ---------------------------------------------------------------- K1 -----
+
+@pytest.mark.parametrize("b,lq,lk,d", [
+    (2, 64, 64, 64),      # square, one tile
+    (1, 300, 145, 64),    # ragged q and kv lengths
+    (3, 25, 7, 32),       # head dim below 64 (the kernel pads it)
+    (1, 200, 130, 512),   # the VAE bottleneck head dim
+])
+def test_flash_attention_plain_matches_pallas(b, lq, lk, d):
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(b, n, d).astype(np.float32) for n in (lq, lk, lk))
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    assert_close(flash_attention(t(q), t(k), t(v)), ref, KERNEL_TOL, "flash")
+
+
+def test_flash_head_dims():
+    assert _kernel_head_dim(32) == 64 and _kernel_head_dim(64) == 64
+    assert _kernel_head_dim(512) == 512
+    with pytest.raises(ValueError):
+        _kernel_head_dim(80)
+
+
+# ---------------------------------------------------------------- K3 -----
+
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,c,inner", [(70, 48, 128), (300, 32, 160)])
+def test_geglu_ff_plain_matches_pallas(n, c, inner, ln, residual):
+    rng = np.random.RandomState(1)
+    x = rng.randn(n, c).astype(np.float32)
+    w1 = (rng.randn(c, 2 * inner) * 0.1).astype(np.float32)
+    b1 = (rng.randn(2 * inner) * 0.1).astype(np.float32)
+    w2 = (rng.randn(inner, c) * 0.1).astype(np.float32)
+    b2 = (rng.randn(c) * 0.1).astype(np.float32)
+    lns = (rng.randn(c) * 0.2 + 1.0).astype(np.float32) if ln else None
+    lnb = (rng.randn(c) * 0.1).astype(np.float32) if ln else None
+    ref = jax_geglu(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2),
+                    jnp.asarray(b2), ln_scale=None if lns is None else jnp.asarray(lns),
+                    ln_bias=None if lnb is None else jnp.asarray(lnb), residual=residual,
+                    block_n=64, block_i=128, interpret=True)
+    got = geglu_ff(t(x), t(w1.T), t(b1), t(w2.T), t(b2),
+                   ln_scale=None if lns is None else t(lns),
+                   ln_bias=None if lnb is None else t(lnb), residual=residual)
+    assert_close(got, ref, KERNEL_TOL, "geglu_ff")
+
+
+# ---------------------------------------------------------------- K4 -----
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("b,t_len,s,c,co", [
+    (2, 5, 16, 24, 24),
+    (1, 7, 64, 3, 3),     # the VAE AE3DConv time mix
+    (1, 25, 20, 16, 8),   # the UNet's 25 frames
+])
+def test_temporal_conv_plain_matches_pallas(b, t_len, s, c, co, pre, res):
+    rng = np.random.RandomState(2)
+    x = rng.randn(b, t_len, s, c).astype(np.float32)
+    w = (rng.randn(3, c, co) / np.sqrt(3 * c)).astype(np.float32)
+    bias = (rng.randn(co) * 0.1).astype(np.float32)
+    r = rng.randn(b, t_len, s, co).astype(np.float32) if res else None
+    rw = rng.rand(b, t_len).astype(np.float32) if res else None
+    pa = (1.0 + 0.2 * rng.randn(b, c)).astype(np.float32) if pre else None
+    pb = (0.2 * rng.randn(b, c)).astype(np.float32) if pre else None
+    opt = [r, rw, pa, pb]
+    ref = jax_temporal_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                            *[None if a is None else jnp.asarray(a) for a in opt],
+                            interpret=True)
+    got = temporal_conv(t(x), t(w), t(bias), *[None if a is None else t(a) for a in opt])
+    assert_close(got, ref, KERNEL_TOL, "temporal_conv")
+
+
+def test_temporal_conv_gate():
+    assert fits_temporal_conv(25, 9216, 3, 2)
+    assert fits_temporal_conv(8, 1024 * 576, 3, 1)
+    assert not fits_temporal_conv(33, 64, 3, 1)   # more frames than the kernel holds
+    assert not fits_temporal_conv(25, 64, 2, 1)   # even taps
+    assert not fits_temporal_conv(25, 64, 7, 1)
+
+
+@pytest.mark.parametrize("fn,args", [
+    (flash_attention, lambda: [torch.empty(2, 64, 64, device="meta")] * 3),
+    (geglu_ff, lambda: [torch.empty(8, 32, device="meta"), torch.empty(256, 32, device="meta"),
+                        torch.empty(256), torch.empty(32, 128, device="meta"),
+                        torch.empty(32)]),
+    (temporal_conv, lambda: [torch.empty(1, 5, 16, 8, device="meta"),
+                             torch.empty(3, 8, 8, device="meta"), torch.empty(8)]),
+])
+def test_wrappers_take_plain_version_only_on_cpu(fn, args):
+    """A tensor that is neither on the CPU nor on CUDA is refused, not
+    quietly computed by the plain version."""
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(*args())
+    assert fn.launches == before
+
+
+# --------------------------------------------------------------- norms ---
+
+@pytest.mark.parametrize("shape,groups", [
+    ((3, 48, 64), 8),            # 3-D (N, L, C)
+    ((2, 6, 6, 32), 4),
+    ((2, 3, 4, 4, 64), 32),      # 5-D temporal span: stats over T*H*W
+    ((2, 4, 4, 8), 32),          # groups clamped to C
+])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_matches_jax(shape, groups, act):
+    rng = np.random.RandomState(3)
+    x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+    s = (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32)
+    b = (0.1 * rng.randn(shape[-1])).astype(np.float32)
+    ref = jax_norms.group_norm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
+                               num_groups=groups, eps=1e-5, act=act)
+    got = port_norms.group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5, act=act)
+    assert_close(got, ref, KERNEL_TOL, "group_norm")
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 4, 4, 64), (3, 16, 8)])
+def test_group_norm_affine_matches_jax(shape):
+    rng = np.random.RandomState(4)
+    x = rng.randn(*shape).astype(np.float32)
+    s = (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32)
+    b = (0.1 * rng.randn(shape[-1])).astype(np.float32)
+    ra, rb = jax_norms.group_norm_affine(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), eps=1e-5)
+    ga, gb = port_norms.group_norm_affine(t(x), t(s), t(b), eps=1e-5)
+    assert_close(ga, ra, 1e-4, "affine a")
+    assert_close(gb, rb, 1e-4, "affine b")
+    # and the affine reproduces group_norm
+    gn = port_norms.group_norm(t(x), t(s), t(b), eps=1e-5)
+    lead = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    assert_close(t(x) * ga.reshape(lead) + gb.reshape(lead), gn.numpy(), 1e-5, "affine form")
+
+
+def test_layer_norm_matches_jax():
+    rng = np.random.RandomState(5)
+    x = (rng.randn(3, 7, 16) + 1.0).astype(np.float32)
+    s = (1 + 0.1 * rng.randn(16)).astype(np.float32)
+    b = (0.1 * rng.randn(16)).astype(np.float32)
+    ref = jax_norms.layer_norm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    assert_close(port_norms.layer_norm(t(x), t(s), t(b)), ref, KERNEL_TOL, "layer_norm")
+    assert_close(port_norms.layer_norm(t(x)), jax_norms.layer_norm(jnp.asarray(x)),
+                 KERNEL_TOL, "layer_norm no affine")
+
+
+@pytest.mark.parametrize("dim", [8, 9, 320])
+def test_timestep_embedding_matches_jax(dim):
+    """1e-4: at t ~ 1000 one f32 ulp of a frequency moves sin/cos by ~6e-5."""
+    ts = np.array([0.0, 1.0, -3.5, 127.0, 999.0], np.float32)
+    assert_close(timestep_embedding(t(ts), dim), jax_timestep_embedding(jnp.asarray(ts), dim),
+                 1e-4, "timestep_embedding")
+
+
+# ----------------------------------------------------------- attention ---
+
+@pytest.mark.parametrize("b,lq,lk,heads,hd", [
+    (2, 40, 9, 4, 64),     # plain path
+    (64, 25, 25, 5, 320),  # b*heads >= 256 with tiny L: the grouped path
+    (80, 25, 7, 4, 128),   # CAM-like 25 x 7, grouped
+    (2, 257, 257, 2, 32),  # CLIP-like length, plain
+])
+def test_attention_dispatcher_matches_jax(b, lq, lk, heads, hd):
+    rng = np.random.RandomState(6)
+    q = rng.randn(b, lq, hd).astype(np.float32)
+    k = rng.randn(b, lk, hd).astype(np.float32)
+    v = rng.randn(b, lk, hd).astype(np.float32)
+    ref = jax_attention_mod.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      num_heads=heads)
+    got = port_attention_mod.attention(t(q), t(k), t(v), num_heads=heads)
+    assert_close(got, ref, 1e-5, "attention")
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(300, 25, 25, 64), (257, 3, 5, 32), (40, 30, 30, 16)])
+def test_attention_pre_split_and_grouped_match_jax(bh, lq, lk, d):
+    rng = np.random.RandomState(7)
+    q, k, v = (rng.randn(bh, n, d).astype(np.float32) for n in (lq, lk, lk))
+    ref = jax_attention_mod.attention_pre_split(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    assert_close(port_attention_mod.attention_pre_split(t(q), t(k), t(v)), ref, 1e-5, "pre_split")
+    ref_g = jax_attention_mod._grouped_tiny_attention(jnp.asarray(q), jnp.asarray(k),
+                                                      jnp.asarray(v))
+    assert_close(port_attention_mod._grouped_tiny_attention(t(q), t(k), t(v)), ref_g, 1e-5,
+                 "grouped")
+
+
+@pytest.mark.parametrize("bh,lq,lk", [
+    (250, 9216, 9216), (500, 2304, 2304), (70, 9216, 9216), (8, 9216, 9216),
+    (92160, 25, 25), (2 * 9216 * 5, 25, 7), (32, 257, 257), (190, 14400, 145),
+    (4, 4096, 64), (2, 2048, 2048), (2, 2047, 2048),
+])
+def test_flash_gate_matches_jax_on_an_accelerator(bh, lq, lk, monkeypatch):
+    """The port sends to K1 exactly the geometries the JAX package sends to
+    its Pallas kernel on a TPU, and none while the tensors are on the CPU."""
+    monkeypatch.setattr(jax_attention_mod, "_on_tpu", lambda: True)
+    want = jax_attention_mod._use_flash(bh, lq, lk)
+    assert port_attention_mod._use_flash(bh, lq, lk, torch.device("cuda")) == want
+    assert not port_attention_mod._use_flash(bh, lq, lk, torch.device("cpu"))
+
+
+# ------------------------------------------------------- import boundary ---
+
+def test_port_imports_without_jax():
+    """Every module of the port imports in a process where JAX cannot."""
+    code = ("import importlib, pkgutil, sys\n"
+            "for m in ('jax', 'flax', 'jaxlib', 'streamingt2v_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import streamingt2v_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert int(proc.stdout.strip()) >= 25, proc.stdout
+
+
+def test_port_sources_name_no_jax():
+    banned = ("jax", "flax", "jaxlib", "streamingt2v_tpu")
+    files = list((REPO / "streamingt2v_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}: imports {name}"
