@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's stage-1 main path once on one NVIDIA GPU.
+"""Run the PyTorch port's main paths once on one NVIDIA GPU: stage 1
+(streaming image-to-video) and stage 2 (I2VGen-XL enhancement).
 
     python3 chip_smoke.py                  # every phase (the check)
-    python3 chip_smoke.py --phases card,build,kernels   # skip the slice
+    python3 chip_smoke.py --phases card,build,kernels   # skip the pipelines
 
 Phases, one line each:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc of ``streamingt2v_torch/csrc`` into one library (seconds);
-  3. kernels: each hand-written kernel (K1 flash attention, K3 GEGLU FF,
-     K4 temporal conv) at the stage-1 main-path shapes in bf16 plus one f32
-     case, against its plain PyTorch version on the same inputs, with both
-     times (CUDA events, median of a few runs);
+  2. build: nvcc of ``streamingt2v_torch/csrc`` (one nvcc per source, run
+     together) into one library (seconds);
+  3. kernels: each hand-written kernel (K1 flash attention, K2 packed flash
+     attention, K3 GEGLU FF, K4 temporal conv, K5 fused GroupNorm, K6
+     temporal attention) at the main paths' shapes in bf16 plus f32 cases,
+     against its plain PyTorch version on the same inputs, with both times
+     (CUDA events, median of a few runs);
   4. reference: stage 1 end to end on a small input (the tiny config at
-     96x192, f32) on the card, through all three kernels, against the same
-     pipeline on the CPU (plain versions) with the same weights and noise;
+     96x192, f32) and stage 2 end to end on a small input (a narrow
+     I2VGen-XL at 64x128, f32, the enhance routing) on the card, through
+     their kernels, against the same pipelines on the CPU (plain versions)
+     with the same weights and noise;
   5. slice: ``build_pipeline`` at the full-width default ``PipelineConfig``
      with random bf16 weights on the card, then ``image_to_video`` for 43
      frames (first chunk plus one autoregressive chunk), with per-phase
-     seconds, peak memory and the launch counts of the three kernels.
+     seconds, peak memory and the launch counts of its kernels;
+  6. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
+     width (random bf16 weights), then ``enhance_with_keyframe_prepass`` on
+     a synthetic 64-frame 720p video (a 2-frame pre-pass, then 2 blended
+     38-frame chunks) with ``--enhance-steps`` DDIM steps, with per-phase
+     seconds, resident and peak memory and the launch counts of its kernels.
 Then one JSON line with the kernel records and, last, the result line.
 
 There is no CPU path: without CUDA the script exits non-zero before any
@@ -34,18 +44,22 @@ import subprocess
 import sys
 import time
 
-ALL_PHASES = ("card", "build", "kernels", "reference", "slice")
+ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "enhance")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
 AR_STEPS = 30
+# Stage-2 DDIM steps in the enhance phase (full: 30); at strength 0.97, 3
+# steps leave 2 to run.
+ENHANCE_STEPS = 3
+ENHANCE_FRAMES = 64
 # Tolerances on max |kernel - plain| / max |plain|: bf16 rounds the kernels'
 # on-chip intermediates (probabilities, LN output, GEGLU product, prologue
 # output) to 8 mantissa bits, f32 differs only in summation order.
 TOL = {"bf16": 2e-2, "f32": 1e-4}
-# Small-input reference: max-abs on the [-1, 1] video, f32 on both devices
-# (measured 5.3e-5 on an H100; the sampler's 1/sigma steps amplify
-# summation-order differences).
+# Small-input references: max-abs on the [-1, 1] video, f32 on both devices
+# (stage 1 measured 5.3e-5 on an H100; the sampler's 1/sigma steps and stage
+# 2's guidance scale of 9 amplify summation-order differences).
 REFERENCE_ATOL = 5e-4
 
 
@@ -88,27 +102,33 @@ def _compare(name: str, got, ref, tol: float) -> float:
     return err
 
 
-def check_kernels() -> dict:
-    """Phase 3: returns {kernel: record} with max error and both times."""
+def _randn_factory(seed: int = 0):
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def randn(*shape, dtype=None, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(
+            dtype or torch.bfloat16)
+
+    return randn, gen
+
+
+def _tol(dtype) -> float:
+    import torch
+
+    return TOL["f32" if dtype == torch.float32 else "bf16"]
+
+
+def check_k1(randn) -> dict:
     import torch
 
     from streamingt2v_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
-    from streamingt2v_torch.ops.fused_ff import geglu_ff, geglu_ff_reference
-    from streamingt2v_torch.ops.temporal_conv import (
-        temporal_conv, temporal_conv_reference)
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-
-    def randn(*shape, dtype=bf16, std=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
-
-    rec = {}
-
-    # ---- K1 flash attention ----
-    errs = []
+    rec, errs = {}, []
     for bh, length, d, dtype, label in [
             (250, 9216, 64, bf16, "unet level0 self-attn"),
             (500, 2304, 64, bf16, "unet level1 self-attn"),
@@ -119,8 +139,8 @@ def check_kernels() -> dict:
         out = flash_attention(q, k, v)
         rows = min(bh, 4)
         ref = flash_attention_reference(q[:rows], k[:rows], v[:rows])
-        tol = TOL["f32" if dtype == f32 else "bf16"]
-        errs.append(_compare(f"K1 {label} {(bh, length, d)} {dtype}", out[:rows], ref, tol))
+        errs.append(_compare(f"K1 {label} {(bh, length, d)} {dtype}", out[:rows], ref,
+                             _tol(dtype)))
         if (bh, length, d) == (250, 9216, 64):
             chunk = 16
 
@@ -128,19 +148,71 @@ def check_kernels() -> dict:
                 for i in range(0, bh, chunk):
                     flash_attention_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
 
-            ms = _time_ms(lambda: flash_attention(q, k, v))
-            plain_ms = _time_ms(plain_full, reps=3)
-            rec["flash_attention"] = dict(ms=ms, plain_ms=plain_ms, shape=[bh, length, d])
-            print(f"  K1 time {(bh, length, d)} bf16: kernel {ms:.3f} ms, plain "
-                  f"(in {chunk}-row chunks) {plain_ms:.3f} ms", flush=True)
+            rec = dict(ms=_time_ms(lambda: flash_attention(q, k, v)),
+                       plain_ms=_time_ms(plain_full, reps=3), shape=[bh, length, d])
+            print(f"  K1 time {(bh, length, d)} bf16: kernel {rec['ms']:.3f} ms, plain "
+                  f"(in {chunk}-row chunks) {rec['plain_ms']:.3f} ms", flush=True)
         del q, k, v, out, ref
-    rec["flash_attention"]["max_abs_err"] = max(errs)
+    rec["max_abs_err"] = max(errs)
+    return rec
 
-    # ---- K3 GEGLU feed-forward ----
-    errs = []
+
+def check_k2(randn) -> dict:
+    """K2 at the stage-2 geometries; timed against K1 with its head-fold
+    transposes and against the plain version."""
+    import torch
+
+    from streamingt2v_torch.ops.flash_attention import (
+        flash_attention, flash_attention_packed, flash_attention_packed_reference)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec, errs = {}, []
+    for b, lq, lk, heads, d, dtype, label in [
+            (38, 14400, 14400, 5, 64, bf16, "i2vgen level0 self-attn"),
+            (38, 3600, 3600, 10, 64, bf16, "i2vgen level1 self-attn"),
+            (38, 14400, 145, 5, 64, bf16, "i2vgen level0 cross-attn"),
+            (2, 14400, 14400, 1, 512, bf16, "sd-vae mid attn"),
+            (2, 2048, 2048, 2, 64, f32, "f32")]:
+        q = randn(b, lq, heads * d, dtype=dtype)
+        k, v = (randn(b, lk, heads * d, dtype=dtype) for _ in range(2))
+        out = flash_attention_packed(q, k, v, num_heads=heads)
+        ref = flash_attention_packed_reference(q[:1], k[:1], v[:1], heads)
+        errs.append(_compare(f"K2 {label} q{(b, lq, heads * d)} kv{(b, lk)} {heads} heads "
+                             f"{dtype}", out[:1], ref, _tol(dtype)))
+        if label == "i2vgen level0 self-attn":
+            def folded():
+                fold = [t.reshape(b, -1, heads, d).transpose(1, 2).reshape(b * heads, -1, d)
+                        .contiguous() for t in (q, k, v)]
+                o = flash_attention(*fold)
+                return o.reshape(b, heads, lq, d).transpose(1, 2).reshape(b, lq, heads * d) \
+                    .contiguous()
+
+            def plain_full():
+                for i in range(b):
+                    flash_attention_packed_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], heads)
+
+            rec = dict(ms=_time_ms(lambda: flash_attention_packed(q, k, v, num_heads=heads)),
+                       k1_ms=_time_ms(folded), plain_ms=_time_ms(plain_full, reps=3),
+                       shape=[b, lq, heads * d])
+            print(f"  K2 time {(b, lq, heads * d)} bf16: kernel {rec['ms']:.3f} ms, K1 with "
+                  f"head-fold transposes {rec['k1_ms']:.3f} ms, plain (one batch row at a "
+                  f"time) {rec['plain_ms']:.3f} ms", flush=True)
+        del q, k, v, out, ref
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def check_k3(randn) -> dict:
+    import torch
+
+    from streamingt2v_torch.ops.fused_ff import geglu_ff, geglu_ff_reference
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec, errs = {}, []
     for n, c, dtype, label in [(460800, 320, bf16, "unet level0"),
                                (115200, 640, bf16, "unet level1"),
                                (28800, 1280, bf16, "unet level2"),
+                               (547200, 320, bf16, "i2vgen level0"),
                                (4096, 320, f32, "f32")]:
         inner = 4 * c
         x = randn(n, c, dtype=dtype)
@@ -154,50 +226,166 @@ def check_kernels() -> dict:
         kw = dict(ln_scale=lns, ln_bias=lnb, residual=True)
         out = geglu_ff(*args, **kw)
         ref = geglu_ff_reference(*args, lns, lnb, True)
-        tol = TOL["f32" if dtype == f32 else "bf16"]
-        errs.append(_compare(f"K3 {label} x{(n, c)} inner {inner} {dtype}", out, ref, tol))
+        errs.append(_compare(f"K3 {label} x{(n, c)} inner {inner} {dtype}", out, ref,
+                             _tol(dtype)))
         if dtype == f32:
             plain = geglu_ff_reference(*args)
-            errs.append(_compare(f"K3 {label} no LN/residual", geglu_ff(*args), plain, tol))
+            errs.append(_compare(f"K3 {label} no LN/residual", geglu_ff(*args), plain,
+                                 _tol(dtype)))
         if (n, c) == (460800, 320):
-            ms = _time_ms(lambda: geglu_ff(*args, **kw))
-            plain_ms = _time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True), reps=3)
-            rec["geglu_ff"] = dict(ms=ms, plain_ms=plain_ms, shape=[n, c, inner])
-            print(f"  K3 time {(n, c, inner)} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-                  flush=True)
+            rec = dict(ms=_time_ms(lambda: geglu_ff(*args, **kw)),
+                       plain_ms=_time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True),
+                                         reps=3), shape=[n, c, inner])
+            print(f"  K3 time {(n, c, inner)} bf16: kernel {rec['ms']:.3f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms", flush=True)
         del x, out, ref
-    rec["geglu_ff"]["max_abs_err"] = max(errs)
+    rec["max_abs_err"] = max(errs)
+    return rec
 
-    # ---- K4 temporal conv ----
-    errs = []
+
+def check_k4(randn, gen) -> dict:
+    import torch
+
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec, errs = {}, []
     for b, t, s, c, co, pre, res, dtype, label in [
             (2, 25, 9216, 320, 320, True, True, bf16, "unet level0 out_conv"),
             (2, 25, 2304, 640, 640, True, False, bf16, "unet level1 in_conv"),
             (2, 7, 576, 1280, 1280, True, True, bf16, "controlnet level2"),
             (1, 8, 589824, 128, 128, True, True, bf16, "vae decoder top level"),
             (1, 8, 589824, 3, 3, False, False, bf16, "vae AE3DConv time mix C=3"),
+            (1, 2, 14400, 320, 320, True, False, bf16, "i2vgen pre-pass T=2"),
+            (1, 38, 14400, 320, 320, True, True, bf16, "i2vgen level0 T=38"),
+            (1, 38, 240, 1280, 1280, True, True, bf16, "i2vgen level3 T=38"),
+            (1, 64, 3600, 640, 640, True, True, bf16, "T=64"),
             (2, 25, 576, 64, 96, False, True, f32, "f32 res only"),
-            (1, 7, 1024, 48, 32, True, False, f32, "f32 prologue only")]:
+            (1, 40, 1024, 48, 32, True, False, f32, "f32 prologue only T=40")]:
         x = randn(b, t, s, c, dtype=dtype)
         w = randn(3, c, co, dtype=dtype, std=(3 * c) ** -0.5)
         bias = randn(co, dtype=f32, std=0.1)
         pa = (1.0 + randn(b, c, dtype=f32, std=0.1)) if pre else None
         pb = randn(b, c, dtype=f32, std=0.1) if pre else None
         r = randn(b, t, s, co, dtype=dtype) if res else None
-        rw = torch.rand((b, t), generator=gen, device=dev) if res else None
+        rw = torch.rand((b, t), generator=gen, device=x.device) if res else None
         args = (x, w, bias, r, rw, pa, pb)
         out = temporal_conv(*args)
         ref = temporal_conv_reference(*args)
-        tol = TOL["f32" if dtype == f32 else "bf16"]
-        errs.append(_compare(f"K4 {label} x{(b, t, s, c)}->{co} {dtype}", out, ref, tol))
-        if label == "unet level0 out_conv":
+        errs.append(_compare(f"K4 {label} x{(b, t, s, c)}->{co} {dtype}", out, ref,
+                             _tol(dtype)))
+        if label in ("unet level0 out_conv", "i2vgen level0 T=38"):
             ms = _time_ms(lambda: temporal_conv(*args))
             plain_ms = _time_ms(lambda: temporal_conv_reference(*args), reps=3)
-            rec["temporal_conv"] = dict(ms=ms, plain_ms=plain_ms, shape=[b, t, s, c, co])
             print(f"  K4 time {(b, t, s, c, co)} bf16 pre+res: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms", flush=True)
+            if not rec:
+                rec = dict(ms=ms, plain_ms=plain_ms, shape=[b, t, s, c, co])
+            else:
+                rec.update(t38_ms=ms, t38_plain_ms=plain_ms)
         del x, out, ref, r
-    rec["temporal_conv"]["max_abs_err"] = max(errs)
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def check_k5(randn) -> dict:
+    """K5 at the stage-2 geometries, timed against the plain group_norm."""
+    import torch
+
+    from streamingt2v_torch.ops.fused_group_norm import (
+        fused_group_norm, fused_group_norm_reference)
+    from streamingt2v_torch.ops.norms import group_norm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec, errs = {}, []
+    for n, l, c, act, eps, dtype, label in [
+            (38, 14400, 320, "silu", 1e-5, bf16, "ResnetBlock2D level0"),
+            (38, 3600, 640, "silu", 1e-5, bf16, "ResnetBlock2D level1"),
+            (38, 14400, 320, None, 1e-6, bf16, "Transformer2D level0"),
+            (2, 921600, 128, "silu", 1e-6, bf16, "sd-vae top level"),
+            (4, 4096, 256, "silu", 1e-6, f32, "f32")]:
+        x = randn(n, l, c, dtype=dtype, std=2.0, mean=0.5)
+        scale = 1.0 + randn(c, dtype=f32, std=0.1)
+        bias = randn(c, dtype=f32, std=0.1)
+        kw = dict(num_groups=32, eps=eps, act=act)
+        out = fused_group_norm(x, scale, bias, **kw)
+        ref = fused_group_norm_reference(x, scale, bias, **kw)
+        errs.append(_compare(f"K5 {label} {(n, l, c)} act={act} {dtype}", out, ref,
+                             _tol(dtype)))
+        if label == "ResnetBlock2D level0":
+            x4 = x.reshape(n, 120, 120, c)  # any (H, W) with H*W = L: the same statistics
+            rec = dict(ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **kw)),
+                       plain_ms=_time_ms(lambda: group_norm(x4, scale, bias, **kw), reps=3),
+                       shape=[n, l, c])
+            print(f"  K5 time {(n, l, c)} bf16 silu: kernel {rec['ms']:.3f} ms, plain "
+                  f"group_norm {rec['plain_ms']:.3f} ms", flush=True)
+        del x, out, ref
+    # a large common offset with a small spread: against f64 statistics
+    x = randn(2, 4096, 128, dtype=f32, std=1e-3, mean=100.0)
+    ones, zeros = torch.ones(128, device=x.device), torch.zeros(128, device=x.device)
+    out = fused_group_norm(x, ones, zeros, num_groups=32, eps=1e-6)
+    xg = x.double().reshape(2, 4096, 32, 4)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
+    ref = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(x.shape)
+    err = (out.double() - ref).abs().max().item()
+    print(f"  K5 offset 100, std 1e-3 (2, 4096, 128) f32 vs f64 statistics: "
+          f"max_abs_err={err:.3e} tol=5e-2 {'ok' if err <= 5e-2 else 'FAIL'}", flush=True)
+    if not err <= 5e-2:
+        raise AssertionError(f"K5 loses the variance at a large offset ({err:.3e})")
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def check_k6(randn) -> dict:
+    """K6 at the stage-2 and stage-1 geometries, timed against the
+    transposes + grouped-attention plain version."""
+    import torch
+
+    from streamingt2v_torch.ops.temporal_attention import (
+        fused_temporal_attention, temporal_attention_reference)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec, errs = {}, []
+    for b, tq, tkv, s, heads, d, dtype, label in [
+            (1, 38, 38, 14400, 5, 64, bf16, "i2vgen level0"),
+            (1, 38, 38, 3600, 10, 64, bf16, "i2vgen level1"),
+            (1, 38, 38, 920, 20, 64, bf16, "i2vgen level2"),
+            (1, 38, 38, 240, 20, 64, bf16, "i2vgen level3"),
+            (1, 38, 38, 14400, 8, 64, bf16, "i2vgen transformer_in"),
+            (2, 25, 25, 9216, 5, 64, bf16, "stage-1 level0 T=25"),
+            (2, 25, 7, 9216, 5, 64, bf16, "CAM-like 25x7"),
+            (2, 16, 16, 1000, 2, 128, f32, "f32 d=128"),
+            (1, 64, 64, 333, 3, 32, f32, "f32 T=64 ragged")]:
+        q = randn(b * tq, s, heads * d, dtype=dtype)
+        k, v = (randn(b * tkv, s, heads * d, dtype=dtype) for _ in range(2))
+        kw = dict(batch=b, frames_q=tq, frames_kv=tkv, num_heads=heads)
+        out = fused_temporal_attention(q, k, v, **kw)
+        ref = temporal_attention_reference(q, k, v, **kw)
+        errs.append(_compare(f"K6 {label} T {tq}x{tkv} S {s} {heads}x{d} {dtype}", out, ref,
+                             _tol(dtype)))
+        if label == "i2vgen level0":
+            rec = dict(ms=_time_ms(lambda: fused_temporal_attention(q, k, v, **kw)),
+                       plain_ms=_time_ms(lambda: temporal_attention_reference(q, k, v, **kw),
+                                         reps=3), shape=[b * tq, s, heads * d])
+            print(f"  K6 time {(b * tq, s, heads * d)} T={tq} bf16: kernel {rec['ms']:.3f} ms,"
+                  f" transposes + grouped attention {rec['plain_ms']:.3f} ms", flush=True)
+        del q, k, v, out, ref
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def check_kernels() -> dict:
+    """Phase 3: returns {kernel: record} with max error and both times."""
+    import torch
+
+    randn, gen = _randn_factory(0)
+    rec = {"flash_attention": check_k1(randn),
+           "flash_attention_packed": check_k2(randn),
+           "geglu_ff": check_k3(randn),
+           "temporal_conv": check_k4(randn, gen),
+           "fused_group_norm": check_k5(randn),
+           "fused_temporal_attention": check_k6(randn)}
     torch.cuda.empty_cache()
     return rec
 
@@ -215,6 +403,101 @@ def _smooth_image(height: int, width: int, seed: int = 0):
         chans.append(np.sin(2 * np.pi * (fy * yy + fx * xx) + ph))
     img = 0.8 * np.stack(chans, axis=-1) + 0.05 * rng.randn(height, width, 3)
     return torch.from_numpy(np.clip(img, -1, 1).astype(np.float32))
+
+
+def _smooth_video(frames: int, height: int, width: int, seed: int = 0, device="cpu"):
+    """A fixed [-1, 1] test video: drifting low-frequency colour fields."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    yy = torch.linspace(0, 1, height, device=device)[:, None]
+    xx = torch.linspace(0, 1, width, device=device)[None, :]
+    tt = torch.arange(frames, device=device, dtype=torch.float32)[:, None, None]
+    chans = []
+    for _ in range(3):
+        fy, fx, ph, speed = (float(v) for v in rng.uniform([0.5, 0.5, 0, 0.02],
+                                                           [3.0, 3.0, 6.28, 0.1]))
+        chans.append(0.8 * torch.sin(2 * math.pi * (fy * yy + fx * xx) + ph + speed * tt))
+    return torch.stack(chans, dim=-1)
+
+
+def _all_kernels():
+    from streamingt2v_torch.ops.flash_attention import flash_attention, flash_attention_packed
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
+    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv
+
+    return (flash_attention, flash_attention_packed, geglu_ff, temporal_conv, fused_group_norm,
+            fused_temporal_attention)
+
+
+def _reset_launches() -> None:
+    for fn in _all_kernels():
+        fn.launches = 0
+
+
+def _read_launches() -> dict:
+    return {fn.__name__: fn.launches for fn in _all_kernels()}
+
+
+def _small_enhance_configs():
+    """A narrow stage 2 in which K2-K6 all launch: head dim 64, 2048 latent
+    tokens at level 0 (64x128 frames, a 2x VAE), channels multiples of 32."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import DTypePolicy, EnhanceConfig, VAEConfig
+    from streamingt2v_torch.models.clip import CLIPVisionConfig
+    from streamingt2v_torch.models.clip_text import CLIPTextConfig
+    from streamingt2v_torch.models.enhance.unet import I2VGenXLUNetConfig
+
+    f32 = DTypePolicy(compute_dtype=torch.float32)
+    cfg = EnhanceConfig(num_steps=3, height=64, width=128, chunk_size=4, overlap_size=2,
+                        vae_bf16=False)
+    models = dict(
+        unet=I2VGenXLUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                                cross_attention_dim=64, image_embed_dim=32, dtypes=f32),
+        vae=dataclasses.replace(VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, dtypes=f32),
+                                temporal_decoder=False),
+        clip_vision=CLIPVisionConfig(image_size=28, patch_size=14, width=64, layers=2, heads=2,
+                                     output_dim=32),
+        text=CLIPTextConfig(vocab_size=514, width=64, layers=2, heads=2, max_length=16),
+        tokenizer_length=16)
+    return cfg, models
+
+
+def check_enhance_reference() -> float:
+    """Phase 4, stage 2: the kernel path on the card agrees with the plain path."""
+    import torch
+
+    from streamingt2v_torch.pipeline.build import build_enhance
+    from streamingt2v_torch.utils.rng import GeneratorEnhanceNoise
+
+    cfg, models = _small_enhance_configs()
+    gpu = build_enhance(cfg, seed=0, device="cuda", bf16=False, **models)
+    cpu = build_enhance(cfg, seed=0, device="cpu", bf16=False, init=False, **models)
+    for name in ("unet", "vae", "clip_vision", "text_encoder"):
+        getattr(cpu.m, name).load_state_dict(getattr(gpu.m, name).state_dict())
+    video = _smooth_video(6, cfg.height, cfg.width, seed=2)
+    image = _smooth_image(cfg.height, cfg.width, seed=3)
+    _reset_launches()
+    got = gpu.enhance_with_keyframe_prepass(video.cuda(), image.cuda(),
+                                            noise=GeneratorEnhanceNoise(7, "cpu")).cpu()
+    launches = _read_launches()
+    ref = cpu.enhance_with_keyframe_prepass(video, image, noise=GeneratorEnhanceNoise(7, "cpu"))
+    err = (got - ref).abs().max().item()
+    print(f"  small stage 2 {tuple(ref.shape)} f32, card vs CPU: max_abs_err={err:.3e} "
+          f"tol={REFERENCE_ATOL:g}; launches {launches}; ref std {ref.std().item():.3f}",
+          flush=True)
+    if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
+        raise AssertionError(f"small-input stage 2 disagrees with the plain path ({err:.3e})")
+    dead = [k for k, v in launches.items() if v <= 0 and k != "flash_attention"]
+    if dead:
+        raise AssertionError(f"the small-input stage 2 skipped kernels: {dead}")
+    return err
 
 
 def check_reference() -> float:
@@ -247,11 +530,9 @@ def check_reference() -> float:
         return draws[g, stream]
 
     image = _smooth_image(cfg.height, cfg.width, seed=1)
-    kernels = (flash_attention, geglu_ff, temporal_conv)
-    for fn in kernels:
-        fn.launches = 0
+    _reset_launches()
     got = gpu.image_to_video(image.cuda(), num_frames=frames, noise=noise).cpu()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = {fn.__name__: fn.launches for fn in (flash_attention, geglu_ff, temporal_conv)}
     ref = cpu.image_to_video(image, num_frames=frames, noise=noise)
     err = (got - ref).abs().max().item()
     print(f"  small stage 1 {tuple(ref.shape)} f32, card vs CPU: max_abs_err={err:.3e} "
@@ -271,9 +552,6 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     import torch
 
     from streamingt2v_torch.config import PipelineConfig
-    from streamingt2v_torch.ops.flash_attention import flash_attention
-    from streamingt2v_torch.ops.fused_ff import geglu_ff
-    from streamingt2v_torch.ops.temporal_conv import temporal_conv
     from streamingt2v_torch.pipeline.build import build_pipeline
 
     dev = torch.device("cuda")
@@ -316,15 +594,13 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
         setattr(pipe, name, timed(name, getattr(pipe, name)))
 
     image = _smooth_image(cfg.height, cfg.width).to(dev)
-    kernels = (flash_attention, geglu_ff, temporal_conv)
-    for fn in kernels:
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
     t0 = time.perf_counter()
     video = pipe.image_to_video(image, num_frames=SLICE_FRAMES, seed=cfg.seed)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
     print("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f", image_to_video total {total:.1f}", flush=True)
@@ -338,7 +614,7 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     lo, hi = video.min().item(), video.max().item()
     if lo < -1.0 or hi > 1.0:
         raise AssertionError(f"video outside [-1, 1]: [{lo}, {hi}]")
-    dead = [k for k, v in launches.items() if v <= 0]
+    dead = [k for k in ("flash_attention", "geglu_ff", "temporal_conv") if launches[k] <= 0]
     if dead:
         raise AssertionError(f"the slice never launched: {dead}")
     print(f"  video {want} finite in [{lo:.3f}, {hi:.3f}], std {video.std().item():.4f}",
@@ -346,12 +622,96 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     return launches
 
 
+def run_enhance(steps: int) -> dict:
+    """Phase 6: full-width stage 2 through every kernel of its path."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import EnhanceConfig
+    from streamingt2v_torch.pipeline.build import build_enhance
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = EnhanceConfig()
+    if steps != cfg.num_steps:
+        print(f"  cut: DDIM steps {cfg.num_steps} -> {steps} "
+              f"({min(int(steps * cfg.strength), steps)} run after strength {cfg.strength})",
+              flush=True)
+    cfg = dataclasses.replace(cfg, num_steps=steps)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = build_enhance(cfg, seed=0, device=dev, bf16=True)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    print(f"  build_enhance: {time.perf_counter() - t0:.1f} s, resident weights "
+          f"{resident / 2**30:.2f} GiB (VAE f32 + its bf16 copy)", flush=True)
+
+    spans = {"encode_prompts": [], "_key_image_cond": [], "_encode_video": [],
+             "_denoise_step": [], "_decode_latents": []}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[name].append(time.perf_counter() - start)
+            return out
+        return wrapper
+
+    for name in spans:
+        setattr(pipe, name, timed(name, getattr(pipe, name)))
+
+    video = _smooth_video(ENHANCE_FRAMES, cfg.height, cfg.width, device=dev)
+    image = _smooth_image(cfg.height, cfg.width, seed=4).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = pipe.enhance_with_keyframe_prepass(video, image)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    fmt = lambda xs: "[" + ", ".join(f"{x:.1f}" for x in xs) + "]"  # noqa: E731
+    print("  seconds: text " + fmt(spans["encode_prompts"])
+          + ", key-frame conditioning " + fmt(spans["_key_image_cond"])
+          + ", encode " + fmt(spans["_encode_video"])
+          + ", denoise steps (pre-pass, then main) " + fmt(spans["_denoise_step"])
+          + ", decode " + fmt(spans["_decode_latents"])
+          + f"; enhance_with_keyframe_prepass total {total:.1f}", flush=True)
+    print(f"  peak memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+
+    want = (ENHANCE_FRAMES, cfg.height, cfg.width, 3)
+    if tuple(out.shape) != want:
+        raise AssertionError(f"enhanced video shape {tuple(out.shape)} != {want}")
+    if not torch.isfinite(out).all():
+        raise AssertionError("enhanced video has non-finite values")
+    lo, hi = out.min().item(), out.max().item()
+    if lo < -1.0 or hi > 1.0:
+        raise AssertionError(f"enhanced video outside [-1, 1]: [{lo}, {hi}]")
+    dead = [k for k in ("flash_attention_packed", "geglu_ff", "temporal_conv",
+                        "fused_group_norm", "fused_temporal_attention") if launches[k] <= 0]
+    if dead:
+        raise AssertionError(f"the enhance phase never launched: {dead}")
+    print(f"  video {want} finite in [{lo:.3f}, {hi:.3f}], std {out.std().item():.4f}",
+          flush=True)
+    return launches
+
+
 KERNEL_META = {
     "flash_attention": ("streamingt2v_torch/csrc/flash_attention.cu",
                         "streamingt2v_tpu/ops/flash_attention.py:38"),
+    "flash_attention_packed": ("streamingt2v_torch/csrc/flash_attention.cu",
+                               "streamingt2v_tpu/ops/flash_attention.py:201"),
     "geglu_ff": ("streamingt2v_torch/csrc/geglu_ff.cu", "streamingt2v_tpu/ops/fused_ff.py:65"),
     "temporal_conv": ("streamingt2v_torch/csrc/temporal_conv.cu",
                       "streamingt2v_tpu/ops/temporal_conv.py:49"),
+    "fused_group_norm": ("streamingt2v_torch/csrc/fused_group_norm.cu",
+                         "streamingt2v_tpu/ops/fused_group_norm.py:30"),
+    "fused_temporal_attention": ("streamingt2v_torch/csrc/temporal_attention.cu",
+                                 "streamingt2v_tpu/ops/temporal_attention.py:43"),
 }
 
 
@@ -363,6 +723,8 @@ def main(argv=None) -> int:
                         help="first-chunk sampler steps in the slice phase")
     parser.add_argument("--ar-steps", type=int, default=AR_STEPS,
                         help="autoregressive sampler steps in the slice phase")
+    parser.add_argument("--enhance-steps", type=int, default=ENHANCE_STEPS,
+                        help="DDIM steps in the enhance phase (before the strength cut)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     try:
@@ -407,22 +769,29 @@ def main(argv=None) -> int:
     if "reference" in phases:
         t0 = time.perf_counter()
         check_reference()
+        check_enhance_reference()
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
-    launches = {}
+    launches = dict.fromkeys(KERNEL_META, 0)
     if "slice" in phases:
         t0 = time.perf_counter()
-        launches = run_slice(args.first_steps, args.ar_steps)
+        for name, n in run_slice(args.first_steps, args.ar_steps).items():
+            launches[name] += n
         print(f"phase slice: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "enhance" in phases:
+        t0 = time.perf_counter()
+        for name, n in run_enhance(args.enhance_steps).items():
+            launches[name] += n
+        print(f"phase enhance: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches.get(name, 0), max_abs_err=r.get("max_abs_err"),
+                            launches=launches[name], max_abs_err=r.get("max_abs_err"),
                             ms=r.get("ms"), plain_ms=r.get("plain_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
-    if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps) != (FIRST_CHUNK_STEPS,
-                                                                          AR_STEPS):
+    if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps) != (
+            FIRST_CHUNK_STEPS, AR_STEPS, ENHANCE_STEPS):
         print("chip_smoke: not the default run; no result", file=sys.stderr)
         return 3
     print(card, flush=True)

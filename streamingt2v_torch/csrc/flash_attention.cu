@@ -1,8 +1,16 @@
-// K1: flash attention over (B*H, L, D) for Hopper.
+// K1 and K2: flash attention for Hopper, one kernel body for two layouts.
 //
-// Replaces the Pallas kernel `_flash_kernel` (streamingt2v_tpu/ops/
-// flash_attention.py:38, launched from `_flash_pallas`).  One block owns BQ
-// query rows and walks every KV tile of BK keys, keeping a running row max,
+// K1 replaces the Pallas kernel `_flash_kernel` (streamingt2v_tpu/ops/
+// flash_attention.py:38, launched from `_flash_pallas`) over head-folded
+// (B*H, L, D) tensors.  K2 replaces `_flash_kernel_packed` (:201, launched
+// from `_flash_pallas_packed`) over head-packed (B, L, H*D) tensors, the
+// layout the q/k/v projections produce: a head is a D-wide column slice and a
+// row of it sits H*D elements after the previous one.  Both are the same
+// kernel: a block owns BQ query rows of one (batch, head) and reads every
+// row at a stride `ld` from the head's column offset (K1: ld = D, one head;
+// K2: ld = H*D), so the packed layout costs no transpose.
+//
+// The block walks every KV tile of BK keys, keeping a running row max,
 // denominator and f32 output accumulator, so the (Lq, Lk) scores never reach
 // device memory.  The ragged KV edge is masked directly (scores -inf), so the
 // TPU's zero-pad denominator correction is not needed.
@@ -41,7 +49,7 @@ struct FlashShape {
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(128)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int lq, int lk, float scale_log2) {
+             T* __restrict__ o, int lq, int lk, int heads, int ld, float scale_log2) {
   typedef FlashShape<T, D, BQ, BK> S;
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -57,16 +65,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ;
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * lq * D;
-  const T* kb = k + bh * lk * D;
-  const T* vb = v + bh * lk * D;
-  T* ob = o + bh * lq * D;
+  // blockIdx.y = batch * heads + head; rows of the head start at its column
+  const size_t bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const T* qb = q + bi * lq * ld + hi * D;
+  const T* kb = k + bi * lk * ld + hi * D;
+  const T* vb = v + bi * lk * ld + hi * D;
+  T* ob = o + bi * lq * ld + hi * D;
 
   for (int i = tid; i < BQ * (D / VEC); i += 128) {
     const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < lq) val = *reinterpret_cast<const uint4*>(qb + size_t(q0 + r) * D + c);
+    if (q0 + r < lq) val = *reinterpret_cast<const uint4*>(qb + size_t(q0 + r) * ld + c);
     *reinterpret_cast<uint4*>(Qs + r * S::LDQ + c) = val;
   }
   for (int i = tid; i < BQ; i += 128) {
@@ -84,8 +93,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
       uint4 kval = make_uint4(0u, 0u, 0u, 0u), vval = make_uint4(0u, 0u, 0u, 0u);
       if (kv0 + r < lk) {
-        kval = *reinterpret_cast<const uint4*>(kb + size_t(kv0 + r) * D + c);
-        vval = *reinterpret_cast<const uint4*>(vb + size_t(kv0 + r) * D + c);
+        kval = *reinterpret_cast<const uint4*>(kb + size_t(kv0 + r) * ld + c);
+        vval = *reinterpret_cast<const uint4*>(vb + size_t(kv0 + r) * ld + c);
       }
       *reinterpret_cast<uint4*>(Ks + r * S::LDQ + c) = kval;
       const T* ve = reinterpret_cast<const T*>(&vval);
@@ -149,13 +158,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int r0 = rt * 16 + g, col = nt * 8 + 2 * t;
     if (q0 + r0 < lq) {
       const float inv = 1.f / l_s[r0];
-      T* dst = ob + size_t(q0 + r0) * D + col;
+      T* dst = ob + size_t(q0 + r0) * ld + col;
       dst[0] = from_float<T>(acc[j][0] * inv);
       dst[1] = from_float<T>(acc[j][1] * inv);
     }
     if (q0 + r0 + 8 < lq) {
       const float inv = 1.f / l_s[r0 + 8];
-      T* dst = ob + size_t(q0 + r0 + 8) * D + col;
+      T* dst = ob + size_t(q0 + r0 + 8) * ld + col;
       dst[0] = from_float<T>(acc[j][2] * inv);
       dst[1] = from_float<T>(acc[j][3] * inv);
     }
@@ -163,33 +172,48 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int D, int BQ, int BK>
-static int launch_flash(const void* q, const void* k, const void* v, void* o, int bh,
-                        int lq, int lk, float scale_log2, cudaStream_t stream) {
+static int launch_flash(const void* q, const void* k, const void* v, void* o, int batch,
+                        int heads, int lq, int lk, float scale_log2, cudaStream_t stream) {
   typedef FlashShape<T, D, BQ, BK> S;
   const size_t smem = S::smem_bytes();
   auto kernel = flash_kernel<T, D, BQ, BK>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((lq + BQ - 1) / BQ, bh);
+  dim3 grid((lq + BQ - 1) / BQ, batch * heads);
   kernel<<<grid, 128, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                       static_cast<const T*>(v), static_cast<T*>(o), lq, lk,
-                                      scale_log2);
+                                      heads, heads * D, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One dispatch over (dtype, d) for both layouts.
+static int dispatch_flash(const void* q, const void* k, const void* v, void* o, int batch,
+                          int heads, int lq, int lk, int d, int dtype, float scale_log2,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch <= 0 || heads <= 0 || batch * heads > 65535 || lq <= 0 || lk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && d == 64) return launch_flash<bf16, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 1 && d == 512) return launch_flash<bf16, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 0 && d == 512) return launch_flash<float, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace st2v
 
-// dtype: 0 = float32, 1 = bfloat16.  d must be 64 or 512 (the wrapper pads
-// other head dims with zeros).  Returns a cudaError_t (0 = launched).
+// K1.  q/o (bh, lq, d), k/v (bh, lk, d).  dtype: 0 = float32, 1 = bfloat16.
+// d must be 64 or 512 (the wrapper pads other head dims with zeros).
+// Returns a cudaError_t (0 = launched).
 extern "C" int st2v_flash_attention(const void* q, const void* k, const void* v, void* o,
                                     int bh, int lq, int lk, int d, int dtype,
                                     float scale_log2, void* stream) {
-  using namespace st2v;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && d == 64) return launch_flash<bf16, 64, 64, 64>(q, k, v, o, bh, lq, lk, scale_log2, s);
-  if (dtype == 1 && d == 512) return launch_flash<bf16, 512, 16, 32>(q, k, v, o, bh, lq, lk, scale_log2, s);
-  if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, bh, lq, lk, scale_log2, s);
-  if (dtype == 0 && d == 512) return launch_flash<float, 512, 16, 32>(q, k, v, o, bh, lq, lk, scale_log2, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return st2v::dispatch_flash(q, k, v, o, bh, 1, lq, lk, d, dtype, scale_log2, stream);
+}
+
+// K2.  q/o (batch, lq, heads*d), k/v (batch, lk, heads*d); d is 64 or 512.
+extern "C" int st2v_flash_attention_packed(const void* q, const void* k, const void* v,
+                                           void* o, int batch, int heads, int lq, int lk,
+                                           int d, int dtype, float scale_log2, void* stream) {
+  return st2v::dispatch_flash(q, k, v, o, batch, heads, lq, lk, d, dtype, scale_log2, stream);
 }

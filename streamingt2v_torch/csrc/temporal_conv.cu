@@ -11,13 +11,15 @@
 // One block owns one batch row, 16 spatial positions and 32 output channels
 // for every frame.  With 16 positions per frame, a 16-row tile of the product
 // is exactly one frame, so the time shift of tap k is a choice of which frame
-// tile feeds the product and the zero padding is a skipped tap.  The input is
-// read once per block in 32-channel chunks with the prologue applied on the
-// way into shared memory, the kt weight taps of the chunk sit beside it, and
-// the f32 accumulator stays in registers.  The op moves x and out once each
-// and is bandwidth-bound at the decoder's 128-channel levels; the UNet levels
-// (320-1280 channels) re-read each input tile once per 32-channel output
-// tile, from L2.
+// tile feeds the product and the zero padding is a skipped tap.  The frames
+// are taken in groups of 32 output frames, whose f32 accumulators stay in
+// registers; a group reads its 32 + kt - 1 input frames (the kt - 1 halo
+// frames are read again by the next group) in 32-channel chunks with the
+// prologue applied on the way into shared memory, beside the kt weight taps of
+// the chunk.  So T is bounded by nothing but the caller's memory.  The op
+// moves x and out once each and is bandwidth-bound at the decoder's
+// 128-channel levels; the UNet levels (320-1280 channels) re-read each input
+// tile once per 32-channel output tile, from L2.
 #include "common.cuh"
 
 namespace st2v {
@@ -27,13 +29,14 @@ constexpr int TC_WARPS = TC_THREADS / 32;
 constexpr int TC_BS = 16;    // spatial positions per block (one mma row tile)
 constexpr int TC_BCO = 32;   // output channels per block
 constexpr int TC_KC = 32;    // input-channel chunk
-constexpr int TC_MAXT = 16;  // accumulator tiles per warp: T * TC_BCO / 8 <= 128
+constexpr int TC_TG = 32;    // output frames per group
+constexpr int TC_MAXT = TC_TG * (TC_BCO / 8) / TC_WARPS;  // accumulator tiles per warp
 
 template <typename T>
 struct TCLayout {
   static constexpr int LD = TC_KC + RowPad<T>::value;
-  static size_t smem_bytes(int t_len, int kt) {
-    return sizeof(T) * (size_t(t_len) * TC_BS + size_t(kt) * TC_BCO) * LD;
+  static size_t smem_bytes(int frames_held, int kt) {
+    return sizeof(T) * (size_t(frames_held) * TC_BS + size_t(kt) * TC_BCO) * LD;
   }
 };
 
@@ -46,8 +49,9 @@ temporal_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      int s_len, int c, int c_out, int kt) {
   typedef TCLayout<T> L;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Xs = reinterpret_cast<T*>(smem_raw);        // [t][s][c chunk]
-  T* Ws = Xs + t_len * TC_BS * L::LD;           // [k][co][c chunk]
+  const int held = min(t_len, TC_TG) + kt - 1;   // input frames per group
+  T* Xs = reinterpret_cast<T*>(smem_raw);        // [frame - f0][s][c chunk]
+  T* Ws = Xs + held * TC_BS * L::LD;             // [k][co][c chunk]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -55,72 +59,78 @@ temporal_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int s0 = blockIdx.y * TC_BS;
   const int b = blockIdx.z;
   const int lo = kt / 2;
-  const int tiles = t_len * (TC_BCO / 8);
 
-  float acc[TC_MAXT][4];
+  for (int tg0 = 0; tg0 < t_len; tg0 += TC_TG) {
+    const int tiles = min(TC_TG, t_len - tg0) * (TC_BCO / 8);
+    // input frames [f_lo, f_hi) feed this group; Xs row 0 is frame f0
+    const int f0 = tg0 - lo;
+    const int f_lo = max(0, f0);
+    const int f_hi = min(t_len, tg0 + TC_TG + kt - 1 - lo);
+    float acc[TC_MAXT][4];
 #pragma unroll
-  for (int j = 0; j < TC_MAXT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int j = 0; j < TC_MAXT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int kc = 0; kc < c; kc += TC_KC) {
-    __syncthreads();
-    for (int i = tid; i < t_len * TC_BS * TC_KC; i += TC_THREADS) {
-      const int tt = i / (TC_BS * TC_KC);
-      const int rem = i % (TC_BS * TC_KC);
-      const int sl = rem / TC_KC, cc = rem % TC_KC;
-      const int s = s0 + sl, ch = kc + cc;
-      T val = from_float<T>(0.f);
-      if (s < s_len && ch < c) {
-        val = x[((size_t(b) * t_len + tt) * s_len + s) * c + ch];
-        if (pre_a != nullptr) {
-          float f = to_float(val) * pre_a[size_t(b) * c + ch] + pre_b[size_t(b) * c + ch];
-          f = f / (1.f + expf(-f));
-          val = from_float<T>(f);
+    for (int kc = 0; kc < c; kc += TC_KC) {
+      __syncthreads();  // the previous chunk's (or group's) tiles are no longer read
+      for (int i = tid; i < (f_hi - f_lo) * TC_BS * TC_KC; i += TC_THREADS) {
+        const int tt = f_lo + i / (TC_BS * TC_KC);
+        const int rem = i % (TC_BS * TC_KC);
+        const int sl = rem / TC_KC, cc = rem % TC_KC;
+        const int s = s0 + sl, ch = kc + cc;
+        T val = from_float<T>(0.f);
+        if (s < s_len && ch < c) {
+          val = x[((size_t(b) * t_len + tt) * s_len + s) * c + ch];
+          if (pre_a != nullptr) {
+            float f = to_float(val) * pre_a[size_t(b) * c + ch] + pre_b[size_t(b) * c + ch];
+            f = f / (1.f + expf(-f));
+            val = from_float<T>(f);
+          }
+        }
+        Xs[((tt - f0) * TC_BS + sl) * L::LD + cc] = val;
+      }
+      for (int i = tid; i < kt * TC_KC * TC_BCO; i += TC_THREADS) {
+        const int k = i / (TC_KC * TC_BCO);
+        const int rem = i % (TC_KC * TC_BCO);
+        const int cc = rem / TC_BCO, co = rem % TC_BCO;
+        T val = from_float<T>(0.f);
+        if (kc + cc < c && co0 + co < c_out) val = w[(size_t(k) * c + kc + cc) * c_out + co0 + co];
+        Ws[(k * TC_BCO + co) * L::LD + cc] = val;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < TC_MAXT; ++j) {
+        const int ti = warp + j * TC_WARPS;
+        if (ti < tiles) {
+          const int tt = tg0 + ti / (TC_BCO / 8), nt = ti % (TC_BCO / 8);
+          for (int k = 0; k < kt; ++k) {
+            const int ts = tt + k - lo;
+            if (ts >= 0 && ts < t_len)
+              mma_tile(acc[j], Xs + (ts - f0) * TC_BS * L::LD, L::LD,
+                       Ws + (k * TC_BCO + nt * 8) * L::LD, L::LD, TC_KC);
+          }
         }
       }
-      Xs[(tt * TC_BS + sl) * L::LD + cc] = val;
     }
-    for (int i = tid; i < kt * TC_KC * TC_BCO; i += TC_THREADS) {
-      const int k = i / (TC_KC * TC_BCO);
-      const int rem = i % (TC_KC * TC_BCO);
-      const int cc = rem / TC_BCO, co = rem % TC_BCO;
-      T val = from_float<T>(0.f);
-      if (kc + cc < c && co0 + co < c_out) val = w[(size_t(k) * c + kc + cc) * c_out + co0 + co];
-      Ws[(k * TC_BCO + co) * L::LD + cc] = val;
-    }
-    __syncthreads();
+
 #pragma unroll
     for (int j = 0; j < TC_MAXT; ++j) {
       const int ti = warp + j * TC_WARPS;
       if (ti < tiles) {
-        const int tt = ti / (TC_BCO / 8), nt = ti % (TC_BCO / 8);
-        for (int k = 0; k < kt; ++k) {
-          const int ts = tt + k - lo;
-          if (ts >= 0 && ts < t_len)
-            mma_tile(acc[j], Xs + ts * TC_BS * L::LD, L::LD,
-                     Ws + (k * TC_BCO + nt * 8) * L::LD, L::LD, TC_KC);
-        }
-      }
-    }
-  }
-
+        const int tt = tg0 + ti / (TC_BCO / 8), nt = ti % (TC_BCO / 8);
+        const float rw = res != nullptr ? res_w[size_t(b) * t_len + tt] : 0.f;
 #pragma unroll
-  for (int j = 0; j < TC_MAXT; ++j) {
-    const int ti = warp + j * TC_WARPS;
-    if (ti < tiles) {
-      const int tt = ti / (TC_BCO / 8), nt = ti % (TC_BCO / 8);
-      const float rw = res != nullptr ? res_w[size_t(b) * t_len + tt] : 0.f;
+        for (int half = 0; half < 2; ++half) {
+          const int s = s0 + g + 8 * half;
+          if (s >= s_len) continue;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int s = s0 + g + 8 * half;
-        if (s >= s_len) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = co0 + nt * 8 + 2 * t4 + e;
-          if (co >= c_out) continue;
-          const size_t idx = ((size_t(b) * t_len + tt) * s_len + s) * c_out + co;
-          float y = acc[j][2 * half + e] + bias[co];
-          if (res != nullptr) y = to_float(res[idx]) + rw * y;
-          out[idx] = from_float<T>(y);
+          for (int e = 0; e < 2; ++e) {
+            const int co = co0 + nt * 8 + 2 * t4 + e;
+            if (co >= c_out) continue;
+            const size_t idx = ((size_t(b) * t_len + tt) * s_len + s) * c_out + co;
+            float y = acc[j][2 * half + e] + bias[co];
+            if (res != nullptr) y = to_float(res[idx]) + rw * y;
+            out[idx] = from_float<T>(y);
+          }
         }
       }
     }
@@ -132,7 +142,7 @@ static int launch_tc(const void* x, const void* w, const float* bias, const floa
                      const float* pre_b, const void* res, const float* res_w, void* out,
                      int batch, int t_len, int s_len, int c, int c_out, int kt,
                      cudaStream_t stream) {
-  const size_t smem = TCLayout<T>::smem_bytes(t_len, kt);
+  const size_t smem = TCLayout<T>::smem_bytes((t_len < TC_TG ? t_len : TC_TG) + kt - 1, kt);
   auto kernel = temporal_conv_kernel<T>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -147,7 +157,7 @@ static int launch_tc(const void* x, const void* w, const float* bias, const floa
 
 // dtype: 0 = float32, 1 = bfloat16.  w is (kt, C, C_out); pre_a/pre_b are
 // (B, C) f32 or null; res (B, T, S, C_out) and res_w (B, T) f32 or null.
-// Requires odd kt <= 5 and T * 4 <= 128 (T <= 32).
+// Requires odd kt <= 5; any T >= 1.
 extern "C" int st2v_temporal_conv(const void* x, const void* w, const float* bias,
                                   const float* pre_a, const float* pre_b, const void* res,
                                   const float* res_w, void* out, int batch, int t_len,
@@ -156,8 +166,7 @@ extern "C" int st2v_temporal_conv(const void* x, const void* w, const float* bia
   using namespace st2v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || batch > 65535 || s_len <= 0 || c <= 0 || c_out <= 0 || kt % 2 != 1 ||
-      kt > 5 || t_len <= 0 || t_len * (TC_BCO / 8) > TC_WARPS * TC_MAXT ||
-      (s_len + TC_BS - 1) / TC_BS > 65535)
+      kt > 5 || t_len <= 0 || (s_len + TC_BS - 1) / TC_BS > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) return launch_tc<bf16>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, kt, s);
   if (dtype == 0) return launch_tc<float>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, kt, s);

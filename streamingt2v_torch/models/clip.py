@@ -5,9 +5,11 @@ Returns (pooled, tokens).
 
 Preprocessing: [-1, 1] input -> antialiased bicubic resize -> CLIP
 mean/std.  The resize is the separable linear map that
-``jax.image.resize(..., 'bicubic', antialias=True)`` computes (Keys cubic,
-a = -0.5, kernel widened by the downscale factor, weights renormalised),
-built as two small matrices so both packages resample identically.
+``jax.image.resize(..., antialias=True)`` computes (Keys cubic with
+a = -0.5, or the triangle kernel for 'bilinear', widened by the downscale
+factor, weights renormalised), built as two small matrices so both packages
+resample identically.  ``resize`` is the same map for other callers (stage
+2's key-frame conditioning resizes bilinearly).
 """
 
 from __future__ import annotations
@@ -48,14 +50,21 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _resize_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
-    """(out, in) antialiased bicubic resampling weights."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return (1.0 - x.abs()).clamp_min(0.0)
+
+
+_KERNELS = {"bicubic": _keys_cubic, "bilinear": _triangle}
+
+
+def _resize_matrix(in_size: int, out_size: int, device, method: str = "bicubic") -> torch.Tensor:
+    """(out, in) antialiased resampling weights for ``method``."""
     scale = out_size / in_size
     inv = 1.0 / scale
     kernel_scale = max(inv, 1.0)
     sample = (torch.arange(out_size, dtype=torch.float64, device=device) + 0.5) * inv - 0.5
     src = torch.arange(in_size, dtype=torch.float64, device=device)
-    w = _keys_cubic((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    w = _KERNELS[method]((sample[None, :] - src[:, None]).abs() / kernel_scale)
     total = w.sum(dim=0, keepdim=True)
     eps = 1000.0 * torch.finfo(torch.float32).eps
     w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0),
@@ -64,12 +73,17 @@ def _resize_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w)).T.float()
 
 
+def resize(x: torch.Tensor, height: int, width: int, method: str = "bicubic") -> torch.Tensor:
+    """(N, H, W, C) -> f32 (N, height, width, C), antialiased, as
+    ``jax.image.resize`` computes it."""
+    ry = _resize_matrix(x.shape[1], height, x.device, method)
+    rx = _resize_matrix(x.shape[2], width, x.device, method)
+    return torch.einsum("yh,nhwc,xw->nyxc", ry, x.float(), rx)
+
+
 def clip_preprocess(x: torch.Tensor, image_size: int = 224) -> torch.Tensor:
     """(N, H, W, 3) in [-1, 1] -> normalised (N, S, S, 3)."""
-    ry = _resize_matrix(x.shape[1], image_size, x.device)
-    rx = _resize_matrix(x.shape[2], image_size, x.device)
-    x = torch.einsum("yh,nhwc,xw->nyxc", ry, x.float(), rx)
-    x = (x + 1.0) / 2.0
+    x = (resize(x, image_size, image_size) + 1.0) / 2.0
     mean = torch.tensor(CLIP_MEAN, device=x.device)
     std = torch.tensor(CLIP_STD, device=x.device)
     return (x - mean) / std

@@ -1,6 +1,6 @@
 """Parameter-holding layers in the JAX package's layouts.
 
-``Dense``, ``Conv`` and ``TimeConv`` carry the flax parameter names
+``Dense``, ``Embed``, ``Conv`` and ``TimeConv`` carry the flax parameter names
 (``kernel``, ``bias``) so that a module's state-dict keys are the flax
 paths with ``/`` replaced by ``.``; their kernels are stored in PyTorch's
 layouts: Dense (out, in), Conv (out, in, kh, kw), and the (kt, 1, 1) time
@@ -57,6 +57,24 @@ class Dense(nn.Module):
         dt = _common(x, self.kernel)
         return F.linear(x.to(dt), self.kernel.to(dt),
                         None if self.bias is None else self.bias.to(dt))
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: an (n, features) table looked up by integer ids."""
+
+    def __init__(self, num_embeddings: int, features: int, *, device=None, dtype=None):
+        super().__init__()
+        self.embedding = _param((num_embeddings, features), device, dtype)
+
+    @torch.no_grad()
+    def init_extra_(self, generator: torch.Generator) -> None:
+        """normal(1/sqrt(features))."""
+        e = self.embedding
+        e.copy_(torch.randn(e.shape, generator=generator, device=e.device)
+                * e.shape[1] ** -0.5)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids]
 
 
 class Conv(nn.Module):

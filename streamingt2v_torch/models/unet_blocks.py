@@ -9,10 +9,12 @@
 
 Layouts: 5-D activations (B, T, H, W, C); spatial modules fold T into the
 batch, the temporal transformer keeps the spatial-major (B*T, S, C) layout
-and folds only q/k/v/o to (B*S*H, T, D) around its attention.  The three
+and folds only q/k/v/o to (B*S*H, T, D) around its attention.  The
 kernels enter here: the GEGLU FF (K3) from ``FeedForward``, the temporal
-conv (K4) from ``_time_conv``, flash attention (K1) through the attention
-dispatcher, each only for tensors on a CUDA device and inside its gate.
+conv (K4) from ``_time_conv``, flash attention (K1, or K2 under the
+``flash_packed`` routing) through the attention dispatcher, and, under the
+``temporal_attention`` routing, K6 from the temporal self-attentions, each
+only for tensors on a CUDA device and inside its gate.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from streamingt2v_torch.ops import attention, group_norm, layer_norm, timestep_e
 from streamingt2v_torch.ops.attention import attention_pre_split
 from streamingt2v_torch.ops.fused_ff import geglu_ff
 from streamingt2v_torch.ops.norms import group_norm_affine
+from streamingt2v_torch.ops.routing import current_routing
+from streamingt2v_torch.ops.temporal_attention import temporal_attention
 from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
 
 
@@ -66,7 +70,10 @@ class FeedForward(nn.Module):
 class CrossAttention(nn.Module):
     """q/k/v projections (no bias) + output projection; self-attention when
     context is None.  ``pre``/``post`` adapt the layout around the attention
-    core; ``pre_split`` means ``pre`` already folded heads into the batch."""
+    core; ``pre_split`` means ``pre`` already folded heads into the batch.
+    ``frames=(batch, T)`` makes it a self-attention over the frame axis of a
+    spatial-major (B*T, S, C) input, computed on that layout by
+    ``ops.temporal_attention`` (K6 on the card): no transposes."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, *, device=None, dtype=None):
@@ -80,7 +87,13 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(ctx, inner, bias=False, **fk)
         self.to_out = Dense(inner, query_dim, **fk)
 
-    def forward(self, x, context=None, pre=None, post=None, pre_split: bool = False):
+    def forward(self, x, context=None, pre=None, post=None, pre_split: bool = False,
+                frames: Optional[Tuple[int, int]] = None):
+        if frames is not None:
+            q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+            b, t = frames
+            return self.to_out(temporal_attention(q, k, v, batch=b, frames_q=t, frames_kv=t,
+                                                  num_heads=self.heads))
         if context is not None and context.shape[1] == 1 and pre is None and post is None:
             # one key: the softmax is exactly 1, so the output is v for
             # every query (the SVD pooled-CLIP context)
@@ -117,12 +130,14 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, **fk)
         self.ff = FeedForward(dim, dim, **fk)
 
-    def forward(self, x, context=None, *, pre=None, post=None, pre_split=False):
+    def forward(self, x, context=None, *, pre=None, post=None, pre_split=False, frames=None):
+        """``pre``/``post``/``pre_split``/``frames`` go to both attentions:
+        valid only when both are self-attentions over the same axis (the
+        temporal use, ``TransformerTemporal``)."""
+        kw = dict(pre=pre, post=post, pre_split=pre_split, frames=frames)
         x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")),
-                           context if self.disable_self_attn else None,
-                           pre=pre, post=post, pre_split=pre_split)
-        x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context,
-                           pre=pre, post=post, pre_split=pre_split)
+                           context if self.disable_self_attn else None, **kw)
+        x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context, **kw)
         return self.ff(x, ln=norm_pair(self, "norm3"), residual=True)
 
 
@@ -160,10 +175,13 @@ class VideoTransformerBlock(nn.Module):
         def from_time_split(z):
             return z.reshape(b, s, hd, t, dh).permute(0, 3, 1, 2, 4).reshape(b * t, s, hd * dh)
 
+        if current_routing().temporal_attention:
+            layout = dict(frames=(b, t))
+        else:
+            layout = dict(pre=to_time_split, post=from_time_split, pre_split=True)
         if self.has_ff_in:
             x = self.ff_in(x, ln=norm_pair(self, "norm_in"), residual=True)
-        x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")), pre=to_time_split,
-                           post=from_time_split, pre_split=True)
+        x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")), **layout)
         if not self.disable_temporal_crossattention:
             x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context)
         return self.ff(x, ln=norm_pair(self, "norm3"), residual=True)
@@ -264,16 +282,19 @@ class UNetResBlock(nn.Module):
 
 def _time_conv(h: torch.Tensor, conv: TimeConv, *, res=None, res_w=None, gn=None):
     """(kt,1,1) temporal conv of (B, T, H, W, C), optionally with the
-    GroupNorm(eps 1e-5)+SiLU prologue ``gn=(scale, bias)`` and the
-    ``res + res_w[b, t] * conv`` epilogue.  On a CUDA device the geometries
-    the JAX package sends to its Pallas kernel (H*W >= 64, kernel-sized T)
-    launch K4 with the GroupNorm folded into a per-(row, channel) affine."""
+    GroupNorm(eps 1e-5)+SiLU prologue ``gn=(scale, bias[, groups])`` (32
+    groups unless given) and the ``res + res_w[b, t] * conv`` epilogue.  On a
+    CUDA device the geometries the JAX package sends to its Pallas kernel
+    (H*W >= 64 and its ``fits_temporal_conv``) launch K4 with the GroupNorm
+    folded into a per-(row, channel) affine."""
     b, t, hh, ww, c = h.shape
     kt, _, c_out = conv.kernel.shape
-    if h.is_cuda and hh * ww >= 64 and fits_temporal_conv(t, hh * ww, kt, b):
+    groups = gn[2] if gn is not None and len(gn) > 2 else 32
+    if h.is_cuda and hh * ww >= 64 and fits_temporal_conv(t, c, c_out, kt, s=hh * ww,
+                                                          batch=b):
         pa = pb = None
         if gn is not None:
-            pa, pb = group_norm_affine(h, gn[0], gn[1], eps=1e-5)
+            pa, pb = group_norm_affine(h, gn[0], gn[1], num_groups=groups, eps=1e-5)
         out = temporal_conv(
             h.reshape(b, t, hh * ww, c).contiguous(), conv.kernel.to(h.dtype).contiguous(),
             conv.bias.float(),
@@ -281,7 +302,7 @@ def _time_conv(h: torch.Tensor, conv: TimeConv, *, res=None, res_w=None, gn=None
             None if res_w is None else res_w.float().contiguous(), pa, pb)
         return out.reshape(b, t, hh, ww, c_out)
     if gn is not None:
-        h = group_norm(h, gn[0], gn[1], eps=1e-5, act="silu")
+        h = group_norm(h, gn[0], gn[1], num_groups=groups, eps=1e-5, act="silu")
     out = conv(h)
     if res is not None:
         out = res + res_w[:, :, None, None, None].to(res.dtype) * out

@@ -1,5 +1,6 @@
 """Variational autoencoder (counterpart of ``streamingt2v_tpu/models/vae.py``):
-spatial encoder + temporal video decoder, channel-last.
+spatial encoder + temporal video decoder (stage 1) or spatial decoder (the
+SD VAE of stage 2), channel-last.
 
 Spatial modules take (N, H, W, C) with frames folded into N; temporal
 modules take (B, T, H, W, C).  The decoder's VideoResBlock blends
@@ -10,7 +11,7 @@ orientation of the UNet's AlphaBlender, as the scaled residual
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -217,10 +218,47 @@ class VideoDecoder(nn.Module):
         return self.conv_out(h)
 
 
+class SpatialDecoder(nn.Module):
+    """Pure-spatial decoder (the KL / SD VAE): (N, h, w, z) -> (N, f*h, f*w, 3)."""
+
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        c = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = Conv(cfg.z_channels, c, 3, **fk)
+        self.mid_block_1 = ResnetBlock(c, c, **fk)
+        self.mid_attn_1 = AttnBlock(c, **fk)
+        self.mid_block_2 = ResnetBlock(c, c, **fk)
+        for i in reversed(range(len(cfg.ch_mult))):
+            block_out = cfg.ch * cfg.ch_mult[i]
+            for j in range(cfg.num_res_blocks + 1):
+                self.add_module(f"up_{i}_block_{j}", ResnetBlock(c, block_out, **fk))
+                c = block_out
+            if i != 0:
+                self.add_module(f"up_{i}_upsample", Upsample(c, **fk))
+        norm_params(self, "norm_out", c, **fk)
+        self.conv_out = Conv(c, cfg.out_ch, 3, **fk)
+
+    def forward(self, z):
+        cfg = self.cfg
+        h = self.conv_in(z)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        for i in reversed(range(len(cfg.ch_mult))):
+            for j in range(cfg.num_res_blocks + 1):
+                h = getattr(self, f"up_{i}_block_{j}")(h)
+            if i != 0:
+                h = getattr(self, f"up_{i}_upsample")(h)
+        h = group_norm(h, *norm_pair(self, "norm_out"), eps=1e-6, act="silu")
+        return self.conv_out(h)
+
+
 class AutoencoderKL(nn.Module):
-    """Encoder + temporal decoder.  ``use_quant_conv`` selects the legacy-KL
-    layout of the conditioning encoder; ``encode_only`` builds just the
-    encoder side (the conditioner uses nothing else)."""
+    """Encoder + decoder: the temporal ``VideoDecoder`` when
+    ``cfg.temporal_decoder``, else the ``SpatialDecoder``.
+    ``use_quant_conv`` selects the legacy-KL layout (quant and post-quant
+    1x1 convs); ``encode_only`` builds just the encoder side (the stage-1
+    conditioner uses nothing else)."""
 
     def __init__(self, cfg: VAEConfig, use_quant_conv: bool = False, encode_only: bool = False,
                  *, device=None, dtype=None):
@@ -232,9 +270,8 @@ class AutoencoderKL(nn.Module):
         if use_quant_conv:
             self.quant_conv = Conv(2 * cfg.embed_dim, 2 * cfg.embed_dim, 1, **fk)
         if not encode_only:
-            if not cfg.temporal_decoder:
-                raise NotImplementedError("the spatial decoder is not ported yet")
-            self.decoder = VideoDecoder(cfg, **fk)
+            self.decoder = (VideoDecoder(cfg, **fk) if cfg.temporal_decoder
+                            else SpatialDecoder(cfg, **fk))
             if use_quant_conv:
                 self.post_quant_conv = Conv(cfg.embed_dim, cfg.z_channels, 1, **fk)
 
@@ -246,12 +283,19 @@ class AutoencoderKL(nn.Module):
         mean, logvar = m.chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Mode encode; returns scale_factor * mean."""
-        return self.cfg.scale_factor * self.moments(x)[0]
+    def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mode encode, or with ``noise`` (standard normal of the latent
+        shape) the sample mean + exp(logvar / 2) * noise; returns
+        scale_factor * z."""
+        mean, logvar = self.moments(x)
+        z = mean
+        if noise is not None:
+            z = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+        return self.cfg.scale_factor * z
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """z: scaled latents (B, T, h, w, z) -> frames (B, T, H, W, 3)."""
+        """Scaled latents -> frames: (B, T, h, w, z) -> (B, T, H, W, 3) with
+        the temporal decoder, (N, h, w, z) -> (N, H, W, 3) with the spatial."""
         z = z / self.cfg.scale_factor
         if self.use_quant_conv:
             z = self.post_quant_conv(z)

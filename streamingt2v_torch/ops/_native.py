@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``streamingt2v_torch/csrc``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, loaded through ``ctypes``.  The build runs at first use,
+Each source compiles with its own ``nvcc`` for ``sm_90a`` (all started
+together), and the objects link into one shared library with a plain C
+interface, loaded through ``ctypes``.  The build runs at first use,
 into ``streamingt2v_torch/_build/<hash>/``, where the hash covers the sources
 and the compiler flags, so an edited source rebuilds and an unchanged one
 loads the cached library.  Nothing here runs at import time: the CPU-only
@@ -24,10 +25,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attention.cu", "geglu_ff.cu", "temporal_conv.cu")
+SOURCES = ("flash_attention.cu", "geglu_ff.cu", "temporal_conv.cu", "fused_group_norm.cu",
+           "temporal_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libst2v_kernels.so"
 # the `dtype` argument of every exported function
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,6 +41,9 @@ _F = ctypes.c_float
 # C signatures of the exported functions (all return a cudaError_t as int).
 _SIGNATURES = {
     "st2v_flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+    "st2v_flash_attention_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "st2v_fused_group_norm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    "st2v_temporal_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "st2v_geglu_ff": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "st2v_temporal_conv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
                            _I),
@@ -65,21 +70,36 @@ def source_hash() -> str:
 
 
 def build() -> tuple:
-    """Compile the library if it is not cached; returns (path, seconds, log)."""
+    """Compile the library if it is not cached; returns (path, seconds, log).
+    One nvcc per source, all running at once, then one link."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0, "cached"
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
+    objs = [out_dir / (Path(src).stem + ".o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    proc = subprocess.run([nvcc, "-shared", "-o", tmp, *map(str, objs)], capture_output=True,
+                          text=True)
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
     os.replace(tmp, lib)
     (out_dir / "ptxas.log").write_text(log)
     return lib, time.perf_counter() - t0, log

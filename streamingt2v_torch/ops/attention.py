@@ -4,17 +4,22 @@ One entry point for every attention geometry of the pipeline: spatial
 self-attention (9216 tokens at the 72x128 latent), temporal attention (25
 frames over a huge batch), CLIP-token cross-attention, CAM per-pixel
 cross-attention (F x 7) and the single-head 512-dim VAE bottleneck.  The
-large geometries go to the flash kernel (K1) when the tensors lie on a
-CUDA device, exactly the geometries the JAX package sends to its Pallas
-kernel on a TPU; small ones take plain matrix products with an f32
-softmax.
+large geometries go to flash attention when the tensors lie on a CUDA
+device, exactly the geometries the JAX package sends to its Pallas kernel
+on a TPU: K1 on head-folded copies, or K2 on the packed layout when the
+routing in force (``ops/routing.py``) has ``flash_packed``; small ones take
+plain matrix products with an f32 softmax.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from streamingt2v_torch.ops.flash_attention import flash_attention
+from streamingt2v_torch.ops.flash_attention import (
+    flash_attention, flash_attention_packed, packed_applicable)
+from streamingt2v_torch.ops.routing import current_routing
 
 # Below this many score elements per (batch*head) the plain path is used.
 _FLASH_MIN_SCORE_ELEMS = 2048 * 2048
@@ -33,10 +38,14 @@ def _use_flash(bh: int, lq: int, lk: int, device: torch.device) -> bool:
     return lq >= 4096 and bh * lq * lk * 4 >= _FLASH_MIN_SCORE_BYTES
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain attention. q: (..., Lq, D), k/v: (..., Lk, D)."""
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention. q: (..., Lq, D), k/v: (..., Lk, D); ``bias`` is added
+    to the f32 scores (the CLIP text tower's causal mask)."""
     scale = q.shape[-1] ** -0.5
     s = torch.matmul(q, (k.to(v.dtype) * scale).transpose(-1, -2)).float()
+    if bias is not None:
+        s = s + bias
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v)
 
@@ -84,10 +93,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = hd // num_heads
     if num_heads * d != hd:
         raise ValueError(f"{hd} channels do not split into {num_heads} heads")
+    bh = b * num_heads
+    if (_use_flash(bh, lq, lk, q.device) and current_routing().flash_packed
+            and packed_applicable(num_heads, d)):
+        return flash_attention_packed(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      num_heads=num_heads)
     qh = q.reshape(b, lq, num_heads, d).transpose(1, 2)
     kh = k.reshape(b, lk, num_heads, d).transpose(1, 2)
     vh = v.reshape(b, lk, num_heads, d).transpose(1, 2)
-    bh = b * num_heads
     if _use_flash(bh, lq, lk, q.device):
         o = flash_attention(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
                             vh.reshape(bh, lk, d)).reshape(b, num_heads, lq, d)

@@ -1,8 +1,13 @@
-"""K1: flash attention over head-folded (B*H, L, D) tensors.
+"""K1 and K2: flash attention over head-folded (B*H, L, D) tensors (K1) and
+over head-packed (B, L, H*D) tensors (K2).
 
-Replaces the Pallas kernel ``_flash_kernel`` (``streamingt2v_tpu/ops/
-flash_attention.py:38``, launched from ``_flash_pallas:387``) with the
-hand-written CUDA kernel in ``csrc/flash_attention.cu``.
+K1 replaces the Pallas kernel ``_flash_kernel`` (``streamingt2v_tpu/ops/
+flash_attention.py:38``, launched from ``_flash_pallas:387``), K2 replaces
+``_flash_kernel_packed`` (``:201``, launched from ``_flash_pallas_packed:320``).
+Both are one hand-written CUDA kernel in ``csrc/flash_attention.cu`` that
+reads its rows at a stride: D for K1, H*D from the head's column offset for
+K2, so the packed layout needs no head-fold transposes (four copies of q, k,
+v and o per call on the K1 route).
 
 What bounds it on the H100: at D=64 the UNet's 9216-token self-attention
 does 4*L^2*D flops over 4*L*D*2 bytes per head, so it is tensor-core
@@ -26,6 +31,8 @@ import torch
 from streamingt2v_torch.ops import _native
 
 _HEAD_DIMS = (64, 512)
+# the JAX package's cap on the packed lane width (PACKED_MAX_LANES)
+PACKED_MAX_LANES = 1280
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -77,3 +84,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------- K2 -----
+
+def packed_applicable(num_heads: int, head_dim: int) -> bool:
+    """The JAX package's gate for the packed kernel (64-multiple head dims,
+    at most 1280 packed lanes), narrowed to the head dims K2 is built for."""
+    return (head_dim % 64 == 0 and num_heads * head_dim <= PACKED_MAX_LANES
+            and head_dim in _HEAD_DIMS)
+
+
+def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     num_heads: int) -> torch.Tensor:
+    """Plain version over (B, L, H*D) with f32 scores (the JAX package's
+    ``_attention_reference_packed``)."""
+    b, lq, hd = q.shape
+    d = hd // num_heads
+    qh = q.float().reshape(b, lq, num_heads, d).transpose(1, 2)
+    kh = k.float().reshape(b, k.shape[1], num_heads, d).transpose(1, 2)
+    vh = v.float().reshape(b, v.shape[1], num_heads, d).transpose(1, 2)
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * d ** -0.5, dim=-1)
+    return torch.matmul(p, vh).transpose(1, 2).reshape(b, lq, hd).to(v.dtype)
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           num_heads: int) -> torch.Tensor:
+    """Softmax attention over head-packed q (B, Lq, H*D), k/v (B, Lk, H*D).
+    CPU tensors take the plain version; CUDA tensors launch K2 (or raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_packed_reference(q, k, v, num_heads)
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"flash_attention_packed: tensors must share one CUDA device, "
+                         f"got {q.device}")
+    if q.dtype not in _native.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_packed: f32 or bf16 of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention_packed: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    d = hd // num_heads
+    if num_heads * d != hd or not packed_applicable(num_heads, d):
+        raise ValueError(f"flash_attention_packed: {num_heads} heads of {hd} channels "
+                         f"(head dim 64 or 512, at most {PACKED_MAX_LANES} channels)")
+    if not 0 < b * num_heads <= 65535:
+        raise ValueError(f"flash_attention_packed: batch*heads {b * num_heads} outside "
+                         f"(0, 65535]")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_packed: q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_packed: q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    rc = _native.library().st2v_flash_attention_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, lq, lk, d,
+        _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
+    _native.check(rc, "flash_attention_packed")
+    flash_attention_packed.launches += 1
+    return out
+
+
+flash_attention_packed.launches = 0

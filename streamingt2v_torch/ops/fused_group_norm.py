@@ -1,0 +1,103 @@
+"""K5: GroupNorm (+ SiLU) over channel-last (N, L, C) with statistics over
+(L, C/G) per row, as two launches of the hand-written CUDA kernels in
+``csrc/fused_group_norm.cu``.
+
+Replaces the Pallas kernel ``_kernel`` (``streamingt2v_tpu/ops/
+fused_group_norm.py:30``, launched from ``fused_group_norm:83``).  The TPU
+kernel carries its group sums across a sequential grid axis; on the H100 the
+blocks run in parallel, so pass 1 writes per-(row, L-chunk, group)
+count/mean/M2 partials to a small scratch and pass 2 merges its row's
+partials (Chan's formula) before it normalises.  Partials around each tile's
+own mean keep the variance of a group at a large common offset, which the
+one-pass E[x^2] - E[x]^2 of the TPU kernel loses.
+
+What bounds it on the H100: bytes.  It reads x twice and writes the output
+once (at the SD-VAE's (2, 921600, 128) level, 708 MB in bf16) and keeps the
+normalised tensor and its f32 upcast out of device memory; the plain
+version materialises both.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from streamingt2v_torch.ops import _native
+
+MAX_CHANNELS = 4096   # the JAX package's fits_fused cap
+MAX_GROUPS = 256
+# about this many blocks per launch (a few waves of 132 SMs), at most 256
+# L-chunks per row so that each pass-2 block merges few partials
+_TARGET_BLOCKS = 1024
+_MAX_CHUNKS = 256
+
+
+def fits_fused(l: int, c: int, num_groups: int) -> bool:
+    """The JAX package's gate (``fits_fused``: C <= 4096) plus what the
+    kernel needs: 16-byte channel rows (C % 8) and at most 256 groups."""
+    return 0 < l and c <= MAX_CHANNELS and c % 8 == 0 and 0 < num_groups <= MAX_GROUPS \
+        and c % num_groups == 0
+
+
+def fused_group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                               num_groups: int, eps: float = 1e-6,
+                               act: Optional[str] = None) -> torch.Tensor:
+    """Plain version in f32: two-pass statistics per (row, group)."""
+    n, l, c = x.shape
+    xg = x.float().reshape(n, l, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(n, l, c) * scale.float() + bias.float()
+    if act == "silu":
+        out = F.silu(out)
+    return out.to(x.dtype)
+
+
+def _rows_per_chunk(n: int, l: int) -> int:
+    chunks = max(1, min(_MAX_CHUNKS, -(-_TARGET_BLOCKS // n), l))
+    return -(-l // chunks)
+
+
+def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                     num_groups: int, eps: float = 1e-6,
+                     act: Optional[str] = None) -> torch.Tensor:
+    """x: (N, L, C); scale, bias: (C,) -> (N, L, C) in x's dtype.  CPU
+    tensors take the plain version; CUDA tensors launch K5 (or raise)."""
+    if act not in (None, "silu"):
+        raise ValueError(act)
+    if x.device.type == "cpu":
+        return fused_group_norm_reference(x, scale, bias, num_groups=num_groups, eps=eps,
+                                          act=act)
+    if not x.is_cuda:
+        raise ValueError(f"fused_group_norm: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in _native.DTYPE_CODE:
+        raise TypeError(f"fused_group_norm: f32 or bf16, got {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"fused_group_norm: expected (N, L, C), got {tuple(x.shape)}")
+    n, l, c = x.shape
+    if not fits_fused(l, c, num_groups) or not 0 < n <= 65535:
+        raise ValueError(f"fused_group_norm: N={n} L={l} C={c} groups={num_groups} not "
+                         f"supported")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,) or t.device != x.device \
+                or not t.is_contiguous():
+            raise TypeError(f"fused_group_norm: {name} must be contiguous f32 ({c},) on "
+                            f"x's device")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("fused_group_norm: x must be contiguous and 16-byte aligned")
+    rows = _rows_per_chunk(n, l)
+    chunks = -(-l // rows)
+    part = torch.empty((n, chunks, num_groups, 3), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    rc = _native.library().st2v_fused_group_norm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
+        n, l, c, num_groups, rows, eps, int(act == "silu"), _native.DTYPE_CODE[x.dtype],
+        _native.stream_of(x))
+    _native.check(rc, "fused_group_norm")
+    fused_group_norm.launches += 1
+    return out
+
+
+fused_group_norm.launches = 0

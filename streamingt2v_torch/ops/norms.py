@@ -5,6 +5,10 @@ float32 with the two-pass shifted variance E[(x - mean)^2] for GroupNorm
 (the JAX package's f32 path; its bf16 one-pass form with the robust
 fallback is a TPU bandwidth trade the port does not need) and the
 one-pass clamped form for LayerNorm, as the JAX package computes it.
+
+Per-frame (4-D) GroupNorm(+SiLU) runs the fused kernel K5
+(``ops/fused_group_norm.py``) when the routing in force has
+``fused_group_norm``: the JAX package's ``STREAMINGT2V_FUSED_GN`` route.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from streamingt2v_torch.ops.fused_group_norm import fits_fused, fused_group_norm
+from streamingt2v_torch.ops.routing import current_routing
 
 
 def _grouped(x: torch.Tensor, num_groups: int) -> tuple:
@@ -45,6 +52,13 @@ def group_norm(
     optionally fused with SiLU (``act='silu'``)."""
     if act not in (None, "silu"):
         raise ValueError(act)
+    if x.ndim == 4 and current_routing().fused_group_norm:
+        n, hh, ww, c = x.shape
+        g = min(num_groups, c)
+        if fits_fused(hh * ww, c, g):
+            return fused_group_norm(x.reshape(n, hh * ww, c).contiguous(),
+                                    scale.float().contiguous(), bias.float().contiguous(),
+                                    num_groups=g, eps=eps, act=act).reshape(x.shape)
     xg, _ = _grouped(x, num_groups)
     mean, inv = _group_stats(xg, eps)
     out = ((xg - mean) * inv).reshape(x.shape) * scale.float() + bias.float()

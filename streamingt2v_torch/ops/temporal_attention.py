@@ -1,0 +1,117 @@
+"""K6: per-pixel attention over the frame axis on the spatial-major layout.
+
+Replaces the Pallas kernel ``_kernel`` (``streamingt2v_tpu/ops/
+temporal_attention.py:43``, launched from ``_temporal_attention_pallas:94``)
+with the hand-written CUDA kernel in ``csrc/temporal_attention.cu``.
+
+The temporal transformers keep their activations spatial-major, (B*T, S, H*D);
+attention over frames needs, per (pixel, head), the T rows that sit S*H*D
+apart.  The plain version (the JAX package's fallback) transposes q, k, v to
+(B*S, T, H*D), attends, and transposes o back: four full copies.  The kernel
+reads each (pixel, head)'s frames where they lie, keeps the T x T scores on
+chip and writes o in place.
+
+What bounds it on the H100: bytes.  At the stage-2 level-0 geometry (38
+frames, 14400 pixels, 5 heads of 64) it moves q, k, v and o once each, about
+1.4 GB in bf16, for about 27 GFLOP: about 20 flops per byte, so it runs its
+products on the FMA units in f32 and spends its effort on reading each
+element once.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from streamingt2v_torch.ops import _native
+from streamingt2v_torch.ops.attention import attention
+
+MAX_FRAMES = 64
+MAX_HEAD_DIM = 128
+# shared memory for the staged key and value rows of one block
+_SMEM_BUDGET = 96 * 1024
+_MAX_PAIRS = 8
+_WARPS = 8
+
+
+def fits_temporal_attention(frames_q: int, frames_kv: int, head_dim: int) -> bool:
+    """The JAX package's gate without ``interpret``: T <= 64, d <= 128."""
+    return 0 < max(frames_q, frames_kv) <= MAX_FRAMES and 0 < head_dim <= MAX_HEAD_DIM
+
+
+def temporal_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                 batch: int, frames_q: int, frames_kv: int,
+                                 num_heads: int) -> torch.Tensor:
+    """Plain version (the JAX package's fallback): rearrange to time-major,
+    run the attention dispatcher, rearrange back."""
+    bt, s, hd = q.shape
+
+    def to_time_major(z, t):
+        return z.reshape(batch, t, s, -1).transpose(1, 2).reshape(batch * s, t, -1)
+
+    o = attention(to_time_major(q, frames_q), to_time_major(k, frames_kv),
+                  to_time_major(v, frames_kv), num_heads=num_heads)
+    return o.reshape(batch, s, frames_q, -1).transpose(1, 2).reshape(bt, s, hd)
+
+
+def _pairs_per_block(frames_kv: int, d: int) -> int:
+    per_pair = 4 * frames_kv * (2 * d + 1)
+    free = _SMEM_BUDGET - 4 * _WARPS * (d + MAX_FRAMES)
+    return max(1, min(_MAX_PAIRS, free // per_pair))
+
+
+def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             batch: int, frames_q: int, frames_kv: int,
+                             num_heads: int) -> torch.Tensor:
+    """q: (batch*frames_q, S, H*D); k, v: (batch*frames_kv, S, H*D) -> like q.
+    CPU tensors take the plain version; CUDA tensors launch K6 (or raise)."""
+    kw = dict(batch=batch, frames_q=frames_q, frames_kv=frames_kv, num_heads=num_heads)
+    if q.device.type == "cpu":
+        return temporal_attention_reference(q, k, v, **kw)
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"temporal_attention: tensors must share one CUDA device, got "
+                         f"{q.device}")
+    if q.dtype not in _native.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"temporal_attention: f32 or bf16 of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 3:
+        raise ValueError(f"temporal_attention: expected (B*T, S, H*D), got {tuple(q.shape)}")
+    bt, s, hd = q.shape
+    d = hd // num_heads
+    if (num_heads * d != hd or bt != batch * frames_q
+            or tuple(k.shape) != (batch * frames_kv, s, hd) or k.shape != v.shape):
+        raise ValueError(f"temporal_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} for batch {batch}, frames {frames_q}/{frames_kv}, "
+                         f"{num_heads} heads")
+    if not fits_temporal_attention(frames_q, frames_kv, d) or not 0 < batch <= 65535:
+        raise ValueError(f"temporal_attention: frames {frames_q}/{frames_kv} head dim {d} "
+                         f"batch {batch} not supported (T <= {MAX_FRAMES}, "
+                         f"d <= {MAX_HEAD_DIM})")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("temporal_attention: q, k and v must be contiguous")
+    out = torch.empty_like(q)
+    rc = _native.library().st2v_temporal_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, frames_q, frames_kv,
+        s * num_heads, d, _pairs_per_block(frames_kv, d), _native.DTYPE_CODE[q.dtype],
+        d ** -0.5 * math.log2(math.e), _native.stream_of(q))
+    _native.check(rc, "temporal_attention")
+    fused_temporal_attention.launches += 1
+    return out
+
+
+fused_temporal_attention.launches = 0
+
+
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int,
+                       frames_q: int, frames_kv: int, num_heads: int) -> torch.Tensor:
+    """Per-pixel attention over the frame axis, spatial-major layout
+    (``streamingt2v_tpu/ops/temporal_attention.py:135``): equivalent to
+    rearranging (b t) s c -> (b s) t c, attending, and rearranging back.
+    Geometries inside the kernel's gate go to K6; the rest to the plain
+    version."""
+    kw = dict(batch=batch, frames_q=frames_q, frames_kv=frames_kv, num_heads=num_heads)
+    d = q.shape[-1] // num_heads
+    if num_heads * d == q.shape[-1] and fits_temporal_attention(frames_q, frames_kv, d):
+        return fused_temporal_attention(q, k, v, **kw)
+    return temporal_attention_reference(q, k, v, **kw)

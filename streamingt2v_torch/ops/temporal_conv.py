@@ -16,8 +16,9 @@ bound; at the UNet's 320-1280-channel levels it is a kt-tap matrix product
 on the tensor cores.  The kernel reads each (T, 16 positions, 32 channels)
 input tile once per 32-output-channel tile with the prologue applied on
 the way into shared memory (so the normalised activation never reaches
-device memory), keeps the kt weight taps beside it, accumulates every
-frame in f32 registers and applies bias and epilogue before its one store.
+device memory), keeps the kt weight taps beside it, accumulates 32 frames
+at a time in f32 registers (re-reading the kt - 1 halo frames for the next
+32) and applies bias and epilogue before its one store.
 """
 
 from __future__ import annotations
@@ -28,17 +29,25 @@ import torch
 
 from streamingt2v_torch.ops import _native
 
-# the kernel keeps T x 32 output channels of accumulators in registers
-MAX_FRAMES = 32
 _TILE_S = 16
 _MAX_GRID = 65535
+# the JAX package's VMEM budget in its gate (streamingt2v_tpu/ops/temporal_conv.py)
+_JAX_VMEM_BUDGET = 10 * 1024 * 1024
 
 
-def fits_temporal_conv(t: int, s: int, kt: int, batch: int) -> bool:
-    """Geometries the kernel takes: centred odd taps up to 5, at most 32
-    frames, and a launch grid inside CUDA's y/z limits."""
-    return (kt % 2 == 1 and kt <= 5 and 0 < t <= MAX_FRAMES
-            and -(-s // _TILE_S) <= _MAX_GRID and 0 < batch <= _MAX_GRID)
+def _kernel_takes(kt: int, s: int, batch: int) -> bool:
+    """Centred odd taps up to 5 and a launch grid inside CUDA's y/z limits;
+    the kernel takes any T."""
+    return kt % 2 == 1 and kt <= 5 and -(-s // _TILE_S) <= _MAX_GRID and 0 < batch <= _MAX_GRID
+
+
+def fits_temporal_conv(t: int, c: int, c_out: int, kt: int, *, s: int = 1,
+                       batch: int = 1) -> bool:
+    """The JAX package's gate (``fits_temporal_conv:276``: its VMEM budget,
+    which bounds T) and what the kernel takes."""
+    dsize = 2
+    jax_fits = (2 * t * 8 * c + kt * c * 128 * 2) * dsize + 4 * t * 8 * 128 <= _JAX_VMEM_BUDGET
+    return t > 0 and jax_fits and _kernel_takes(kt, s, batch)
 
 
 def temporal_conv_reference(x, w, b, res=None, res_w=None, pre_a=None, pre_b=None):
@@ -76,7 +85,7 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"temporal_conv: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     bsz, t, s, c = x.shape
     kt, _, c_out = w.shape
-    if not fits_temporal_conv(t, s, kt, bsz):
+    if not _kernel_takes(kt, s, bsz):
         raise ValueError(f"temporal_conv: geometry B={bsz} T={t} S={s} kt={kt} not supported")
     if (pre_a is None) != (pre_b is None) or (res is None) != (res_w is None):
         raise ValueError("temporal_conv: pre_a/pre_b and res/res_w come in pairs")

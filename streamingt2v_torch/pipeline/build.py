@@ -1,5 +1,6 @@
-"""Stage-1 model construction with random weights on the device
-(counterpart of ``streamingt2v_tpu/pipeline/build.py:93-175``).
+"""Model construction with random weights on the device: stage 1
+(counterpart of ``streamingt2v_tpu/pipeline/build.py:93-175``) and stage 2
+(``build_enhance_random``, ``:190-254``).
 
 Every module is built directly on ``device`` in its dtype and filled from
 its own ``torch.Generator`` seeded from ``seed``; checkpoint loading
@@ -12,12 +13,17 @@ import dataclasses
 
 import torch
 
-from streamingt2v_torch.config import PipelineConfig
+from streamingt2v_torch.config import EnhanceConfig, PipelineConfig, VAEConfig
+from streamingt2v_torch.diffusion.ddim import DDIMScheduler
+from streamingt2v_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
+from streamingt2v_torch.models.clip_text import CLIPTextConfig, CLIPTextTower, CLIPTokenizer
 from streamingt2v_torch.models.conditioner import Conditioner
 from streamingt2v_torch.models.controlnet import ControlNet
+from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet, I2VGenXLUNetConfig
 from streamingt2v_torch.models.layers import init_random_
 from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.video_unet import VideoUNet
+from streamingt2v_torch.pipeline.enhance import EnhanceModels, EnhancePipeline
 from streamingt2v_torch.pipeline.streaming import Stage1Pipeline, StreamingModels
 
 
@@ -49,3 +55,37 @@ def build_models(cfg: PipelineConfig, seed: int = 0, *, device="cpu", bf16: bool
 def build_pipeline(cfg: PipelineConfig, seed: int = 0, *, device="cpu", bf16: bool = False,
                    init: bool = True) -> Stage1Pipeline:
     return Stage1Pipeline(cfg, build_models(cfg, seed, device=device, bf16=bf16, init=init))
+
+
+def build_enhance_models(seed: int = 0, *, device="cpu", bf16: bool = True, init: bool = True,
+                         unet: I2VGenXLUNetConfig = I2VGenXLUNetConfig(),
+                         vae: VAEConfig = dataclasses.replace(VAEConfig(),
+                                                              temporal_decoder=False),
+                         clip_vision: CLIPVisionConfig = CLIPVisionConfig(),
+                         text: CLIPTextConfig = CLIPTextConfig(),
+                         tokenizer_length: int = 77) -> EnhanceModels:
+    """The stage-2 modules on ``device``, at the I2VGen-XL release's widths
+    unless given: the UNet, OpenCLIP ViT-H vision and text towers (bfloat16
+    when ``bf16``) and the SD VAE with quant convs (its config's dtype, f32;
+    ``EnhanceConfig.vae_bf16`` casts it), with the synthetic tokenizer."""
+    device = torch.device(device)
+    fk = dict(device=device, dtype=torch.bfloat16 if bf16 else torch.float32)
+    models = EnhanceModels(
+        unet=I2VGenXLUNet(unet, **fk),
+        vae=AutoencoderKL(vae, use_quant_conv=True, device=device,
+                          dtype=vae.dtypes.vae_compute_dtype),
+        clip_vision=CLIPVisionTower(clip_vision, **fk),
+        text_encoder=CLIPTextTower(text, **fk),
+        scheduler=DDIMScheduler(),
+        tokenizer=CLIPTokenizer.synthetic(tokenizer_length),
+    )
+    for i, name in enumerate(("unet", "vae", "clip_vision", "text_encoder")):
+        module = getattr(models, name).eval()
+        if init:
+            init_random_(module, torch.Generator(device).manual_seed(seed * 1000 + 100 + i))
+    return models
+
+
+def build_enhance(cfg: EnhanceConfig, seed: int = 0, **kw) -> EnhancePipeline:
+    """``EnhancePipeline`` over ``build_enhance_models(seed, **kw)``."""
+    return EnhancePipeline(cfg, build_enhance_models(seed, **kw))

@@ -10,7 +10,9 @@
   3. Every chunk is decoded by the temporal VAE in chunks of
      ``decode_chunk_size`` frames.
 
-All model weights stay resident on the device.  Noise comes from a
+All model weights stay resident on the device.  ``image_to_video`` runs
+under the configuration's kernel routing (``PipelineConfig.routing``, all
+off: the JAX package's default kernels).  Noise comes from a
 ``noise(generation, stream, shape)`` function (``utils/rng.py``), so a
 caller can inject the draws of another implementation.
 """
@@ -31,6 +33,7 @@ from streamingt2v_torch.models.controlnet import ControlNet
 from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.video_unet import VideoUNet
 from streamingt2v_torch.models.wrappers import openai_wrapper, streaming_wrapper
+from streamingt2v_torch.ops.routing import use_routing
 from streamingt2v_torch.utils.rng import GeneratorNoise, NoiseFn
 
 Cond = Dict[str, torch.Tensor]
@@ -127,6 +130,10 @@ class Stage1Pipeline:
 
         ``num_frames`` is the stage-1 target ((num_frames+1)//2 of the
         product); ``noise`` overrides the default generator-backed draws."""
+        with use_routing(self.cfg.routing):
+            return self._image_to_video(image, num_frames, seed, noise)
+
+    def _image_to_video(self, image, num_frames, seed, noise) -> torch.Tensor:
         cfg = self.cfg
         inf = cfg.inference
         seed = cfg.seed if seed is None else seed

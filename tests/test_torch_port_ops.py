@@ -1,12 +1,14 @@
-"""PyTorch port, ops layer: each kernel's plain version against the JAX
-package's Pallas kernel in interpret mode, the other ops against their JAX
-counterparts, the dispatcher's routing, and the import boundary.
+"""PyTorch port, ops layer: each kernel's plain version (K1-K6) against the
+JAX package's Pallas kernel in interpret mode, the other ops against their
+JAX counterparts, the kernels' gates against the JAX gates, the dispatcher's
+routing, and the import boundary.
 
 Tolerances are stated relative to max |reference|: 1e-5 for the kernels'
 plain versions and the norms (f32 with a different summation order on
 each side), 1e-4 where the JAX side takes one-pass statistics."""
 
 import ast
+import functools
 import importlib
 import pathlib
 import subprocess
@@ -20,13 +22,23 @@ import torch
 from _torch_port_helpers import assert_close, t
 from streamingt2v_tpu.ops import norms as jax_norms
 from streamingt2v_tpu.ops.embedding import timestep_embedding as jax_timestep_embedding
+from streamingt2v_tpu.ops import flash_attention as jax_flash_mod
 from streamingt2v_tpu.ops.flash_attention import flash_attention as jax_flash
 from streamingt2v_tpu.ops.fused_ff import geglu_ff as jax_geglu
+from streamingt2v_tpu.ops.fused_group_norm import fused_group_norm as jax_fused_gn
+from streamingt2v_tpu.ops.temporal_attention import temporal_attention as jax_temporal_attention
+from streamingt2v_tpu.ops.temporal_conv import fits_temporal_conv as jax_fits_temporal_conv
 from streamingt2v_tpu.ops.temporal_conv import temporal_conv as jax_temporal_conv
+from streamingt2v_torch.config import KernelRouting
 from streamingt2v_torch.ops import norms as port_norms
 from streamingt2v_torch.ops.embedding import timestep_embedding
-from streamingt2v_torch.ops.flash_attention import _kernel_head_dim, flash_attention
+from streamingt2v_torch.ops.flash_attention import (
+    _kernel_head_dim, flash_attention, flash_attention_packed, packed_applicable)
 from streamingt2v_torch.ops.fused_ff import geglu_ff
+from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
+from streamingt2v_torch.ops.routing import current_routing, use_routing
+from streamingt2v_torch.ops.temporal_attention import (
+    fused_temporal_attention, temporal_attention)
 from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
 
 # the ops packages re-export the function ``attention``; take the modules
@@ -56,6 +68,30 @@ def test_flash_head_dims():
     assert _kernel_head_dim(512) == 512
     with pytest.raises(ValueError):
         _kernel_head_dim(80)
+
+
+# ---------------------------------------------------------------- K2 -----
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [
+    (2, 300, 145, 10, 64),   # ragged q and kv lengths (the cross-attention's 145)
+    (1, 200, 200, 2, 128),   # D=128 lane slices
+    (2, 130, 7, 2, 64),
+])
+def test_flash_attention_packed_plain_matches_pallas(b, lq, lk, h, d):
+    rng = np.random.RandomState(8)
+    q = rng.randn(b, lq, h * d).astype(np.float32)
+    k, v = (rng.randn(b, lk, h * d).astype(np.float32) for _ in range(2))
+    ref = jax_flash_mod.flash_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               num_heads=h, interpret=True)
+    got = flash_attention_packed(t(q), t(k), t(v), num_heads=h)
+    assert_close(got, ref, KERNEL_TOL, "flash packed")
+
+
+@pytest.mark.parametrize("heads,d", [(5, 64), (10, 64), (20, 64), (1, 512), (2, 512),
+                                     (8, 128), (4, 32), (3, 96)])
+def test_packed_gate_narrows_the_jax_gate_to_kernel_head_dims(heads, d):
+    want = jax_flash_mod.packed_applicable(heads, d) and d in (64, 512)
+    assert packed_applicable(heads, d) == want
 
 
 # ---------------------------------------------------------------- K3 -----
@@ -109,11 +145,23 @@ def test_temporal_conv_plain_matches_pallas(b, t_len, s, c, co, pre, res):
 
 
 def test_temporal_conv_gate():
-    assert fits_temporal_conv(25, 9216, 3, 2)
-    assert fits_temporal_conv(8, 1024 * 576, 3, 1)
-    assert not fits_temporal_conv(33, 64, 3, 1)   # more frames than the kernel holds
-    assert not fits_temporal_conv(25, 64, 2, 1)   # even taps
-    assert not fits_temporal_conv(25, 64, 7, 1)
+    assert fits_temporal_conv(25, 320, 320, 3, s=9216, batch=2)
+    assert fits_temporal_conv(8, 128, 128, 3, s=1024 * 576, batch=1)
+    assert fits_temporal_conv(38, 1280, 1280, 3, s=240)      # more than 32 frames
+    assert fits_temporal_conv(189, 1280, 1280, 3)            # the JAX budget's edge
+    assert not fits_temporal_conv(190, 1280, 1280, 3)
+    assert not fits_temporal_conv(25, 64, 64, 2)             # even taps
+    assert not fits_temporal_conv(25, 64, 64, 7)
+    assert not fits_temporal_conv(8, 128, 128, 3, s=16 * 65536)   # grid y limit
+    assert not fits_temporal_conv(8, 128, 128, 3, batch=65536)    # grid z limit
+
+
+@pytest.mark.parametrize("c", [3, 128, 320, 640, 1280])
+@pytest.mark.parametrize("kt", [1, 3, 5])
+def test_temporal_conv_gate_admits_what_jax_admits(c, kt):
+    for t_len in range(1, 65):
+        assert fits_temporal_conv(t_len, c, c, kt, s=14400) == \
+            jax_fits_temporal_conv(t_len, c, c, kt), (t_len, c, kt)
 
 
 @pytest.mark.parametrize("fn,args", [
@@ -123,14 +171,121 @@ def test_temporal_conv_gate():
                         torch.empty(32)]),
     (temporal_conv, lambda: [torch.empty(1, 5, 16, 8, device="meta"),
                              torch.empty(3, 8, 8, device="meta"), torch.empty(8)]),
+    (functools.partial(flash_attention_packed, num_heads=2),
+     lambda: [torch.empty(1, 64, 128, device="meta")] * 3),
+    (functools.partial(fused_group_norm, num_groups=8),
+     lambda: [torch.empty(2, 16, 64, device="meta"), torch.empty(64), torch.empty(64)]),
+    (functools.partial(fused_temporal_attention, batch=1, frames_q=4, frames_kv=4, num_heads=2),
+     lambda: [torch.empty(4, 16, 128, device="meta")] * 3),
 ])
 def test_wrappers_take_plain_version_only_on_cpu(fn, args):
     """A tensor that is neither on the CPU nor on CUDA is refused, not
     quietly computed by the plain version."""
-    before = fn.launches
+    wrapper = getattr(fn, "func", fn)
+    before = wrapper.launches
     with pytest.raises(ValueError):
         fn(*args())
-    assert fn.launches == before
+    assert wrapper.launches == before
+
+
+# ---------------------------------------------------------------- K5 -----
+
+@pytest.mark.parametrize("n,l,c,groups", [
+    (3, 48, 64, 8),       # tests/test_ops.py's geometry
+    (2, 4100, 64, 32),    # L not a multiple of the Pallas kernel's 4096-row blocks
+    (1, 30, 320, 32),     # 10 channels per group
+])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_fused_group_norm_plain_matches_pallas(n, l, c, groups, act):
+    """1e-4: the Pallas kernel takes one-pass E[x^2] - E[x]^2 statistics."""
+    rng = np.random.RandomState(9)
+    x = rng.randn(n, l, c).astype(np.float32)
+    s = rng.randn(c).astype(np.float32)
+    b = rng.randn(c).astype(np.float32)
+    ref = jax_fused_gn(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), num_groups=groups,
+                       eps=1e-5, act=act or "none", interpret=True)
+    got = fused_group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5, act=act)
+    assert_close(got, ref, 1e-4, "fused group norm")
+
+
+def test_fused_group_norm_plain_keeps_a_large_offset():
+    """The plain version against the port's group_norm and against f64
+    statistics where a group sits at offset 100 with spread 1e-3 (the regime
+    of tests/test_ops.py::test_group_norm_large_offset_low_variance; the
+    absolute 5e-2 on the unit-scale output separates two-pass statistics from
+    cancelled one-pass ones)."""
+    rng = np.random.RandomState(11)
+    x = (100.0 + rng.randn(2, 16, 32) * 1e-3).astype(np.float32)
+    ones, zeros = np.ones(32, np.float32), np.zeros(32, np.float32)
+    got = fused_group_norm(t(x), t(ones), t(zeros), num_groups=4).numpy()
+    plain = port_norms.group_norm(t(x).reshape(2, 4, 4, 32), t(ones), t(zeros),
+                                  num_groups=4).numpy().reshape(x.shape)
+    xr = x.astype(np.float64).reshape(2, 16, 4, 8)
+    ref = ((xr - xr.mean(axis=(1, 3), keepdims=True))
+           / np.sqrt(xr.var(axis=(1, 3), keepdims=True) + 1e-6)).reshape(x.shape)
+    np.testing.assert_allclose(got, ref, atol=5e-2, rtol=0)
+    np.testing.assert_allclose(got, plain, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,groups,act", [
+    ((2, 6, 6, 64), 32, "silu"), ((3, 4, 5, 16), 8, None), ((2, 4, 4, 12), 4, "silu"),
+])
+def test_group_norm_fused_route_matches_plain(shape, groups, act):
+    """Under the fused_group_norm routing a 4-D GroupNorm takes the K5
+    wrapper (its plain version on the CPU) where the kernel's gate allows,
+    and gives what the plain path gives."""
+    rng = np.random.RandomState(12)
+    x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+    s = (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32)
+    b = (0.1 * rng.randn(shape[-1])).astype(np.float32)
+    off = port_norms.group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5, act=act)
+    with use_routing(KernelRouting(fused_group_norm=True)):
+        on = port_norms.group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5, act=act)
+    assert_close(on, off.numpy(), KERNEL_TOL, "fused route")
+
+
+# ---------------------------------------------------------------- K6 -----
+
+@pytest.mark.parametrize("b,tq,tkv,s,h,d", [
+    (2, 25, 25, 256, 5, 64),   # tests/test_ops.py's geometries
+    (2, 25, 7, 256, 5, 64),    # frames_q != frames_kv (the CAM 25 x 7 contract)
+    (2, 38, 38, 96, 8, 64),    # stage 2's 38 frames
+])
+def test_temporal_attention_plain_matches_pallas(b, tq, tkv, s, h, d):
+    rng = np.random.RandomState(13)
+    q = rng.randn(b * tq, s, h * d).astype(np.float32)
+    k, v = (rng.randn(b * tkv, s, h * d).astype(np.float32) for _ in range(2))
+    kw = dict(batch=b, frames_q=tq, frames_kv=tkv, num_heads=h)
+    ref = jax_temporal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw,
+                                 interpret=True)
+    assert_close(fused_temporal_attention(t(q), t(k), t(v), **kw), ref, KERNEL_TOL, "K6 plain")
+    assert_close(temporal_attention(t(q), t(k), t(v), **kw), ref, KERNEL_TOL, "dispatcher")
+
+
+def test_temporal_attention_outside_the_gate_takes_the_plain_version():
+    rng = np.random.RandomState(14)
+    q = t(rng.randn(70, 4, 16).astype(np.float32))   # 70 frames > 64
+    before = fused_temporal_attention.launches
+    out = temporal_attention(q, q, q, batch=1, frames_q=70, frames_kv=70, num_heads=2)
+    assert out.shape == q.shape and fused_temporal_attention.launches == before
+
+
+# ------------------------------------------------------------- routing ---
+
+def test_routing_defaults_to_the_jax_switches_and_resets():
+    from streamingt2v_torch.config import EnhanceConfig, PipelineConfig
+
+    assert current_routing() == KernelRouting()
+    assert PipelineConfig().routing == KernelRouting()
+    assert EnhanceConfig().routing == KernelRouting(True, True, True)
+    with use_routing(KernelRouting(flash_packed=True)):
+        assert current_routing().flash_packed
+        with pytest.raises(RuntimeError):
+            with use_routing(KernelRouting(temporal_attention=True)):
+                assert current_routing().temporal_attention
+                raise RuntimeError
+        assert current_routing() == KernelRouting(flash_packed=True)
+    assert current_routing() == KernelRouting()
 
 
 # --------------------------------------------------------------- norms ---
