@@ -13,7 +13,8 @@ Phases, one line each:
      attention, K3 GEGLU FF, K4 temporal conv, K5 fused GroupNorm, K6
      temporal attention) at the main paths' shapes in bf16 plus f32 cases,
      against its plain PyTorch version on the same inputs, with both times
-     (CUDA events, median of a few runs);
+     (CUDA events, median of a few runs) at one timed main-path shape each;
+     there also its bound and its library yardstick (below);
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32) and stage 2 end to end on a small input (a narrow
      I2VGen-XL at 64x128, f32, the enhance routing) on the card, through
@@ -30,6 +31,23 @@ Phases, one line each:
      seconds, resident and peak memory and the launch counts of its kernels.
 Then one JSON line with the kernel records and, last, the result line.
 
+Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
+repeats the kernel's arithmetic step by step in f32: a check, no yardstick of
+speed), ``library_ms`` one PyTorch call that computes the same function on
+the same inputs, checked against the plain version at the kernel's
+tolerance: ``F.scaled_dot_product_attention`` on a view for K1, K2 and K6,
+``F.conv3d`` on the channels-last-3d view for K4's bare variant (no
+prologue, no epilogue; the kernel's own bare time is ``bare_ms``),
+``F.group_norm`` for K5's act=None function; K3 has none (LayerNorm, two
+GEMMs, GEGLU and the residual take four calls or more), so null.  These
+library calls are yardsticks only: the port never makes them.  TF32 is off
+for them as for everything here.  ``bound_ms`` is the least time the card
+could take for the same work, computed from the shape (``work_*``: the
+matrix products' flops over 989 TFLOP/s bf16, each input read and each
+output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
+two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice
+and enhance phases.
+
 There is no CPU path: without CUDA the script exits non-zero before any
 result.  Every failed phase raises.
 """
@@ -39,6 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +76,10 @@ ENHANCE_FRAMES = 64
 # on-chip intermediates (probabilities, LN output, GEGLU product, prologue
 # output) to 8 mantissa bits, f32 differs only in summation order.
 TOL = {"bf16": 2e-2, "f32": 1e-4}
+# The card's published peaks (H100 SXM data sheet, dense, at 700 W) for the
+# kernels' bounds: bf16 tensor cores and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 # Small-input references: max-abs on the [-1, 1] video, f32 on both devices
 # (stage 1 measured 5.3e-5 on an H100; the sampler's 1/sigma steps and stage
 # 2's guidance scale of 9 amplify summation-order differences).
@@ -85,6 +108,80 @@ def _time_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# Work of each kernel at a shape, as (flops, bytes): flops are the matrix
+# products' multiply-adds times two (softmax, prologue and epilogue arithmetic
+# is left out: it runs beside the products, not on the tensor cores); bytes
+# read each input once and write each output once, whatever a kernel re-reads.
+
+def work_flash(batch: int, heads: int, lq: int, lk: int, d: int, elem: int = 2) -> tuple:
+    """K1 (heads=1, batch = B*H) and K2: S = QK^T and O = PV."""
+    return 4 * batch * heads * lq * lk * d, elem * batch * heads * d * (2 * lq + 2 * lk)
+
+
+def work_geglu(n: int, c: int, inner: int, elem: int = 2) -> tuple:
+    """K3: x (n, c) @ W1 (c, 2*inner), GEGLU, @ W2 (inner, c), residual; the
+    weights in ``elem`` bytes, the biases and LN parameters in f32."""
+    flops = 2 * n * c * 2 * inner + 2 * n * inner * c
+    return flops, elem * (2 * n * c + 3 * inner * c) + 4 * (2 * inner + 3 * c)
+
+
+def work_temporal_conv(b: int, t: int, s: int, c: int, co: int, kt: int = 3, *,
+                       res: bool = True, pre: bool = True, elem: int = 2) -> tuple:
+    """K4: kt taps of (B*T*S, C) @ (C, C_out); reads x, W (and res), writes out."""
+    rows = b * t * s
+    nbytes = elem * (rows * c + kt * c * co + rows * co * (2 if res else 1)) + 4 * (
+        co + (2 * b * c if pre else 0) + (b * t if res else 0))
+    return 2 * rows * c * co * kt, nbytes
+
+
+def work_group_norm(n: int, l: int, c: int, elem: int = 2) -> tuple:
+    """K5: reads x once and writes the output once (no matrix products)."""
+    return 0, 2 * elem * n * l * c + 4 * 2 * c
+
+
+def work_temporal_attention(b: int, tq: int, tkv: int, s: int, heads: int, d: int,
+                            elem: int = 2) -> tuple:
+    """K6: per (batch, pixel, head), (tq, d) x (tkv, d) scores and P V."""
+    return (4 * b * s * heads * tq * tkv * d,
+            elem * b * s * heads * d * (2 * tq + 2 * tkv))
+
+
+def bound(work: tuple) -> dict:
+    """The least time the card could take for (flops, bytes) in bf16: the
+    larger of flops over the tensor-core peak and bytes over HBM's rate."""
+    flops, nbytes = work
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _yardstick(rec: dict, work: tuple) -> dict:
+    """Adds bound_ms, bound_by and share (bound over kernel time) to rec."""
+    rec.update(bound(work))
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel from nvcc's ``-Xptxas -v`` log: its name (with the
+    template arguments as mangled), registers and spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '_ZN4st2v(\d+)(\w+)'", line)
+        if entry:
+            n = int(entry.group(1))
+            rest = entry.group(2)
+            args = re.match(r"I(\w*?)EEv", rest[n:])
+            name = rest[:n] + (f"<{args.group(1)}>" if args else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            used = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {used.group(1) if used else '?'} registers, {spill}")
+    return out
 
 
 def _compare(name: str, got, ref, tol: float) -> float:
@@ -121,8 +218,20 @@ def _tol(dtype) -> float:
     return TOL["f32" if dtype == torch.float32 else "bf16"]
 
 
+def _time_first_body(name: str, fn, work: tuple, bf16: bool) -> None:
+    """Times a flash instance that keeps the first, synchronous body (D=512,
+    f32) and prints it, with its bound in bf16."""
+    ms = _time_ms(fn)
+    line = f"  {name} (first body): kernel {ms:.3f} ms"
+    if bf16:
+        b = bound(work)
+        line += f", bound {b['bound_ms']:.3f} ms ({b['bound_by']}), share {b['bound_ms'] / ms:.3f}"
+    print(line, flush=True)
+
+
 def check_k1(randn) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from streamingt2v_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
@@ -134,13 +243,19 @@ def check_k1(randn) -> dict:
             (500, 2304, 64, bf16, "unet level1 self-attn"),
             (70, 9216, 64, bf16, "controlnet level0 self-attn"),
             (8, 9216, 512, bf16, "vae decoder mid attn"),
-            (1, 9216, 512, f32, "vae encoder mid attn (f32)")]:
+            (1, 9216, 512, f32, "vae encoder mid attn (f32)"),
+            (6, 77, 64, bf16, "ragged L=77"),
+            (5, 130, 32, bf16, "head dim 32, zero-padded")]:
         q, k, v = (randn(bh, length, d, dtype=dtype) for _ in range(3))
         out = flash_attention(q, k, v)
         rows = min(bh, 4)
         ref = flash_attention_reference(q[:rows], k[:rows], v[:rows])
         errs.append(_compare(f"K1 {label} {(bh, length, d)} {dtype}", out[:rows], ref,
                              _tol(dtype)))
+        if d == 512:
+            _time_first_body(f"K1 time {(bh, length, d)} {dtype}",
+                             lambda: flash_attention(q, k, v),
+                             work_flash(bh, 1, length, length, d), dtype == bf16)
         if (bh, length, d) == (250, 9216, 64):
             chunk = 16
 
@@ -148,10 +263,19 @@ def check_k1(randn) -> dict:
                 for i in range(0, bh, chunk):
                     flash_attention_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
 
-            rec = dict(ms=_time_ms(lambda: flash_attention(q, k, v)),
-                       plain_ms=_time_ms(plain_full, reps=3), shape=[bh, length, d])
-            print(f"  K1 time {(bh, length, d)} bf16: kernel {rec['ms']:.3f} ms, plain "
-                  f"(in {chunk}-row chunks) {rec['plain_ms']:.3f} ms", flush=True)
+            def library():
+                return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])
+
+            _compare("K1 yardstick SDPA on (B*H, 1, L, D)", library()[:rows, 0], ref,
+                     _tol(dtype))
+            rec = _yardstick(dict(ms=_time_ms(lambda: flash_attention(q, k, v)),
+                                  plain_ms=_time_ms(plain_full, reps=3),
+                                  library_ms=_time_ms(library), shape=[bh, length, d]),
+                             work_flash(bh, 1, length, length, d))
+            print(f"  K1 time {(bh, length, d)} bf16: kernel {rec['ms']:.3f} ms, SDPA "
+                  f"{rec['library_ms']:.3f} ms, plain (in {chunk}-row chunks) "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
         del q, k, v, out, ref
     rec["max_abs_err"] = max(errs)
     return rec
@@ -161,6 +285,7 @@ def check_k2(randn) -> dict:
     """K2 at the stage-2 geometries; timed against K1 with its head-fold
     transposes and against the plain version."""
     import torch
+    import torch.nn.functional as F
 
     from streamingt2v_torch.ops.flash_attention import (
         flash_attention, flash_attention_packed, flash_attention_packed_reference)
@@ -179,6 +304,10 @@ def check_k2(randn) -> dict:
         ref = flash_attention_packed_reference(q[:1], k[:1], v[:1], heads)
         errs.append(_compare(f"K2 {label} q{(b, lq, heads * d)} kv{(b, lk)} {heads} heads "
                              f"{dtype}", out[:1], ref, _tol(dtype)))
+        if d == 512 or dtype == f32:
+            _time_first_body(f"K2 time q{(b, lq, heads * d)} {heads} heads {dtype}",
+                             lambda: flash_attention_packed(q, k, v, num_heads=heads),
+                             work_flash(b, heads, lq, lk, d), dtype == bf16)
         if label == "i2vgen level0 self-attn":
             def folded():
                 fold = [t.reshape(b, -1, heads, d).transpose(1, 2).reshape(b * heads, -1, d)
@@ -191,12 +320,23 @@ def check_k2(randn) -> dict:
                 for i in range(b):
                     flash_attention_packed_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], heads)
 
-            rec = dict(ms=_time_ms(lambda: flash_attention_packed(q, k, v, num_heads=heads)),
-                       k1_ms=_time_ms(folded), plain_ms=_time_ms(plain_full, reps=3),
-                       shape=[b, lq, heads * d])
-            print(f"  K2 time {(b, lq, heads * d)} bf16: kernel {rec['ms']:.3f} ms, K1 with "
-                  f"head-fold transposes {rec['k1_ms']:.3f} ms, plain (one batch row at a "
-                  f"time) {rec['plain_ms']:.3f} ms", flush=True)
+            qh, kh, vh = (t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh)
+
+            _compare("K2 yardstick SDPA on the (B, H, L, D) strided view",
+                     library()[:1].transpose(1, 2).reshape(1, lq, heads * d), ref, _tol(dtype))
+            rec = _yardstick(
+                dict(ms=_time_ms(lambda: flash_attention_packed(q, k, v, num_heads=heads)),
+                     k1_ms=_time_ms(folded), plain_ms=_time_ms(plain_full, reps=3),
+                     library_ms=_time_ms(library), shape=[b, lq, heads * d]),
+                work_flash(b, heads, lq, lk, d))
+            print(f"  K2 time {(b, lq, heads * d)} bf16: kernel {rec['ms']:.3f} ms, SDPA "
+                  f"{rec['library_ms']:.3f} ms, K1 with head-fold transposes "
+                  f"{rec['k1_ms']:.3f} ms, plain (one batch row at a time) "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
         del q, k, v, out, ref
     rec["max_abs_err"] = max(errs)
     return rec
@@ -233,11 +373,15 @@ def check_k3(randn) -> dict:
             errs.append(_compare(f"K3 {label} no LN/residual", geglu_ff(*args), plain,
                                  _tol(dtype)))
         if (n, c) == (460800, 320):
-            rec = dict(ms=_time_ms(lambda: geglu_ff(*args, **kw)),
-                       plain_ms=_time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True),
-                                         reps=3), shape=[n, c, inner])
+            rec = _yardstick(
+                dict(ms=_time_ms(lambda: geglu_ff(*args, **kw)),
+                     plain_ms=_time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True),
+                                       reps=3), library_ms=None, shape=[n, c, inner]),
+                work_geglu(n, c, inner))
             print(f"  K3 time {(n, c, inner)} bf16: kernel {rec['ms']:.3f} ms, plain "
-                  f"{rec['plain_ms']:.3f} ms", flush=True)
+                  f"{rec['plain_ms']:.3f} ms, no one-call yardstick, bound "
+                  f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), share {rec['share']:.3f}",
+                  flush=True)
         del x, out, ref
     rec["max_abs_err"] = max(errs)
     return rec
@@ -245,25 +389,29 @@ def check_k3(randn) -> dict:
 
 def check_k4(randn, gen) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
 
     bf16, f32 = torch.bfloat16, torch.float32
     rec, errs = {}, []
-    for b, t, s, c, co, pre, res, dtype, label in [
-            (2, 25, 9216, 320, 320, True, True, bf16, "unet level0 out_conv"),
-            (2, 25, 2304, 640, 640, True, False, bf16, "unet level1 in_conv"),
-            (2, 7, 576, 1280, 1280, True, True, bf16, "controlnet level2"),
-            (1, 8, 589824, 128, 128, True, True, bf16, "vae decoder top level"),
-            (1, 8, 589824, 3, 3, False, False, bf16, "vae AE3DConv time mix C=3"),
-            (1, 2, 14400, 320, 320, True, False, bf16, "i2vgen pre-pass T=2"),
-            (1, 38, 14400, 320, 320, True, True, bf16, "i2vgen level0 T=38"),
-            (1, 38, 240, 1280, 1280, True, True, bf16, "i2vgen level3 T=38"),
-            (1, 64, 3600, 640, 640, True, True, bf16, "T=64"),
-            (2, 25, 576, 64, 96, False, True, f32, "f32 res only"),
-            (1, 40, 1024, 48, 32, True, False, f32, "f32 prologue only T=40")]:
+    for b, t, s, c, co, kt, pre, res, dtype, label in [
+            (2, 25, 9216, 320, 320, 3, True, True, bf16, "unet level0 out_conv"),
+            (2, 25, 2304, 640, 640, 3, True, False, bf16, "unet level1 in_conv"),
+            (2, 7, 576, 1280, 1280, 3, True, True, bf16, "controlnet level2"),
+            (1, 8, 589824, 128, 128, 3, True, True, bf16, "vae decoder top level"),
+            (1, 8, 589824, 3, 3, 3, False, False, bf16, "vae AE3DConv time mix C=3"),
+            (1, 2, 14400, 320, 320, 3, True, False, bf16, "i2vgen pre-pass T=2"),
+            (1, 38, 14400, 320, 320, 3, True, True, bf16, "i2vgen level0 T=38"),
+            (1, 38, 240, 1280, 1280, 3, True, True, bf16, "i2vgen level3 T=38"),
+            (1, 64, 3600, 640, 640, 3, True, True, bf16, "T=64"),
+            (2, 25, 576, 64, 96, 3, False, True, f32, "f32 res only"),
+            (1, 40, 1024, 48, 32, 3, True, False, f32, "f32 prologue only T=40"),
+            (1, 9, 1000, 64, 96, 1, True, True, bf16, "kt=1"),
+            (2, 11, 777, 128, 64, 5, True, True, bf16, "kt=5"),
+            (1, 1, 4100, 320, 320, 3, True, True, bf16, "T=1")]:
         x = randn(b, t, s, c, dtype=dtype)
-        w = randn(3, c, co, dtype=dtype, std=(3 * c) ** -0.5)
+        w = randn(kt, c, co, dtype=dtype, std=(kt * c) ** -0.5)
         bias = randn(co, dtype=f32, std=0.1)
         pa = (1.0 + randn(b, c, dtype=f32, std=0.1)) if pre else None
         pb = randn(b, c, dtype=f32, std=0.1) if pre else None
@@ -272,17 +420,39 @@ def check_k4(randn, gen) -> dict:
         args = (x, w, bias, r, rw, pa, pb)
         out = temporal_conv(*args)
         ref = temporal_conv_reference(*args)
-        errs.append(_compare(f"K4 {label} x{(b, t, s, c)}->{co} {dtype}", out, ref,
+        errs.append(_compare(f"K4 {label} x{(b, t, s, c)}->{co} kt {kt} {dtype}", out, ref,
                              _tol(dtype)))
         if label in ("unet level0 out_conv", "i2vgen level0 T=38"):
-            ms = _time_ms(lambda: temporal_conv(*args))
-            plain_ms = _time_ms(lambda: temporal_conv_reference(*args), reps=3)
-            print(f"  K4 time {(b, t, s, c, co)} bf16 pre+res: kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms", flush=True)
+            # the bare variant (no prologue, no epilogue) is what one conv3d
+            # computes: on the (B, C, T, S, 1) channels-last-3d view of x,
+            # with the bias rounded to x's dtype as conv3d wants it
+            xv = x.permute(0, 3, 1, 2).unsqueeze(-1)
+            wv = w.permute(2, 1, 0)[..., None, None].contiguous(
+                memory_format=torch.channels_last_3d)
+            bias_lo = bias.to(dtype)
+
+            def library():
+                return F.conv3d(xv, wv, bias_lo, padding=(1, 0, 0))
+
+            _compare(f"K4 yardstick conv3d {(b, t, s, c, co)} bare",
+                     library().squeeze(-1).permute(0, 2, 3, 1),
+                     temporal_conv_reference(x, w, bias_lo.float()), _tol(dtype))
+            r = _yardstick(dict(ms=_time_ms(lambda: temporal_conv(*args)),
+                                plain_ms=_time_ms(lambda: temporal_conv_reference(*args), reps=3),
+                                bare_ms=_time_ms(lambda: temporal_conv(x, w, bias)),
+                                library_ms=_time_ms(library), shape=[b, t, s, c, co]),
+                           work_temporal_conv(b, t, s, c, co))
+            r["bare_share"] = bound(work_temporal_conv(b, t, s, c, co, res=False, pre=False))[
+                "bound_ms"] / r["bare_ms"]
+            print(f"  K4 time {(b, t, s, c, co)} bf16 pre+res: kernel {r['ms']:.3f} ms, "
+                  f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']}), share {r['share']:.3f}; bare: kernel "
+                  f"{r['bare_ms']:.3f} ms, conv3d {r['library_ms']:.3f} ms, share "
+                  f"{r['bare_share']:.3f}", flush=True)
             if not rec:
-                rec = dict(ms=ms, plain_ms=plain_ms, shape=[b, t, s, c, co])
+                rec = r
             else:
-                rec.update(t38_ms=ms, t38_plain_ms=plain_ms)
+                rec["t38"] = r
         del x, out, ref, r
     rec["max_abs_err"] = max(errs)
     return rec
@@ -291,6 +461,7 @@ def check_k4(randn, gen) -> dict:
 def check_k5(randn) -> dict:
     """K5 at the stage-2 geometries, timed against the plain group_norm."""
     import torch
+    import torch.nn.functional as F
 
     from streamingt2v_torch.ops.fused_group_norm import (
         fused_group_norm, fused_group_norm_reference)
@@ -314,11 +485,30 @@ def check_k5(randn) -> dict:
                              _tol(dtype)))
         if label == "ResnetBlock2D level0":
             x4 = x.reshape(n, 120, 120, c)  # any (H, W) with H*W = L: the same statistics
-            rec = dict(ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **kw)),
-                       plain_ms=_time_ms(lambda: group_norm(x4, scale, bias, **kw), reps=3),
-                       shape=[n, l, c])
+            # the yardstick F.group_norm computes the act=None function, on the
+            # (N, C, L) view, with the affine in x's dtype
+            scale_lo, bias_lo = scale.to(dtype), bias.to(dtype)
+            xt = x.transpose(1, 2)
+            bare = dict(num_groups=32, eps=eps, act=None)
+
+            def library():
+                return F.group_norm(xt, 32, scale_lo, bias_lo, eps)
+
+            _compare("K5 yardstick F.group_norm on (N, C, L), act=None",
+                     library().transpose(1, 2),
+                     fused_group_norm_reference(x, scale_lo.float(), bias_lo.float(), **bare),
+                     _tol(dtype))
+            rec = _yardstick(
+                dict(ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **kw)),
+                     plain_ms=_time_ms(lambda: group_norm(x4, scale, bias, **kw), reps=3),
+                     no_act_ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **bare)),
+                     library_ms=_time_ms(library), shape=[n, l, c]),
+                work_group_norm(n, l, c))
             print(f"  K5 time {(n, l, c)} bf16 silu: kernel {rec['ms']:.3f} ms, plain "
-                  f"group_norm {rec['plain_ms']:.3f} ms", flush=True)
+                  f"group_norm {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"({rec['bound_by']}), share {rec['share']:.3f}; act=None: kernel "
+                  f"{rec['no_act_ms']:.3f} ms, F.group_norm {rec['library_ms']:.3f} ms",
+                  flush=True)
         del x, out, ref
     # a large common offset with a small spread: against f64 statistics
     x = randn(2, 4096, 128, dtype=f32, std=1e-3, mean=100.0)
@@ -341,6 +531,7 @@ def check_k6(randn) -> dict:
     """K6 at the stage-2 and stage-1 geometries, timed against the
     transposes + grouped-attention plain version."""
     import torch
+    import torch.nn.functional as F
 
     from streamingt2v_torch.ops.temporal_attention import (
         fused_temporal_attention, temporal_attention_reference)
@@ -364,12 +555,24 @@ def check_k6(randn) -> dict:
         ref = temporal_attention_reference(q, k, v, **kw)
         errs.append(_compare(f"K6 {label} T {tq}x{tkv} S {s} {heads}x{d} {dtype}", out, ref,
                              _tol(dtype)))
-        if label == "i2vgen level0":
-            rec = dict(ms=_time_ms(lambda: fused_temporal_attention(q, k, v, **kw)),
-                       plain_ms=_time_ms(lambda: temporal_attention_reference(q, k, v, **kw),
-                                         reps=3), shape=[b * tq, s, heads * d])
+        if label == "i2vgen level0":   # batch 1: frames are the leading axis
+            qh, kh, vh = (z.view(tq, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh)
+
+            _compare("K6 yardstick SDPA on the (S, H, T, D) strided view",
+                     library().permute(2, 0, 1, 3).reshape(tq, s, heads * d), ref, _tol(dtype))
+            rec = _yardstick(
+                dict(ms=_time_ms(lambda: fused_temporal_attention(q, k, v, **kw)),
+                     plain_ms=_time_ms(lambda: temporal_attention_reference(q, k, v, **kw),
+                                       reps=3),
+                     library_ms=_time_ms(library), shape=[b * tq, s, heads * d]),
+                work_temporal_attention(b, tq, tkv, s, heads, d))
             print(f"  K6 time {(b * tq, s, heads * d)} T={tq} bf16: kernel {rec['ms']:.3f} ms,"
-                  f" transposes + grouped attention {rec['plain_ms']:.3f} ms", flush=True)
+                  f" SDPA {rec['library_ms']:.3f} ms, transposes + grouped attention "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
         del q, k, v, out, ref
     rec["max_abs_err"] = max(errs)
     return rec
@@ -741,7 +944,9 @@ def main(argv=None) -> int:
         print("chip_smoke: run from the root of a repository checkout", file=sys.stderr)
         return 2
 
-    # f32 comparisons must be full f32: no TF32 in cuDNN convs or matmuls.
+    # f32 comparisons must be full f32, and the library yardsticks (conv3d,
+    # group_norm, SDPA) are timed under the same flags: no TF32 in cuDNN
+    # convs or matmuls, for the whole run.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -757,9 +962,8 @@ def main(argv=None) -> int:
     _native.library()
     print(f"phase build: {build_s:.1f} s nvcc ({time.perf_counter() - t0:.1f} s with load) "
           f"-> {path.name}", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    for line in _ptxas_summary(log):
+        print("  ptxas: " + line, flush=True)
 
     records = {}
     if "kernels" in phases:
@@ -788,7 +992,10 @@ def main(argv=None) -> int:
         r = records.get(name, {})
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=r.get("max_abs_err"),
-                            ms=r.get("ms"), plain_ms=r.get("plain_ms")))
+                            ms=r.get("ms"), plain_ms=r.get("plain_ms"),
+                            bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
+                            library_ms=r.get("library_ms"), share=r.get("share"),
+                            **({"bare_ms": r["bare_ms"]} if "bare_ms" in r else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps) != (
             FIRST_CHUNK_STEPS, AR_STEPS, ENHANCE_STEPS):

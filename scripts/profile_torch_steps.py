@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Device time by kernel class of one stage-1 autoregressive guided step and
+one stage-2 38-frame chunk step (two UNet calls, the CFG halves) of the
+PyTorch port, at full width with random bf16 weights, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_steps.py            # both stages
+    python3 scripts/profile_torch_steps.py --stages 2
+
+Stage 1 runs ``image_to_video`` for 43 frames (the first chunk with one
+sampler step, then one AR chunk with two) and profiles the AR chunk's last
+guided denoiser call.  Stage 2 runs ``enhance_with_keyframe_prepass`` on a
+synthetic 64-frame 720p video with 3 DDIM steps (2 run) and profiles the
+last 38-frame chunk step.  Earlier calls warm the kernels and libraries up.
+``torch.profiler`` (CUPTI) gives each kernel's device time; the classes
+are the port's six kernels, cuBLAS GEMMs, cuDNN convolutions, softmax and
+reductions, and the rest (elementwise ops and copies).  Needs the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# (class, substrings of the kernel name), first match wins
+CLASSES = (
+    ("K1/K2 flash attention", ("flash_kernel",)),
+    ("K3 GEGLU FF", ("geglu_kernel",)),
+    ("K4 temporal conv", ("temporal_conv",)),
+    ("K5 fused GroupNorm", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("K6 temporal attention", ("temporal_attention_kernel",)),
+    ("cuDNN conv", ("conv", "fprop", "dgrad", "implicit")),
+    ("GEMM", ("gemm", "nvjet", "cublas", "xmma", "cutlass", "sm90_")),
+    ("softmax / reductions", ("softmax", "reduce", "norm")),
+)
+OTHER = "elementwise / copies"
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k.lower() in low for k in keys):
+            return label
+    return OTHER
+
+
+def profiled(fn):
+    """Runs fn under torch.profiler; returns (result, {kernel: ms}, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] += evt.self_device_time_total / 1e3
+    return out, dict(by_name), wall
+
+
+def report(title: str, by_name: dict, wall: float) -> None:
+    """Device time by class, then the largest kernels of the unnamed rest."""
+    by_class = defaultdict(float)
+    for name, ms in by_name.items():
+        by_class[classify(name)] += ms
+    busy = sum(by_class.values())
+    print(f"{title}: device busy {busy:.1f} ms of {wall:.1f} ms wall "
+          f"({100 * busy / wall:.1f}%)", flush=True)
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    for label, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {label}: {ms:.1f} ms ({100 * ms / busy:.1f}%)", flush=True)
+    rest = sorted(((ms, n) for n, ms in by_name.items() if classify(n) == OTHER), reverse=True)
+    for ms, name in rest[:5]:
+        print(f"    {OTHER}: {ms:.1f} ms {name[:100]}", flush=True)
+
+
+def profile_stage1() -> None:
+    import torch
+
+    from chip_smoke import _smooth_image
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.pipeline import streaming
+    from streamingt2v_torch.pipeline.build import build_pipeline
+
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(
+        cfg, first_chunk_sampler=dataclasses.replace(cfg.first_chunk_sampler, num_steps=1),
+        sampler=dataclasses.replace(cfg.sampler, num_steps=2))
+    pipe = build_pipeline(cfg, seed=0, bf16=True)
+    calls, result = [], {}
+    denoise = streaming.denoise
+
+    def wrapped(*args, **kwargs):
+        calls.append(None)
+        if len(calls) < 3:   # the first chunk's step, then the AR chunk's first
+            return denoise(*args, **kwargs)
+        out, result["by_name"], result["wall"] = profiled(lambda: denoise(*args, **kwargs))
+        return out
+
+    streaming.denoise = wrapped
+    try:
+        pipe.image_to_video(_smooth_image(cfg.height, cfg.width).cuda(), num_frames=43)
+    finally:
+        streaming.denoise = denoise
+    report("stage 1, one AR guided step (UNet + ControlNet, CFG-doubled batch)",
+           result["by_name"], result["wall"])
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def profile_stage2() -> None:
+    import torch
+
+    from chip_smoke import ENHANCE_FRAMES, _smooth_image, _smooth_video
+    from streamingt2v_torch.config import EnhanceConfig
+    from streamingt2v_torch.pipeline.build import build_enhance
+
+    cfg = dataclasses.replace(EnhanceConfig(), num_steps=3)
+    pipe = build_enhance(cfg, seed=0, bf16=True)
+    chunk, frames, result = pipe._denoise_chunk, [], {}
+
+    def wrapped(latents_chunk, *args):
+        frames.append(latents_chunk.shape[1])
+        if frames.count(cfg.chunk_size) < 4:  # main steps: 2 chunks x 2 steps
+            return chunk(latents_chunk, *args)
+        out, result["by_name"], result["wall"] = profiled(lambda: chunk(latents_chunk, *args))
+        return out
+
+    pipe._denoise_chunk = wrapped
+    video = _smooth_video(ENHANCE_FRAMES, cfg.height, cfg.width, device="cuda")
+    image = _smooth_image(cfg.height, cfg.width, seed=4).cuda()
+    pipe.enhance_with_keyframe_prepass(video, image)
+    report(f"stage 2, one {cfg.chunk_size}-frame chunk step (2 UNet calls); chunk frames "
+           f"seen {frames}", result["by_name"], result["wall"])
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--stages", default="1,2")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_steps: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    stages = args.stages.split(",")
+    if "1" in stages:
+        profile_stage1()
+    if "2" in stages:
+        profile_stage2()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

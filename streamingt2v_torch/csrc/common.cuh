@@ -1,6 +1,6 @@
 // Shared device helpers for the hand-written Hopper kernels.
 //
-// Every kernel here computes its matrix products through `mma_tile`: a warp
+// The simple kernels compute their matrix products through `mma_tile`: a warp
 // multiplies a 16-row tile of A by an 8-column tile of B, both held in shared
 // memory, and accumulates into four f32 registers per lane laid out as the
 // accumulator of `mma.sync.m16n8k16`:
@@ -12,6 +12,12 @@
 // bf16 operands go to the tensor cores (mma.sync, f32 accumulation); f32
 // operands run the same tile on the FMA units in full f32 (no TF32), so a
 // kernel body is written once for both types.
+//
+// The pipelined kernels (K1/K2's bf16 D=64 body, K4's bf16 body) hold their
+// fragments in registers instead: `ldmatrix` fills A and B fragments from
+// shared memory (`.trans` for a B stored with the contraction axis as rows),
+// `mma_bf16` multiplies them, and `cp_async_16` stages tiles into shared
+// memory ahead of use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +43,57 @@ template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
+// c += A (16x16, four b16x2 registers) * B (16x8, two), f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+// Lane 4g+t receives, of matrix i, row g columns 2t and 2t+1 (with `.trans`:
+// rows 2t and 2t+1 of column g).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when `pred` is false (the
+// source is then not read).  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// two floats -> one register of two bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 __device__ __forceinline__ void mma_tile(float c[4], const bf16* A, int lda,
                                          const bf16* Bt, int ldb, int K) {
   const int lane = threadIdx.x & 31;
@@ -45,17 +102,12 @@ __device__ __forceinline__ void mma_tile(float c[4], const bf16* A, int lda,
   const bf16* a_hi = a_lo + 8 * lda;
   const bf16* b = Bt + g * ldb + 2 * t;
   for (int k = 0; k < K; k += 16) {
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a_lo + k);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a_hi + k);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a_lo + k + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a_hi + k + 8);
-    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(b + k);
-    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(b + k + 8);
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(a_lo + k),
+                           *reinterpret_cast<const uint32_t*>(a_hi + k),
+                           *reinterpret_cast<const uint32_t*>(a_lo + k + 8),
+                           *reinterpret_cast<const uint32_t*>(a_hi + k + 8)};
+    mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(b + k),
+             *reinterpret_cast<const uint32_t*>(b + k + 8));
   }
 }
 

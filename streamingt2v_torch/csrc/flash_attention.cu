@@ -15,18 +15,29 @@
 // device memory.  The ragged KV edge is masked directly (scores -inf), so the
 // TPU's zero-pad denominator correction is not needed.
 //
-// Per KV tile: S = Q K^T (tensor cores for bf16) -> shared memory, an online
-// softmax pass per row in exp2 with the scale*log2(e) folded into S, P (in the
-// input type) -> shared memory, then O = alpha*O + P V with O in registers.
-// At D=64 the UNet geometries are compute-bound (4*L^2*D flops on 2*L*D*2
-// bytes per head); this first version keeps everything synchronous and pays
-// four block barriers per KV tile.  D=512 (the VAE mid-block attention) uses
-// 16-row query tiles so the f32 accumulator fits in registers.
+// What bounds it on the H100: at D=64 the UNet geometries do 4*L^2*D flops on
+// 4*L*D*2 bytes per head, so the tensor cores.  The bf16 D=64 instance, which
+// carries all UNet attention, is the register-resident FlashAttention-2
+// structure on `mma.sync` (wgmma is not used): four warps each own 32 query
+// rows (two 16-row tiles) of a 128-row tile, with their Q fragments held in
+// registers, so each K and V fragment loaded feeds two products;
+// S = Q K^T stays in the mma accumulators, the row max and sum go through
+// quad shuffles, and P is repacked in registers as the A fragments of P V.
+// K fragments come from `ldmatrix` and V's from `ldmatrix.trans` on the
+// row-major V tile.  K/V tiles are double-buffered by `cp.async` (zero-filled
+// past the ragged edge), with one block barrier per tile: the next tile's copy
+// is in flight while this one's products run.  Masking runs on the last tile
+// only.
+//
+// The f32 instances (FMA units, full f32) and D=512 (the VAE mid-block
+// attention, 16-row query tiles so the f32 accumulator fits in registers) keep
+// the first, synchronous body: S and P go through shared memory, with four
+// block barriers per KV tile.
 #include "common.cuh"
 
 namespace st2v {
 
-
+// ---- f32, and D = 512: the synchronous body ----
 template <typename T, int D, int BQ, int BK>
 struct FlashShape {
   static constexpr int NW = 4;
@@ -171,6 +182,203 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+// ---- bf16, D = 64: the register-resident body ----
+constexpr int FA_D = 64;
+constexpr int FA_MT = 2;                // 16-row query tiles per warp
+constexpr int FA_THREADS = 128;
+constexpr int FA_BQ = FA_THREADS / 32 * 16 * FA_MT;  // query rows per block
+constexpr int FA_BK = 64;               // keys per KV tile
+constexpr int FA_LD = FA_D + 8;         // smem row stride: conflict-free ldmatrix
+constexpr size_t FA_SMEM = sizeof(bf16) * FA_LD * (FA_BQ + 2 * 2 * FA_BK);  // Q, 2 x (K, V)
+
+// ROWS rows x 64 columns from rows [row0, row0 + ROWS) at stride ld; rows at
+// or past `rows` are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src, int row0, int rows,
+                                             int ld) {
+#pragma unroll
+  for (int it = 0; it < ROWS * (FA_D / 8) / FA_THREADS; ++it) {
+    const int i = threadIdx.x + it * FA_THREADS;
+    const int r = i >> 3, col = (i & 7) * 8;
+    const bool ok = row0 + r < rows;
+    cp_async_16(dst + r * FA_LD + col, src + size_t(ok ? row0 + r : 0) * ld + col, ok);
+  }
+}
+
+__global__ void __launch_bounds__(FA_THREADS)
+flash_kernel_bf16_d64(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int lq, int lk,
+                      int heads, int ld, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KV = Qs + FA_BQ * FA_LD;  // stage s: K at KV + 2*s*FA_BK*FA_LD, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix and row this lane addresses
+  const int q0 = blockIdx.x * FA_BQ;
+  const size_t bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const bf16* qb = q + bi * lq * ld + hi * FA_D;
+  const bf16* kb = k + bi * lk * ld + hi * FA_D;
+  const bf16* vb = v + bi * lk * ld + hi * FA_D;
+  bf16* ob = o + bi * lq * ld + hi * FA_D;
+
+  fa_load_tile<FA_BQ>(Qs, qb, q0, lq, ld);
+  fa_load_tile<FA_BK>(KV, kb, 0, lk, ld);
+  fa_load_tile<FA_BK>(KV + FA_BK * FA_LD, vb, 0, lk, ld);
+  cp_async_commit();
+
+  // Per 16-row tile mt of this warp (rows warp*16*FA_MT + mt*16 + g and +8):
+  const float neg_inf = __int_as_float(0xff800000);
+  uint32_t qf[FA_MT][FA_D / 16][4];  // Q A-fragments, one per 16 columns of D
+  float acc[FA_MT][FA_D / 8][4];     // O, 8 column tiles of 8
+  float mx[FA_MT][2], den[FA_MT][2];  // running max (log2 units); this lane's denominator share
+#pragma unroll
+  for (int mt = 0; mt < FA_MT; ++mt) {
+    mx[mt][0] = mx[mt][1] = neg_inf;
+    den[mt][0] = den[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < FA_D / 8; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+  }
+
+  const int tiles = (lk + FA_BK - 1) / FA_BK;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed for all; tile j-1's stage is no longer read
+    if (j + 1 < tiles) {
+      bf16* next = KV + ((j + 1) & 1) * 2 * FA_BK * FA_LD;
+      fa_load_tile<FA_BK>(next, kb, (j + 1) * FA_BK, lk, ld);
+      fa_load_tile<FA_BK>(next + FA_BK * FA_LD, vb, (j + 1) * FA_BK, lk, ld);
+      cp_async_commit();
+    }
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < FA_MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < FA_D / 16; ++ks)
+          ldmatrix_x4(qf[mt][ks], Qs + ((warp * FA_MT + mt) * 16 + (lane & 15)) * FA_LD +
+                                      ks * 16 + (lane >> 4) * 8);
+    }
+    const bf16* Ks = KV + (j & 1) * 2 * FA_BK * FA_LD;
+    const bf16* Vs = Ks + FA_BK * FA_LD;
+
+    // S = Q K^T: 64 keys per tile, 8 key tiles of 8; each K fragment feeds
+    // every query tile of the warp
+    float sc[FA_MT][FA_BK / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < FA_MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < FA_BK / 8; ++n) sc[mt][n][0] = sc[mt][n][1] = sc[mt][n][2] = sc[mt][n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < FA_D / 16; ++ks) {
+#pragma unroll
+      for (int np = 0; np < FA_BK / 16; ++np) {
+        uint32_t b[4];  // key tiles 2np, 2np+1; D columns ks*16 .. +15
+        ldmatrix_x4(b, Ks + (np * 16 + (mi >> 1) * 8 + r8) * FA_LD + ks * 16 + (mi & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < FA_MT; ++mt) {
+          mma_bf16(sc[mt][2 * np], qf[mt][ks], b[0], b[1]);
+          mma_bf16(sc[mt][2 * np + 1], qf[mt][ks], b[2], b[3]);
+        }
+      }
+    }
+    if ((j + 1) * FA_BK > lk) {  // the ragged last tile
+#pragma unroll
+      for (int n = 0; n < FA_BK / 8; ++n) {
+        const int key = j * FA_BK + n * 8 + 2 * t;
+#pragma unroll
+        for (int mt = 0; mt < FA_MT; ++mt) {
+          if (key >= lk) sc[mt][n][0] = sc[mt][n][2] = neg_inf;
+          if (key + 1 >= lk) sc[mt][n][1] = sc[mt][n][3] = neg_inf;
+        }
+      }
+    }
+
+    // online softmax: rows g (elements 0, 1) and g+8 (2, 3); a row's 64
+    // scores sit in the four lanes of a quad
+#pragma unroll
+    for (int mt = 0; mt < FA_MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float r = neg_inf;
+#pragma unroll
+        for (int n = 0; n < FA_BK / 8; ++n) r = fmaxf(r, fmaxf(sc[mt][n][2 * h], sc[mt][n][2 * h + 1]));
+        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+        const float mnew = fmaxf(mx[mt][h], r * scale_log2);
+        const float alpha = exp2f(mx[mt][h] - mnew);
+        mx[mt][h] = mnew;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < FA_BK / 8; ++n) {
+          sc[mt][n][2 * h] = exp2f(fmaf(sc[mt][n][2 * h], scale_log2, -mnew));
+          sc[mt][n][2 * h + 1] = exp2f(fmaf(sc[mt][n][2 * h + 1], scale_log2, -mnew));
+          sum += sc[mt][n][2 * h] + sc[mt][n][2 * h + 1];
+        }
+        den[mt][h] = den[mt][h] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < FA_D / 8; ++n) {
+          acc[mt][n][2 * h] *= alpha;
+          acc[mt][n][2 * h + 1] *= alpha;
+        }
+      }
+    }
+
+    // O += P V: P's accumulators repacked as A fragments, 16 keys at a time;
+    // each V fragment feeds every query tile of the warp
+#pragma unroll
+    for (int kk = 0; kk < FA_BK / 16; ++kk) {
+      uint32_t a[FA_MT][4];
+#pragma unroll
+      for (int mt = 0; mt < FA_MT; ++mt) {
+        a[mt][0] = pack_bf16x2(sc[mt][2 * kk][0], sc[mt][2 * kk][1]);
+        a[mt][1] = pack_bf16x2(sc[mt][2 * kk][2], sc[mt][2 * kk][3]);
+        a[mt][2] = pack_bf16x2(sc[mt][2 * kk + 1][0], sc[mt][2 * kk + 1][1]);
+        a[mt][3] = pack_bf16x2(sc[mt][2 * kk + 1][2], sc[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < FA_D / 16; ++dp) {
+        uint32_t b[4];  // D tiles 2dp, 2dp+1; keys kk*16 .. +15
+        ldmatrix_x4_trans(b, Vs + (kk * 16 + (mi & 1) * 8 + r8) * FA_LD + dp * 16 + (mi >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < FA_MT; ++mt) {
+          mma_bf16(acc[mt][2 * dp], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * dp + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < FA_MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = den[mt][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / l;
+      const int row = q0 + (warp * FA_MT + mt) * 16 + g + 8 * h;
+      if (row >= lq) continue;
+#pragma unroll
+      for (int n = 0; n < FA_D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(ob + size_t(row) * ld + n * 8 + 2 * t) =
+            pack_bf16x2(acc[mt][n][2 * h] * inv, acc[mt][n][2 * h + 1] * inv);
+    }
+  }
+}
+
+static int launch_flash_bf16_d64(const void* q, const void* k, const void* v, void* o,
+                                 int batch, int heads, int lq, int lk, float scale_log2,
+                                 cudaStream_t stream) {
+  cudaError_t err = set_smem(flash_kernel_bf16_d64, FA_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((lq + FA_BQ - 1) / FA_BQ, batch * heads);
+  flash_kernel_bf16_d64<<<grid, FA_THREADS, FA_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lq, lk, heads, heads * FA_D, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, int BQ, int BK>
 static int launch_flash(const void* q, const void* k, const void* v, void* o, int batch,
                         int heads, int lq, int lk, float scale_log2, cudaStream_t stream) {
@@ -193,7 +401,7 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || heads <= 0 || batch * heads > 65535 || lq <= 0 || lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && d == 64) return launch_flash<bf16, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 1 && d == 64) return launch_flash_bf16_d64(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 1 && d == 512) return launch_flash<bf16, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 512) return launch_flash<float, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);

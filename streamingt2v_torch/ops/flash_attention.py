@@ -16,10 +16,13 @@ f32 at the level-0 geometry).  The kernel keeps a q-tile's scores, running
 max, denominator and f32 output accumulator on chip and walks the KV tiles
 inside the block, so the scores never reach device memory.  It masks the
 ragged KV edge directly, so the TPU's zero-pad denominator correction is
-not needed.  bf16 runs on the tensor cores (mma.sync, f32 accumulation);
-f32 runs the same tiles on the FMA units in full f32 (no TF32).  D=512 (the
-VAE mid-block attention) uses 16-row q tiles so its accumulator fits in
-registers.  This first version is synchronous (no cp.async/TMA pipeline).
+not needed.  The bf16 D=64 instance (all UNet attention) is register
+resident: S stays in the mma accumulators, P is repacked in registers for
+P V, and K/V tiles are double-buffered by cp.async.  f32 runs on the FMA
+units in full f32 (no TF32); D=512 (the VAE mid-block attention) uses
+16-row q tiles so its accumulator fits in registers; both keep the first,
+synchronous body.  Head dims below 64 are zero-padded to 64
+(``pad_head_dim``), with the scale of the true head dim.
 """
 
 from __future__ import annotations
@@ -51,6 +54,16 @@ def _kernel_head_dim(d: int) -> int:
     return kd
 
 
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """q, k, v with their head dim zero-padded to the kernel's: zero columns
+    add nothing to q k^T, and the output's padded columns are zero."""
+    d = q.shape[-1]
+    kd = _kernel_head_dim(d)
+    if kd == d:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, kd - d)) for t in (q, k, v))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Softmax attention over (B*H, L, D).  CPU tensors take the plain
     version; CUDA tensors launch K1 (or raise)."""
@@ -70,10 +83,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     lk = k.shape[1]
     if not 0 < bh <= 65535:
         raise ValueError(f"flash_attention: batch*heads {bh} outside (0, 65535]")
-    kd = _kernel_head_dim(d)
-    if kd != d:
-        pad = (0, kd - d)
-        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    q, k, v = pad_head_dim(q, k, v)
+    kd = q.shape[-1]
     out = torch.empty_like(q)
     rc = _native.library().st2v_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, lq, lk, kd,

@@ -13,12 +13,16 @@ Replaces the Pallas kernel ``_conv_body`` and its four variants
 What bounds it on the H100: at the VAE decoder's 128-channel,
 589824-position levels it moves x and out once each and is bandwidth
 bound; at the UNet's 320-1280-channel levels it is a kt-tap matrix product
-on the tensor cores.  The kernel reads each (T, 16 positions, 32 channels)
-input tile once per 32-output-channel tile with the prologue applied on
-the way into shared memory (so the normalised activation never reaches
-device memory), keeps the kt weight taps beside it, accumulates 32 frames
-at a time in f32 registers (re-reading the kt - 1 halo frames for the next
-32) and applies bias and epilogue before its one store.
+on the tensor cores.  The bf16 kernel treats it as the implicit GEMM it is
+(rows (b, t, s), columns C_out, contraction kt x C): a block owns 64
+positions by 128 output channels for every frame, stages each input frame
+once (the GroupNorm+SiLU prologue applied on the way into shared memory, so
+the normalised activation never reaches device memory), feeds it to all kt
+taps through a rolling window of kt output-frame accumulators in registers,
+and applies bias and epilogue before each output frame's one store.  It
+takes C in multiples of 8 and W with C_out rounded up to 8: the wrapper
+zero-pads both (``kernel_operands``).  The f32 kernel keeps the first,
+simple design (16 positions by 32 output channels per block, FMA units).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch
 
 from streamingt2v_torch.ops import _native
 
+# positions per block of the f32 kernel, which bounds S the most (the bf16
+# kernel's blocks take 128)
 _TILE_S = 16
 _MAX_GRID = 65535
 # the JAX package's VMEM budget in its gate (streamingt2v_tpu/ops/temporal_conv.py)
@@ -63,6 +69,32 @@ def temporal_conv_reference(x, w, b, res=None, res_w=None, pre_a=None, pre_b=Non
     if res is not None:
         out = res.float() + res_w[:, :, None, None].float() * out
     return out.to(x.dtype)
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t, copied if its data does not start on 16 bytes (the kernel's
+    vector loads)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def kernel_operands(x, w, pre_a=None, pre_b=None):
+    """The bf16 kernel's layout: x's channels (and pre_a, pre_b) zero-padded
+    to a multiple of 8, and w (kt, C, C_out) zero-padded to (kt, C8,
+    round8(C_out)).  The padded channels add nothing to the product: zero
+    weights, and a zero prologue affine gives silu(0) = 0."""
+    c, c_out = w.shape[1], w.shape[2]
+    pc, pco = _round8(c) - c, _round8(c_out) - c_out
+    if pc:
+        x = torch.nn.functional.pad(x, (0, pc))
+        if pre_a is not None:
+            pre_a, pre_b = (torch.nn.functional.pad(p, (0, pc)) for p in (pre_a, pre_b))
+    if pc or pco:
+        w = torch.nn.functional.pad(w, (0, pco, 0, pc))
+    return x, w, pre_a, pre_b
 
 
 def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -103,6 +135,10 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     operands = [x, w] + [tensor for tensor, _ in f32] + ([] if res is None else [res])
     if any(o.device != x.device or not o.is_contiguous() for o in operands):
         raise ValueError("temporal_conv: operands must be contiguous on one device")
+    if x.dtype == torch.bfloat16:
+        x, w, pre_a, pre_b = kernel_operands(x, w, pre_a, pre_b)
+        c = x.shape[3]
+        x, w, res, pre_a, pre_b = map(_aligned, (x, w, res, pre_a, pre_b))
     out = torch.empty((bsz, t, s, c_out), dtype=x.dtype, device=x.device)
     rc = _native.library().st2v_temporal_conv(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),

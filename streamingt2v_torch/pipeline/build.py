@@ -5,6 +5,8 @@
 Every module is built directly on ``device`` in its dtype and filled from
 its own ``torch.Generator`` seeded from ``seed``; checkpoint loading
 replaces the weights afterwards (``utils/weights.py`` for JAX trees).
+``device`` defaults to the card: without one the builders raise, and a
+caller that wants CPU modules (the parity tests) asks for ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -27,13 +29,20 @@ from streamingt2v_torch.pipeline.enhance import EnhanceModels, EnhancePipeline
 from streamingt2v_torch.pipeline.streaming import Stage1Pipeline, StreamingModels
 
 
-def build_models(cfg: PipelineConfig, seed: int = 0, *, device="cpu", bf16: bool = False,
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return device
+
+
+def build_models(cfg: PipelineConfig, seed: int = 0, *, device="cuda", bf16: bool = False,
                  init: bool = True) -> StreamingModels:
     """All stage-1 modules on ``device``.  ``bf16`` stores every tree but
     the VAE in bfloat16 (the production weight dtype); the VAE keeps its
     config's dtype.  ``init=False`` leaves the weights uninitialised, for
     a caller that loads them."""
-    device = torch.device(device)
+    device = _device(device)
     dtype = torch.bfloat16 if bf16 else cfg.unet.dtypes.param_dtype
     fk = dict(device=device, dtype=dtype)
     # the first chunk is plain SVD-XT: no CAM fusion
@@ -52,12 +61,12 @@ def build_models(cfg: PipelineConfig, seed: int = 0, *, device="cpu", bf16: bool
     return models
 
 
-def build_pipeline(cfg: PipelineConfig, seed: int = 0, *, device="cpu", bf16: bool = False,
+def build_pipeline(cfg: PipelineConfig, seed: int = 0, *, device="cuda", bf16: bool = False,
                    init: bool = True) -> Stage1Pipeline:
     return Stage1Pipeline(cfg, build_models(cfg, seed, device=device, bf16=bf16, init=init))
 
 
-def build_enhance_models(seed: int = 0, *, device="cpu", bf16: bool = True, init: bool = True,
+def build_enhance_models(seed: int = 0, *, device="cuda", bf16: bool = True, init: bool = True,
                          unet: I2VGenXLUNetConfig = I2VGenXLUNetConfig(),
                          vae: VAEConfig = dataclasses.replace(VAEConfig(),
                                                               temporal_decoder=False),
@@ -68,7 +77,7 @@ def build_enhance_models(seed: int = 0, *, device="cpu", bf16: bool = True, init
     unless given: the UNet, OpenCLIP ViT-H vision and text towers (bfloat16
     when ``bf16``) and the SD VAE with quant convs (its config's dtype, f32;
     ``EnhanceConfig.vae_bf16`` casts it), with the synthetic tokenizer."""
-    device = torch.device(device)
+    device = _device(device)
     fk = dict(device=device, dtype=torch.bfloat16 if bf16 else torch.float32)
     models = EnhanceModels(
         unet=I2VGenXLUNet(unet, **fk),

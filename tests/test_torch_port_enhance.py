@@ -289,7 +289,7 @@ def enhance_pair():
         scheduler=jddim.DDIMScheduler(), tokenizer=jtext.CLIPTokenizer.synthetic(8))
     jpipe = jenh.EnhancePipeline(JaxEnhanceConfig(**ENH), jmodels)
     pmodels = build_enhance_models(
-        init=False, bf16=False, unet=punet.I2VGenXLUNetConfig.tiny(),
+        device="cpu", init=False, bf16=False, unet=punet.I2VGenXLUNetConfig.tiny(),
         vae=dataclasses.replace(pcfg.VAEConfig.tiny(), temporal_decoder=False),
         clip_vision=pclip.CLIPVisionConfig.tiny(), text=ptext.CLIPTextConfig(**TEXT_TINY),
         tokenizer_length=8)

@@ -59,7 +59,7 @@ def slice_pair():
              for i, f in enumerate(FIELDS)}
     jpipe.models = dataclasses.replace(
         jpipe.models, **{f + "_params": jax_variables(flats[f]) for f in FIELDS})
-    pipe = build_pipeline(_no_bf16_decode(PipelineConfig.tiny()), init=False)
+    pipe = build_pipeline(_no_bf16_decode(PipelineConfig.tiny()), device="cpu", init=False)
     for f in FIELDS:
         load_jax_params(getattr(pipe.models, f), flats[f])
     return jpipe, pipe

@@ -1,0 +1,205 @@
+"""PyTorch port: the entry points' device default, the bounds and work counts
+that ``chip_smoke.py`` reports beside each kernel, its ptxas summary, and the
+Python-side layout work of the rebuilt K1/K2 and K4 wrappers against the
+plain versions on the CPU.
+
+Work counts are checked against hand-worked numbers for each kernel's timed
+main-path shape (flops of the matrix products; each input byte read once and
+each output byte written once).  The layout tests compare in f32 at 1e-5 of
+max |reference| (the same arithmetic, padded with zeros)."""
+
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from _torch_port_helpers import assert_close, t
+from streamingt2v_torch.config import EnhanceConfig, PipelineConfig, VAEConfig
+from streamingt2v_torch.models.clip import CLIPVisionConfig
+from streamingt2v_torch.models.clip_text import CLIPTextConfig
+from streamingt2v_torch.models.enhance.unet import I2VGenXLUNetConfig
+from streamingt2v_torch.ops.flash_attention import flash_attention, pad_head_dim
+from streamingt2v_torch.ops.temporal_conv import (
+    _aligned, kernel_operands, temporal_conv_reference)
+from streamingt2v_torch.pipeline import build
+
+TOL = 1e-5
+
+
+# ------------------------------------------------------- device default ---
+
+def _tiny_enhance_kwargs() -> dict:
+    return dict(unet=I2VGenXLUNetConfig.tiny(),
+                vae=dataclasses.replace(VAEConfig.tiny(), temporal_decoder=False),
+                clip_vision=CLIPVisionConfig.tiny(),
+                text=CLIPTextConfig(vocab_size=514, width=32, layers=1, heads=2, max_length=8),
+                tokenizer_length=8)
+
+
+BUILDERS = {
+    "build_models": lambda: build.build_models(PipelineConfig.tiny()),
+    "build_pipeline": lambda: build.build_pipeline(PipelineConfig.tiny()).models,
+    "build_enhance_models": lambda: build.build_enhance_models(**_tiny_enhance_kwargs()),
+    "build_enhance": lambda: build.build_enhance(EnhanceConfig(), **_tiny_enhance_kwargs()).m,
+}
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
+def test_builders_default_to_the_card(name):
+    """Called without ``device``, a builder puts its modules on the card;
+    without a card it raises instead of building on the CPU."""
+    fn = getattr(build, name)
+    if name != "build_enhance":
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BUILDERS[name]()
+        return
+    models = BUILDERS[name]()
+    devices = {p.device.type for f in dataclasses.fields(models)
+               if isinstance(getattr(models, f.name), torch.nn.Module)
+               for p in getattr(models, f.name).parameters()}
+    assert devices == {"cuda"}
+
+
+# ------------------------------------------------------ bounds and work ---
+
+@pytest.mark.parametrize("work,flops,nbytes", [
+    # K1 (250, 9216, 64): 4 B*L^2*D; q, k, v read and o written in bf16
+    (chip_smoke.work_flash(250, 1, 9216, 9216, 64),
+     4 * 250 * 9216 * 9216 * 64, 4 * 250 * 9216 * 64 * 2),
+    # K2 (38, 14400, 5 x 64)
+    (chip_smoke.work_flash(38, 5, 14400, 14400, 64),
+     4 * 38 * 5 * 14400 * 14400 * 64, 4 * 38 * 14400 * 320 * 2),
+    # K2 cross-attention: 145 keys
+    (chip_smoke.work_flash(38, 5, 14400, 145, 64),
+     4 * 38 * 5 * 14400 * 145 * 64, (2 * 38 * 14400 + 2 * 38 * 145) * 320 * 2),
+    # K3 x (460800, 320), inner 1280: x @ (320, 2560), then (., 1280) @ (1280, 320)
+    (chip_smoke.work_geglu(460800, 320, 1280),
+     2 * 460800 * 320 * 2560 + 2 * 460800 * 1280 * 320,
+     2 * (2 * 460800 * 320 + 320 * 2560 + 1280 * 320) + 4 * (2560 + 320 + 2 * 320)),
+    # K4 (2, 25, 9216, 320) -> 320, kt 3, prologue and residual epilogue
+    (chip_smoke.work_temporal_conv(2, 25, 9216, 320, 320),
+     2 * 460800 * 320 * 320 * 3,
+     2 * (460800 * 320 + 3 * 320 * 320 + 2 * 460800 * 320) + 4 * (320 + 2 * 2 * 320 + 2 * 25)),
+    # K4 bare (what one conv3d computes)
+    (chip_smoke.work_temporal_conv(1, 38, 14400, 320, 320, res=False, pre=False),
+     2 * 547200 * 320 * 320 * 3, 2 * (547200 * 320 + 3 * 320 * 320 + 547200 * 320) + 4 * 320),
+    # K5 (38, 14400, 320): read once, write once
+    (chip_smoke.work_group_norm(38, 14400, 320), 0, 2 * 2 * 38 * 14400 * 320 + 8 * 320),
+    # K6 (38 frames, 14400 pixels, 5 x 64): q, k, v, o once
+    (chip_smoke.work_temporal_attention(1, 38, 38, 14400, 5, 64),
+     4 * 14400 * 5 * 38 * 38 * 64, 4 * 38 * 14400 * 320 * 2),
+])
+def test_chip_smoke_work_counts(work, flops, nbytes):
+    assert work == (flops, nbytes)
+
+
+@pytest.mark.parametrize("work,bound_ms,bound_by", [
+    ((989e12, 1.0), 1000.0, "operations"),       # one second of tensor-core peak
+    ((0, 3.35e12), 1000.0, "bytes"),              # one second of HBM3
+    ((989e9, 6.7e9), 2.0, "bytes"),               # 1 ms of flops, 2 ms of bytes
+    (chip_smoke.work_flash(250, 1, 9216, 9216, 64), 5.435817984e12 / 989e12 * 1e3,
+     "operations"),
+    (chip_smoke.work_group_norm(38, 14400, 320), 700418560 / 3.35e12 * 1e3, "bytes"),
+])
+def test_chip_smoke_bound(work, bound_ms, bound_by):
+    got = chip_smoke.bound(work)
+    assert got["bound_by"] == bound_by
+    assert got["bound_ms"] == pytest.approx(bound_ms, rel=1e-4)
+
+
+def test_chip_smoke_yardstick_share():
+    rec = chip_smoke._yardstick(dict(ms=10.0), (989e10, 0))
+    assert rec["bound_ms"] == pytest.approx(10.0) and rec["share"] == pytest.approx(1.0)
+
+
+def test_chip_smoke_ptxas_summary_names_each_kernel():
+    log = ("ptxas info    : Compiling entry function '_ZN4st2v25temporal_conv_bf16_kernelILi3EEEv"
+           "PK13__nv_bfloat16S3_PKfS5_S5_S3_S5_PS1_iiii' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 220 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN4st2v21flash_kernel_bf16_d64EPK13__nv_"
+           "bfloat16S2_S2_PS0_iiiif' for 'sm_90a'\n"
+           "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 226 registers, used 1 barriers\n")
+    assert chip_smoke._ptxas_summary(log) == [
+        "temporal_conv_bf16_kernel<Li3E>: 220 registers, 0 bytes stack frame, "
+        "0 bytes spill stores, 0 bytes spill loads",
+        "flash_kernel_bf16_d64: 226 registers, 0 bytes stack frame, 4 bytes spill stores, "
+        "4 bytes spill loads"]
+
+
+def test_chip_smoke_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would run")
+    assert chip_smoke.main(["--phases", "card"]) == 2
+
+
+# ------------------------------------------------- K4 operand layout ---
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("c,co,kt", [(3, 3, 3), (12, 5, 3), (16, 24, 1), (3, 8, 5)])
+def test_temporal_conv_kernel_operands_keep_the_function(c, co, kt, pre, res):
+    """The zero padding of C (x, pre_a, pre_b, W's rows) and of W's C_out
+    columns changes nothing in the plain version's output."""
+    rng = np.random.RandomState(5)
+    b, t_len, s = 2, 4, 9
+    x = t(rng.randn(b, t_len, s, c))
+    w = t(rng.randn(kt, c, co) / np.sqrt(kt * c))
+    bias = t(0.1 * rng.randn(co))
+    r = t(rng.randn(b, t_len, s, co)) if res else None
+    rw = t(rng.rand(b, t_len)) if res else None
+    pa = t(1.0 + 0.2 * rng.randn(b, c)) if pre else None
+    pb = t(0.2 * rng.randn(b, c)) if pre else None
+    xp, wp, pap, pbp = kernel_operands(x, w, pa, pb)
+    c8, co8 = -(-c // 8) * 8, -(-co // 8) * 8
+    assert xp.shape == (b, t_len, s, c8) and wp.shape == (kt, c8, co8)
+    assert pre is False or (pap.shape == (b, c8) and pbp.shape == (b, c8))
+    assert float(wp[:, c:].abs().sum()) == 0.0 and float(wp[:, :, co:].abs().sum()) == 0.0
+    ref = temporal_conv_reference(x, w, bias, r, rw, pa, pb)
+    got = temporal_conv_reference(xp, wp[:, :, :co].contiguous(), bias, r, rw, pap, pbp)
+    assert_close(got, ref.numpy(), TOL, "padded K4 operands")
+
+
+def test_temporal_conv_kernel_operands_leave_aligned_widths_alone():
+    x, w = torch.zeros(1, 2, 3, 320), torch.zeros(3, 320, 640)
+    pa = torch.zeros(1, 320)
+    xp, wp, pap, pbp = kernel_operands(x, w, pa, pa)
+    assert xp is x and wp is w and pap is pa and pbp is pa
+
+
+def test_temporal_conv_operands_off_16_bytes_are_copied():
+    """The bf16 kernel loads 16 bytes at a time: an operand whose data starts
+    off a 16-byte boundary is copied (same values), an aligned one is not."""
+    base = torch.arange(40, dtype=torch.bfloat16)
+    aligned, off = base[:32], base[1:33]
+    assert aligned.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 2
+    assert _aligned(aligned) is aligned and _aligned(None) is None
+    moved = _aligned(off)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, off)
+
+
+# ------------------------------------------------ K1 head-dim padding ---
+
+def _attention_scaled(q, k, v, scale):
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    return torch.matmul(p, v)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(3, 25, 7, 32), (2, 130, 145, 40), (1, 65, 63, 64)])
+def test_flash_head_dim_padding_keeps_the_function(bh, lq, lk, d):
+    """Zero-padded head dims (what the bf16 D=64 kernel runs) give the same
+    attention under the true head dim's scale, at ragged q and kv lengths;
+    the padded output columns are zero."""
+    rng = np.random.RandomState(6)
+    q, k, v = (t(rng.randn(bh, n, d)) for n in (lq, lk, lk))
+    qp, kp, vp = pad_head_dim(q, k, v)
+    assert qp.shape[-1] == 64 and kp.shape == (bh, lk, 64) and vp.shape == (bh, lk, 64)
+    got = _attention_scaled(qp, kp, vp, d ** -0.5)
+    assert float(got[..., d:].abs().sum()) == 0.0
+    assert_close(got[..., :d], flash_attention(q, k, v).numpy(), TOL, "padded K1 operands")
