@@ -46,7 +46,11 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice
-and enhance phases.
+and enhance phases.  K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2``
+at the three stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
+memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
+``stage1_ms``, ``stage1_library_ms`` and ``stage1_share`` at the stage-1
+level-0 geometry.
 
 There is no CPU path: without CUDA the script exits non-zero before any
 result.  Every failed phase raises.
@@ -342,18 +346,28 @@ def check_k2(randn) -> dict:
     return rec
 
 
+K3_LEVELS = ((460800, 320), (115200, 640), (28800, 1280))   # the stage-1 UNet widths
+
+
 def check_k3(randn) -> dict:
+    """K3 at the UNet widths (each timed beside its bound, with the peak
+    memory a call adds beyond its output: G and LN(x) of one chunk), at a
+    ragged shape and without LN or residual."""
     import torch
 
-    from streamingt2v_torch.ops.fused_ff import geglu_ff, geglu_ff_reference
+    from streamingt2v_torch.ops.fused_ff import chunk_size, geglu_ff, geglu_ff_reference
 
     bf16, f32 = torch.bfloat16, torch.float32
     rec, errs = {}, []
-    for n, c, dtype, label in [(460800, 320, bf16, "unet level0"),
-                               (115200, 640, bf16, "unet level1"),
-                               (28800, 1280, bf16, "unet level2"),
-                               (547200, 320, bf16, "i2vgen level0"),
-                               (4096, 320, f32, "f32")]:
+    for n, c, dtype, ln_res, label in [(460800, 320, bf16, True, "unet level0"),
+                                       (115200, 640, bf16, True, "unet level1"),
+                                       (28800, 1280, bf16, True, "unet level2"),
+                                       (547200, 320, bf16, True, "i2vgen level0"),
+                                       (7200, 48, bf16, True, "ragged rows and width"),
+                                       (7200, 48, bf16, False, "ragged, no LN/residual"),
+                                       (115200, 640, bf16, False, "level1 no LN/residual"),
+                                       (4096, 320, f32, True, "f32"),
+                                       (4096, 320, f32, False, "f32 no LN/residual")]:
         inner = 4 * c
         x = randn(n, c, dtype=dtype)
         w1 = randn(2 * inner, c, dtype=dtype, std=c ** -0.5)
@@ -363,25 +377,33 @@ def check_k3(randn) -> dict:
         lns = 1.0 + randn(c, dtype=f32, std=0.1)
         lnb = randn(c, dtype=f32, std=0.1)
         args = (x, w1, b1, w2, b2)
-        kw = dict(ln_scale=lns, ln_bias=lnb, residual=True)
+        kw = dict(ln_scale=lns, ln_bias=lnb, residual=True) if ln_res else {}
         out = geglu_ff(*args, **kw)
-        ref = geglu_ff_reference(*args, lns, lnb, True)
+        ref = geglu_ff_reference(*args, *((lns, lnb, True) if ln_res else ()))
         errs.append(_compare(f"K3 {label} x{(n, c)} inner {inner} {dtype}", out, ref,
                              _tol(dtype)))
-        if dtype == f32:
-            plain = geglu_ff_reference(*args)
-            errs.append(_compare(f"K3 {label} no LN/residual", geglu_ff(*args), plain,
-                                 _tol(dtype)))
-        if (n, c) == (460800, 320):
-            rec = _yardstick(
-                dict(ms=_time_ms(lambda: geglu_ff(*args, **kw)),
-                     plain_ms=_time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True),
-                                       reps=3), library_ms=None, shape=[n, c, inner]),
-                work_geglu(n, c, inner))
-            print(f"  K3 time {(n, c, inner)} bf16: kernel {rec['ms']:.3f} ms, plain "
-                  f"{rec['plain_ms']:.3f} ms, no one-call yardstick, bound "
-                  f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), share {rec['share']:.3f}",
-                  flush=True)
+        if ln_res and (n, c) in K3_LEVELS:
+            level = K3_LEVELS.index((n, c))
+            del out
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = geglu_ff(*args, **kw)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+            r = _yardstick(dict(ms=_time_ms(lambda: geglu_ff(*args, **kw))),
+                           work_geglu(n, c, inner))
+            rec[f"ms_level{level}"], rec[f"share_level{level}"] = r["ms"], r["share"]
+            rec[f"scratch_mb_level{level}"] = extra / 2**20
+            line = (f"  K3 time {(n, c, inner)} bf16 level {level}: kernel {r['ms']:.3f} ms, "
+                    f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}; "
+                    f"chunk {chunk_size(n, inner, c)} rows, scratch {extra / 2**20:.1f} MiB")
+            if level == 0:
+                r["plain_ms"] = _time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True),
+                                         reps=3)
+                rec.update(r, library_ms=None, shape=[n, c, inner])
+                line += f", plain {r['plain_ms']:.3f} ms, no one-call yardstick"
+            print(line, flush=True)
         del x, out, ref
     rec["max_abs_err"] = max(errs)
     return rec
@@ -527,9 +549,15 @@ def check_k5(randn) -> dict:
     return rec
 
 
+# K6's timed geometries, (batch, frames, pixels, heads) at head dim 64:
+# stage 2's level 0, then stage 1's
+K6_TIMED = ((1, 38, 14400, 5), (2, 25, 9216, 5))
+
+
 def check_k6(randn) -> dict:
-    """K6 at the stage-2 and stage-1 geometries, timed against the
-    transposes + grouped-attention plain version."""
+    """K6 at the stage-2 and stage-1 geometries and at its edges (T = 1 and
+    64, ragged pairs, Tq != Tkv), timed at stage 2's and stage 1's level 0
+    against SDPA and the transposes + grouped-attention plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -546,6 +574,9 @@ def check_k6(randn) -> dict:
             (1, 38, 38, 14400, 8, 64, bf16, "i2vgen transformer_in"),
             (2, 25, 25, 9216, 5, 64, bf16, "stage-1 level0 T=25"),
             (2, 25, 7, 9216, 5, 64, bf16, "CAM-like 25x7"),
+            (1, 1, 1, 4000, 5, 64, bf16, "T=1"),
+            (1, 64, 64, 3600, 5, 64, bf16, "T=64"),
+            (3, 20, 9, 1001, 3, 64, bf16, "ragged pairs 20x9"),
             (2, 16, 16, 1000, 2, 128, f32, "f32 d=128"),
             (1, 64, 64, 333, 3, 32, f32, "f32 T=64 ragged")]:
         q = randn(b * tq, s, heads * d, dtype=dtype)
@@ -555,24 +586,37 @@ def check_k6(randn) -> dict:
         ref = temporal_attention_reference(q, k, v, **kw)
         errs.append(_compare(f"K6 {label} T {tq}x{tkv} S {s} {heads}x{d} {dtype}", out, ref,
                              _tol(dtype)))
-        if label == "i2vgen level0":   # batch 1: frames are the leading axis
-            qh, kh, vh = (z.view(tq, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
+        if tq == tkv and d == 64 and (b, tq, s, heads) in K6_TIMED:
+            # strided views, no copy: (S, H, T, D) for one batch row, else
+            # (B, S*H, T, D), each (pixel, head) pair a head of SDPA
+            if b == 1:
+                view = "(S, H, T, D)"
+                qh, kh, vh = (z.view(-1, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
+                unview = lambda o: o.permute(2, 0, 1, 3)  # noqa: E731
+            else:
+                view = "(B, S*H, T, D)"
+                qh, kh, vh = (z.view(b, -1, s * heads, d).transpose(1, 2) for z in (q, k, v))
+                unview = lambda o: o.transpose(1, 2)  # noqa: E731
 
             def library():
                 return F.scaled_dot_product_attention(qh, kh, vh)
 
-            _compare("K6 yardstick SDPA on the (S, H, T, D) strided view",
-                     library().permute(2, 0, 1, 3).reshape(tq, s, heads * d), ref, _tol(dtype))
-            rec = _yardstick(
+            _compare(f"K6 yardstick SDPA on the {view} strided view, {label}",
+                     unview(library()).reshape(b * tq, s, heads * d), ref, _tol(dtype))
+            r = _yardstick(
                 dict(ms=_time_ms(lambda: fused_temporal_attention(q, k, v, **kw)),
                      plain_ms=_time_ms(lambda: temporal_attention_reference(q, k, v, **kw),
                                        reps=3),
                      library_ms=_time_ms(library), shape=[b * tq, s, heads * d]),
                 work_temporal_attention(b, tq, tkv, s, heads, d))
-            print(f"  K6 time {(b * tq, s, heads * d)} T={tq} bf16: kernel {rec['ms']:.3f} ms,"
-                  f" SDPA {rec['library_ms']:.3f} ms, transposes + grouped attention "
-                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-                  f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
+            print(f"  K6 time {(b * tq, s, heads * d)} T={tq} bf16: kernel {r['ms']:.3f} ms, "
+                  f"SDPA {r['library_ms']:.3f} ms, transposes + grouped attention "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']}), share {r['share']:.3f}", flush=True)
+            if not rec:
+                rec = r
+            else:
+                rec["stage1"] = r
         del q, k, v, out, ref
     rec["max_abs_err"] = max(errs)
     return rec
@@ -990,12 +1034,15 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
+        extra = {k: v for k, v in r.items()
+                 if k == "bare_ms" or k.startswith(("ms_level", "share_level", "scratch_mb"))}
+        if "stage1" in r:   # K6 at the stage-1 geometry
+            extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=r.get("max_abs_err"),
                             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
                             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-                            library_ms=r.get("library_ms"), share=r.get("share"),
-                            **({"bare_ms": r["bare_ms"]} if "bare_ms" in r else {})))
+                            library_ms=r.get("library_ms"), share=r.get("share"), **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps) != (
             FIRST_CHUNK_STEPS, AR_STEPS, ENHANCE_STEPS):

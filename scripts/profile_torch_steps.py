@@ -5,10 +5,14 @@ PyTorch port, at full width with random bf16 weights, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_steps.py            # both stages
     python3 scripts/profile_torch_steps.py --stages 2
+    python3 scripts/profile_torch_steps.py --stages 1 --stage1-routing off,on
 
 Stage 1 runs ``image_to_video`` for 43 frames (the first chunk with one
 sampler step, then one AR chunk with two) and profiles the AR chunk's last
-guided denoiser call.  Stage 2 runs ``enhance_with_keyframe_prepass`` on a
+guided denoiser call, once per ``--stage1-routing`` entry: "off" is the
+shipped ``PipelineConfig.routing`` (the JAX package's switches, all off),
+"on" is ``KernelRouting.all_on()`` (K2, K5 and K6 where their gates allow).
+Stage 2 runs ``enhance_with_keyframe_prepass`` on a
 synthetic 64-frame 720p video with 3 DDIM steps (2 run) and profiles the
 last 38-frame chunk step.  Earlier calls warm the kernels and libraries up.
 ``torch.profiler`` (CUPTI) gives each kernel's device time; the classes
@@ -31,10 +35,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (class, substrings of the kernel name), first match wins
 CLASSES = (
     ("K1/K2 flash attention", ("flash_kernel",)),
-    ("K3 GEGLU FF", ("geglu_kernel",)),
+    ("K3 GEGLU FF", ("geglu_",)),
     ("K4 temporal conv", ("temporal_conv",)),
     ("K5 fused GroupNorm", ("gn_stats_kernel", "gn_apply_kernel")),
-    ("K6 temporal attention", ("temporal_attention_kernel",)),
+    ("K6 temporal attention", ("temporal_attention",)),
     ("cuDNN conv", ("conv", "fprop", "dgrad", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cublas", "xmma", "cutlass", "sm90_")),
     ("softmax / reductions", ("softmax", "reduce", "norm")),
@@ -85,18 +89,22 @@ def report(title: str, by_name: dict, wall: float) -> None:
         print(f"    {OTHER}: {ms:.1f} ms {name[:100]}", flush=True)
 
 
-def profile_stage1() -> None:
+ROUTINGS = ("off", "on")
+
+
+def profile_stage1(routing: str) -> None:
     import torch
 
     from chip_smoke import _smooth_image
-    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.config import KernelRouting, PipelineConfig
     from streamingt2v_torch.pipeline import streaming
     from streamingt2v_torch.pipeline.build import build_pipeline
 
     cfg = PipelineConfig()
     cfg = dataclasses.replace(
         cfg, first_chunk_sampler=dataclasses.replace(cfg.first_chunk_sampler, num_steps=1),
-        sampler=dataclasses.replace(cfg.sampler, num_steps=2))
+        sampler=dataclasses.replace(cfg.sampler, num_steps=2),
+        routing=KernelRouting.all_on() if routing == "on" else cfg.routing)
     pipe = build_pipeline(cfg, seed=0, bf16=True)
     calls, result = [], {}
     denoise = streaming.denoise
@@ -113,8 +121,8 @@ def profile_stage1() -> None:
         pipe.image_to_video(_smooth_image(cfg.height, cfg.width).cuda(), num_frames=43)
     finally:
         streaming.denoise = denoise
-    report("stage 1, one AR guided step (UNet + ControlNet, CFG-doubled batch)",
-           result["by_name"], result["wall"])
+    report(f"stage 1, one AR guided step (UNet + ControlNet, CFG-doubled batch), routing "
+           f"{routing} {cfg.routing}", result["by_name"], result["wall"])
     del pipe
     torch.cuda.empty_cache()
 
@@ -150,7 +158,12 @@ def profile_stage2() -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--stages", default="1,2")
+    parser.add_argument("--stage1-routing", default="off",
+                        help="comma-separated subset of " + ",".join(ROUTINGS))
     args = parser.parse_args()
+    routings = args.stage1_routing.split(",")
+    if not set(routings) <= set(ROUTINGS):
+        parser.error(f"--stage1-routing takes {ROUTINGS}, got {routings}")
     import torch
 
     if not torch.cuda.is_available():
@@ -162,7 +175,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     stages = args.stages.split(",")
     if "1" in stages:
-        profile_stage1()
+        for routing in routings:
+            profile_stage1(routing)
     if "2" in stages:
         profile_stage2()
     return 0

@@ -13,7 +13,8 @@
 // operands run the same tile on the FMA units in full f32 (no TF32), so a
 // kernel body is written once for both types.
 //
-// The pipelined kernels (K1/K2's bf16 D=64 body, K4's bf16 body) hold their
+// The pipelined kernels (the bf16 bodies of K1/K2 at D=64, K3, K4 and K6 at
+// D=64) hold their
 // fragments in registers instead: `ldmatrix` fills A and B fragments from
 // shared memory (`.trans` for a B stored with the contraction axis as rows),
 // `mma_bf16` multiplies them, and `cp_async_16` stages tiles into shared
@@ -86,6 +87,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// all but the newest N committed groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // two floats -> one register of two bf16, `lo` in the low half

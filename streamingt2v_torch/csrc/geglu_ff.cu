@@ -1,26 +1,487 @@
-// K3: fused GEGLU feed-forward for Hopper.
+// K3: GEGLU feed-forward for Hopper.
 //
 // Replaces the Pallas kernel `_ff_kernel` (streamingt2v_tpu/ops/fused_ff.py:65,
 // launched from `_geglu_pallas`):
 //
 //   [a | b] = LN(x) W1^T + b1,   out = (a * gelu_erf(b)) W2^T + b2 (+ x)
 //
-// One block owns BN rows.  It normalises them once (one-pass mean/var,
-// clamped at 0, eps 1e-5) into shared memory, then walks the inner axis in
-// tiles of BI: the a and b halves of that tile are two products over C in
-// 64-wide chunks, GEGLU with the exact erff is applied in shared memory, and
-// the tile's contribution to the output is accumulated in f32 registers.  The
-// (N, 2*inner) intermediate therefore never reaches device memory, which is
-// the point of the kernel: at the level-0 UNet geometry that tensor is 2.4 GB
-// per call.  Weights stream through shared memory once per row block, so the
-// kernel is bound by the two products (and by weight re-reads from L2 at the
-// 1280-channel level, where BN drops to 16 to keep the accumulator in
-// registers).  Weights come in the torch Linear layout: W1 (2*inner, C) and
-// W2 (C_out, inner), i.e. already "transposed B" for the tile product.
+// with one-pass LN statistics clamped at 0 and eps 1e-5.  Weights come in the
+// torch Linear layout: W1 (2*inner, C) and W2 (C_out, inner), i.e. already
+// "transposed B" for a row-major product.
+//
+// What bounds it on the H100: the two products, 2*N*C*2*inner +
+// 2*N*inner*C_out flops on the tensor cores (1.13 TFLOP at every UNet level
+// of stage 1, 1.145 ms at the bf16 peak).
+//
+// The bf16 body: three kernels over a chunk of rows, two of them one tiled
+// GEMM core.  A fused design has to hold a (rows x C_out) f32 accumulator on
+// chip, which at C_out = 1280 leaves 16 rows per block, and every block then
+// streams all of W1 and W2 from L2 (71 GB of L2 reads per call at 1280
+// channels).  Here:
+//   - `geglu_ln_kernel` (with LN): one warp per row takes the mean and rstd in
+//     one sweep and writes LN(x) rounded to bf16 (as the Pallas kernel rounds
+//     it before its product), once per element; normalising inside the GEMM
+//     would redo it for every 128 columns of G;
+//   - pass "up" (`geglu_gemm_kernel<true, 256, 0>`): a tile is 128 rows x 128
+//     columns of G, i.e. 128 rows of W1's a slab and the matching 128 of its b
+//     slab (two contiguous slabs; W1 is not reordered) as the 256 columns of
+//     one product, so every thread holds a and b for the same G elements.  The
+//     epilogue adds b1, computes a * 0.5*b*(1+erf(b/sqrt2)), rounds G to bf16
+//     (the Pallas kernel rounds g to the input dtype before the second product
+//     too) and stores it with 16-byte stores staged outside the copy ring.  One
+//     block per SM walks its tiles with the ring's copies running ahead across
+//     tiles, so the next tile's first stages land during this one's epilogue;
+//   - pass "down" (`geglu_gemm_kernel<false, 256, 64>` at C_out % 320 == 0):
+//     G W2^T, a tile of 128 rows x 320 output columns (G read once at the
+//     UNet widths; 64 columns elsewhere), epilogue + b2 (+ x) rounded once and stored 16 bytes at a
+//     time.
+// The core: two warpgroups, each 64 rows of the tile, `wgmma.mma_async` with
+// both operands read from shared memory in the 128-byte swizzle (on the H100
+// the unswizzled core-matrix layout ran the same products 1.6x slower).
+// Operands arrive by 16-byte `cp.async` into a ring of 3 stages of 64 along
+// the contraction; `cp.async` writes through the generic proxy, so each
+// thread fences its landed copies to the async proxy (`fence.proxy.async`)
+// before the stage's barrier, and one group of products stays in flight
+// while the next stage is published.  Zero fill covers the ragged row edge,
+// the ragged K tail and absent columns.  G (and LN(x)) are scratch the
+// wrapper allocates for one chunk of rows, whole waves of the down pass; the
+// wrapper (ops/fused_ff.py) makes the chunk plan and picks the down tile.
+//
+// The f32 instance keeps the first, fused body: one block owns BN rows,
+// normalises them once into shared memory, walks the inner axis in tiles and
+// accumulates the output in f32 registers (FMA units, full f32).
 #include "common.cuh"
 
 namespace st2v {
 
+// ---- bf16: LN, then two passes of one GEMM core ----
+constexpr int GF_THREADS = 256;    // the LN kernel
+constexpr int GF_BK = 64;           // contraction per stage
+constexpr int GF_SMEM = 220 * 1024; // shared memory of one block, one block per SM
+
+struct GemmArgs {
+  const bf16* a;           // up: LN(x) or x chunk (rows, k = C); down: G (rows, k = inner)
+  const bf16* b;           // up: W1 (2*inner, C); down: W2 (C_out, inner)
+  const float* bias;       // up: b1; down: b2
+  const bf16* res;         // down: x chunk for the residual, or null
+  bf16* out;               // up: G (rows, inner); down: out chunk (rows, C_out)
+  int rows, k, n, inner;   // n: valid output columns (up: inner; down: C_out)
+};
+
+// LN(x) of a chunk's rows in bf16, one warp per row: the mean and rstd in one
+// sweep (one-pass statistics clamped at 0, eps 1e-5), then the row again
+// (from L1) normalised, scaled and shifted.
+__global__ void __launch_bounds__(GF_THREADS)
+geglu_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
+                const float* __restrict__ ln_bias, bf16* __restrict__ xn, int n, int c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (GF_THREADS / 32) + warp;
+  if (row >= n) return;
+  const bf16* xr = x + size_t(row) * c;
+  float s1 = 0.f, s2 = 0.f;
+  for (int col = lane * 8; col < c; col += 256) {
+    uint4 raw = *reinterpret_cast<const uint4*>(xr + col);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      s1 += f.x + f.y;
+      s2 = fmaf(f.x, f.x, fmaf(f.y, f.y, s2));
+    }
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  const float mean = s1 / c;
+  const float rstd = rsqrtf(fmaxf(s2 / c - mean * mean, 0.f) + 1e-5f);
+  for (int col = lane * 8; col < c; col += 256) {
+    uint4 raw = *reinterpret_cast<const uint4*>(xr + col);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+    const float4* ps = reinterpret_cast<const float4*>(ln_scale + col);
+    const float4* pb = reinterpret_cast<const float4*>(ln_bias + col);
+    const float4 sa = __ldg(ps), sb = __ldg(ps + 1), ba = __ldg(pb), bb = __ldg(pb + 1);
+    const float sv[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+    const float bv[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(fmaf((f.x - mean) * rstd, sv[2 * e], bv[2 * e]),
+                                   fmaf((f.y - mean) * rstd, sv[2 * e + 1], bv[2 * e + 1]));
+    }
+    *reinterpret_cast<uint4*>(xn + size_t(row) * c + col) = raw;
+  }
+}
+
+__device__ __forceinline__ float geglu(float a, float b) {
+  return a * (0.5f * b * (1.f + erff(b * 0.70710678118654752f)));
+}
+
+// erf by Abramowitz & Stegun 7.1.26 (|error| <= 1.5e-7, below G's bf16
+// rounding by four orders), without erff's branches: the bf16 up pass
+// computes 64 of these per thread per tile.
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float t = __fdividef(1.f, fmaf(0.3275911f, ax, 1.f));
+  float y = fmaf(1.061405429f, t, -1.453152027f);
+  y = fmaf(y, t, 1.421413741f);
+  y = fmaf(y, t, -0.284496736f);
+  y = fmaf(y, t, 0.254829592f);
+  y = 1.f - y * t * __expf(-ax * ax);
+  return copysignf(y, x);
+}
+
+__device__ __forceinline__ float geglu_bf16(float a, float b) {
+  return a * (0.5f * b * (1.f + erf_as(b * 0.70710678118654752f)));
+}
+
+// ---- the wgmma core ----
+constexpr int GW_THREADS = 256;     // two warpgroups, 64 tile rows each
+constexpr int GW_BM = 128;          // tile rows
+static_assert(GF_BK == 64, "a stage's row is one 128-byte swizzle row");
+
+// A stage holds a tile of R rows x GF_BK (128 bytes a row) in the 128-byte
+// swizzle that wgmma reads: row r's 16-byte chunk c at byte
+// r * 128 + ((c ^ (r % 8)) * 16), in atoms of 8 rows (1024 bytes, aligned
+// to 1024), so the 8 rows of a core matrix fall into distinct banks.
+__host__ __device__ constexpr int sw128_off(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// K-major, 128-byte swizzle: 8-row atoms 1024 bytes apart (SBO); a k16 slice
+// starts 32 bytes further along the row.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t smem_addr) {
+  return uint64_t((smem_addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void gmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// all but the newest N committed groups of products are done
+template <int N>
+__device__ __forceinline__ void gmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators are read only after the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// this thread's landed cp.async copies (generic proxy) become visible to
+// wgmma's reads (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 256 f32, 128 per thread) += A (64 x 16) B^T (256 x 16), both K-major in
+// shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32, 32 per thread) += A (64 x 16) B^T (64 x 16), both K-major in
+// shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// B rows per tile: NB through one m64nNBk16 (NB = 256 or 0) and NS through
+// one m64nNSk16 (NS = 64 or 0) per 16 of the contraction.  UP takes (256, 0):
+// B rows 0..127 are W1's a slab and 128..255 its b slab for the same 128 G
+// columns, so a thread holds a (columns 8j..) and b (columns 128 + 8j..) for
+// the same G elements.  Down: B rows are output columns, (256, 64) for 320
+// columns, (0, 64) for 64.
+template <bool UP, int NB, int NS>
+struct GemmShape {
+  static constexpr int BN = NB + NS;
+  static constexpr int COLS = UP ? BN / 2 : BN;     // output columns per tile
+  static constexpr int LDY = COLS + 8;              // the output staging's row stride
+  static constexpr int A_BYTES = GW_BM * GF_BK * 2, B_BYTES = BN * GF_BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int Y_BYTES = UP ? GW_BM * LDY * 2 : 0;  // staging outside the ring
+  static constexpr int STAGES = (GF_SMEM - 1024 - Y_BYTES) / STAGE_BYTES < 4
+                                    ? (GF_SMEM - 1024 - Y_BYTES) / STAGE_BYTES : 4;
+  static constexpr size_t SMEM = size_t(STAGES) * STAGE_BYTES + Y_BYTES + 1024;  // + alignment
+  static_assert(STAGE_BYTES % 1024 == 0, "stages start on swizzle atoms");
+  static_assert(UP || GW_BM * LDY * 2 <= STAGES * STAGE_BYTES, "the down staging fits the ring");
+  static_assert(BN % 32 == 0 && (!UP || (NB == 256 && NS == 0)), "tile shape");
+};
+
+// A block walks tiles blockIdx.x, + gridDim.x, ... (column blocks fastest, so
+// the blocks at work share their rows of A in L2).  Its copies run STAGES - 1
+// steps ahead of the products across tile boundaries, so the next tile's
+// first stages land while this one's epilogue runs.  That needs the epilogue
+// to stage its output outside the ring: UP does; the down pass stages in the
+// ring and takes one tile per block (grid = tiles).
+template <bool UP, int NB, int NS>
+__global__ void __launch_bounds__(GW_THREADS, 1)
+geglu_gemm_kernel(const GemmArgs p) {
+  typedef GemmShape<UP, NB, NS> S;
+  constexpr int BN = S::BN, COLS = S::COLS, STAGES = S::STAGES;
+  constexpr int A_IT = GW_BM / 32, B_IT = BN / 32;  // 16-byte copies per thread per stage
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  // the swizzle atoms need 1024-byte alignment (the launch adds the slack)
+  unsigned char* smem_raw = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  bf16* Ys = reinterpret_cast<bf16*>(UP ? smem_raw + STAGES * S::STAGE_BYTES : smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;                          // warpgroup: tile rows wg*64 ..
+  // this thread's copies: rows cr + 32*it, columns [cc, cc + 8), at byte
+  // my_off + 4096*it of the tile (8 neighbouring threads copy one row)
+  const int cr = tid >> 3, cg = tid & 7, cc = cg * 8;
+  const int my_off = sw128_off(cr, cg);
+  const int col_blocks = (p.n + COLS - 1) / COLS;
+  const int tiles = col_blocks * ((p.rows + GW_BM - 1) / GW_BM);
+  const int steps = (p.k + GF_BK - 1) / GF_BK;
+  const size_t kstep = size_t(32) * p.k;
+  const size_t slab_off = UP ? size_t(p.inner - BN / 2) * p.k : 0;  // W1's b slab
+
+  // the loader: its tile and step, the ring slot it fills next, and its
+  // copies' sources (advanced by k0 each step) and rows that exist
+  int l_tile = blockIdx.x, l_step = 0, l_slot = 0;
+  const bf16* a_src = p.a;
+  const bf16* b_src = p.b;
+  uint32_t a_ok = 0, b_ok = 0;
+  auto start_tile = [&]() {
+    const int row0 = (l_tile / col_blocks) * GW_BM, col0 = (l_tile % col_blocks) * COLS;
+    a_src = p.a + size_t(row0 + cr) * p.k + cc;
+    b_src = p.b + size_t(col0 + cr) * p.k + cc;
+    a_ok = b_ok = 0;
+#pragma unroll
+    for (int it = 0; it < A_IT; ++it)
+      if (row0 + cr + 32 * it < p.rows) a_ok |= 1u << it;
+#pragma unroll
+    for (int it = 0; it < B_IT; ++it) {
+      const bool slab = UP && 32 * it >= BN / 2;
+      if (col0 + cr + 32 * it - (slab ? BN / 2 : 0) < p.n) b_ok |= 1u << it;
+    }
+  };
+  auto load_next = [&]() {
+    if (l_tile < tiles) {
+      unsigned char* As = smem_raw + l_slot * S::STAGE_BYTES;
+      unsigned char* Bs = As + S::A_BYTES;
+      const int k0 = l_step * GF_BK;
+      const bool kin = k0 + cc < p.k;
+#pragma unroll
+      for (int it = 0; it < A_IT; ++it) {
+        const bool ok = kin && ((a_ok >> it) & 1u);
+        cp_async_16(As + my_off + 4096 * it, ok ? a_src + it * kstep + k0 : p.a, ok);
+      }
+#pragma unroll
+      for (int it = 0; it < B_IT; ++it) {
+        const bool slab = UP && 32 * it >= BN / 2;
+        const bool ok = kin && ((b_ok >> it) & 1u);
+        cp_async_16(Bs + my_off + 4096 * it,
+                    ok ? b_src + it * kstep + (slab ? slab_off : 0) + k0 : p.b, ok);
+      }
+      if (++l_step == steps) {
+        l_step = 0;
+        l_tile += gridDim.x;
+        if (l_tile < tiles) start_tile();
+      }
+    }
+    cp_async_commit();  // one group per step, empty past the last tile
+    l_slot = l_slot + 1 == STAGES ? 0 : l_slot + 1;
+  };
+  float acc[NB > 0 ? NB / 2 : 1];   // the m64nNBk16 accumulator
+  float acs[NS > 0 ? NS / 2 : 1];   // the m64nNSk16 accumulator
+  if (l_tile < tiles) start_tile();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_next();
+  int slot = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = (tile / col_blocks) * GW_BM, col0 = (tile % col_blocks) * COLS;
+#pragma unroll
+    for (int i = 0; i < (NB > 0 ? NB / 2 : 1); ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (NS > 0 ? NS / 2 : 1); ++i) acs[i] = 0.f;
+    for (int i = 0; i < steps; ++i) {
+      cp_async_wait_group<STAGES - 2>();  // this thread's copies of this step landed
+      fence_proxy_async();
+      __syncthreads();  // the step is complete for all
+      const uint32_t a0 = smem_u32(smem_raw + slot * S::STAGE_BYTES) + wg * 64 * 128;
+      const uint32_t b0 = smem_u32(smem_raw + slot * S::STAGE_BYTES + S::A_BYTES);
+      gmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GF_BK / 16; ++kk) {
+        const uint64_t da = gmma_desc(a0 + kk * 32);
+        if constexpr (NB > 0) wgmma_m64n256k16(acc, da, gmma_desc(b0 + kk * 32));
+        if constexpr (NS > 0) wgmma_m64n64k16(acs, da, gmma_desc(b0 + NB * 128 + kk * 32));
+      }
+      gmma_commit();
+      // the previous step's products are done (this step's run on), in
+      // every warpgroup: its slot takes the copies STAGES - 1 steps ahead
+      gmma_wait<1>();
+      __syncthreads();
+      load_next();
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    gmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(acs);
+    if (!UP) {  // the staging is the ring: every copy is done
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // stage the tile's bf16 output for 16-byte stores.  A thread holds, of
+    // each 8-column block j of its accumulator, rows r (elements 0, 1) and
+    // r + 8 (2, 3) at columns 8j + 2*t4 and + 1.
+    constexpr int LDY = S::LDY;
+    const int r_lo = wg * 64 + (warp & 3) * 16 + g;
+    if constexpr (UP) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int cl = 8 * j + 2 * t4, gcol = col0 + cl;
+        const bool ok = gcol < p.n;
+        const float2 ba = ok ? __ldg(reinterpret_cast<const float2*>(p.bias + gcol))
+                             : make_float2(0.f, 0.f);
+        const float2 bb = ok ? __ldg(reinterpret_cast<const float2*>(p.bias + p.inner + gcol))
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(Ys + (r_lo + 8 * h) * LDY + cl) = pack_bf16x2(
+              geglu_bf16(acc[4 * j + 2 * h] + ba.x, acc[4 * (j + 16) + 2 * h] + bb.x),
+              geglu_bf16(acc[4 * j + 2 * h + 1] + ba.y, acc[4 * (j + 16) + 2 * h + 1] + bb.y));
+      }
+    } else {
+      auto emit = [&](int cl, const float* d) {  // d: one 8-column block's 4 elements
+        const int co = col0 + cl;
+        const bool ok = co < p.n;
+        const float bias0 = ok ? p.bias[co] : 0.f, bias1 = ok ? p.bias[co + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r_lo + 8 * h;
+          float v0 = d[2 * h] + bias0, v1 = d[2 * h + 1] + bias1;
+          if (p.res != nullptr && ok && row0 + r < p.rows) {
+            const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                p.res + size_t(row0 + r) * p.n + co));
+            v0 += x2.x;
+            v1 += x2.y;
+          }
+          *reinterpret_cast<uint32_t*>(Ys + r * LDY + cl) = pack_bf16x2(v0, v1);
+        }
+      };
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) emit(8 * j + 2 * t4, acc + 4 * j);
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) emit(NB + 8 * j + 2 * t4, acs + 4 * j);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < (GW_BM * (COLS / 8) + GW_THREADS - 1) / GW_THREADS; ++it) {
+      const int i = tid + it * GW_THREADS;
+      const int r = i / (COLS / 8), c8 = (i % (COLS / 8)) * 8;
+      if (r < GW_BM && row0 + r < p.rows && col0 + c8 < p.n)
+        *reinterpret_cast<uint4*>(p.out + size_t(row0 + r) * p.n + col0 + c8) =
+            *reinterpret_cast<const uint4*>(Ys + r * LDY + c8);
+    }
+    // the next tile's first barrier orders these reads of Ys before its
+    // epilogue writes Ys again
+  }
+  cp_async_wait_all();
+}
+
+// UP: persistent, one block per SM (grid = min(tiles, sms)); down: a block
+// per tile.
+template <bool UP, int NB, int NS>
+static int launch_gemm(const GemmArgs& p, int sms, cudaStream_t stream) {
+  typedef GemmShape<UP, NB, NS> S;
+  auto kernel = geglu_gemm_kernel<UP, NB, NS>;
+  cudaError_t err = set_smem(kernel, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>((p.n + S::COLS - 1) / S::COLS) *
+                          ((p.rows + GW_BM - 1) / GW_BM);
+  const long long grid = UP && tiles > sms ? sms : tiles;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(grid), GW_THREADS, S::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One chunk of rows: LN (with ln_scale), up, down.  The caller chooses the
+// down pass's output columns per block (320 where C_out % 320 == 0, or 64)
+// and the SM count that caps the up pass's grid.
+static int geglu_bf16_chunk(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                            const float* b2, const float* lns, const float* lnb, bf16* out,
+                            bf16* g_buf, bf16* xn, int rows, int c, int inner, int c_out,
+                            int residual, int down_cols, int sms, cudaStream_t s) {
+  if (sms <= 0 || !(down_cols == 64 || (down_cols == 320 && c_out % 320 == 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lns != nullptr) {
+    geglu_ln_kernel<<<(rows + GF_THREADS / 32 - 1) / (GF_THREADS / 32), GF_THREADS, 0, s>>>(
+        x, lns, lnb, xn, rows, c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  GemmArgs up{lns != nullptr ? xn : x, w1, b1, nullptr, g_buf, rows, c, inner, inner};
+  int rc = launch_gemm<true, 256, 0>(up, sms, s);
+  if (rc != 0) return rc;
+  GemmArgs down{g_buf, w2, b2, residual ? x : nullptr, out, rows, inner, c_out, inner};
+  return down_cols == 320 ? launch_gemm<false, 256, 64>(down, sms, s)
+                          : launch_gemm<false, 0, 64>(down, sms, s);
+}
+
+// ---- f32: the first, fused body ----
 constexpr int FF_THREADS = 256;
 constexpr int FF_WARPS = FF_THREADS / 32;
 constexpr int FF_KC = 64;     // C chunk of the first product
@@ -139,8 +600,7 @@ geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __r
       const int r = i / BI, j = i % BI;
       const float a = Hs[r * L::LDH + j] + b1[i0 + j];
       const float b = Hs[r * L::LDH + BI + j] + b1[inner + i0 + j];
-      const float gelu = 0.5f * b * (1.f + erff(b * 0.70710678118654752f));
-      Gs[r * L::LDG + j] = from_float<T>(a * gelu);
+      Gs[r * L::LDG + j] = from_float<T>(geglu(a, b));
     }
     __syncthreads();
 #pragma unroll
@@ -177,29 +637,21 @@ geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __r
   }
 }
 
-template <typename T, int BN, int BI>
-static int launch_geglu(const void* x, const void* w1, const float* b1, const void* w2,
-                        const float* b2, const float* lns, const float* lnb, void* out, int n,
-                        int c, int inner, int c_out, int residual, cudaStream_t stream) {
-  const size_t smem = FFLayout<T, BI>::smem_bytes(BN, c, c_out);
-  auto kernel = geglu_kernel<T, BN, BI>;
+template <int BN>
+static int launch_geglu_f32(const void* x, const void* w1, const float* b1, const void* w2,
+                            const float* b2, const float* lns, const float* lnb, void* out,
+                            int n, int c, int inner, int c_out, int residual,
+                            cudaStream_t stream) {
+  constexpr int BI = 16;
+  const size_t smem = FFLayout<float, BI>::smem_bytes(BN, c, c_out);
+  auto kernel = geglu_kernel<float, BN, BI>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<(n + BN - 1) / BN, FF_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2,
-      lns, lnb, static_cast<T*>(out), n, c, inner, c_out, residual);
+      static_cast<const float*>(x), static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), b2, lns, lnb, static_cast<float*>(out), n, c, inner, c_out,
+      residual);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int BI>
-static int dispatch_geglu(int bn, const void* x, const void* w1, const float* b1,
-                          const void* w2, const float* b2, const float* lns, const float* lnb,
-                          void* out, int n, int c, int inner, int c_out, int residual,
-                          cudaStream_t s) {
-  if (bn == 64) return launch_geglu<T, 64, BI>(x, w1, b1, w2, b2, lns, lnb, out, n, c, inner, c_out, residual, s);
-  if (bn == 32) return launch_geglu<T, 32, BI>(x, w1, b1, w2, b2, lns, lnb, out, n, c, inner, c_out, residual, s);
-  if (bn == 16) return launch_geglu<T, 16, BI>(x, w1, b1, w2, b2, lns, lnb, out, n, c, inner, c_out, residual, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Rows per block for a given output width: the largest of 64/32/16 whose
@@ -215,17 +667,35 @@ static int block_rows(int c_out) {
 
 }  // namespace st2v
 
-// dtype: 0 = float32, 1 = bfloat16.  Requires c % 16 == 0, c_out % 8 == 0 and
-// inner % 32 == 0; ln_scale/ln_bias may be null (no LayerNorm prologue).
+// One chunk of n rows: x (n, C), out (n, C_out).  dtype: 0 = float32, 1 =
+// bfloat16.  Requires C % 16 == 0, C_out % 8 == 0 and inner % 32 == 0, and
+// for f32 C_out <= 1280; ln_scale/ln_bias may be null (no LayerNorm).  bf16
+// only: g_scratch holds (n, inner) and ln_scratch (n, C) bf16 (LN only),
+// both 16-byte aligned like x, the weights, b1 and out; down_cols (320 or
+// 64) is the down pass's output columns per block and sms the up pass's grid
+// cap (both unused in f32).  Returns a cudaError_t (0 = launched).
 extern "C" int st2v_geglu_ff(const void* x, const void* w1, const float* b1, const void* w2,
                              const float* b2, const float* ln_scale, const float* ln_bias,
-                             void* out, int n, int c, int inner, int c_out, int residual,
-                             int dtype, void* stream) {
+                             void* out, void* g_scratch, void* ln_scratch, int n, int c,
+                             int inner, int c_out, int residual, int dtype, int down_cols,
+                             int sms, void* stream) {
   using namespace st2v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || c % 16 || c_out % 8 || inner % 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || c % 16 || c_out % 8 || inner % 32 || c <= 0 || c_out <= 0 || inner <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    if (g_scratch == nullptr || (ln_scale != nullptr && ln_scratch == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return geglu_bf16_chunk(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+                            static_cast<const bf16*>(w2), b2, ln_scale, ln_bias,
+                            static_cast<bf16*>(out), static_cast<bf16*>(g_scratch),
+                            static_cast<bf16*>(ln_scratch), n, c, inner, c_out, residual,
+                            down_cols, sms, s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bn = block_rows(c_out);
-  if (dtype == 1) return dispatch_geglu<bf16, 32>(bn, x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
-  if (dtype == 0) return dispatch_geglu<float, 16>(bn, x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
+  if (bn == 64) return launch_geglu_f32<64>(x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
+  if (bn == 32) return launch_geglu_f32<32>(x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
+  if (bn == 16) return launch_geglu_f32<16>(x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -44,7 +45,7 @@ _SIGNATURES = {
     "st2v_flash_attention_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "st2v_fused_group_norm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "st2v_temporal_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
-    "st2v_geglu_ff": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "st2v_geglu_ff": ([_P] * 10 + [_I] * 8 + [_P], _I),
     "st2v_temporal_conv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
                            _I),
 }
@@ -124,3 +125,9 @@ def check(rc: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t, copied if its data does not start on 16 bytes (the kernels' vector
+    loads)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()

@@ -1,19 +1,25 @@
-"""K3: fused GEGLU feed-forward, ``x + (a * gelu_erf(b)) W2 + b2`` with
+"""K3: GEGLU feed-forward, ``x + (a * gelu_erf(b)) W2 + b2`` with
 ``[a | b] = LN(x) W1 + b1``.
 
 Replaces the Pallas kernel ``_ff_kernel`` (``streamingt2v_tpu/ops/
 fused_ff.py:65``, launched from ``_geglu_pallas:247``) with the
-hand-written CUDA kernel in ``csrc/geglu_ff.cu``.
+hand-written CUDA kernels in ``csrc/geglu_ff.cu``.
 
 What bounds it on the H100: the two products (2*N*C*2*inner +
-2*N*inner*C_out flops) on the tensor cores; the unfused form would also
-write and re-read the (N, 2*inner) GEGLU tensor, 2.4 GB per call at the
-level-0 UNet geometry.  The kernel keeps that tensor on chip: per row tile
-it takes the LayerNorm statistics once (one-pass mean/var clamped at 0,
-eps 1e-5), walks the inner axis in tiles (both halves of LN(x) W1, GEGLU
-with the exact erff, then the tile's W2 product into an f32 accumulator
-held in registers) and adds b2 and the residual at the end.  Weights
-stream through shared memory once per row tile, from L2.
+2*N*inner*C_out flops) on the tensor cores.  A fused kernel that keeps the
+(rows, C_out) output accumulator on chip fits only 16 rows per block at
+C_out = 1280, and then streams all of W1 and W2 from L2 once per 16 rows.
+The bf16 path therefore runs, over chunks of rows (``chunk_plan``), LN(x)
+in bf16 (one kernel, once per element) and two passes of one tiled ``wgmma``
+GEMM core: pass "up" writes G = a * gelu(b) (GEGLU in the epilogue, G
+rounded to bf16 as the Pallas kernel rounds g to the input dtype), pass
+"down" computes G W2 + b2 (+ x).  G and LN(x) live in scratch buffers of
+one chunk (``G_CHUNK_BYTES``), sized in whole waves of the down pass so that
+no pass ends on a part-filled card.  This module makes the plan (rows per
+chunk, the down pass's tile width ``down_cols``, the SM count that caps the
+persistent up pass) and hands it to the C entry, which launches as told.
+The f32 path keeps the first, fused kernel (output widths up to
+``MAX_C_OUT_F32``).
 
 Weights come in the PyTorch Linear layout: ``w1`` (2*inner, C) holding
 [a | b] and ``w2`` (C_out, inner).
@@ -21,6 +27,7 @@ Weights come in the PyTorch Linear layout: ``w1`` (2*inner, C) holding
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -28,27 +35,75 @@ import torch.nn.functional as F
 
 from streamingt2v_torch.ops import _native
 
-# widest output the kernel's register accumulator takes (16 rows x 1280)
-MAX_C_OUT = 1280
+# widest output the f32 kernel's register accumulator takes (16 rows x 1280)
+MAX_C_OUT_F32 = 1280
+# G (rows x inner bf16) of one chunk of rows stays within this budget, or
+# holds one wave of the down pass where that is more (``chunk_size``).  Not
+# sized for L2: on the H100 each chunk's launches and their tails cost more
+# than reading G back from HBM (PERF.md, ``scripts/time_k3_k6.py
+# --budgets-mib``).
+G_CHUNK_BYTES = 192 << 20
+# rows of a tile of the GEMM core (``GW_BM`` in geglu_ff.cu)
+ROW_TILE = 128
+
+
+def _layer_norm(x: torch.Tensor, ln_scale, ln_bias) -> torch.Tensor:
+    """One-pass statistics clamped at 0, eps 1e-5, in f32."""
+    h = x.float()
+    mean = h.mean(dim=-1, keepdim=True)
+    var = (h.square().mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    h = (h - mean) * torch.rsqrt(var + 1e-5) * ln_scale.float()
+    return h if ln_bias is None else h + ln_bias.float()
+
+
+def geglu_up_reference(x, w1, b1, ln_scale=None, ln_bias=None) -> torch.Tensor:
+    """Pass "up" in f32: G = a * gelu_erf(b), [a | b] = LN(x) W1 + b1."""
+    inner = w1.shape[0] // 2
+    h = x.float() if ln_scale is None else _layer_norm(x, ln_scale, ln_bias)
+    z = F.linear(h, w1.float(), b1.float())
+    return z[..., :inner] * F.gelu(z[..., inner:])
+
+
+def geglu_down_reference(g, w2, b2, x=None) -> torch.Tensor:
+    """Pass "down" in f32: G W2 + b2, plus x when given (the residual)."""
+    out = F.linear(g.float(), w2.float(), b2.float())
+    return out if x is None else out + x.float()
 
 
 def geglu_ff_reference(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None,
-                       residual: bool = False) -> torch.Tensor:
-    """Plain version in f32: the same function without the fusion."""
-    inner = w2.shape[1]
-    h = x.float()
-    if ln_scale is not None:
-        mean = h.mean(dim=-1, keepdim=True)
-        var = (h.square().mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        h = (h - mean) * torch.rsqrt(var + 1e-5) * ln_scale.float()
-        if ln_bias is not None:
-            h = h + ln_bias.float()
-    z = F.linear(h, w1.float(), b1.float())
-    g = z[..., :inner] * F.gelu(z[..., inner:])
-    out = F.linear(g, w2.float(), b2.float())
-    if residual:
-        out = out + x.float()
-    return out.to(x.dtype)
+                       residual: bool = False, g_dtype=None) -> torch.Tensor:
+    """Plain version in f32: the two passes of the bf16 kernels without the
+    fusion, G rounded to ``g_dtype`` between them when given (the bf16
+    kernels store it in bf16)."""
+    g = geglu_up_reference(x, w1, b1, ln_scale, ln_bias)
+    if g_dtype is not None:
+        g = g.to(g_dtype).float()
+    return geglu_down_reference(g, w2, b2, x if residual else None).to(x.dtype)
+
+
+def down_cols(c_out: int) -> int:
+    """Output columns per block of the down pass: 320 where C_out allows (the
+    UNet widths: G is then read once per row tile), else 64.  The C entry
+    takes this as its ``down_cols`` and has an instance for each."""
+    return 320 if c_out % 320 == 0 else 64
+
+
+def chunk_size(n: int, inner: int, c_out: int, sms: int = 132) -> int:
+    """Rows per chunk: whole waves of the down pass (as many ``ROW_TILE``-row
+    tiles as fill ``sms`` SMs at one block each) whose bf16 G fits
+    ``G_CHUNK_BYTES``, at least one wave, and no more than n."""
+    wave = max(1, sms // -(-c_out // down_cols(c_out))) * ROW_TILE
+    return min(n, max(1, G_CHUNK_BYTES // (2 * inner * wave)) * wave)
+
+
+def chunk_plan(n: int, rows: int) -> list:
+    """(start, count) of each chunk of ``rows`` rows, in order, covering n."""
+    return [(start, min(rows, n - start)) for start in range(0, n, rows)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -69,14 +124,16 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     if w1.shape != (2 * inner, c) or b1.shape != (2 * inner,) or b2.shape != (c_out,):
         raise ValueError(f"geglu_ff: bad weight shapes w1{tuple(w1.shape)} b1{tuple(b1.shape)} "
                          f"w2{tuple(w2.shape)} b2{tuple(b2.shape)} for C={c}")
-    if c % 16 or c_out % 8 or inner % 32 or c_out > MAX_C_OUT:
+    f32 = x.dtype == torch.float32
+    if c % 16 or c_out % 8 or inner % 32 or (f32 and c_out > MAX_C_OUT_F32):
         raise ValueError(f"geglu_ff: needs C % 16 == 0, C_out % 8 == 0, inner % 32 == 0 "
-                         f"and C_out <= {MAX_C_OUT}; got C={c} C_out={c_out} inner={inner}")
+                         f"(and C_out <= {MAX_C_OUT_F32} in f32); got C={c} C_out={c_out} "
+                         f"inner={inner}")
     if residual and c_out != c:
         raise ValueError("geglu_ff: residual needs C_out == C")
-    f32 = [b1, b2] + ([] if ln_scale is None else [ln_scale, ln_bias])
+    vecs = [b1, b2] + ([] if ln_scale is None else [ln_scale, ln_bias])
     if any(t is None or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous()
-           for t in f32):
+           for t in vecs):
         raise TypeError("geglu_ff: b1, b2, ln_scale, ln_bias must be contiguous f32 on x's device")
     if ln_scale is not None and (ln_scale.shape != (c,) or ln_bias.shape != (c,)):
         raise ValueError("geglu_ff: ln_scale/ln_bias must be (C,)")
@@ -85,13 +142,27 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
             raise ValueError("geglu_ff: x, w1 and w2 must be contiguous on one device")
     n = x.numel() // c
     out = torch.empty(x.shape[:-1] + (c_out,), dtype=x.dtype, device=x.device)
-    rc = _native.library().st2v_geglu_ff(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if ln_scale is None else ln_scale.data_ptr(),
-        None if ln_scale is None else ln_bias.data_ptr(),
-        out.data_ptr(), n, c, inner, c_out, int(residual), _native.DTYPE_CODE[x.dtype],
-        _native.stream_of(x))
-    _native.check(rc, "geglu_ff")
+    lib, stream, code = _native.library(), _native.stream_of(x), _native.DTYPE_CODE[x.dtype]
+    if f32:
+        plan, g, xn, cols, sms = [(0, n)], None, None, 0, 0
+    else:
+        x, w1, b1, w2, ln_scale, ln_bias = map(_native.aligned,
+                                                (x, w1, b1, w2, ln_scale, ln_bias))
+        cols, sms = down_cols(c_out), _sm_count(x.device)
+        rows = chunk_size(n, inner, c_out, sms)
+        plan = chunk_plan(n, rows)
+        g = torch.empty((rows, inner), dtype=x.dtype, device=x.device)
+        xn = None if ln_scale is None else torch.empty((rows, c), dtype=x.dtype, device=x.device)
+    elem = x.element_size()
+    for start, count in plan:
+        rc = lib.st2v_geglu_ff(
+            x.data_ptr() + start * c * elem, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), None if ln_scale is None else ln_scale.data_ptr(),
+            None if ln_scale is None else ln_bias.data_ptr(),
+            out.data_ptr() + start * c_out * elem, None if g is None else g.data_ptr(),
+            None if xn is None else xn.data_ptr(), count, c, inner, c_out, int(residual),
+            code, cols, sms, stream)
+        _native.check(rc, "geglu_ff")
     geglu_ff.launches += 1
     return out
 

@@ -13,9 +13,13 @@ chip and writes o in place.
 
 What bounds it on the H100: bytes.  At the stage-2 level-0 geometry (38
 frames, 14400 pixels, 5 heads of 64) it moves q, k, v and o once each, about
-1.4 GB in bf16, for about 27 GFLOP: about 20 flops per byte, so it runs its
-products on the FMA units in f32 and spends its effort on reading each
-element once.
+1.4 GB in bf16, for about 27 GFLOP: about 20 flops per byte.  The bf16
+head-dim-64 body (every head of the main path) therefore keeps HBM busy: it
+copies groups of four pairs' frames as bf16 by 16-byte ``cp.async`` into one
+of two buffers while the other group's products run on the tensor cores
+(``mma.sync``; scores and probabilities in registers), and writes o in
+16-byte stores.  f32 and other head dims keep the first body, which stages
+keys and values as f32 and runs its products on the FMA units.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from streamingt2v_torch.ops.attention import attention
 
 MAX_FRAMES = 64
 MAX_HEAD_DIM = 128
-# shared memory for the staged key and value rows of one block
+# the first body: shared memory for the staged key and value rows of one block
 _SMEM_BUDGET = 96 * 1024
 _MAX_PAIRS = 8
 _WARPS = 8
@@ -90,6 +94,7 @@ def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                          f"d <= {MAX_HEAD_DIM})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("temporal_attention: q, k and v must be contiguous")
+    q, k, v = map(_native.aligned, (q, k, v))
     out = torch.empty_like(q)
     rc = _native.library().st2v_temporal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, frames_q, frames_kv,

@@ -75,12 +75,6 @@ def _round8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """t, copied if its data does not start on 16 bytes (the kernel's
-    vector loads)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-
-
 def kernel_operands(x, w, pre_a=None, pre_b=None):
     """The bf16 kernel's layout: x's channels (and pre_a, pre_b) zero-padded
     to a multiple of 8, and w (kt, C, C_out) zero-padded to (kt, C8,
@@ -138,7 +132,7 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.dtype == torch.bfloat16:
         x, w, pre_a, pre_b = kernel_operands(x, w, pre_a, pre_b)
         c = x.shape[3]
-        x, w, res, pre_a, pre_b = map(_aligned, (x, w, res, pre_a, pre_b))
+        x, w, res, pre_a, pre_b = map(_native.aligned, (x, w, res, pre_a, pre_b))
     out = torch.empty((bsz, t, s, c_out), dtype=x.dtype, device=x.device)
     rc = _native.library().st2v_temporal_conv(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),

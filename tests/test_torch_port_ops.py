@@ -34,7 +34,8 @@ from streamingt2v_torch.ops import norms as port_norms
 from streamingt2v_torch.ops.embedding import timestep_embedding
 from streamingt2v_torch.ops.flash_attention import (
     _kernel_head_dim, flash_attention, flash_attention_packed, packed_applicable)
-from streamingt2v_torch.ops.fused_ff import geglu_ff
+from streamingt2v_torch.ops.fused_ff import (
+    G_CHUNK_BYTES, ROW_TILE, chunk_plan, chunk_size, down_cols, geglu_ff, geglu_ff_reference)
 from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
 from streamingt2v_torch.ops.routing import current_routing, use_routing
 from streamingt2v_torch.ops.temporal_attention import (
@@ -116,6 +117,54 @@ def test_geglu_ff_plain_matches_pallas(n, c, inner, ln, residual):
                    ln_scale=None if lns is None else t(lns),
                    ln_bias=None if lnb is None else t(lnb), residual=residual)
     assert_close(got, ref, KERNEL_TOL, "geglu_ff")
+
+
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("residual", [False, True])
+def test_geglu_ff_split_passes_match_pallas(ln, residual):
+    """The plain version, written as the bf16 kernels' two passes (pass "up"
+    to G, pass "down" from it), gives the Pallas kernel's function in f32 at
+    a ragged n and inner, and stays within the bf16 tolerance with G rounded
+    to bf16 between the passes, as the kernels store it."""
+    rng = np.random.RandomState(15)
+    n, c, inner = 333, 48, 192
+    x = rng.randn(n, c).astype(np.float32)
+    w1 = (rng.randn(c, 2 * inner) * 0.1).astype(np.float32)
+    b1 = (rng.randn(2 * inner) * 0.1).astype(np.float32)
+    w2 = (rng.randn(inner, c) * 0.1).astype(np.float32)
+    b2 = (rng.randn(c) * 0.1).astype(np.float32)
+    lns = (rng.randn(c) * 0.2 + 1.0).astype(np.float32) if ln else None
+    lnb = (rng.randn(c) * 0.1).astype(np.float32) if ln else None
+    ref = jax_geglu(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2),
+                    jnp.asarray(b2), ln_scale=None if lns is None else jnp.asarray(lns),
+                    ln_bias=None if lnb is None else jnp.asarray(lnb), residual=residual,
+                    block_n=64, block_i=128, interpret=True)
+    args = (t(x), t(w1.T), t(b1), t(w2.T), t(b2), None if lns is None else t(lns),
+            None if lnb is None else t(lnb), residual)
+    assert_close(geglu_ff_reference(*args), ref, KERNEL_TOL, "geglu_ff split")
+    rounded = geglu_ff_reference(*args, g_dtype=torch.bfloat16)
+    assert_close(rounded, ref, 2e-2, "geglu_ff split, bf16 G")
+
+
+@pytest.mark.parametrize("n,c", [(460800, 320), (115200, 640), (28800, 1280),   # the UNet widths
+                                 (547200, 320), (7200, 48), (100, 320), (1, 1280)])
+def test_geglu_chunk_plan_covers_every_row_once_within_budget(n, c):
+    inner = 4 * c
+    rows = chunk_size(n, inner, c)
+    plan = chunk_plan(n, rows)
+    seen = np.zeros(n, np.int64)
+    for start, count in plan:
+        assert 0 < count <= rows
+        seen[start:start + count] += 1
+    assert (seen == 1).all()
+    assert [s for s, _ in plan] == sorted(s for s, _ in plan)
+    assert rows == n or rows % ROW_TILE == 0
+    # one wave of the down pass: 132 SMs over its 320-column blocks
+    wave = 132 // -(-c // down_cols(c)) * ROW_TILE
+    assert rows * inner * 2 <= max(G_CHUNK_BYTES, wave * inner * 2)
+    assert rows == n or rows % wave == 0
+    if n <= wave:   # n below one chunk: one chunk of n rows
+        assert plan == [(0, n)]
 
 
 # ---------------------------------------------------------------- K4 -----
@@ -250,6 +299,9 @@ def test_group_norm_fused_route_matches_plain(shape, groups, act):
     (2, 25, 25, 256, 5, 64),   # tests/test_ops.py's geometries
     (2, 25, 7, 256, 5, 64),    # frames_q != frames_kv (the CAM 25 x 7 contract)
     (2, 38, 38, 96, 8, 64),    # stage 2's 38 frames
+    (2, 1, 1, 30, 5, 64),      # one frame
+    (1, 64, 64, 20, 3, 64),    # the gate's 64 frames
+    (3, 20, 9, 37, 3, 64),     # frames_kv not a multiple of 16, pairs not of 4
 ])
 def test_temporal_attention_plain_matches_pallas(b, tq, tkv, s, h, d):
     rng = np.random.RandomState(13)

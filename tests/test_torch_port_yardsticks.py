@@ -10,6 +10,7 @@ max |reference| (the same arithmetic, padded with zeros)."""
 
 import dataclasses
 import inspect
+import re
 
 import numpy as np
 import pytest
@@ -21,9 +22,10 @@ from streamingt2v_torch.config import EnhanceConfig, PipelineConfig, VAEConfig
 from streamingt2v_torch.models.clip import CLIPVisionConfig
 from streamingt2v_torch.models.clip_text import CLIPTextConfig
 from streamingt2v_torch.models.enhance.unet import I2VGenXLUNetConfig
+from streamingt2v_torch.ops import fused_ff
+from streamingt2v_torch.ops._native import CSRC, aligned
 from streamingt2v_torch.ops.flash_attention import flash_attention, pad_head_dim
-from streamingt2v_torch.ops.temporal_conv import (
-    _aligned, kernel_operands, temporal_conv_reference)
+from streamingt2v_torch.ops.temporal_conv import kernel_operands, temporal_conv_reference
 from streamingt2v_torch.pipeline import build
 
 TOL = 1e-5
@@ -81,6 +83,14 @@ def test_builders_default_to_the_card(name):
     (chip_smoke.work_geglu(460800, 320, 1280),
      2 * 460800 * 320 * 2560 + 2 * 460800 * 1280 * 320,
      2 * (2 * 460800 * 320 + 320 * 2560 + 1280 * 320) + 4 * (2560 + 320 + 2 * 320)),
+    # K3 level 1, x (115200, 640), inner 2560: the same 1.13 TFLOP
+    (chip_smoke.work_geglu(115200, 640, 2560),
+     2 * 115200 * 640 * 5120 + 2 * 115200 * 2560 * 640,
+     2 * (2 * 115200 * 640 + 640 * 5120 + 2560 * 640) + 4 * (5120 + 640 + 2 * 640)),
+    # K3 level 2, x (28800, 1280), inner 5120
+    (chip_smoke.work_geglu(28800, 1280, 5120),
+     2 * 28800 * 1280 * 10240 + 2 * 28800 * 5120 * 1280,
+     2 * (2 * 28800 * 1280 + 1280 * 10240 + 5120 * 1280) + 4 * (10240 + 1280 + 2 * 1280)),
     # K4 (2, 25, 9216, 320) -> 320, kt 3, prologue and residual epilogue
     (chip_smoke.work_temporal_conv(2, 25, 9216, 320, 320),
      2 * 460800 * 320 * 320 * 3,
@@ -93,6 +103,9 @@ def test_builders_default_to_the_card(name):
     # K6 (38 frames, 14400 pixels, 5 x 64): q, k, v, o once
     (chip_smoke.work_temporal_attention(1, 38, 38, 14400, 5, 64),
      4 * 14400 * 5 * 38 * 38 * 64, 4 * 38 * 14400 * 320 * 2),
+    # K6 at stage 1 (2 x 25 frames, 9216 pixels, 5 x 64)
+    (chip_smoke.work_temporal_attention(2, 25, 25, 9216, 5, 64),
+     4 * 2 * 9216 * 5 * 25 * 25 * 64, 4 * 2 * 25 * 9216 * 320 * 2),
 ])
 def test_chip_smoke_work_counts(work, flops, nbytes):
     assert work == (flops, nbytes)
@@ -177,11 +190,31 @@ def test_temporal_conv_operands_off_16_bytes_are_copied():
     """The bf16 kernel loads 16 bytes at a time: an operand whose data starts
     off a 16-byte boundary is copied (same values), an aligned one is not."""
     base = torch.arange(40, dtype=torch.bfloat16)
-    aligned, off = base[:32], base[1:33]
-    assert aligned.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 2
-    assert _aligned(aligned) is aligned and _aligned(None) is None
-    moved = _aligned(off)
+    aligned_part, off = base[:32], base[1:33]
+    assert aligned_part.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 2
+    assert aligned(aligned_part) is aligned_part and aligned(None) is None
+    moved = aligned(off)
     assert moved.data_ptr() % 16 == 0 and torch.equal(moved, off)
+
+
+# ------------------------------------------------------ K3 row chunks ---
+
+def test_geglu_row_tile_is_the_kernels():
+    """The chunk plan counts in the GEMM core's tile rows (``GW_BM`` in
+    ``geglu_ff.cu``)."""
+    src = (CSRC / "geglu_ff.cu").read_text()
+    assert int(re.search(r"constexpr int GW_BM = (\d+);", src).group(1)) == fused_ff.ROW_TILE
+
+
+@pytest.mark.parametrize("c_out,cols", [(320, 320), (640, 320), (1280, 320), (48, 64),
+                                        (8, 64)])
+def test_geglu_down_pass_tile_width(c_out, cols):
+    """The down pass takes 320 output columns a block at the UNet widths
+    (G read once per row tile), 64 elsewhere; the C entry has an instance for
+    each and takes nothing else."""
+    assert fused_ff.down_cols(c_out) == cols
+    src = (CSRC / "geglu_ff.cu").read_text()
+    assert "down_cols == 320" in src and "down_cols == 64" in src
 
 
 # ------------------------------------------------ K1 head-dim padding ---
