@@ -13,7 +13,9 @@ Phases, one line each:
      attention, K3 GEGLU FF, K4 temporal conv, K5 fused GroupNorm, K6
      temporal attention) at the main paths' shapes in bf16 plus f32 cases,
      against its plain PyTorch version on the same inputs, with both times
-     (CUDA events, median of a few runs) at one timed main-path shape each;
+     (CUDA events, median of a few runs, each call queued behind a device
+     sleep so that the host's work before it is not timed) at one timed
+     main-path shape each;
      there also its bound and its library yardstick (below);
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32) and stage 2 end to end on a small input (a narrow
@@ -50,7 +52,13 @@ and enhance phases.  K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2``
 at the three stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
 ``stage1_ms``, ``stage1_library_ms`` and ``stage1_share`` at the stage-1
-level-0 geometry.
+level-0 geometry.  The flash D=512 instances (the VAE mid-block attention)
+have records of their own, ``flash_attention_d512`` at (8, 9216, 512) and
+``flash_attention_packed_d512`` at (2, 14400, 1x512) with ``b4_*`` at the
+4-frame encode chunk; their ``library_ms`` is the first SDPA backend that
+takes D=512 (``sdpa_backend``), and their ``launches`` are the wrappers'
+``launches_d512``.  K5's record adds ``vae_ms``, ``vae_bound_ms`` and
+``vae_share`` at the SD VAE's (2, 921600, 128).
 
 There is no CPU path: without CUDA the script exits non-zero before any
 result.  Every failed phase raises.
@@ -97,7 +105,16 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# A device sleep queued before each timed call (about 1 ms on an H100), long
+# enough for the host to enqueue the call behind it.
+SLEEP_CYCLES = 2_000_000
+
+
 def _time_ms(fn, reps: int = 5) -> float:
+    """Median device time of one call of fn (CUDA events around it), after one
+    warm-up call.  Each call is queued behind a device sleep, so the events
+    time its kernels back to back, not the host's checks, allocations and
+    launches before them (in the pipelines the host runs ahead of the card)."""
     import torch
 
     fn()
@@ -106,6 +123,7 @@ def _time_ms(fn, reps: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -171,9 +189,14 @@ def _yardstick(rec: dict, work: tuple) -> dict:
 
 def _ptxas_summary(log: str) -> list:
     """One line per kernel from nvcc's ``-Xptxas -v`` log: its name (with the
-    template arguments as mangled), registers and spills."""
+    template arguments as mangled), registers and spills; and, as they are,
+    ptxas's numbered notes on a kernel's code (``(C7...)``: serialized or
+    fenced ``wgmma``)."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
+        if re.search(r"\(C\d+\)", line):
+            out.append(line.strip())
+            continue
         entry = re.search(r"Compiling entry function '_ZN4st2v(\d+)(\w+)'", line)
         if entry:
             n = int(entry.group(1))
@@ -222,18 +245,53 @@ def _tol(dtype) -> float:
     return TOL["f32" if dtype == torch.float32 else "bf16"]
 
 
-def _time_first_body(name: str, fn, work: tuple, bf16: bool) -> None:
-    """Times a flash instance that keeps the first, synchronous body (D=512,
-    f32) and prints it, with its bound in bf16."""
-    ms = _time_ms(fn)
-    line = f"  {name} (first body): kernel {ms:.3f} ms"
-    if bf16:
-        b = bound(work)
-        line += f", bound {b['bound_ms']:.3f} ms ({b['bound_by']}), share {b['bound_ms'] / ms:.3f}"
-    print(line, flush=True)
+def _time_first_body(name: str, fn) -> None:
+    """Times a flash instance that keeps the first, synchronous body (the f32
+    ones) and prints it."""
+    print(f"  {name} (first body): kernel {_time_ms(fn):.3f} ms", flush=True)
+
+
+def _sdpa_backend(qh, kh, vh) -> tuple:
+    """The first SDPA backend (flash, cuDNN, memory-efficient, math) that takes
+    these (B, H, L, D) views, restricted with ``sdpa_kernel``: (call, name)."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(qh, kh, vh)
+        try:
+            with warnings.catch_warnings():   # each refusal warns why
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise RuntimeError("no SDPA backend takes these inputs")
+
+
+def _d512_record(name: str, kernel, plain, views: tuple, ref, unview, work: tuple) -> dict:
+    """A flash D=512 instance timed beside its plain version and SDPA (the
+    first backend that takes D=512, checked against the plain version)."""
+    library, backend = _sdpa_backend(*views)
+    _compare(f"{name} yardstick SDPA ({backend})", unview(library()), ref, TOL["bf16"])
+    rec = _yardstick(dict(ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=3),
+                          library_ms=_time_ms(library), sdpa_backend=backend), work)
+    print(f"  {name} time bf16: kernel {rec['ms']:.3f} ms, SDPA ({backend}) "
+          f"{rec['library_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
+    return rec
 
 
 def check_k1(randn) -> dict:
+    """K1 at the stage-1 geometries; the D=512 instance (the VAE mid-block
+    attention) gets a record of its own."""
     import torch
     import torch.nn.functional as F
 
@@ -241,12 +299,14 @@ def check_k1(randn) -> dict:
         flash_attention, flash_attention_reference)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs = {}, []
+    rec, errs, rec512, errs512 = {}, [], {}, []
     for bh, length, d, dtype, label in [
             (250, 9216, 64, bf16, "unet level0 self-attn"),
             (500, 2304, 64, bf16, "unet level1 self-attn"),
             (70, 9216, 64, bf16, "controlnet level0 self-attn"),
             (8, 9216, 512, bf16, "vae decoder mid attn"),
+            (3, 1000, 512, bf16, "D=512 ragged L=1000"),
+            (2, 40, 512, bf16, "D=512 L=40, one ragged tile"),
             (1, 9216, 512, f32, "vae encoder mid attn (f32)"),
             (6, 77, 64, bf16, "ragged L=77"),
             (5, 130, 32, bf16, "head dim 32, zero-padded")]:
@@ -254,12 +314,18 @@ def check_k1(randn) -> dict:
         out = flash_attention(q, k, v)
         rows = min(bh, 4)
         ref = flash_attention_reference(q[:rows], k[:rows], v[:rows])
-        errs.append(_compare(f"K1 {label} {(bh, length, d)} {dtype}", out[:rows], ref,
-                             _tol(dtype)))
-        if d == 512:
-            _time_first_body(f"K1 time {(bh, length, d)} {dtype}",
-                             lambda: flash_attention(q, k, v),
-                             work_flash(bh, 1, length, length, d), dtype == bf16)
+        err = _compare(f"K1 {label} {(bh, length, d)} {dtype}", out[:rows], ref, _tol(dtype))
+        errs.append(err)
+        if d == 512 and dtype == bf16:
+            errs512.append(err)
+        if (bh, length, d, dtype) == (1, 9216, 512, f32):
+            _time_first_body(f"K1 time {(bh, length, d)} {dtype}", lambda: flash_attention(q, k, v))
+        if (bh, length, d) == (8, 9216, 512):
+            rec512 = _d512_record(
+                f"K1 {(bh, length, d)}", lambda: flash_attention(q, k, v),
+                lambda: flash_attention_reference(q, k, v), (q[:, None], k[:, None], v[:, None]),
+                ref, lambda o: o[:rows, 0], work_flash(bh, 1, length, length, d))
+            rec512["shape"] = [bh, length, d]
         if (bh, length, d) == (250, 9216, 64):
             chunk = 16
 
@@ -282,12 +348,15 @@ def check_k1(randn) -> dict:
                   f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
         del q, k, v, out, ref
     rec["max_abs_err"] = max(errs)
-    return rec
+    rec512["max_abs_err"] = max(errs512)
+    return {"flash_attention": rec, "flash_attention_d512": rec512}
 
 
 def check_k2(randn) -> dict:
     """K2 at the stage-2 geometries; timed against K1 with its head-fold
-    transposes and against the plain version."""
+    transposes and against the plain version.  The D=512 instance (the SD
+    VAE's mid-block attention, one head) gets a record of its own, timed at
+    the 2-frame decode and 4-frame encode chunks."""
     import torch
     import torch.nn.functional as F
 
@@ -295,23 +364,40 @@ def check_k2(randn) -> dict:
         flash_attention, flash_attention_packed, flash_attention_packed_reference)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs = {}, []
+    rec, errs, rec512, errs512 = {}, [], {}, []
     for b, lq, lk, heads, d, dtype, label in [
             (38, 14400, 14400, 5, 64, bf16, "i2vgen level0 self-attn"),
             (38, 3600, 3600, 10, 64, bf16, "i2vgen level1 self-attn"),
             (38, 14400, 145, 5, 64, bf16, "i2vgen level0 cross-attn"),
-            (2, 14400, 14400, 1, 512, bf16, "sd-vae mid attn"),
+            (2, 14400, 14400, 1, 512, bf16, "sd-vae mid attn, decode chunk"),
+            (4, 14400, 14400, 1, 512, bf16, "sd-vae mid attn, encode chunk"),
+            (2, 777, 130, 1, 512, bf16, "D=512 ragged q 777, kv 130"),
+            (1, 500, 500, 2, 512, bf16, "D=512 two heads"),
             (2, 2048, 2048, 2, 64, f32, "f32")]:
         q = randn(b, lq, heads * d, dtype=dtype)
         k, v = (randn(b, lk, heads * d, dtype=dtype) for _ in range(2))
         out = flash_attention_packed(q, k, v, num_heads=heads)
         ref = flash_attention_packed_reference(q[:1], k[:1], v[:1], heads)
-        errs.append(_compare(f"K2 {label} q{(b, lq, heads * d)} kv{(b, lk)} {heads} heads "
-                             f"{dtype}", out[:1], ref, _tol(dtype)))
-        if d == 512 or dtype == f32:
+        err = _compare(f"K2 {label} q{(b, lq, heads * d)} kv{(b, lk)} {heads} heads {dtype}",
+                       out[:1], ref, _tol(dtype))
+        errs.append(err)
+        if d == 512 and dtype == bf16:
+            errs512.append(err)
+        if dtype == f32:
             _time_first_body(f"K2 time q{(b, lq, heads * d)} {heads} heads {dtype}",
-                             lambda: flash_attention_packed(q, k, v, num_heads=heads),
-                             work_flash(b, heads, lq, lk, d), dtype == bf16)
+                             lambda: flash_attention_packed(q, k, v, num_heads=heads))
+        if d == 512 and lq == 14400:
+            r = _d512_record(
+                f"K2 {(b, lq, heads * d)}",
+                lambda: flash_attention_packed(q, k, v, num_heads=heads),
+                lambda: flash_attention_packed_reference(q, k, v, heads),
+                tuple(t.view(b, -1, 1, d).transpose(1, 2) for t in (q, k, v)), ref,
+                lambda o: o[:1].transpose(1, 2).reshape(1, lq, d), work_flash(b, 1, lq, lk, d))
+            if b == 2:
+                rec512 = dict(r, shape=[b, lq, heads * d])
+            else:   # the encode chunk
+                rec512.update({f"b{b}_{key}": r[key] for key in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "share")})
         if label == "i2vgen level0 self-attn":
             def folded():
                 fold = [t.reshape(b, -1, heads, d).transpose(1, 2).reshape(b * heads, -1, d)
@@ -343,7 +429,8 @@ def check_k2(randn) -> dict:
                   f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
         del q, k, v, out, ref
     rec["max_abs_err"] = max(errs)
-    return rec
+    rec512["max_abs_err"] = max(errs512)
+    return {"flash_attention_packed": rec, "flash_attention_packed_d512": rec512}
 
 
 K3_LEVELS = ((460800, 320), (115200, 640), (28800, 1280))   # the stage-1 UNet widths
@@ -531,6 +618,12 @@ def check_k5(randn) -> dict:
                   f"({rec['bound_by']}), share {rec['share']:.3f}; act=None: kernel "
                   f"{rec['no_act_ms']:.3f} ms, F.group_norm {rec['library_ms']:.3f} ms",
                   flush=True)
+        if label == "sd-vae top level":
+            r = _yardstick(dict(ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **kw))),
+                           work_group_norm(n, l, c))
+            vae = {f"vae_{key}": r[key] for key in ("ms", "bound_ms", "share")}
+            print(f"  K5 time {(n, l, c)} bf16 silu: kernel {r['ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}", flush=True)
         del x, out, ref
     # a large common offset with a small spread: against f64 statistics
     x = randn(2, 4096, 128, dtype=f32, std=1e-3, mean=100.0)
@@ -545,7 +638,7 @@ def check_k5(randn) -> dict:
           f"max_abs_err={err:.3e} tol=5e-2 {'ok' if err <= 5e-2 else 'FAIL'}", flush=True)
     if not err <= 5e-2:
         raise AssertionError(f"K5 loses the variance at a large offset ({err:.3e})")
-    rec["max_abs_err"] = max(errs)
+    rec.update(vae, max_abs_err=max(errs))
     return rec
 
 
@@ -627,8 +720,7 @@ def check_kernels() -> dict:
     import torch
 
     randn, gen = _randn_factory(0)
-    rec = {"flash_attention": check_k1(randn),
-           "flash_attention_packed": check_k2(randn),
+    rec = {**check_k1(randn), **check_k2(randn),
            "geglu_ff": check_k3(randn),
            "temporal_conv": check_k4(randn, gen),
            "fused_group_norm": check_k5(randn),
@@ -683,10 +775,19 @@ def _all_kernels():
 def _reset_launches() -> None:
     for fn in _all_kernels():
         fn.launches = 0
+        if hasattr(fn, "launches_d512"):
+            fn.launches_d512 = 0
 
 
 def _read_launches() -> dict:
-    return {fn.__name__: fn.launches for fn in _all_kernels()}
+    """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
+    (``<name>_d512``, also counted in ``<name>``)."""
+    out = {}
+    for fn in _all_kernels():
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_d512"):
+            out[fn.__name__ + "_d512"] = fn.launches_d512
+    return out
 
 
 def _small_enhance_configs():
@@ -741,7 +842,9 @@ def check_enhance_reference() -> float:
           flush=True)
     if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
         raise AssertionError(f"small-input stage 2 disagrees with the plain path ({err:.3e})")
-    dead = [k for k, v in launches.items() if v <= 0 and k != "flash_attention"]
+    # stage 2 runs K2, not K1, and the narrow VAE's attention has head dim 64
+    dead = [k for k, v in launches.items() if v <= 0 and k not in (
+        "flash_attention", "flash_attention_d512", "flash_attention_packed_d512")]
     if dead:
         raise AssertionError(f"the small-input stage 2 skipped kernels: {dead}")
     return err
@@ -861,7 +964,8 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     lo, hi = video.min().item(), video.max().item()
     if lo < -1.0 or hi > 1.0:
         raise AssertionError(f"video outside [-1, 1]: [{lo}, {hi}]")
-    dead = [k for k in ("flash_attention", "geglu_ff", "temporal_conv") if launches[k] <= 0]
+    dead = [k for k in ("flash_attention", "flash_attention_d512", "geglu_ff", "temporal_conv")
+            if launches[k] <= 0]
     if dead:
         raise AssertionError(f"the slice never launched: {dead}")
     print(f"  video {want} finite in [{lo:.3f}, {hi:.3f}], std {video.std().item():.4f}",
@@ -938,8 +1042,9 @@ def run_enhance(steps: int) -> dict:
     lo, hi = out.min().item(), out.max().item()
     if lo < -1.0 or hi > 1.0:
         raise AssertionError(f"enhanced video outside [-1, 1]: [{lo}, {hi}]")
-    dead = [k for k in ("flash_attention_packed", "geglu_ff", "temporal_conv",
-                        "fused_group_norm", "fused_temporal_attention") if launches[k] <= 0]
+    dead = [k for k in ("flash_attention_packed", "flash_attention_packed_d512", "geglu_ff",
+                        "temporal_conv", "fused_group_norm", "fused_temporal_attention")
+            if launches[k] <= 0]
     if dead:
         raise AssertionError(f"the enhance phase never launched: {dead}")
     print(f"  video {want} finite in [{lo:.3f}, {hi:.3f}], std {out.std().item():.4f}",
@@ -952,6 +1057,11 @@ KERNEL_META = {
                         "streamingt2v_tpu/ops/flash_attention.py:38"),
     "flash_attention_packed": ("streamingt2v_torch/csrc/flash_attention.cu",
                                "streamingt2v_tpu/ops/flash_attention.py:201"),
+    # the D=512 instances (the VAE mid-block attention), counted apart
+    "flash_attention_d512": ("streamingt2v_torch/csrc/flash_attention.cu",
+                             "streamingt2v_tpu/ops/flash_attention.py:38"),
+    "flash_attention_packed_d512": ("streamingt2v_torch/csrc/flash_attention.cu",
+                                    "streamingt2v_tpu/ops/flash_attention.py:201"),
     "geglu_ff": ("streamingt2v_torch/csrc/geglu_ff.cu", "streamingt2v_tpu/ops/fused_ff.py:65"),
     "temporal_conv": ("streamingt2v_torch/csrc/temporal_conv.cu",
                       "streamingt2v_tpu/ops/temporal_conv.py:49"),
@@ -960,6 +1070,25 @@ KERNEL_META = {
     "fused_temporal_attention": ("streamingt2v_torch/csrc/temporal_attention.cu",
                                  "streamingt2v_tpu/ops/temporal_attention.py:43"),
 }
+
+
+def kernel_lines(records: dict, launches: dict) -> list:
+    """The kernels JSON line's entries: one per KERNEL_META row, with the
+    kernels phase's record (absent keys null) and the pipelines' launches."""
+    kernels = []
+    for name, (source, replaces) in KERNEL_META.items():
+        r = records.get(name, {})
+        extra = {k: v for k, v in r.items()
+                 if k in ("bare_ms", "sdpa_backend")
+                 or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_"))}
+        if "stage1" in r:   # K6 at the stage-1 geometry
+            extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=launches[name], max_abs_err=r.get("max_abs_err"),
+                            ms=r.get("ms"), plain_ms=r.get("plain_ms"),
+                            bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
+                            library_ms=r.get("library_ms"), share=r.get("share"), **extra))
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -1031,19 +1160,7 @@ def main(argv=None) -> int:
             launches[name] += n
         print(f"phase enhance: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
-        r = records.get(name, {})
-        extra = {k: v for k, v in r.items()
-                 if k == "bare_ms" or k.startswith(("ms_level", "share_level", "scratch_mb"))}
-        if "stage1" in r:   # K6 at the stage-1 geometry
-            extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=r.get("max_abs_err"),
-                            ms=r.get("ms"), plain_ms=r.get("plain_ms"),
-                            bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-                            library_ms=r.get("library_ms"), share=r.get("share"), **extra))
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_lines(records, launches)}), flush=True)
     if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps) != (
             FIRST_CHUNK_STEPS, AR_STEPS, ENHANCE_STEPS):
         print("chip_smoke: not the default run; no result", file=sys.stderr)

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Device time by kernel class of one stage-1 autoregressive guided step and
-one stage-2 38-frame chunk step (two UNet calls, the CFG halves) of the
-PyTorch port, at full width with random bf16 weights, on one NVIDIA GPU.
+"""Device time by kernel class of one stage-1 autoregressive guided step,
+one stage-2 38-frame chunk step (two UNet calls, the CFG halves) and one
+stage-2 VAE decode and encode call of the PyTorch port, at full width with
+random bf16 weights, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_steps.py            # both stages
-    python3 scripts/profile_torch_steps.py --stages 2
+    python3 scripts/profile_torch_steps.py            # stages 1 and 2
+    python3 scripts/profile_torch_steps.py --stages 2,vae
     python3 scripts/profile_torch_steps.py --stages 1 --stage1-routing off,on
+    python3 scripts/profile_torch_steps.py --stages vae --root DIR   # another checkout
 
 Stage 1 runs ``image_to_video`` for 43 frames (the first chunk with one
 sampler step, then one AR chunk with two) and profiles the AR chunk's last
@@ -14,7 +16,11 @@ shipped ``PipelineConfig.routing`` (the JAX package's switches, all off),
 "on" is ``KernelRouting.all_on()`` (K2, K5 and K6 where their gates allow).
 Stage 2 runs ``enhance_with_keyframe_prepass`` on a
 synthetic 64-frame 720p video with 3 DDIM steps (2 run) and profiles the
-last 38-frame chunk step.  Earlier calls warm the kernels and libraries up.
+last 38-frame chunk step.  "vae" builds stage 2 and profiles one call of
+its SD VAE (the bf16 copy, under the enhance routing) at the chunk sizes
+``_vae_chunk_frames`` gives at 720p: a 2-frame decode and a 4-frame
+encode.  Earlier calls warm the kernels and libraries up.  ``--root``
+imports the port from another checkout (e.g. an unpacked parent commit).
 ``torch.profiler`` (CUPTI) gives each kernel's device time; the classes
 are the port's six kernels, cuBLAS GEMMs, cuDNN convolutions, softmax and
 reductions, and the rest (elementwise ops and copies).  Needs the card.
@@ -30,7 +36,8 @@ import sys
 import time
 from collections import defaultdict
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
 
 # (class, substrings of the kernel name), first match wins
 CLASSES = (
@@ -155,12 +162,52 @@ def profile_stage2() -> None:
     torch.cuda.empty_cache()
 
 
+def profile_stage2_vae() -> None:
+    import torch
+
+    from chip_smoke import _smooth_video
+    from streamingt2v_torch.config import EnhanceConfig
+    from streamingt2v_torch.ops.routing import use_routing
+    from streamingt2v_torch.pipeline.build import build_enhance
+
+    cfg = EnhanceConfig()
+    pipe = build_enhance(cfg, seed=0, bf16=True)
+    vae, dtype, dev = pipe.vae, pipe._vae_dtype, torch.device("cuda")
+    h, w = cfg.height, cfg.width
+    lat = (h // vae.cfg.downsample_factor, w // vae.cfg.downsample_factor, vae.cfg.z_channels)
+    gen = torch.Generator(dev).manual_seed(0)
+    for kind in ("decode", "encode"):
+        frames = pipe._vae_chunk_frames(h, w, kind)
+        if kind == "decode":
+            z = torch.randn((frames,) + lat, generator=gen, device=dev).to(dtype)
+            call = lambda: vae.decode(z)  # noqa: E731
+        else:
+            video = _smooth_video(frames, h, w, device=dev).to(dtype)
+            eps = torch.randn((frames,) + lat, generator=gen, device=dev)
+            call = lambda: vae.encode(video, eps)  # noqa: E731
+        with torch.inference_mode(), use_routing(cfg.routing):
+            call()
+            _, by_name, wall = profiled(call)
+        report(f"stage 2, one SD VAE {kind} call of {frames} frames at {h}x{w} "
+               f"({dtype}, routing {cfg.routing})", by_name, wall)
+    del pipe
+    torch.cuda.empty_cache()
+
+
+STAGES = ("1", "2", "vae")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--stages", default="1,2")
+    parser.add_argument("--stages", default="1,2",
+                        help="comma-separated subset of " + ",".join(STAGES))
     parser.add_argument("--stage1-routing", default="off",
                         help="comma-separated subset of " + ",".join(ROUTINGS))
+    parser.add_argument("--root", default=HERE, help="checkout whose port is profiled")
     args = parser.parse_args()
+    stages = args.stages.split(",")
+    if not set(stages) <= set(STAGES):
+        parser.error(f"--stages takes {STAGES}, got {stages}")
     routings = args.stage1_routing.split(",")
     if not set(routings) <= set(ROUTINGS):
         parser.error(f"--stage1-routing takes {ROUTINGS}, got {routings}")
@@ -172,13 +219,17 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
-    print(f"card: {card}", flush=True)
-    stages = args.stages.split(",")
+    sys.path.insert(0, os.path.abspath(args.root))
+    for name in [m for m in sys.modules if m.startswith("streamingt2v_torch")]:
+        del sys.modules[name]
+    print(f"card: {card}; port from {os.path.abspath(args.root)}", flush=True)
     if "1" in stages:
         for routing in routings:
             profile_stage1(routing)
     if "2" in stages:
         profile_stage2()
+    if "vae" in stages:
+        profile_stage2_vae()
     return 0
 
 

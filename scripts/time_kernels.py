@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Time the port's kernels at the main path's shapes through their public
+wrappers only, on one NVIDIA GPU.
+
+    python3 scripts/time_kernels.py                       # every kernel below
+    python3 scripts/time_kernels.py --kernels d512,k5     # a selection
+    python3 scripts/time_kernels.py --root DIR            # another checkout of the port
+    python3 scripts/time_kernels.py --budgets-mib 48,96,192,384,0   # K3's row chunk
+
+It imports ``streamingt2v_torch`` from ``--root`` (default: this script's
+checkout) and calls nothing but the kernel wrappers in ``ops``, so the same
+script times any revision of the port, e.g. an unpacked parent commit beside
+this one (run parent, change, change, parent in one call).  Kernels
+(``--kernels``, comma-separated):
+
+  k3    GEGLU FF, x (n, C), inner 4C, LN and residual on, at ``chip_smoke``'s
+        three stage-1 UNet widths and stage 2's level 0;
+  k6    temporal attention at ``chip_smoke``'s timed geometries;
+  d512  flash attention at D=512 (the VAE mid-block attention): K1 at
+        (8, 9216, 512), K2 at (2, 14400, 1x512) and (4, 14400, 1x512);
+  k5    fused GroupNorm at (38, 14400, 320) with SiLU and without, and at
+        the SD VAE's (2, 921600, 128) with SiLU.
+
+Inputs from seed 0; ``chip_smoke``'s timer (CUDA events, median of
+``--reps`` after one warm-up) and tolerances; each time beside its bound.
+The first call at each d512 and k5 shape is checked against the plain
+version; k5 also prints the device time of each of its two passes
+(``torch.profiler``).
+
+``--budgets-mib`` times K3 instead for each G budget of its row chunk
+(``fused_ff.G_CHUNK_BYTES``, set for the run; 0 = all rows in one chunk),
+with the rows per chunk and the memory a call adds beyond its output, each
+budget's first call checked against the plain version; then the device time
+of each of K3's kernels in one call at the shipped budget
+(``torch.profiler``).  Needs the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def k3_operands(randn, n: int, c: int) -> tuple:
+    import torch
+
+    inner, f32 = 4 * c, torch.float32
+    x = randn(n, c)
+    w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, dtype=f32, std=0.1)
+    w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, dtype=f32, std=0.1)
+    lns, lnb = 1.0 + randn(c, dtype=f32, std=0.1), randn(c, dtype=f32, std=0.1)
+    return (x, w1, b1, w2, b2), dict(ln_scale=lns, ln_bias=lnb, residual=True)
+
+
+def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops import fused_ff
+
+    shipped = fused_ff.G_CHUNK_BYTES
+    for n, c in shapes:
+        args, kw = k3_operands(randn, n, c)
+        inner = 4 * c
+        ref = fused_ff.geglu_ff_reference(*args, kw["ln_scale"], kw["ln_bias"], True)
+        b = chip_smoke.bound(chip_smoke.work_geglu(n, c, inner))
+        for mib in budgets:
+            fused_ff.G_CHUNK_BYTES = (mib << 20) if mib else 2 * n * inner
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fused_ff.geglu_ff(*args, **kw)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+            chip_smoke._compare(f"K3 {(n, c)} budget {mib} MiB", out, ref, chip_smoke.TOL["bf16"])
+            del out
+            ms = chip_smoke._time_ms(lambda: fused_ff.geglu_ff(*args, **kw), reps=reps)
+            print(f"  K3 x{(n, c)} inner {inner} budget {mib or 'all'} MiB: chunk "
+                  f"{fused_ff.chunk_size(n, inner, c, fused_ff._sm_count(args[0].device))} "
+                  f"rows, {ms:.3f} ms, share {b['bound_ms'] / ms:.3f}, scratch "
+                  f"{extra / 2**20:.1f} MiB", flush=True)
+        fused_ff.G_CHUNK_BYTES = shipped
+        device_times(lambda: fused_ff.geglu_ff(*args, **kw), "shipped budget")
+        del args, ref
+        torch.cuda.empty_cache()
+
+
+KERNELS = ("k3", "k6", "d512", "k5")
+
+
+def time_k3(chip_smoke, randn, reps: int) -> None:
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+
+    for n, c in chip_smoke.K3_LEVELS + ((547200, 320),):   # + stage 2's level 0
+        operands, kw = k3_operands(randn, n, c)
+        ms = chip_smoke._time_ms(lambda: geglu_ff(*operands, **kw), reps=reps)
+        b = chip_smoke.bound(chip_smoke.work_geglu(n, c, 4 * c))
+        print(f"  K3 x{(n, c)} inner {4 * c} bf16: {ms:.3f} ms, bound {b['bound_ms']:.3f} ms, "
+              f"share {b['bound_ms'] / ms:.3f}", flush=True)
+        del operands
+
+
+def time_k6(chip_smoke, randn, reps: int) -> None:
+    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
+
+    for batch, t, s, heads in chip_smoke.K6_TIMED:
+        q, k, v = (randn(batch * t, s, heads * 64) for _ in range(3))
+        kw = dict(batch=batch, frames_q=t, frames_kv=t, num_heads=heads)
+        ms = chip_smoke._time_ms(lambda: fused_temporal_attention(q, k, v, **kw), reps=reps)
+        b = chip_smoke.bound(chip_smoke.work_temporal_attention(batch, t, t, s, heads, 64))
+        print(f"  K6 {(batch * t, s, heads * 64)} T={t} bf16: {ms:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms, share {b['bound_ms'] / ms:.3f}", flush=True)
+        del q, k, v
+
+
+def time_d512(chip_smoke, randn, reps: int) -> None:
+    from streamingt2v_torch.ops import flash_attention as fa
+
+    tol = chip_smoke.TOL["bf16"]
+    for name, b, length in (("K1", 8, 9216), ("K2", 2, 14400), ("K2", 4, 14400)):
+        q, k, v = (randn(b, length, 512) for _ in range(3))
+        if name == "K1":
+            call = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+            ref = fa.flash_attention_reference(q[:1], k[:1], v[:1])
+        else:
+            call = lambda: fa.flash_attention_packed(q, k, v, num_heads=1)  # noqa: E731
+            ref = fa.flash_attention_packed_reference(q[:1], k[:1], v[:1], 1)
+        chip_smoke._compare(f"D512 {name} {(b, length, 512)}", call()[:1], ref, tol)
+        ms = chip_smoke._time_ms(call, reps=reps)
+        bd = chip_smoke.bound(chip_smoke.work_flash(b, 1, length, length, 512))
+        print(f"  D512 {name} {(b, length, 512)} bf16: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
+              f"share {bd['bound_ms'] / ms:.3f}", flush=True)
+        del q, k, v, ref
+
+
+def device_times(fn, what: str) -> None:
+    """Prints the device time of each kernel one call of ``fn`` launches
+    (``torch.profiler``), after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            print(f"    {what}, by kernel: {evt.self_device_time_total / 1e3:.3f} ms in "
+                  f"{evt.count} launches of {evt.key[:90]}", flush=True)
+
+
+def time_k5(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops.fused_group_norm import (
+        fused_group_norm, fused_group_norm_reference)
+
+    f32 = torch.float32
+    for n, l, c, act, eps in ((38, 14400, 320, "silu", 1e-5), (38, 14400, 320, None, 1e-6),
+                              (2, 921600, 128, "silu", 1e-6)):
+        x = randn(n, l, c, std=2.0, mean=0.5)
+        scale, bias = 1.0 + randn(c, dtype=f32, std=0.1), randn(c, dtype=f32, std=0.1)
+        kw = dict(num_groups=32, eps=eps, act=act)
+        chip_smoke._compare(f"K5 {(n, l, c)} act={act}", fused_group_norm(x, scale, bias, **kw),
+                            fused_group_norm_reference(x, scale, bias, **kw),
+                            chip_smoke.TOL["bf16"])
+        ms = chip_smoke._time_ms(lambda: fused_group_norm(x, scale, bias, **kw), reps=reps)
+        bd = chip_smoke.bound(chip_smoke.work_group_norm(n, l, c))
+        print(f"  K5 {(n, l, c)} act={act} bf16: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
+              f"share {bd['bound_ms'] / ms:.3f}", flush=True)
+        device_times(lambda: fused_group_norm(x, scale, bias, **kw), "K5's two passes")
+        del x
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=HERE, help="checkout whose port is timed")
+    parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--kernels", default=",".join(KERNELS),
+                        help="comma-separated subset of " + ",".join(KERNELS))
+    parser.add_argument("--budgets-mib", default="",
+                        help="comma-separated K3 G budgets to sweep (this checkout's port)")
+    args = parser.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        parser.error(f"--kernels: choose from {','.join(KERNELS)}")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke   # the shapes, timer, bounds and work counts of this checkout
+
+    sys.path.insert(0, os.path.abspath(args.root))
+    for name in [m for m in sys.modules if m.startswith("streamingt2v_torch")]:
+        del sys.modules[name]
+
+    print(f"card: {chip_smoke._card_line()}; port from {os.path.abspath(args.root)}", flush=True)
+    randn, _ = chip_smoke._randn_factory(0)
+    if args.budgets_mib:
+        sweep_budgets(chip_smoke, randn, chip_smoke.K3_LEVELS + ((547200, 320),),
+                      [int(b) for b in args.budgets_mib.split(",")], args.reps)
+        return 0
+    timers = dict(k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5)
+    for name in kernels:
+        timers[name](chip_smoke, randn, args.reps)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,12 +13,11 @@
 // operands run the same tile on the FMA units in full f32 (no TF32), so a
 // kernel body is written once for both types.
 //
-// The pipelined kernels (the bf16 bodies of K1/K2 at D=64, K3, K4 and K6 at
-// D=64) hold their
-// fragments in registers instead: `ldmatrix` fills A and B fragments from
-// shared memory (`.trans` for a B stored with the contraction axis as rows),
-// `mma_bf16` multiplies them, and `cp_async_16` stages tiles into shared
-// memory ahead of use.
+// The pipelined kernels (the bf16 bodies of K1/K2 at D=64 and D=512, K3, K4
+// and K6 at D=64) hold their fragments in registers instead: `ldmatrix`
+// fills A and B fragments from shared memory (`.trans` for a B stored with
+// the contraction axis as rows), `mma_bf16` multiplies them, and
+// `cp_async_16` stages tiles into shared memory ahead of use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -143,6 +142,46 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ---- wgmma (K3's GEMM core, the flash D=512 body's S = Q K^T) ----
+
+// A tile of rows x 64 bf16 (128 bytes a row) in the 128-byte swizzle that
+// wgmma reads: row r's 16-byte chunk c at byte r * 128 + ((c ^ (r % 8)) * 16),
+// in atoms of 8 rows (1024 bytes, aligned to 1024), so the 8 rows of a core
+// matrix fall into distinct banks.
+__host__ __device__ constexpr int sw128_off(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// K-major, 128-byte swizzle: 8-row atoms 1024 bytes apart (SBO); a k16 slice
+// starts 32 bytes further along the row.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t smem_addr) {
+  return uint64_t((smem_addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void gmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// all but the newest N committed groups of products are done
+template <int N>
+__device__ __forceinline__ void gmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators are read only after the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// this thread's landed cp.async copies (generic proxy) become visible to
+// wgmma's reads (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Opt in to more than 48 KB of dynamic shared memory, then report the first

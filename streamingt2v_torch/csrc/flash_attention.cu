@@ -29,15 +29,23 @@
 // is in flight while this one's products run.  Masking runs on the last tile
 // only.
 //
-// The f32 instances (FMA units, full f32) and D=512 (the VAE mid-block
-// attention, 16-row query tiles so the f32 accumulator fits in registers) keep
-// the first, synchronous body: S and P go through shared memory, with four
-// block barriers per KV tile.
+// The bf16 D=512 instance (the VAE mid-block attention, one head) does
+// 4*L^2*512 flops on 4*L*512*2 bytes per batch row, so it is bound by the
+// tensor cores too, but its 64 x 512 f32 output accumulator for a 64-row query
+// tile is the whole register file of a warpgroup and its Q tile alone is
+// 64 KB.  So the output columns are split: two warpgroups share 64 query rows,
+// S = Q K^T is computed once (each warpgroup half of the keys, on `wgmma`
+// with Q resident in shared memory), P goes through shared memory in bf16,
+// and each warp accumulates 64 of the 512 output columns on `mma.sync`.
+// Each K/V byte fetched feeds 64 query rows (the first body: 16).
+//
+// The f32 instances (FMA units, full f32) keep the first, synchronous body:
+// S and P go through shared memory, with four block barriers per KV tile.
 #include "common.cuh"
 
 namespace st2v {
 
-// ---- f32, and D = 512: the synchronous body ----
+// ---- f32 (D = 64 and 512): the synchronous body ----
 template <typename T, int D, int BQ, int BK>
 struct FlashShape {
   static constexpr int NW = 4;
@@ -379,6 +387,267 @@ static int launch_flash_bf16_d64(const void* q, const void* k, const void* v, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16, D = 512: the VAE bottleneck body ----
+constexpr int FB_D = 512;
+constexpr int FB_BQ = 64;                        // query rows per block: one wgmma M
+constexpr int FB_BK = 64;                        // keys per KV tile
+constexpr int FB_THREADS = 256;                  // two warpgroups
+constexpr int FB_LDV = FB_D + 8;                 // V row stride: conflict-free ldmatrix.trans
+constexpr int FB_LDP = FB_BK + 8;                // P row stride
+constexpr int FB_Q_BYTES = FB_BQ * FB_D * 2;     // 8 column blocks of 64, 128-byte swizzle
+constexpr int FB_K_BYTES = FB_BK * FB_D * 2;     // the same layout
+constexpr int FB_V_BYTES = FB_BK * FB_LDV * 2;   // row-major, padded
+constexpr int FB_P_BYTES = FB_BQ * FB_LDP * 2;
+constexpr int FB_RED_BYTES = 4 * 5 * FB_BQ;      // row maxima and denominators per warpgroup, alpha
+constexpr size_t FB_SMEM =
+    1024 + FB_Q_BYTES + FB_K_BYTES + FB_V_BYTES + FB_P_BYTES + FB_RED_BYTES;  // + alignment
+static_assert(FB_SMEM <= 232448, "one block per SM");
+
+// ROWS rows x 512 columns from rows [row0, row0 + ROWS) at stride ld into the
+// 128-byte swizzle, column block b (64 columns) at byte b * ROWS * 128; rows
+// at or past `rows` are zero-filled.  Eight neighbouring threads copy one
+// 128-byte run of a row; a thread's rows are r0, r0 + 4, ..., so its source
+// advances by a running pointer and its destination by constants (addresses
+// computed per copy and hoisted out of the tile loop would not fit beside
+// the output accumulator).
+template <int ROWS>
+__device__ __forceinline__ void fb_load_sw(unsigned char* dst, const bf16* src, int row0,
+                                           int rows, int ld) {
+  constexpr int STEP = FB_THREADS / 64;  // rows per round
+  const int r0 = threadIdx.x >> 6, c = threadIdx.x & 63;
+  unsigned char* d = dst + (c >> 3) * (ROWS * 128) + r0 * 128;
+  const int sw0 = ((c & 7) ^ (r0 & 7)) << 4, sw1 = ((c & 7) ^ ((r0 + STEP) & 7)) << 4;
+  const bf16* p = src + size_t(row0 + r0) * ld + c * 8;
+  const size_t step = size_t(STEP) * ld;
+#pragma unroll
+  for (int it = 0; it < ROWS / STEP; ++it, p += step) {
+    const bool ok = row0 + r0 + STEP * it < rows;
+    cp_async_16(d + it * STEP * 128 + (it & 1 ? sw1 : sw0), ok ? p : src, ok);
+  }
+}
+
+// FB_BK rows of V, row-major at stride FB_LDV, zero-filled past `rows`; the
+// same running-pointer copies.
+__device__ __forceinline__ void fb_load_v(bf16* dst, const bf16* src, int row0, int rows,
+                                          int ld) {
+  constexpr int STEP = FB_THREADS / 64;
+  const int r0 = threadIdx.x >> 6, c = (threadIdx.x & 63) * 8;
+  bf16* d = dst + r0 * FB_LDV + c;
+  const bf16* p = src + size_t(row0 + r0) * ld + c;
+  const size_t step = size_t(STEP) * ld;
+#pragma unroll
+  for (int it = 0; it < FB_BK / STEP; ++it, p += step) {
+    const bool ok = row0 + r0 + STEP * it < rows;
+    cp_async_16(d + it * STEP * FB_LDV, ok ? p : src, ok);
+  }
+}
+
+// d (64 x 32 f32, 16 per thread) += A (64 x 16) B^T (32 x 16), both K-major in
+// shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// A block owns 64 query rows.  S = Q K^T: warpgroup wg takes keys
+// [32 wg, 32 wg + 32) of the tile over all 512 columns (wgmma m64n32k16, Q and
+// K read from the 128-byte swizzle).  The two halves' row maxima meet in
+// shared memory, each warpgroup writes its half of P in bf16, and then
+// O += P V: warp w owns output columns [64 w, 64 w + 64) of all 64 rows (128
+// f32 accumulators a thread; `mma.sync`, P by `ldmatrix`, V by
+// `ldmatrix.trans`).  Q is loaded once; K and V have one buffer each, and
+// each tile's copy overlaps the other's products: V_j lands during S_j,
+// K_{j+1} during the softmax and P V_j.
+__global__ void __launch_bounds__(FB_THREADS, 1)
+flash_kernel_bf16_d512(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, int lq, int lk,
+                       int heads, int ld, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  // the swizzle atoms need 1024-byte alignment (the launch adds the slack)
+  unsigned char* Qs = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  unsigned char* Ks = Qs + FB_Q_BYTES;
+  bf16* Vs = reinterpret_cast<bf16*>(Ks + FB_K_BYTES);
+  bf16* Ps = Vs + FB_BK * FB_LDV;
+  float* red_max = reinterpret_cast<float*>(Ps + FB_BQ * FB_LDP);  // [warpgroup][row]
+  float* red_den = red_max + 2 * FB_BQ;                             // [warpgroup][row]
+  float* alpha_s = red_den + 2 * FB_BQ;                             // [row]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix and row this lane addresses
+  const int wg = warp >> 2;
+  const int srow = (warp & 3) * 16 + g;     // this thread's rows of S: srow and srow + 8
+  const int q0 = blockIdx.x * FB_BQ;
+  const size_t bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const bf16* qb = q + bi * lq * ld + hi * FB_D;
+  const bf16* kb = k + bi * lk * ld + hi * FB_D;
+  const bf16* vb = v + bi * lk * ld + hi * FB_D;
+  bf16* ob = o + bi * lq * ld + hi * FB_D;
+
+  fb_load_sw<FB_BQ>(Qs, qb, q0, lq, ld);
+  fb_load_sw<FB_BK>(Ks, kb, 0, lk, ld);
+  cp_async_commit();
+
+  const float neg_inf = __int_as_float(0xff800000);
+  float acc[4][8][4];      // O: rows 16 mt + g (+ 8), columns 64 warp + 8 n + 2t (+ 1)
+  float mx[2] = {neg_inf, neg_inf};  // running max (log2 units) of rows srow, srow + 8
+  float den[2] = {0.f, 0.f};         // this lane's share of their denominators, this wg's keys
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+
+  // descriptors of the first k16 slice of Q and of this warpgroup's keys; a
+  // slice is 32 bytes (2 descriptor units) further along, a column block
+  // FB_BQ * 128 (FB_BK * 128) bytes
+  const uint64_t q_desc = gmma_desc(smem_u32(Qs));
+  const uint64_t k_desc = gmma_desc(smem_u32(Ks) + wg * 32 * 128);
+  const int tiles = (lk + FB_BK - 1) / FB_BK;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait_all();  // K_j (and Q) landed; V_{j-1} was waited for
+    fence_proxy_async();  // ... and visible to wgmma
+    __syncthreads();      // for all; P V_{j-1} is done everywhere: V, P and alpha are free
+    fb_load_v(Vs, vb, j * FB_BK, lk, ld);
+    cp_async_commit();
+
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    gmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FB_D / 16; ++kk)
+      wgmma_m64n32k16(s, q_desc + (kk >> 2) * (FB_BQ * 128 / 16) + 2 * (kk & 3),
+                      k_desc + (kk >> 2) * (FB_BK * 128 / 16) + 2 * (kk & 3));
+    gmma_commit();
+    gmma_wait<0>();
+    fence_regs(s);
+
+    const int key0 = j * FB_BK + wg * 32;
+    if (key0 + 32 > lk) {  // the ragged last tile
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int key = key0 + n * 8 + 2 * t;
+        if (key >= lk) s[4 * n] = s[4 * n + 2] = neg_inf;
+        if (key + 1 >= lk) s[4 * n + 1] = s[4 * n + 3] = neg_inf;
+      }
+    }
+    // row maxima of this warpgroup's half: rows srow (elements 0, 1) and
+    // srow + 8 (2, 3); a row's 32 scores sit in the four lanes of a quad
+    float rmax[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float r = neg_inf;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) r = fmaxf(r, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+      rmax[h] = r;
+      if (t == 0) red_max[wg * FB_BQ + srow + 8 * h] = r;
+    }
+    __syncthreads();  // S_j is done in both warpgroups (K is free); maxima published
+    if (j + 1 < tiles) fb_load_sw<FB_BK>(Ks, kb, (j + 1) * FB_BK, lk, ld);
+    cp_async_commit();  // empty on the last tile
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = srow + 8 * h;
+      // every tile has a key in range, so one of the two maxima is finite
+      const float mnew =
+          fmaxf(mx[h], fmaxf(rmax[h], red_max[(1 - wg) * FB_BQ + row]) * scale_log2);
+      const float alpha = exp2f(mx[h] - mnew);
+      mx[h] = mnew;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float p0 = exp2f(fmaf(s[4 * n + 2 * h], scale_log2, -mnew));
+        const float p1 = exp2f(fmaf(s[4 * n + 2 * h + 1], scale_log2, -mnew));
+        sum += p0 + p1;
+        *reinterpret_cast<uint32_t*>(Ps + row * FB_LDP + wg * 32 + n * 8 + 2 * t) =
+            pack_bf16x2(p0, p1);
+      }
+      den[h] = den[h] * alpha + sum;
+      if (wg == 0 && t == 0) alpha_s[row] = alpha;
+    }
+    cp_async_wait_group<1>();  // V_j landed (K_{j+1} may still be in flight)
+    __syncthreads();           // V_j, P and alpha for all
+
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const float al0 = alpha_s[mt * 16 + g], al1 = alpha_s[mt * 16 + g + 8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        acc[mt][n][0] *= al0;
+        acc[mt][n][1] *= al0;
+        acc[mt][n][2] *= al1;
+        acc[mt][n][3] *= al1;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < FB_BK / 16; ++kk) {
+      uint32_t a[4][4];  // P A-fragments: rows 16 mt .. +15, keys kk*16 .. +15
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(a[mt], Ps + (mt * 16 + (lane & 15)) * FB_LDP + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t b[4];  // column tiles 2dp, 2dp+1 of this warp's 64; keys kk*16 .. +15
+        ldmatrix_x4_trans(b, Vs + (kk * 16 + (mi & 1) * 8 + r8) * FB_LDV + warp * 64 + dp * 16 +
+                                 (mi >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(acc[mt][2 * dp], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * dp + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // denominators: over the quad, then the two warpgroups' halves
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = den[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (t == 0) red_den[wg * FB_BQ + srow + 8 * h] = l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + g + 8 * h;
+      if (q0 + row >= lq) continue;
+      const float inv = 1.f / (red_den[row] + red_den[FB_BQ + row]);
+      bf16* dst = ob + size_t(q0 + row) * ld + warp * 64 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
+            pack_bf16x2(acc[mt][n][2 * h] * inv, acc[mt][n][2 * h + 1] * inv);
+    }
+  }
+  cp_async_wait_all();  // the last (empty) group
+}
+
+static int launch_flash_bf16_d512(const void* q, const void* k, const void* v, void* o,
+                                  int batch, int heads, int lq, int lk, float scale_log2,
+                                  cudaStream_t stream) {
+  cudaError_t err = set_smem(flash_kernel_bf16_d512, FB_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((lq + FB_BQ - 1) / FB_BQ, batch * heads);
+  flash_kernel_bf16_d512<<<grid, FB_THREADS, FB_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lq, lk, heads, heads * FB_D, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, int BQ, int BK>
 static int launch_flash(const void* q, const void* k, const void* v, void* o, int batch,
                         int heads, int lq, int lk, float scale_log2, cudaStream_t stream) {
@@ -402,7 +671,7 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
   if (batch <= 0 || heads <= 0 || batch * heads > 65535 || lq <= 0 || lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && d == 64) return launch_flash_bf16_d64(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
-  if (dtype == 1 && d == 512) return launch_flash<bf16, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 1 && d == 512) return launch_flash_bf16_d512(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 512) return launch_flash<float, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);

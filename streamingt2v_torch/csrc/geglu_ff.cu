@@ -139,42 +139,7 @@ constexpr int GW_BM = 128;          // tile rows
 static_assert(GF_BK == 64, "a stage's row is one 128-byte swizzle row");
 
 // A stage holds a tile of R rows x GF_BK (128 bytes a row) in the 128-byte
-// swizzle that wgmma reads: row r's 16-byte chunk c at byte
-// r * 128 + ((c ^ (r % 8)) * 16), in atoms of 8 rows (1024 bytes, aligned
-// to 1024), so the 8 rows of a core matrix fall into distinct banks.
-__host__ __device__ constexpr int sw128_off(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// K-major, 128-byte swizzle: 8-row atoms 1024 bytes apart (SBO); a k16 slice
-// starts 32 bytes further along the row.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t smem_addr) {
-  return uint64_t((smem_addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void gmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void gmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// all but the newest N committed groups of products are done
-template <int N>
-__device__ __forceinline__ void gmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// the accumulators are read only after the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// this thread's landed cp.async copies (generic proxy) become visible to
-// wgmma's reads (the async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// swizzle that wgmma reads (`sw128_off`, `gmma_desc` in common.cuh).
 
 // d (64 x 256 f32, 128 per thread) += A (64 x 16) B^T (256 x 16), both K-major in
 // shared memory (descriptors da, db).

@@ -18,11 +18,14 @@ inside the block, so the scores never reach device memory.  It masks the
 ragged KV edge directly, so the TPU's zero-pad denominator correction is
 not needed.  The bf16 D=64 instance (all UNet attention) is register
 resident: S stays in the mma accumulators, P is repacked in registers for
-P V, and K/V tiles are double-buffered by cp.async.  f32 runs on the FMA
-units in full f32 (no TF32); D=512 (the VAE mid-block attention) uses
-16-row q tiles so its accumulator fits in registers; both keep the first,
-synchronous body.  Head dims below 64 are zero-padded to 64
-(``pad_head_dim``), with the scale of the true head dim.
+P V, and K/V tiles are double-buffered by cp.async.  The bf16 D=512
+instance (the VAE mid-block attention, one head) gives a 64-row q tile to
+two warpgroups: S = Q K^T once on wgmma, P through shared memory, and each
+warp 64 of the 512 output columns.  f32 runs on the FMA units in full f32
+(no TF32) in the first, synchronous body.  Head dims below 64 are
+zero-padded to 64 (``pad_head_dim``), with the scale of the true head dim.
+Each wrapper counts its launches (``launches``) and, apart, those of the
+bf16 D=512 instance (``launches_d512``).
 """
 
 from __future__ import annotations
@@ -91,10 +94,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
     _native.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_d512 += int(kd == 512 and q.dtype == torch.bfloat16)
     return out[..., :d] if kd != d else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_d512 = 0
 
 
 # ---------------------------------------------------------------- K2 -----
@@ -154,7 +159,9 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
     _native.check(rc, "flash_attention_packed")
     flash_attention_packed.launches += 1
+    flash_attention_packed.launches_d512 += int(d == 512 and q.dtype == torch.bfloat16)
     return out
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.launches_d512 = 0

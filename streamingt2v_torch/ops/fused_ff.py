@@ -40,7 +40,7 @@ MAX_C_OUT_F32 = 1280
 # G (rows x inner bf16) of one chunk of rows stays within this budget, or
 # holds one wave of the down pass where that is more (``chunk_size``).  Not
 # sized for L2: on the H100 each chunk's launches and their tails cost more
-# than reading G back from HBM (PERF.md, ``scripts/time_k3_k6.py
+# than reading G back from HBM (PERF.md, ``scripts/time_kernels.py
 # --budgets-mib``).
 G_CHUNK_BYTES = 192 << 20
 # rows of a tile of the GEMM core (``GW_BM`` in geglu_ff.cu)

@@ -14,12 +14,14 @@ one-pass E[x^2] - E[x]^2 of the TPU kernel loses.
 What bounds it on the H100: bytes.  It reads x twice and writes the output
 once (at the SD-VAE's (2, 921600, 128) level, 708 MB in bf16) and keeps the
 normalised tensor and its f32 upcast out of device memory; the plain
-version materialises both.
+version materialises both.  Every thread of both passes owns one 16-byte
+vector of channels and a row slot (``launch_plan``), so the statistics stay
+in registers and the affine is computed once per thread.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,10 +30,14 @@ from streamingt2v_torch.ops import _native
 
 MAX_CHANNELS = 4096   # the JAX package's fits_fused cap
 MAX_GROUPS = 256
-# about this many blocks per launch (a few waves of 132 SMs), at most 256
-# L-chunks per row so that each pass-2 block merges few partials
+# about this many blocks per launch (a few per SM of the H100's 132), at most
+# 256 L-chunks per row so that each pass-2 block merges few partials
 _TARGET_BLOCKS = 1024
 _MAX_CHUNKS = 256
+# threads a block aims at: C/VEC channel vectors times as many row slots as fit
+BLOCK_THREADS = 256
+# shared memory one block may take on the H100
+SMEM_LIMIT = 232448
 
 
 def fits_fused(l: int, c: int, num_groups: int) -> bool:
@@ -55,9 +61,26 @@ def fused_group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch
     return out.to(x.dtype)
 
 
-def _rows_per_chunk(n: int, l: int) -> int:
-    chunks = max(1, min(_MAX_CHUNKS, -(-_TARGET_BLOCKS // n), l))
-    return -(-l // chunks)
+class LaunchPlan(NamedTuple):
+    """Both passes' grid (chunks, N) and block (``vectors`` x ``slots``
+    threads): thread (slot s, vector v) takes channels [v*VEC, v*VEC + VEC)
+    of rows chunk*rows_per_chunk + s, + 2s, ... within its chunk."""
+    rows_per_chunk: int
+    chunks: int
+    vectors: int       # 16-byte channel vectors per row, C / VEC
+    slots: int         # rows a block walks side by side
+    threads: int
+    smem_bytes: int    # pass 1: (count, mean, M2) per (slot, channel)
+
+
+def launch_plan(n: int, l: int, c: int, itemsize: int) -> LaunchPlan:
+    vectors = c // (16 // itemsize)
+    slots = max(1, BLOCK_THREADS // vectors)
+    chunks = max(1, min(_MAX_CHUNKS, -(-_TARGET_BLOCKS // n), -(-l // slots)))
+    # whole row slots per chunk, so that every slot walks as many rows
+    rows = -(-(-(-l // chunks)) // slots) * slots
+    return LaunchPlan(rows, -(-l // rows), vectors, slots, vectors * slots,
+                      12 * slots * c)
 
 
 def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -87,14 +110,13 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *
                             f"x's device")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_group_norm: x must be contiguous and 16-byte aligned")
-    rows = _rows_per_chunk(n, l)
-    chunks = -(-l // rows)
-    part = torch.empty((n, chunks, num_groups, 3), dtype=torch.float32, device=x.device)
+    plan = launch_plan(n, l, c, x.element_size())
+    part = torch.empty((n, plan.chunks, num_groups, 3), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     rc = _native.library().st2v_fused_group_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n, l, c, num_groups, rows, eps, int(act == "silu"), _native.DTYPE_CODE[x.dtype],
-        _native.stream_of(x))
+        n, l, c, num_groups, plan.rows_per_chunk, plan.slots, eps, int(act == "silu"),
+        _native.DTYPE_CODE[x.dtype], _native.stream_of(x))
     _native.check(rc, "fused_group_norm")
     fused_group_norm.launches += 1
     return out

@@ -56,6 +56,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
     (1, 300, 145, 64),    # ragged q and kv lengths
     (3, 25, 7, 32),       # head dim below 64 (the kernel pads it)
     (1, 200, 130, 512),   # the VAE bottleneck head dim
+    (2, 130, 97, 512),    # D=512, B > 1, q and kv off the 64-row tiles and the 32-key halves
 ])
 def test_flash_attention_plain_matches_pallas(b, lq, lk, d):
     rng = np.random.RandomState(0)
@@ -77,6 +78,7 @@ def test_flash_head_dims():
     (2, 300, 145, 10, 64),   # ragged q and kv lengths (the cross-attention's 145)
     (1, 200, 200, 2, 128),   # D=128 lane slices
     (2, 130, 7, 2, 64),
+    (2, 77, 130, 1, 512),    # the SD VAE's one D=512 head, ragged q and kv lengths
 ])
 def test_flash_attention_packed_plain_matches_pallas(b, lq, lk, h, d):
     rng = np.random.RandomState(8)
@@ -243,6 +245,9 @@ def test_wrappers_take_plain_version_only_on_cpu(fn, args):
     (3, 48, 64, 8),       # tests/test_ops.py's geometry
     (2, 4100, 64, 32),    # L not a multiple of the Pallas kernel's 4096-row blocks
     (1, 30, 320, 32),     # 10 channels per group
+    (2, 300, 128, 32),    # the SD VAE's widths: 4, 8 and 16 channels per group
+    (1, 130, 256, 32),
+    (1, 70, 512, 32),
 ])
 @pytest.mark.parametrize("act", [None, "silu"])
 def test_fused_group_norm_plain_matches_pallas(n, l, c, groups, act):

@@ -25,10 +25,12 @@ from streamingt2v_torch.models.enhance.unet import I2VGenXLUNetConfig
 from streamingt2v_torch.ops import fused_ff
 from streamingt2v_torch.ops._native import CSRC, aligned
 from streamingt2v_torch.ops.flash_attention import flash_attention, pad_head_dim
+from streamingt2v_torch.ops.fused_group_norm import MAX_CHANNELS, SMEM_LIMIT, launch_plan
 from streamingt2v_torch.ops.temporal_conv import kernel_operands, temporal_conv_reference
 from streamingt2v_torch.pipeline import build
 
 TOL = 1e-5
+REPO = CSRC.parent.parent
 
 
 # ------------------------------------------------------- device default ---
@@ -106,6 +108,16 @@ def test_builders_default_to_the_card(name):
     # K6 at stage 1 (2 x 25 frames, 9216 pixels, 5 x 64)
     (chip_smoke.work_temporal_attention(2, 25, 25, 9216, 5, 64),
      4 * 2 * 9216 * 5 * 25 * 25 * 64, 4 * 2 * 25 * 9216 * 320 * 2),
+    # flash D=512: stage 1's VAE decoder (8 frames of 9216 tokens), stage 2's
+    # SD VAE decode (2 frames of 14400) and encode (4 frames) chunks
+    (chip_smoke.work_flash(8, 1, 9216, 9216, 512),
+     4 * 8 * 9216 * 9216 * 512, 4 * 8 * 9216 * 512 * 2),
+    (chip_smoke.work_flash(2, 1, 14400, 14400, 512),
+     4 * 2 * 14400 * 14400 * 512, 4 * 2 * 14400 * 512 * 2),
+    (chip_smoke.work_flash(4, 1, 14400, 14400, 512),
+     4 * 4 * 14400 * 14400 * 512, 4 * 4 * 14400 * 512 * 2),
+    # K5 at the SD VAE's top level (2 frames, 720x1280, 128 channels)
+    (chip_smoke.work_group_norm(2, 921600, 128), 0, 2 * 2 * 2 * 921600 * 128 + 8 * 128),
 ])
 def test_chip_smoke_work_counts(work, flops, nbytes):
     assert work == (flops, nbytes)
@@ -118,6 +130,12 @@ def test_chip_smoke_work_counts(work, flops, nbytes):
     (chip_smoke.work_flash(250, 1, 9216, 9216, 64), 5.435817984e12 / 989e12 * 1e3,
      "operations"),
     (chip_smoke.work_group_norm(38, 14400, 320), 700418560 / 3.35e12 * 1e3, "bytes"),
+    # the D=512 rows: 1.3915 and 0.8493 TFLOP of products; 75 and 59 MB
+    (chip_smoke.work_flash(8, 1, 9216, 9216, 512), 1.391569403904e12 / 989e12 * 1e3,
+     "operations"),
+    (chip_smoke.work_flash(2, 1, 14400, 14400, 512), 8.49346560e11 / 989e12 * 1e3,
+     "operations"),
+    (chip_smoke.work_group_norm(2, 921600, 128), 943719424 / 3.35e12 * 1e3, "bytes"),
 ])
 def test_chip_smoke_bound(work, bound_ms, bound_by):
     got = chip_smoke.bound(work)
@@ -144,6 +162,68 @@ def test_chip_smoke_ptxas_summary_names_each_kernel():
         "0 bytes spill stores, 0 bytes spill loads",
         "flash_kernel_bf16_d64: 226 registers, 0 bytes stack frame, 4 bytes spill stores, "
         "4 bytes spill loads"]
+
+
+def test_chip_smoke_ptxas_summary_keeps_numbered_notes():
+    """ptxas's numbered notes on a kernel's code (an injected
+    ``warpgroup.arrive``, serialized ``wgmma``) pass through as they are and
+    are not read as a kernel's register line."""
+    note = ("ptxas info    : (C7519) warpgroup.arrive is injected in around line 2688 by "
+            "compiler to allow use of registers in GMMA in function '_ZN4st2v22flash_kernel_"
+            "bf16_d512EPK13__nv_bfloat16S2_S2_PS0_iiiif'")
+    log = (note + "\n"
+           "ptxas info    : Compiling entry function '_ZN4st2v22flash_kernel_bf16_d512EPK13__nv_"
+           "bfloat16S2_S2_PS0_iiiif' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 250 registers, used 1 barriers\n")
+    assert chip_smoke._ptxas_summary(log) == [
+        note, "flash_kernel_bf16_d512: 250 registers, 0 bytes stack frame, 0 bytes spill "
+              "stores, 0 bytes spill loads"]
+
+
+def test_chip_smoke_kernel_lines_carry_every_field():
+    """Every row of the kernels JSON line has the keys the check reads; the
+    D=512 instances have rows of their own with their D=512 launches, their
+    SDPA backend and (K2) the encode chunk's numbers; K5's row carries the
+    SD VAE's shape."""
+    rec = dict(ms=2.0, plain_ms=9.0, bound_ms=1.0, bound_by="operations", library_ms=4.0,
+               share=0.5, max_abs_err=1e-3)
+    records = {name: dict(rec) for name in chip_smoke.KERNEL_META}
+    records["flash_attention_d512"]["sdpa_backend"] = "EFFICIENT_ATTENTION"
+    records["flash_attention_packed_d512"].update(b4_ms=3.0, b4_share=0.6)
+    records["fused_group_norm"].update(vae_ms=0.6, vae_bound_ms=0.28, vae_share=0.47)
+    launches = {name: i + 1 for i, name in enumerate(chip_smoke.KERNEL_META)}
+    lines = chip_smoke.kernel_lines(records, launches)
+    by_name = {line["name"]: line for line in lines}
+    assert {"flash_attention_d512", "flash_attention_packed_d512"} <= set(by_name)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    for line in lines:
+        assert keys <= set(line) and line["route"] == "cuda"
+        assert line["launches"] == launches[line["name"]]
+        assert (REPO / line["source"]).exists()
+        path, lineno = line["replaces"].split(":")   # the Pallas kernel's def line
+        assert (REPO / path).read_text().splitlines()[int(lineno) - 1].startswith("def _")
+    assert by_name["flash_attention_d512"]["sdpa_backend"] == "EFFICIENT_ATTENTION"
+    assert by_name["flash_attention_packed_d512"]["b4_share"] == 0.6
+    assert by_name["fused_group_norm"]["vae_share"] == 0.47
+    # no record: every number null, the row still there
+    empty = chip_smoke.kernel_lines({}, launches)
+    assert all(line["ms"] is None and line["bound_ms"] is None for line in empty)
+
+
+def test_chip_smoke_counts_d512_launches_apart():
+    """The flash wrappers count their D=512 launches apart; the launch
+    reader reports them under ``<name>_d512`` and the reset zeroes them."""
+    from streamingt2v_torch.ops.flash_attention import flash_attention_packed
+
+    flash_attention.launches_d512 = 3
+    flash_attention_packed.launches_d512 = 5
+    got = chip_smoke._read_launches()
+    assert got["flash_attention_d512"] == 3 and got["flash_attention_packed_d512"] == 5
+    assert set(got) == set(chip_smoke.KERNEL_META)
+    chip_smoke._reset_launches()
+    assert all(v == 0 for v in chip_smoke._read_launches().values())
 
 
 def test_chip_smoke_needs_the_card():
@@ -236,3 +316,48 @@ def test_flash_head_dim_padding_keeps_the_function(bh, lq, lk, d):
     got = _attention_scaled(qp, kp, vp, d ** -0.5)
     assert float(got[..., d:].abs().sum()) == 0.0
     assert_close(got[..., :d], flash_attention(q, k, v).numpy(), TOL, "padded K1 operands")
+
+
+# ----------------------------------------------------- K5 launch plan ---
+
+@pytest.mark.parametrize("n,l,c,itemsize", [
+    (38, 14400, 320, 2), (38, 3600, 640, 2), (38, 920, 1280, 2), (38, 240, 1280, 2),  # UNet
+    (2, 921600, 128, 2), (2, 230400, 256, 2), (2, 57600, 512, 2), (4, 14400, 512, 2),  # SD VAE
+    (1, 1, 4096, 2), (1, 7, 4096, 4), (3, 48, 64, 4), (2, 16, 32, 4), (5, 1000, 8, 2)])
+def test_group_norm_plan_covers_every_row_and_channel_once(n, l, c, itemsize):
+    """Thread (slot s, vector v) of block (chunk, n) takes channels
+    [v*VEC, v*VEC + VEC) of rows chunk*rows_per_chunk + s, + 2s, ... of its
+    chunk: every (row, channel vector) once; the block stays within the
+    kernel's thread cap and the card's shared memory."""
+    plan = launch_plan(n, l, c, itemsize)
+    vec = 16 // itemsize
+    assert plan.vectors * vec == c and plan.threads == plan.vectors * plan.slots
+    assert 32 <= plan.threads <= MAX_CHANNELS // vec
+    assert plan.smem_bytes == 12 * plan.slots * c <= SMEM_LIMIT
+    assert plan.rows_per_chunk % plan.slots == 0
+    assert (plan.chunks - 1) * plan.rows_per_chunk < l <= plan.chunks * plan.rows_per_chunk
+    seen = np.zeros((l, plan.vectors), np.uint8)
+    for chunk in range(plan.chunks):
+        r0, r1 = chunk * plan.rows_per_chunk, min(l, (chunk + 1) * plan.rows_per_chunk)
+        for slot in range(plan.slots):
+            seen[r0 + slot:r1:plan.slots] += 1   # all of the slot's vectors
+    assert (seen == 1).all()
+
+
+def test_group_norm_thread_cap_is_the_kernels():
+    """The plan's thread cap (one row slot of the widest row) is the kernel's
+    ``GN_MAX_C``."""
+    src = (CSRC / "fused_group_norm.cu").read_text()
+    assert int(re.search(r"constexpr int GN_MAX_C = (\d+);", src).group(1)) == MAX_CHANNELS
+
+
+def test_flash_d512_block_fits_shared_memory():
+    """The D=512 body: 8 warps own 64 output columns each (all 512), and Q,
+    one K and one V tile, P and the row reductions fit one block's shared
+    memory (the kernel asserts the same at compile time)."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (FB_\w+) = (\d+);", src)}
+    d, bq, bk, threads = const["FB_D"], const["FB_BQ"], const["FB_BK"], const["FB_THREADS"]
+    assert (d, bq, threads) == (512, 64, 256) and threads // 32 * 64 == d
+    smem = 1024 + 2 * (bq * d + bk * d + bk * (d + 8) + bq * (bk + 8)) + 4 * 5 * bq
+    assert smem <= SMEM_LIMIT
