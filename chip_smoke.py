@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one NVIDIA GPU: stage 1
-(streaming image-to-video) and stage 2 (I2VGen-XL enhancement).
+(streaming image-to-video), stage 2 (I2VGen-XL enhancement), stage 3
+(EMA-VFI 2x interpolation) and the three-stage product that joins them.
 
     python3 chip_smoke.py                  # every phase (the check)
     python3 chip_smoke.py --phases card,build,kernels   # skip the pipelines
 
 Phases, one line each:
-  1. card: nvidia-smi name and power limit, torch and CUDA versions;
+  1. card: nvidia-smi name and power limit, torch and CUDA versions, and
+     whether OpenCV and Pillow are installed (the product's path needs
+     neither);
   2. build: nvcc of ``streamingt2v_torch/csrc`` (one nvcc per source, run
      together) into one library (seconds);
   3. kernels: each hand-written kernel (K1 flash attention, K2 packed flash
@@ -18,10 +21,11 @@ Phases, one line each:
      main-path shape each;
      there also its bound and its library yardstick (below);
   4. reference: stage 1 end to end on a small input (the tiny config at
-     96x192, f32) and stage 2 end to end on a small input (a narrow
-     I2VGen-XL at 64x128, f32, the enhance routing) on the card, through
-     their kernels, against the same pipelines on the CPU (plain versions)
-     with the same weights and noise;
+     96x192, f32), stage 2 end to end on a small input (a narrow
+     I2VGen-XL at 64x128, f32, the enhance routing) and stage 3 (the tiny
+     VFI at 64x64, f32, flip-TTA) on the card, stages 1 and 2 through their
+     kernels, against the same pipelines on the CPU (plain versions) with the
+     same weights and noise;
   5. slice: ``build_pipeline`` at the full-width default ``PipelineConfig``
      with random bf16 weights on the card, then ``image_to_video`` for 43
      frames (first chunk plus one autoregressive chunk), with per-phase
@@ -30,7 +34,23 @@ Phases, one line each:
      width (random bf16 weights), then ``enhance_with_keyframe_prepass`` on
      a synthetic 64-frame 720p video (a 2-frame pre-pass, then 2 blended
      38-frame chunks) with ``--enhance-steps`` DDIM steps, with per-phase
-     seconds, resident and peak memory and the launch counts of its kernels.
+     seconds, resident and peak memory and the launch counts of its kernels;
+  7. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
+     on a synthetic 720p video whose content moves 3 pixels a frame: seconds
+     per pair and peak memory at pair batches 1, 2, 4 and 8 over 16 pairs,
+     then the 64-frame video to 127 frames at the pipeline's pair batch,
+     checked for shape, range and kept input frames, and the warp checked
+     against the known motion (the half-shift warps of both neighbours land
+     closer to the true midpoint than either neighbour; a wrong sign would
+     land farther);
+  8. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
+     stage 2 bf16, stage 3 f32), then ``StreamingT2VPipeline.run`` on a
+     synthetic 576x1024 uint8 image held in memory, for ``--product-frames``
+     (85: 43 stage-1 frames, full sampler steps; stage 2 at
+     ``--enhance-steps``) written as y4m into a temporary directory, with the
+     per-stage seconds, resident and peak memory, ``stage_finite``, the
+     launch counts of every kernel row, and the file checked (header, frame
+     count, 1280x720).
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -47,9 +67,10 @@ for them as for everything here.  ``bound_ms`` is the least time the card
 could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
-two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice
-and enhance phases.  K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2``
-at the three stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
+two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
+enhance and product phases (``product_launches`` the product's alone).
+K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
+stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
 ``stage1_ms``, ``stage1_library_ms`` and ``stage1_share`` at the stage-1
 level-0 geometry.  The flash D=512 instances (the VAE mid-block attention)
@@ -67,6 +88,7 @@ result.  Every failed phase raises.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import re
@@ -75,7 +97,8 @@ import subprocess
 import sys
 import time
 
-ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "enhance")
+ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "enhance", "interpolate",
+              "product")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -84,6 +107,14 @@ AR_STEPS = 30
 # steps leave 2 to run.
 ENHANCE_STEPS = 3
 ENHANCE_FRAMES = 64
+# Stage 3: the enhance phase's 64 frames to 127; the pair-batch sweep over 16
+# pairs; content moving 3 pixels a frame.
+INTERP_FRAMES = 64
+PAIR_BATCHES = (1, 2, 4, 8)
+SWEEP_PAIRS = 16
+SHIFT_PX = 3.0
+# The product's frames (stage 1 makes (n + 1) // 2 = 43, the slice's cut).
+PRODUCT_FRAMES = 85
 # Tolerances on max |kernel - plain| / max |plain|: bf16 rounds the kernels'
 # on-chip intermediates (probabilities, LN output, GEGLU product, prologue
 # output) to 8 mantissa bits, f32 differs only in summation order.
@@ -895,6 +926,19 @@ def check_reference() -> float:
     return err
 
 
+def _release_earlier_phases() -> None:
+    """Free what earlier phases left on the card before a pipeline phase
+    builds its models: a phase's pipeline sits in a reference cycle (its
+    timing wrappers hold its bound methods), which only the cycle collector
+    frees, and its weights would count in the next phase's memory."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_slice(first_steps: int, ar_steps: int) -> dict:
     """Phase 4: the full-width stage-1 slice through every kernel."""
     import dataclasses
@@ -905,6 +949,7 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     from streamingt2v_torch.pipeline.build import build_pipeline
 
     dev = torch.device("cuda")
+    _release_earlier_phases()
     cfg = PipelineConfig()
     if first_steps != cfg.first_chunk_sampler.num_steps:
         print(f"  cut: first-chunk sampler steps {cfg.first_chunk_sampler.num_steps} -> "
@@ -983,7 +1028,7 @@ def run_enhance(steps: int) -> dict:
     from streamingt2v_torch.pipeline.build import build_enhance
 
     dev = torch.device("cuda")
-    torch.cuda.empty_cache()
+    _release_earlier_phases()
     cfg = EnhanceConfig()
     if steps != cfg.num_steps:
         print(f"  cut: DDIM steps {cfg.num_steps} -> {steps} "
@@ -1052,6 +1097,214 @@ def run_enhance(steps: int) -> dict:
     return launches
 
 
+def _translated_video(frames: int, height: int, width: int, shift: float, device="cpu",
+                      offset: float = 0.0):
+    """A [0, 1] video whose content moves left by ``shift`` pixels a frame:
+    frame k is a fixed smooth field sampled at columns x + shift * (k + offset)."""
+    import torch
+
+    yy = torch.arange(height, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(width, device=device, dtype=torch.float32)[None, None, :]
+    xs = xx + shift * (torch.arange(frames, device=device, dtype=torch.float32)[:, None, None]
+                       + offset)
+    chans = [0.5 + 0.2 * torch.sin(2 * math.pi * (fy * yy / height + fx * xs / width) + ph)
+             + 0.15 * torch.sin(2 * math.pi * gx * xs / width + gy * yy / height)
+             for fy, fx, ph, gx, gy in ((1.3, 2.1, 0.3, 7.0, 2.0), (2.2, 1.4, 1.9, 5.0, 3.0),
+                                        (0.7, 3.1, 4.0, 9.0, 1.0))]
+    return torch.stack(chans, dim=-1)
+
+
+def check_vfi_reference() -> float:
+    """Phase 4, stage 3: the tiny VFI with flip-TTA on the card agrees with
+    the same network on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig, VFIConfig
+    from streamingt2v_torch.pipeline.build import build_interpolate
+
+    cfg = dataclasses.replace(PipelineConfig.tiny(),
+                              vfi=dataclasses.replace(VFIConfig.tiny(), tta=True))
+    gpu = build_interpolate(cfg, seed=0, device="cuda")
+    cpu = build_interpolate(cfg, seed=0, device="cpu", init=False)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    video = _translated_video(5, 64, 64, SHIFT_PX)
+    got = gpu.interpolate_video(video.cuda()).cpu()
+    ref = cpu.interpolate_video(video)
+    err = (got - ref).abs().max().item()
+    print(f"  small stage 3 {tuple(ref.shape)} f32 TTA, card vs CPU: max_abs_err={err:.3e} "
+          f"tol={REFERENCE_ATOL:g}; ref std {ref.std().item():.3f}", flush=True)
+    if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
+        raise AssertionError(f"small-input stage 3 disagrees with the CPU ({err:.3e})")
+    return err
+
+
+def _check_warp_motion(video, dev) -> None:
+    """The warp the network runs, against the video's known motion: frame k
+    warped by +shift/2 and frame k+1 by -shift/2 both land on the true
+    midpoint (the field sampled half a frame on), closer than either frame."""
+    import torch
+
+    from streamingt2v_torch.ops.warp import backward_warp
+
+    n = 4
+    f0, f1 = video[:n], video[1:n + 1]
+    truth = _translated_video(n, video.shape[1], video.shape[2], SHIFT_PX, dev, offset=0.5)
+    flow = torch.zeros(f0.shape[:3] + (2,), device=dev)
+    flow[..., 0] = SHIFT_PX / 2
+    inner = (slice(None), slice(None), slice(8, -8))     # away from the clamped borders
+    dist = lambda a: (a - truth)[inner].abs().mean().item()  # noqa: E731
+    d = {"frame k": dist(f0), "frame k+1": dist(f1),
+         "warp(k, +s/2)": dist(backward_warp(f0, flow)),
+         "warp(k+1, -s/2)": dist(backward_warp(f1, -flow)),
+         "warp(k, -s/2)": dist(backward_warp(f0, -flow))}
+    print("  warp against the known motion, mean |x - true midpoint|: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in d.items()), flush=True)
+    ends = min(d["frame k"], d["frame k+1"])
+    if not (d["warp(k, +s/2)"] < 0.25 * ends and d["warp(k+1, -s/2)"] < 0.25 * ends
+            and d["warp(k, -s/2)"] > ends):
+        raise AssertionError(f"the warp does not follow the motion: {d}")
+
+
+def run_interpolate() -> None:
+    """Phase 7: full-width stage 3 on a 720p video with known motion."""
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.pipeline.build import build_interpolate
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = PipelineConfig()
+    h, w = cfg.enhance.height, cfg.enhance.width
+    t0 = time.perf_counter()
+    pipe = build_interpolate(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    print(f"  build_interpolate: {time.perf_counter() - t0:.1f} s, {n_params / 1e6:.2f} M "
+          f"parameters f32, resident {resident / 2**30:.2f} GiB; TTA {pipe.tta}", flush=True)
+    video = _translated_video(INTERP_FRAMES, h, w, SHIFT_PX, dev)
+    _check_warp_motion(video, dev)
+
+    default_batch = pipe.pair_batch
+    pipe.pair_batch = 1
+    pipe.interpolate_video(video[:2])    # warm-up: cuDNN and allocator
+    sweep = []
+    for batch in PAIR_BATCHES:
+        pipe.pair_batch = batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        pipe.interpolate_video(video[:SWEEP_PAIRS + 1])
+        torch.cuda.synchronize()
+        per_pair = (time.perf_counter() - start) / SWEEP_PAIRS
+        peak = torch.cuda.max_memory_allocated()
+        sweep.append((batch, per_pair, peak))
+        print(f"  pair_batch {batch} ({2 * batch} network rows with TTA): {per_pair:.4f} s "
+              f"per pair over {SWEEP_PAIRS} pairs, peak {peak / 2**30:.2f} GiB", flush=True)
+    best = min(sweep, key=lambda r: r[1])
+    print(f"  fastest pair_batch {best[0]} ({best[1]:.4f} s per pair); the pipeline's "
+          f"default is {default_batch}", flush=True)
+
+    pipe.pair_batch = default_batch
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    out = pipe.interpolate_video(video)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    want = (2 * INTERP_FRAMES - 1, h, w, 3)
+    print(f"  interpolate_video {INTERP_FRAMES} -> {out.shape[0]} frames: {total:.2f} s "
+          f"({total / (INTERP_FRAMES - 1):.4f} s per pair), peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    if tuple(out.shape) != want:
+        raise AssertionError(f"interpolated video shape {tuple(out.shape)} != {want}")
+    if not torch.isfinite(out).all():
+        raise AssertionError("interpolated video has non-finite values")
+    lo, hi = out.min().item(), out.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"interpolated video outside [0, 1]: [{lo}, {hi}]")
+    if not torch.equal(out[::2], video):
+        raise AssertionError("the input frames are not kept at the even indices")
+    print(f"  video {want} finite in [{lo:.3f}, {hi:.3f}], input frames kept", flush=True)
+
+
+def run_product(enhance_steps: int, frames: int) -> dict:
+    """Phase 8: the three-stage product at full width through ``StreamingT2VPipeline``."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.ops.temporal_attention import MAX_FRAMES, fits_temporal_attention
+    from streamingt2v_torch.pipeline.build import build_product
+    from streamingt2v_torch.utils import media
+    from streamingt2v_torch.utils.profiling import reset_timers, timing_report
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = PipelineConfig(num_frames=frames)
+    cfg = dataclasses.replace(cfg, enhance=dataclasses.replace(cfg.enhance,
+                                                               num_steps=enhance_steps))
+    print(f"  {frames} frames: stage 1 makes {cfg.stage1_frames} at {cfg.height}x{cfg.width} "
+          f"({cfg.n_autoregressions(cfg.stage1_frames)} AR chunks, sampler steps "
+          f"{cfg.first_chunk_sampler.num_steps} + {cfg.sampler.num_steps}), stage 2 "
+          f"{enhance_steps} DDIM steps at {cfg.enhance.height}x{cfg.enhance.width}, "
+          f"randomized blending {cfg.use_randomized_blending}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = build_product(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    print(f"  build_product: {time.perf_counter() - t0:.1f} s, resident weights "
+          f"{resident / 2**30:.2f} GiB", flush=True)
+
+    image = ((_smooth_image(cfg.height, cfg.width, seed=5).numpy() + 1.0) * 127.5).round()
+    image = image.clip(0, 255).astype(np.uint8)
+    reset_timers()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/product.y4m"
+        t0 = time.perf_counter()
+        out = pipe.run(image, path, seed=cfg.seed)
+        total = time.perf_counter() - t0
+        info = media.y4m_info(path)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    stages = {k: v["total_s"] for k, v in timing_report().items()}
+    print(f"  seconds: {stages}; run total {total:.1f} (with the file)", flush=True)
+    print(f"  resident {resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; stage_finite "
+          f"{pipe.stage_finite}; launches {launches}", flush=True)
+    print(f"  file: {info}", flush=True)
+
+    want = {"width": cfg.enhance.width, "height": cfg.enhance.height,
+            "fps": float(cfg.out_fps), "frames": frames}
+    if info != want:
+        raise AssertionError(f"the y4m file is {info}, not {want}")
+    if out.shape != (frames, cfg.enhance.height, cfg.enhance.width, 3):
+        raise AssertionError(f"product frames {out.shape}")
+    if pipe.stage_finite != {"stage1": True, "enhance": True, "vfi": True}:
+        raise AssertionError(f"a stage gave non-finite values: {pipe.stage_finite}")
+    # K6 takes temporal attention over at most MAX_FRAMES frames: stage 2's
+    # chunk is the whole video without blending (100 frames in the product)
+    chunk = cfg.enhance.chunk_size if cfg.use_randomized_blending else cfg.stage1_frames
+    expected = [k for k in KERNEL_META if k != "fused_temporal_attention"
+                or fits_temporal_attention(chunk, chunk, 64)]
+    if expected != list(KERNEL_META):
+        print(f"  stage 2's {chunk}-frame chunk is past K6's {MAX_FRAMES} frames: its "
+              f"temporal attention takes the plain path", flush=True)
+    dead = [k for k in expected if launches[k] <= 0]
+    if dead:
+        raise AssertionError(f"the product never launched: {dead}")
+    print(f"  video {out.shape} uint8, mean {out.mean():.2f}, std {out.std():.2f}", flush=True)
+    return launches
+
+
 KERNEL_META = {
     "flash_attention": ("streamingt2v_torch/csrc/flash_attention.cu",
                         "streamingt2v_tpu/ops/flash_attention.py:38"),
@@ -1072,9 +1325,10 @@ KERNEL_META = {
 }
 
 
-def kernel_lines(records: dict, launches: dict) -> list:
+def kernel_lines(records: dict, launches: dict, product_launches: dict) -> list:
     """The kernels JSON line's entries: one per KERNEL_META row, with the
-    kernels phase's record (absent keys null) and the pipelines' launches."""
+    kernels phase's record (absent keys null), the launches of every
+    pipeline phase and the product's alone."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -1087,7 +1341,8 @@ def kernel_lines(records: dict, launches: dict) -> list:
                             launches=launches[name], max_abs_err=r.get("max_abs_err"),
                             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
                             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-                            library_ms=r.get("library_ms"), share=r.get("share"), **extra))
+                            library_ms=r.get("library_ms"), share=r.get("share"),
+                            product_launches=product_launches[name], **extra))
     return kernels
 
 
@@ -1100,7 +1355,10 @@ def main(argv=None) -> int:
     parser.add_argument("--ar-steps", type=int, default=AR_STEPS,
                         help="autoregressive sampler steps in the slice phase")
     parser.add_argument("--enhance-steps", type=int, default=ENHANCE_STEPS,
-                        help="DDIM steps in the enhance phase (before the strength cut)")
+                        help="DDIM steps in the enhance and product phases (before the "
+                             "strength cut)")
+    parser.add_argument("--product-frames", type=int, default=PRODUCT_FRAMES,
+                        help="frames of the product phase's video (the product: 200)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     try:
@@ -1129,6 +1387,8 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    found = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL")}
+    print(f"  installed here: OpenCV {found['cv2']}, Pillow {found['PIL']}", flush=True)
 
     t0 = time.perf_counter()
     path, build_s, log = _native.build()
@@ -1147,6 +1407,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         check_reference()
         check_enhance_reference()
+        check_vfi_reference()
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict.fromkeys(KERNEL_META, 0)
     if "slice" in phases:
@@ -1159,10 +1420,23 @@ def main(argv=None) -> int:
         for name, n in run_enhance(args.enhance_steps).items():
             launches[name] += n
         print(f"phase enhance: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "interpolate" in phases:
+        t0 = time.perf_counter()
+        run_interpolate()
+        print(f"phase interpolate: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+    product_launches = dict.fromkeys(KERNEL_META, 0)
+    if "product" in phases:
+        t0 = time.perf_counter()
+        product_launches = run_product(args.enhance_steps, args.product_frames)
+        for name, n in product_launches.items():
+            launches[name] += n
+        print(f"phase product: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print(json.dumps({"kernels": kernel_lines(records, launches)}), flush=True)
-    if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps) != (
-            FIRST_CHUNK_STEPS, AR_STEPS, ENHANCE_STEPS):
+    print(json.dumps({"kernels": kernel_lines(records, launches, product_launches)}),
+          flush=True)
+    if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps,
+                                     args.product_frames) != (
+            FIRST_CHUNK_STEPS, AR_STEPS, ENHANCE_STEPS, PRODUCT_FRAMES):
         print("chip_smoke: not the default run; no result", file=sys.stderr)
         return 3
     print(card, flush=True)

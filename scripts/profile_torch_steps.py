@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device time by kernel class of one stage-1 autoregressive guided step,
-one stage-2 38-frame chunk step (two UNet calls, the CFG halves) and one
-stage-2 VAE decode and encode call of the PyTorch port, at full width with
-random bf16 weights, on one NVIDIA GPU.
+one stage-2 38-frame chunk step (two UNet calls, the CFG halves), one
+stage-2 VAE decode and encode call and one stage-3 pair batch of the
+PyTorch port, at full width with random weights (bf16; the VFI in f32), on
+one NVIDIA GPU.
 
     python3 scripts/profile_torch_steps.py            # stages 1 and 2
-    python3 scripts/profile_torch_steps.py --stages 2,vae
+    python3 scripts/profile_torch_steps.py --stages 2,vae,vfi
     python3 scripts/profile_torch_steps.py --stages 1 --stage1-routing off,on
     python3 scripts/profile_torch_steps.py --stages vae --root DIR   # another checkout
 
@@ -19,11 +20,15 @@ synthetic 64-frame 720p video with 3 DDIM steps (2 run) and profiles the
 last 38-frame chunk step.  "vae" builds stage 2 and profiles one call of
 its SD VAE (the bf16 copy, under the enhance routing) at the chunk sizes
 ``_vae_chunk_frames`` gives at 720p: a 2-frame decode and a 4-frame
-encode.  Earlier calls warm the kernels and libraries up.  ``--root``
+encode.  "vfi" builds stage 3 and profiles one ``interpolate_pair`` call
+(flip-TTA) of the pipeline's pair batch at 720p, with cuDNN's TF32 off (as
+``chip_smoke.py`` runs) and on (PyTorch's default).  Earlier calls warm the
+kernels and libraries up.  ``--root``
 imports the port from another checkout (e.g. an unpacked parent commit).
 ``torch.profiler`` (CUPTI) gives each kernel's device time; the classes
-are the port's six kernels, cuBLAS GEMMs, cuDNN convolutions, softmax and
-reductions, and the rest (elementwise ops and copies).  Needs the card.
+are the port's six kernels, indexing gathers (the VFI's warp), cuBLAS
+GEMMs, cuDNN convolutions, softmax and reductions, and the rest (elementwise
+ops and copies).  Needs the card.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ CLASSES = (
     ("K4 temporal conv", ("temporal_conv",)),
     ("K5 fused GroupNorm", ("gn_stats_kernel", "gn_apply_kernel")),
     ("K6 temporal attention", ("temporal_attention",)),
+    ("index / gather", ("index_elementwise", "gather_kernel", "index_kernel")),
     ("cuDNN conv", ("conv", "fprop", "dgrad", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cublas", "xmma", "cutlass", "sm90_")),
     ("softmax / reductions", ("softmax", "reduce", "norm")),
@@ -194,7 +200,36 @@ def profile_stage2_vae() -> None:
     torch.cuda.empty_cache()
 
 
-STAGES = ("1", "2", "vae")
+def profile_stage3() -> None:
+    import torch
+
+    from chip_smoke import SHIFT_PX, _translated_video
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.models.vfi import interpolate_pair
+    from streamingt2v_torch.pipeline.build import build_interpolate
+
+    cfg = PipelineConfig()
+    pipe = build_interpolate(cfg, seed=0)
+    n = pipe.pair_batch
+    video = _translated_video(n + 1, cfg.enhance.height, cfg.enhance.width, SHIFT_PX, "cuda")
+    call = lambda: interpolate_pair(pipe.model, video[:-1], video[1:], tta=pipe.tta)  # noqa: E731
+    # the network is f32: its cuDNN convolutions take TF32 under PyTorch's
+    # default (cudnn.allow_tf32) and not under chip_smoke.py's setting
+    default = torch.backends.cudnn.allow_tf32
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            call()
+            _, by_name, wall = profiled(call)
+        report(f"stage 3, one interpolate_pair call of {n} pairs at {cfg.enhance.height}x"
+               f"{cfg.enhance.width} (f32, TTA {pipe.tta}, cudnn.allow_tf32 {tf32}, "
+               f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32})", by_name, wall)
+    torch.backends.cudnn.allow_tf32 = default
+    del pipe
+    torch.cuda.empty_cache()
+
+
+STAGES = ("1", "2", "vae", "vfi")
 
 
 def main() -> int:
@@ -230,6 +265,8 @@ def main() -> int:
         profile_stage2()
     if "vae" in stages:
         profile_stage2_vae()
+    if "vfi" in stages:
+        profile_stage3()
     return 0
 
 

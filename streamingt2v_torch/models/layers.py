@@ -1,10 +1,11 @@
 """Parameter-holding layers in the JAX package's layouts.
 
-``Dense``, ``Embed``, ``Conv`` and ``TimeConv`` carry the flax parameter names
-(``kernel``, ``bias``) so that a module's state-dict keys are the flax
-paths with ``/`` replaced by ``.``; their kernels are stored in PyTorch's
-layouts: Dense (out, in), Conv (out, in, kh, kw), and the (kt, 1, 1) time
-conv as the temporal-conv kernel's (kt, in, out).  Activations stay
+``Dense``, ``Embed``, ``Conv``, ``ConvTranspose`` and ``TimeConv`` carry the
+flax parameter names (``kernel``, ``bias``) so that a module's state-dict keys
+are the flax paths with ``/`` replaced by ``.``; their kernels are stored in
+PyTorch's layouts: Dense (out, in), Conv (out, in/groups, kh, kw),
+ConvTranspose (in, out, kh, kw), and the (kt, 1, 1) time conv as the
+temporal-conv kernel's (kt, in, out).  Activations stay
 channel-last; a Conv permutes to an NCHW view only around the cuDNN call
 (the view of an NHWC tensor is already channels_last, so nothing copies).
 
@@ -79,23 +80,28 @@ class Embed(nn.Module):
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` over channel-last (..., H, W, C); kernel
-    (out, in, kh, kw).  ``padding`` is 'SAME' (stride 1), 'VALID' or a
-    symmetric int."""
+    (out, in/groups, kh, kw).  ``padding`` is 'SAME' (stride 1), 'VALID' or a
+    symmetric int; ``dilation`` is flax's ``kernel_dilation`` and ``groups``
+    its ``feature_group_count``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
-                 stride: int = 1, padding: Union[str, int] = "SAME", bias: bool = True,
-                 zero_init: bool = False, device=None, dtype=None):
+                 stride: int = 1, padding: Union[str, int] = "SAME", dilation: int = 1,
+                 groups: int = 1, bias: bool = True, zero_init: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         if padding == "SAME":
             if stride != 1:
                 raise ValueError("SAME padding is only used with stride 1")
-            padding = kernel_size // 2
+            padding = kernel_size // 2 * dilation
         elif padding == "VALID":
             padding = 0
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
         self.zero_init = zero_init
-        self.kernel = _param((out_channels, in_channels, kernel_size, kernel_size), device, dtype)
+        self.kernel = _param((out_channels, in_channels // groups, kernel_size, kernel_size),
+                             device, dtype)
         self.bias = _param((out_channels,), device, dtype) if bias else None
 
     def fan_in(self) -> int:
@@ -106,9 +112,49 @@ class Conv(nn.Module):
         dt = _common(x, self.kernel)
         xn = x.reshape((-1,) + x.shape[-3:]).to(dt).permute(0, 3, 1, 2)
         y = F.conv2d(xn, self.kernel.to(dt), None if self.bias is None else self.bias.to(dt),
-                     stride=self.stride, padding=self.padding)
+                     stride=self.stride, padding=self.padding, dilation=self.dilation,
+                     groups=self.groups)
         y = y.permute(0, 2, 3, 1)
         return y.reshape(lead + y.shape[1:])
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(features, (k, k), strides=(s, s), padding="SAME")``
+    over channel-last (N, H, W, C): output (N, s*H, s*W, out).  flax convolves
+    the stride-dilated input with its (kh, kw, in, out) kernel as it is;
+    ``conv_transpose2d`` convolves with the spatially flipped kernel, so the
+    kernel is stored flipped, as (in, out, kh, kw) (``utils/weights.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 4, *,
+                 stride: int = 2, device=None, dtype=None):
+        super().__init__()
+        if (kernel_size - stride) % 2:
+            raise ValueError(f"SAME transposed conv needs an even kernel - stride, "
+                             f"got {kernel_size} - {stride}")
+        self.stride = stride
+        self.padding = (kernel_size - stride) // 2
+        self.zero_init = False
+        self.kernel = _param((in_channels, out_channels, kernel_size, kernel_size), device, dtype)
+        self.bias = _param((out_channels,), device, dtype)
+
+    def fan_in(self) -> int:
+        return self.kernel.shape[0] * self.kernel.shape[2] * self.kernel.shape[3]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _common(x, self.kernel)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt),
+                               self.bias.to(dt), stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+def prelu_param(module: nn.Module, name: str, c: int, device=None, dtype=None) -> None:
+    """Register a per-channel PReLU slope ``name`` (torch ``nn.PReLU(c)``;
+    ``init_random_`` sets it to 0.25)."""
+    module.register_parameter(name, _param((c,), device, dtype))
+
+
+def prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, a.to(x.dtype) * x)
 
 
 class TimeConv(nn.Module):
@@ -141,11 +187,11 @@ class TimeConv(nn.Module):
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator``, following the flax initialisers:
     lecun-normal kernels (zeros where the layer is zero-initialised), zero
-    biases, unit norm scales, zero blend factors; modules with other
-    initialisers define ``init_extra_(generator)``."""
+    biases, unit norm scales, zero blend factors, PReLU slopes of 0.25;
+    modules with other initialisers define ``init_extra_(generator)``."""
     done = set()
     for m in module.modules():
-        if isinstance(m, (Dense, Conv, TimeConv)):
+        if isinstance(m, (Dense, Conv, ConvTranspose, TimeConv)):
             if m.zero_init:
                 m.kernel.zero_()
             else:
@@ -158,6 +204,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             continue
         if name.endswith("_scale"):
             p.fill_(1.0)
+        elif name.rsplit(".", 1)[-1].endswith("prelu"):
+            p.fill_(0.25)
         else:
             p.zero_()
     for m in module.modules():

@@ -1,6 +1,8 @@
 """Model construction with random weights on the device: stage 1
-(counterpart of ``streamingt2v_tpu/pipeline/build.py:93-175``) and stage 2
-(``build_enhance_random``, ``:190-254``).
+(counterpart of ``streamingt2v_tpu/pipeline/build.py:93-175``), stage 2
+(``build_enhance_random``, ``:190-254``), stage 3
+(``build_interpolate_random``, ``:284``) and the three-stage product
+(``build_product_random``, ``:257``).
 
 Every module is built directly on ``device`` in its dtype and filled from
 its own ``torch.Generator`` seeded from ``seed``; checkpoint loading
@@ -24,8 +26,11 @@ from streamingt2v_torch.models.controlnet import ControlNet
 from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet, I2VGenXLUNetConfig
 from streamingt2v_torch.models.layers import init_random_
 from streamingt2v_torch.models.vae import AutoencoderKL
+from streamingt2v_torch.models.vfi import MultiScaleFlow
 from streamingt2v_torch.models.video_unet import VideoUNet
 from streamingt2v_torch.pipeline.enhance import EnhanceModels, EnhancePipeline
+from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
+from streamingt2v_torch.pipeline.interpolate import InterpolatePipeline
 from streamingt2v_torch.pipeline.streaming import Stage1Pipeline, StreamingModels
 
 
@@ -98,3 +103,24 @@ def build_enhance_models(seed: int = 0, *, device="cuda", bf16: bool = True, ini
 def build_enhance(cfg: EnhanceConfig, seed: int = 0, **kw) -> EnhancePipeline:
     """``EnhancePipeline`` over ``build_enhance_models(seed, **kw)``."""
     return EnhancePipeline(cfg, build_enhance_models(seed, **kw))
+
+
+def build_interpolate(cfg: PipelineConfig, seed: int = 0, *, device="cuda",
+                      init: bool = True) -> InterpolatePipeline:
+    """Stage 3: the EMA-VFI network of ``cfg.vfi`` in f32 on ``device``, with
+    flip-TTA as ``cfg.vfi.tta`` says."""
+    device = _device(device)
+    model = MultiScaleFlow(cfg.vfi, device=device).eval()
+    if init:
+        init_random_(model, torch.Generator(device).manual_seed(seed * 1000 + 200))
+    return InterpolatePipeline(model, tta=cfg.vfi.tta)
+
+
+def build_product(cfg: PipelineConfig, seed: int = 0, *, device="cuda") -> StreamingT2VPipeline:
+    """The three-stage product at the configuration's widths with random
+    weights, all resident on ``device``: stage 1 in bf16 but its f32 VAE,
+    stage 2 in bf16 (its VAE as ``cfg.enhance.vae_bf16`` says), stage 3 in
+    f32."""
+    return StreamingT2VPipeline(cfg, build_pipeline(cfg, seed, device=device, bf16=True),
+                                build_enhance(cfg.enhance, seed, device=device),
+                                build_interpolate(cfg, seed, device=device))

@@ -3,10 +3,16 @@
 A port module's state-dict keys are the flax parameter paths with ``/``
 replaced by ``.``.  The layout transforms are mechanical:
 
-  Dense kernel  (in, out)            -> (out, in)
-  Conv kernel   (kh, kw, in, out)    -> (out, in, kh, kw)
-  time conv     (kt, 1, 1, in, out)  -> (kt, in, out)   (the K4 weight)
+  Dense kernel          (in, out)            -> (out, in)
+  Conv kernel           (kh, kw, in, out)    -> (out, in, kh, kw)
+  ConvTranspose kernel  (kh, kw, in, out)    -> (in, out, kh, kw), flipped
+                        in kh and kw; told from a Conv kernel by its path
+                        (``<name>_deconv/kernel``)
+  time conv             (kt, 1, 1, in, out)  -> (kt, in, out)   (the K4 weight)
   everything else (biases, norms, embeddings, projections) unchanged.
+
+A depthwise Conv kernel (kh, kw, 1, C) takes the Conv rule: (C, 1, kh, kw)
+is torch's grouped layout.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if path.rsplit("/", 1)[-1] == "kernel":
             if a.ndim == 2:
                 a = a.T
+            elif a.ndim == 4 and path.endswith("_deconv/kernel"):
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 5 and a.shape[1:3] == (1, 1):

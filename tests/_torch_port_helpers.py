@@ -61,3 +61,163 @@ def assert_close(got, ref, rel: float, what: str = "") -> float:
     err = float(np.abs(got - ref).max()) / scale
     assert err <= rel, f"{what}: max abs err {err * scale:.3e} = {err:.3e} of max|ref| > {rel}"
     return err
+
+
+# ------------------------------------------------- pipelines and draws ---
+
+def stage1_pair(jcfg, pcfg, seed: int = 0):
+    """(JAX ``Stage1Pipeline``, port ``Stage1Pipeline``) on identical
+    weights, one ``random_flat`` tree per model from ``seed``."""
+    import dataclasses
+
+    import jax
+
+    from streamingt2v_tpu.pipeline.build import build_pipeline as jax_build_pipeline
+    from streamingt2v_tpu.pipeline.build import stage1_param_factory
+    from streamingt2v_torch.pipeline.build import build_pipeline
+
+    fields = ("unet", "controlnet", "svd_unet", "vae", "conditioner")
+    jpipe = jax_build_pipeline(jcfg, seed=0, lazy=True)
+    thunks = stage1_param_factory(jcfg, jax.random.PRNGKey(0), jpipe.models)
+    flats = {f: random_flat(jax.eval_shape(thunks[f + "_params"])["params"], seed=seed + i)
+             for i, f in enumerate(fields)}
+    jpipe.models = dataclasses.replace(
+        jpipe.models, **{f + "_params": jax_variables(flats[f]) for f in fields})
+    pipe = build_pipeline(pcfg, device="cpu", init=False)
+    for f in fields:
+        load_jax_params(getattr(pipe.models, f), flats[f])
+    return jpipe, pipe
+
+
+def jax_stage1_draws(cfg, seed: int, shape_latent, image_shape, n_gen: int) -> dict:
+    """The JAX stage-1 pipeline's noise, rebuilt from its own key splits
+    (pipeline/streaming.py: generation_key -> (k_cond, k_sample); uniform
+    augmentation noise from k_cond; latent noise from split(k_sample)[0])."""
+    import jax
+    import jax.numpy as jnp
+
+    from streamingt2v_tpu.utils.rng import generation_key
+
+    draws = {}
+    for g in range(n_gen + 1):
+        k_cond, k_sample = jax.random.split(
+            generation_key(seed, g, cfg.inference.reset_seed_per_generation))
+        draws[g, "cond_aug"] = np.asarray(jax.random.uniform(k_cond, image_shape, jnp.float32))
+        k_init, _ = jax.random.split(k_sample)
+        draws[g, "latent"] = np.asarray(jax.random.normal(k_init, shape_latent, jnp.float32))
+    return draws
+
+
+class Stage1Draws:
+    """A port stage-1 noise function serving ``jax_stage1_draws``; records
+    each (generation, stream) it served."""
+
+    def __init__(self, draws: dict):
+        self.draws = draws
+        self.used = []
+
+    def __call__(self, g, stream, shape):
+        a = self.draws[g, stream]
+        assert tuple(a.shape) == tuple(shape), (g, stream, a.shape, shape)
+        self.used.append((g, stream))
+        return t(a)
+
+
+class JaxEnhanceDraws:
+    """The JAX stage-2 pipeline's draws, rebuilt from its own keys
+    (pipeline/enhance.py: RngStream(seed, 'enhance'); key images at
+    key(10000 + i), the video encode at fold_in(key(1), start), the SDEdit
+    noise at key(2), the blending offsets at fold_in(fold_in(key(3), step),
+    chunk)), as a port ``EnhanceNoise``."""
+
+    def __init__(self, seed: int):
+        from streamingt2v_tpu.utils.rng import RngStream
+
+        self.stream = RngStream(seed, "enhance")
+        self.used = []
+
+    def normal(self, stream, index, shape):
+        import jax
+        import jax.numpy as jnp
+
+        key = {"key_image": lambda: self.stream.key(10_000 + index),
+               "encode": lambda: jax.random.fold_in(self.stream.key(1), index),
+               "latent": lambda: self.stream.key(2)}[stream]()
+        self.used.append((stream, index, tuple(shape)))
+        return t(jax.random.normal(key, tuple(shape), jnp.float32))
+
+    def offset(self, step, chunk, high):
+        import jax
+
+        k = jax.random.fold_in(jax.random.fold_in(self.stream.key(3), step), chunk)
+        self.used.append(("offset", step, chunk))
+        return int(jax.random.randint(k, (), 0, high))
+
+
+# the synthetic tokenizer's ids reach 513 (start/end of text)
+TEXT_TINY = dict(vocab_size=514, width=32, layers=2, heads=2, max_length=8)
+
+
+def flat_for(jmod, *args, seed=0, **kw) -> dict:
+    """``random_flat`` of a flax module's parameter shapes (no init run)."""
+    import jax
+
+    shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), *args, **kw))
+    return random_flat(shapes["params"], seed)
+
+
+def enhance_pair(enh: dict):
+    """(JAX ``EnhancePipeline``, port ``EnhancePipeline``) on identical
+    weights at the tiny widths of tests/test_enhance.py, with a 514-token
+    text tower so that the synthetic tokenizer's ids fit; ``enh`` are the
+    ``EnhanceConfig`` fields of both."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from streamingt2v_tpu.config import EnhanceConfig as JaxEnhanceConfig
+    from streamingt2v_tpu.config import VAEConfig as JaxVAEConfig
+    from streamingt2v_tpu.diffusion import ddim as jddim
+    from streamingt2v_tpu.models import clip as jclip
+    from streamingt2v_tpu.models import clip_text as jtext
+    from streamingt2v_tpu.models import vae as jvae
+    from streamingt2v_tpu.models.enhance import unet as junet
+    from streamingt2v_tpu.pipeline import enhance as jenh
+    from streamingt2v_torch import config as pcfg
+    from streamingt2v_torch.models import clip as pclip
+    from streamingt2v_torch.models import clip_text as ptext
+    from streamingt2v_torch.models.enhance import unet as punet
+    from streamingt2v_torch.pipeline import enhance as penh
+    from streamingt2v_torch.pipeline.build import build_enhance_models
+
+    ucfg = junet.I2VGenXLUNetConfig.tiny()
+    vcfg = dataclasses.replace(JaxVAEConfig.tiny(), temporal_decoder=False)
+    ccfg = jclip.CLIPVisionConfig.tiny()
+    tcfg = jtext.CLIPTextConfig(**TEXT_TINY)
+    jm = dict(unet=junet.I2VGenXLUNet(ucfg), vae=jvae.AutoencoderKL(vcfg, use_quant_conv=True),
+              clip_vision=jclip.CLIPVisionTower(ccfg), text_encoder=jtext.CLIPTextTower(tcfg))
+    hw = enh["height"] // vcfg.downsample_factor
+    init_args = {
+        "unet": (jnp.zeros((1, 4, hw, hw, 4)), jnp.zeros((1,), jnp.int32), jnp.zeros((1,)),
+                 jnp.zeros((1, 4, hw, hw, 4)), jnp.zeros((1, ccfg.output_dim)),
+                 jnp.zeros((1, 5, ucfg.cross_attention_dim))),
+        "vae": (jnp.zeros((1, 32, 32, 3)),),
+        "clip_vision": (jnp.zeros((1, ccfg.image_size, ccfg.image_size, 3)),),
+        "text_encoder": (jnp.zeros((1, tcfg.max_length), jnp.int32),),
+    }
+    flats = {name: flat_for(jm[name], *init_args[name], seed=i) for i, name in enumerate(jm)}
+    jmodels = jenh.EnhanceModels(
+        unet=jm["unet"], unet_params=jax_variables(flats["unet"]),
+        vae=jm["vae"], vae_params=jax_variables(flats["vae"]),
+        clip_vision=jm["clip_vision"], clip_vision_params=jax_variables(flats["clip_vision"]),
+        text_encoder=jm["text_encoder"], text_params=jax_variables(flats["text_encoder"]),
+        scheduler=jddim.DDIMScheduler(), tokenizer=jtext.CLIPTokenizer.synthetic(8))
+    jpipe = jenh.EnhancePipeline(JaxEnhanceConfig(**enh), jmodels)
+    pmodels = build_enhance_models(
+        device="cpu", init=False, bf16=False, unet=punet.I2VGenXLUNetConfig.tiny(),
+        vae=dataclasses.replace(pcfg.VAEConfig.tiny(), temporal_decoder=False),
+        clip_vision=pclip.CLIPVisionConfig.tiny(), text=ptext.CLIPTextConfig(**TEXT_TINY),
+        tokenizer_length=8)
+    for name in jm:
+        load_jax_params(getattr(pmodels, name), flats[name])
+    return jpipe, penh.EnhancePipeline(pcfg.EnhanceConfig(**enh), pmodels)

@@ -18,16 +18,22 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import assert_close, jax_variables, port_module, random_flat, t
-from streamingt2v_tpu.config import EnhanceConfig as JaxEnhanceConfig
+from _torch_port_helpers import (
+    TEXT_TINY,
+    JaxEnhanceDraws,
+    assert_close,
+    enhance_pair as make_enhance_pair,
+    flat_for as _flat_for,
+    jax_variables,
+    port_module,
+    t,
+)
 from streamingt2v_tpu.config import VAEConfig as JaxVAEConfig
 from streamingt2v_tpu.diffusion import ddim as jddim
-from streamingt2v_tpu.models import clip as jclip
 from streamingt2v_tpu.models import clip_text as jtext
 from streamingt2v_tpu.models import vae as jvae
 from streamingt2v_tpu.models.enhance import unet as junet
 from streamingt2v_tpu.pipeline import enhance as jenh
-from streamingt2v_tpu.utils.rng import RngStream
 from streamingt2v_torch import config as pcfg
 from streamingt2v_torch.diffusion import ddim as pddim
 from streamingt2v_torch.models import clip as pclip
@@ -37,19 +43,10 @@ from streamingt2v_torch.models import vae as pvae
 from streamingt2v_torch.models.enhance import unet as punet
 from streamingt2v_torch.ops.routing import current_routing, use_routing
 from streamingt2v_torch.pipeline import enhance as penh
-from streamingt2v_torch.pipeline.build import build_enhance_models
 from streamingt2v_torch.utils.rng import GeneratorEnhanceNoise
-from streamingt2v_torch.utils.weights import load_jax_params
 
 TOL = 1e-4
 VIDEO_ATOL = 5e-4
-# the synthetic tokenizer's ids reach 513 (start/end of text)
-TEXT_TINY = dict(vocab_size=514, width=32, layers=2, heads=2, max_length=8)
-
-
-def _flat_for(jmod, *args, seed=0, **kw):
-    shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), *args, **kw))
-    return random_flat(shapes["params"], seed)
 
 
 # ------------------------------------------------------------------ DDIM ---
@@ -230,30 +227,6 @@ def test_routing_on_matches_routing_off(unet_pair, monkeypatch):
 
 # ------------------------------------------------------------- pipeline ---
 
-class JaxDraws:
-    """The JAX pipeline's draws, rebuilt from its own keys
-    (pipeline/enhance.py: RngStream(seed, 'enhance'); key images at
-    key(10000 + i), the video encode at fold_in(key(1), start), the SDEdit
-    noise at key(2), the blending offsets at fold_in(fold_in(key(3), step),
-    chunk))."""
-
-    def __init__(self, seed: int):
-        self.stream = RngStream(seed, "enhance")
-        self.used = []
-
-    def normal(self, stream, index, shape):
-        key = {"key_image": lambda: self.stream.key(10_000 + index),
-               "encode": lambda: jax.random.fold_in(self.stream.key(1), index),
-               "latent": lambda: self.stream.key(2)}[stream]()
-        self.used.append((stream, index, tuple(shape)))
-        return t(jax.random.normal(key, tuple(shape), jnp.float32))
-
-    def offset(self, step, chunk, high):
-        k = jax.random.fold_in(jax.random.fold_in(self.stream.key(3), step), chunk)
-        self.used.append(("offset", step, chunk))
-        return int(jax.random.randint(k, (), 0, high))
-
-
 ENH = dict(num_steps=3, height=32, width=32, chunk_size=4, overlap_size=2,
            use_randomized_blending=True, vae_bf16=False)
 SEED = 8888
@@ -264,38 +237,7 @@ def enhance_pair():
     """(jax pipeline, port pipeline) on identical weights: the tiny configs
     of tests/test_enhance.py, with a 514-token text tower so that the
     synthetic tokenizer's ids fit."""
-    ucfg = junet.I2VGenXLUNetConfig.tiny()
-    vcfg = dataclasses.replace(JaxVAEConfig.tiny(), temporal_decoder=False)
-    ccfg = jclip.CLIPVisionConfig.tiny()
-    tcfg = jtext.CLIPTextConfig(**TEXT_TINY)
-    jm = dict(unet=junet.I2VGenXLUNet(ucfg), vae=jvae.AutoencoderKL(vcfg, use_quant_conv=True),
-              clip_vision=jclip.CLIPVisionTower(ccfg), text_encoder=jtext.CLIPTextTower(tcfg))
-    hw = ENH["height"] // vcfg.downsample_factor
-    init_args = {
-        "unet": (jnp.zeros((1, 4, hw, hw, 4)), jnp.zeros((1,), jnp.int32), jnp.zeros((1,)),
-                 jnp.zeros((1, 4, hw, hw, 4)), jnp.zeros((1, ccfg.output_dim)),
-                 jnp.zeros((1, 5, ucfg.cross_attention_dim))),
-        "vae": (jnp.zeros((1, 32, 32, 3)),),
-        "clip_vision": (jnp.zeros((1, ccfg.image_size, ccfg.image_size, 3)),),
-        "text_encoder": (jnp.zeros((1, tcfg.max_length), jnp.int32),),
-    }
-    flats = {name: _flat_for(jm[name], *init_args[name], seed=i)
-             for i, name in enumerate(jm)}
-    jmodels = jenh.EnhanceModels(
-        unet=jm["unet"], unet_params=jax_variables(flats["unet"]),
-        vae=jm["vae"], vae_params=jax_variables(flats["vae"]),
-        clip_vision=jm["clip_vision"], clip_vision_params=jax_variables(flats["clip_vision"]),
-        text_encoder=jm["text_encoder"], text_params=jax_variables(flats["text_encoder"]),
-        scheduler=jddim.DDIMScheduler(), tokenizer=jtext.CLIPTokenizer.synthetic(8))
-    jpipe = jenh.EnhancePipeline(JaxEnhanceConfig(**ENH), jmodels)
-    pmodels = build_enhance_models(
-        device="cpu", init=False, bf16=False, unet=punet.I2VGenXLUNetConfig.tiny(),
-        vae=dataclasses.replace(pcfg.VAEConfig.tiny(), temporal_decoder=False),
-        clip_vision=pclip.CLIPVisionConfig.tiny(), text=ptext.CLIPTextConfig(**TEXT_TINY),
-        tokenizer_length=8)
-    for name in jm:
-        load_jax_params(getattr(pmodels, name), flats[name])
-    return jpipe, penh.EnhancePipeline(pcfg.EnhanceConfig(**ENH), pmodels)
+    return make_enhance_pair(ENH)
 
 
 def _video(rng, frames, size=32):
@@ -325,7 +267,7 @@ def test_enhance_blending_matches_jax(enhance_pair):
     keys = [_video(rng, 1)[0] for _ in range(3)]
     ref = jpipe.enhance(jnp.asarray(video), [jnp.asarray(k) for k in keys],
                         use_randomized_blending=True)
-    draws = JaxDraws(SEED)
+    draws = JaxEnhanceDraws(SEED)
     got = pipe.enhance(t(video), [t(k) for k in keys], use_randomized_blending=True,
                        noise=draws)
     # every chunk but the first draws an offset at each of the 2 DDIM steps
@@ -339,7 +281,7 @@ def test_enhance_with_keyframe_prepass_matches_jax(enhance_pair):
     rng = np.random.RandomState(1)
     video, image = _video(rng, 9), _video(rng, 1)[0]
     ref = jpipe.enhance_with_keyframe_prepass(jnp.asarray(video), jnp.asarray(image))
-    draws = JaxDraws(SEED)
+    draws = JaxEnhanceDraws(SEED)
     got = pipe.enhance_with_keyframe_prepass(t(video), t(image), noise=draws)
     # the pre-pass encodes the 3 key frames, the main pass 8 of the 9 frames
     assert ("latent", 0, (1, 3, 16, 16, 4)) in draws.used

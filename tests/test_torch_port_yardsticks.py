@@ -43,11 +43,24 @@ def _tiny_enhance_kwargs() -> dict:
                 tokenizer_length=8)
 
 
+def _modules(models) -> list:
+    """The modules of a models dataclass."""
+    return [getattr(models, f.name) for f in dataclasses.fields(models)
+            if isinstance(getattr(models, f.name), torch.nn.Module)]
+
+
+def _product_modules(pipe) -> list:
+    return _modules(pipe.stage1.models) + _modules(pipe.enhance.m) + [pipe.interpolate.model]
+
+
 BUILDERS = {
-    "build_models": lambda: build.build_models(PipelineConfig.tiny()),
-    "build_pipeline": lambda: build.build_pipeline(PipelineConfig.tiny()).models,
-    "build_enhance_models": lambda: build.build_enhance_models(**_tiny_enhance_kwargs()),
-    "build_enhance": lambda: build.build_enhance(EnhanceConfig(), **_tiny_enhance_kwargs()).m,
+    "build_models": lambda: _modules(build.build_models(PipelineConfig.tiny())),
+    "build_pipeline": lambda: _modules(build.build_pipeline(PipelineConfig.tiny()).models),
+    "build_enhance_models": lambda: _modules(build.build_enhance_models(**_tiny_enhance_kwargs())),
+    "build_enhance": lambda: _modules(build.build_enhance(EnhanceConfig(),
+                                                          **_tiny_enhance_kwargs()).m),
+    "build_interpolate": lambda: [build.build_interpolate(PipelineConfig.tiny()).model],
+    "build_product": lambda: _product_modules(build.build_product(PipelineConfig.tiny())),
 }
 
 
@@ -62,10 +75,7 @@ def test_builders_default_to_the_card(name):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BUILDERS[name]()
         return
-    models = BUILDERS[name]()
-    devices = {p.device.type for f in dataclasses.fields(models)
-               if isinstance(getattr(models, f.name), torch.nn.Module)
-               for p in getattr(models, f.name).parameters()}
+    devices = {p.device.type for m in BUILDERS[name]() for p in m.parameters()}
     assert devices == {"cuda"}
 
 
@@ -185,7 +195,7 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     """Every row of the kernels JSON line has the keys the check reads; the
     D=512 instances have rows of their own with their D=512 launches, their
     SDPA backend and (K2) the encode chunk's numbers; K5's row carries the
-    SD VAE's shape."""
+    SD VAE's shape; every row carries the product phase's launches apart."""
     rec = dict(ms=2.0, plain_ms=9.0, bound_ms=1.0, bound_by="operations", library_ms=4.0,
                share=0.5, max_abs_err=1e-3)
     records = {name: dict(rec) for name in chip_smoke.KERNEL_META}
@@ -193,7 +203,8 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     records["flash_attention_packed_d512"].update(b4_ms=3.0, b4_share=0.6)
     records["fused_group_norm"].update(vae_ms=0.6, vae_bound_ms=0.28, vae_share=0.47)
     launches = {name: i + 1 for i, name in enumerate(chip_smoke.KERNEL_META)}
-    lines = chip_smoke.kernel_lines(records, launches)
+    product = {name: 10 * n for name, n in launches.items()}
+    lines = chip_smoke.kernel_lines(records, launches, product)
     by_name = {line["name"]: line for line in lines}
     assert {"flash_attention_d512", "flash_attention_packed_d512"} <= set(by_name)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -201,6 +212,7 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     for line in lines:
         assert keys <= set(line) and line["route"] == "cuda"
         assert line["launches"] == launches[line["name"]]
+        assert line["product_launches"] == product[line["name"]]
         assert (REPO / line["source"]).exists()
         path, lineno = line["replaces"].split(":")   # the Pallas kernel's def line
         assert (REPO / path).read_text().splitlines()[int(lineno) - 1].startswith("def _")
@@ -208,7 +220,7 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     assert by_name["flash_attention_packed_d512"]["b4_share"] == 0.6
     assert by_name["fused_group_norm"]["vae_share"] == 0.47
     # no record: every number null, the row still there
-    empty = chip_smoke.kernel_lines({}, launches)
+    empty = chip_smoke.kernel_lines({}, launches, product)
     assert all(line["ms"] is None and line["bound_ms"] is None for line in empty)
 
 
