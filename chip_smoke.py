@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one NVIDIA GPU: stage 1
 (streaming image-to-video), stage 2 (I2VGen-XL enhancement), stage 3
-(EMA-VFI 2x interpolation) and the three-stage product that joins them.
+(EMA-VFI 2x interpolation), the three-stage product that joins them, and
+the checkpoint loader that fills it from the published weights' names.
 
     python3 chip_smoke.py                  # every phase (the check)
     python3 chip_smoke.py --phases card,build,kernels   # skip the pipelines
@@ -50,7 +51,19 @@ Phases, one line each:
      ``--enhance-steps``) written as y4m into a temporary directory, with the
      per-stage seconds, resident and peak memory, ``stage_finite``, the
      launch counts of every kernel row, and the file checked (header, frame
-     count, 1280x720).
+     count, 1280x720);
+  9. loader: ``build_product`` at full width again (every constant tensor
+     given a small draw of its own), written as a checkpoint tree in the
+     reference's names and layouts (``write_reference_tree``: the
+     StreamingSVD safetensors, the SVD-XT UNet, the i2vgen-xl folders with
+     a scheduler config and a BPE tokenizer, EMA-VFI's pickle; about 14 GiB)
+     into a temporary directory after a check of its free space, loaded
+     back through ``utils/loader.py`` and compared bit for bit, with the
+     seconds and GB/s per source and the card's peak during the load; then
+     the CLI's product from the tree (``--ckpt_dir``, 85 frames, samplers
+     cut to 5 steps, ``--enhance-steps`` DDIM steps) on a 576x1024 PNG into
+     a y4m file, with its stage seconds, ``stage_finite``, the launches of
+     every kernel row and the file checked (header, frame count, 1280x720).
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -68,7 +81,7 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-enhance and product phases (``product_launches`` the product's alone).
+enhance, product and loader phases (``product_launches`` the product's alone).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
@@ -98,7 +111,7 @@ import sys
 import time
 
 ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "enhance", "interpolate",
-              "product")
+              "product", "loader")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -115,6 +128,10 @@ SWEEP_PAIRS = 16
 SHIFT_PX = 3.0
 # The product's frames (stage 1 makes (n + 1) // 2 = 43, the slice's cut).
 PRODUCT_FRAMES = 85
+# The loader phase's CLI run from the tree: the product's frames (so that the
+# ControlNet and the CAM mergers run), its samplers cut to a few steps.
+LOADER_FRAMES = 85
+LOADER_SAMPLER_STEPS = 5
 # Tolerances on max |kernel - plain| / max |plain|: bf16 rounds the kernels'
 # on-chip intermediates (probabilities, LN output, GEGLU product, prologue
 # output) to 8 mantissa bits, f32 differs only in summation order.
@@ -1240,7 +1257,6 @@ def run_product(enhance_steps: int, frames: int) -> dict:
     import torch
 
     from streamingt2v_torch.config import PipelineConfig
-    from streamingt2v_torch.ops.temporal_attention import MAX_FRAMES, fits_temporal_attention
     from streamingt2v_torch.pipeline.build import build_product
     from streamingt2v_torch.utils import media
     from streamingt2v_torch.utils.profiling import reset_timers, timing_report
@@ -1290,6 +1306,16 @@ def run_product(enhance_steps: int, frames: int) -> dict:
         raise AssertionError(f"product frames {out.shape}")
     if pipe.stage_finite != {"stage1": True, "enhance": True, "vfi": True}:
         raise AssertionError(f"a stage gave non-finite values: {pipe.stage_finite}")
+    _check_product_launches(cfg, launches, "the product")
+    print(f"  video {out.shape} uint8, mean {out.mean():.2f}, std {out.std():.2f}", flush=True)
+    return launches
+
+
+def _check_product_launches(cfg, launches: dict, what: str) -> None:
+    """Every kernel row launched in a product run, K6 where its gate admits
+    stage 2's chunk."""
+    from streamingt2v_torch.ops.temporal_attention import MAX_FRAMES, fits_temporal_attention
+
     # K6 takes temporal attention over at most MAX_FRAMES frames: stage 2's
     # chunk is the whole video without blending (100 frames in the product)
     chunk = cfg.enhance.chunk_size if cfg.use_randomized_blending else cfg.stage1_frames
@@ -1300,10 +1326,312 @@ def run_product(enhance_steps: int, frames: int) -> dict:
               f"temporal attention takes the plain path", flush=True)
     dead = [k for k in expected if launches[k] <= 0]
     if dead:
-        raise AssertionError(f"the product never launched: {dead}")
-    print(f"  video {out.shape} uint8, mean {out.mean():.2f}, std {out.std():.2f}", flush=True)
-    return launches
+        raise AssertionError(f"{what} never launched: {dead}")
 
+
+
+# ------------------------------------------------------------- the tree ---
+# A checkpoint tree in the reference's names, written from the port's modules
+# by inverting each entry of the loader's maps (``utils/loader.py``'s
+# ``*_conversions``), every tensor in the dtype it has in memory.  The loader
+# phase writes one at full width and loads it back; the CPU tests write tiny
+# ones.  The JAX package has no exporter: this is test tooling.
+
+# A few merges over the synthetic byte-level vocabulary: the tree's tokenizer
+# is a BPE, with ids far below the text tower's 49408.
+TREE_MERGES = ("h i", "hi g", "hig h</w>", "q u", "qu a", "e d</w>", "i l", "a i")
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write ``{name: tensor}`` as a ``.safetensors`` file, widest dtypes first
+    (each tensor's offset then aligned to its element size), one tensor on the
+    host at a time; returns the file's bytes."""
+    import os
+    import struct
+
+    import torch
+
+    from streamingt2v_torch.utils.checkpoint import SAFETENSORS_DTYPES
+
+    names = {dtype: name for name, dtype in SAFETENSORS_DTYPES.items()}
+    keys = sorted(tensors, key=lambda k: -tensors[k].element_size())
+    header, offset = {}, 0
+    for k in keys:
+        t = tensors[k]
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for k in keys:
+            f.write(tensors[k].detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(raw) + offset
+
+
+def reference_tensors(keys: tuple, transform, value) -> dict:
+    """The reference tensors that ``transform`` maps onto ``value`` (views)."""
+    from streamingt2v_torch.utils import checkpoint as ck
+
+    inverse = {ck.t_id: lambda w: [w], ck.t_transpose: lambda w: [w.t()],
+               ck.t_conv3d: lambda w: [w.permute(2, 1, 0)[..., None, None]],
+               ck.t_linear_to_conv1x1: lambda w: [w[:, :, 0, 0]],
+               ck.t_cat: lambda w: list(w.chunk(len(keys)))}
+    return dict(zip(keys, inverse[transform](value)))
+
+
+def reference_state_dicts(conversions) -> dict:
+    """{source: {reference key: tensor}} for the loader's conversions."""
+    out = {}
+    for source, module, mapping in conversions:
+        sd = out.setdefault(source, {})
+        for name, value in module.state_dict().items():
+            tk, transform = mapping[name]
+            sd.update(reference_tensors(tk if isinstance(tk, tuple) else (tk,), transform, value))
+    return out
+
+
+def write_tokenizer(directory: str, tokenizer, merges=TREE_MERGES) -> None:
+    """``vocab.json`` and ``merges.txt``: ``tokenizer``'s vocabulary with a
+    token for each merge added."""
+    import os
+
+    vocab = dict(tokenizer.encoder)
+    for m in merges:
+        vocab.setdefault("".join(m.split()), len(vocab))
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("\n".join(("#version: 0.2",) + tuple(merges)) + "\n")
+
+
+def write_reference_tree(root: str, stage1=None, enhance=None, interpolate=None,
+                         svd_xt: bool = True) -> dict:
+    """Write the checkpoint tree of the given stage pipelines under ``root`` in
+    the layout of ``utils/loader.py``: for stage 1 the StreamingSVD
+    whole-trainer safetensors and (with ``svd_xt``) the diffusers SVD-XT UNet,
+    for stage 2 the i2vgen-xl component folders with the scheduler config and
+    BPE tokenizer files, for stage 3 EMA-VFI's ``module.``-prefixed torch
+    pickle.  Returns the bytes written per source (the first path component)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from streamingt2v_torch.utils import loader
+
+    conversions = []
+    if stage1 is not None:
+        conversions += loader.stage1_conversions(stage1.cfg, stage1.models, svd_xt)
+    if enhance is not None:
+        conversions += loader.enhance_conversions(enhance.m)
+    if interpolate is not None:
+        conversions += loader.interpolate_conversions(interpolate.model)
+    sizes = {}
+    for source, tensors in reference_state_dicts(conversions).items():
+        path = os.path.join(root, source)
+        if source.endswith(".pkl"):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save({f"module.{k}": v.detach().cpu() for k, v in tensors.items()}, path)
+            n = os.path.getsize(path)
+        else:
+            if not source.endswith(".safetensors"):     # a diffusers/HF component folder
+                name = ("model.safetensors" if source.endswith("_encoder")
+                        else "diffusion_pytorch_model.safetensors")
+                path = os.path.join(path, name)
+            n = write_safetensors(path, tensors)
+        top = source.split("/")[0]
+        sizes[top] = sizes.get(top, 0) + n
+    if enhance is not None:
+        sched = os.path.join(root, loader.I2VGEN, "scheduler")
+        os.makedirs(sched, exist_ok=True)
+        with open(os.path.join(sched, "scheduler_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(enhance.m.scheduler.cfg), f)
+        write_tokenizer(os.path.join(root, loader.I2VGEN, "tokenizer"), enhance.m.tokenizer)
+    return sizes
+
+
+def product_modules(pipe) -> dict:
+    """{name: module} of every weight-holding module of a product."""
+    import dataclasses
+
+    out = {f"stage1.{f.name}": getattr(pipe.stage1.models, f.name)
+           for f in dataclasses.fields(pipe.stage1.models)}
+    if pipe.enhance is not None:
+        out.update({f"enhance.{k}": getattr(pipe.enhance.m, k)
+                    for k in ("unet", "vae", "clip_vision", "text_encoder")})
+    if pipe.interpolate is not None:
+        out["vfi"] = pipe.interpolate.model
+    return out
+
+
+def assert_same_weights(built, loaded) -> int:
+    """Every parameter of ``loaded``'s modules equals ``built``'s bit for bit,
+    dtype and shape included; returns the number of tensors compared."""
+    import torch
+
+    a, b = product_modules(built), product_modules(loaded)
+    if a.keys() != b.keys():
+        raise AssertionError(f"module sets differ: {sorted(a)} vs {sorted(b)}")
+    n = 0
+    for name in a:
+        sa, sb = a[name].state_dict(), b[name].state_dict()
+        if sa.keys() != sb.keys():
+            raise AssertionError(f"{name}: parameter names differ")
+        for k in sa:
+            x, y = sa[k], sb[k]
+            if x.dtype != y.dtype or x.shape != y.shape or x.device != y.device:
+                raise AssertionError(f"{name}.{k}: {x.dtype}{tuple(x.shape)} on {x.device} "
+                                     f"vs {y.dtype}{tuple(y.shape)} on {y.device}")
+            if not torch.equal(x.view(-1).view(torch.uint8), y.view(-1).view(torch.uint8)):
+                raise AssertionError(f"{name}.{k}: the loaded weights differ from the built")
+            n += 1
+    return n
+
+
+def _distinct_constants_(pipe, seed: int = 0) -> None:
+    """Give every constant tensor of a random-weight product (zero biases,
+    unit norm scales, zero blend factors, zero-initialised output layers) a
+    small draw of its own, so that the tree's equality check tells any two
+    parameters apart."""
+    import torch
+
+    for i, module in enumerate(product_modules(pipe).values()):
+        gen = torch.Generator(next(module.parameters()).device).manual_seed(seed * 100 + i)
+        with torch.no_grad():
+            for p in module.parameters():
+                if p.numel() and bool(p.min() == p.max()):
+                    p.add_(torch.randn(p.shape, generator=gen, device=p.device,
+                                       dtype=torch.float32).to(p.dtype) * 0.01)
+
+
+def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int) -> dict:
+    """Phase 9: the checkpoint loader at full width.  A reference-named tree is
+    written from ``build_product``'s random weights, loaded back through
+    ``utils/loader.py`` and compared bit for bit; then the CLI runs the product
+    from the tree (``--ckpt_dir``) on a 576x1024 PNG into a y4m file."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.pipeline import cli
+    from streamingt2v_torch.pipeline.build import build_product
+    from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
+    from streamingt2v_torch.utils import loader, media
+    from streamingt2v_torch.utils.profiling import reset_timers, timing_report
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = PipelineConfig()
+    t0 = time.perf_counter()
+    built = build_product(cfg, seed=0, device=dev)
+    _distinct_constants_(built)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for m in product_modules(built).values()
+                 for p in m.parameters())
+    nparams = {name: sum(p.numel() for p in m.parameters())
+               for name, m in product_modules(built).items()}
+    print(f"  build_product: {time.perf_counter() - t0:.1f} s, {nbytes / 2**30:.2f} GiB of "
+          f"weights; parameters (M): "
+          + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in nparams.items()), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="st2v_tree_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        need = int(nbytes * 1.05) + 2**30
+        print(f"  tree directory {tmp}: {free / 2**30:.1f} GiB free, {need / 2**30:.1f} GiB "
+              f"needed", flush=True)
+        if free < need:
+            raise RuntimeError(f"{tmp} has {free / 2**30:.1f} GiB free; the tree needs "
+                               f"{need / 2**30:.1f} GiB (set TMPDIR to a larger disk)")
+        tree = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        sizes = write_reference_tree(tree, built.stage1, built.enhance, built.interpolate)
+        write_s = time.perf_counter() - t0
+        print(f"  wrote the tree in {write_s:.1f} s: "
+              + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in sizes.items())
+              + f"; {sum(sizes.values()) / 2**30:.2f} GiB, "
+                f"{sum(sizes.values()) / write_s / 1e9:.2f} GB/s", flush=True)
+
+        reset_timers()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loaded = StreamingT2VPipeline(
+            cfg, loader.load_stage1_checkpoints(cfg, tree, device=dev),
+            loader.load_enhance_pipeline(cfg, tree, device=dev),
+            loader.load_interpolate_pipeline(cfg, tree, device=dev))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        added = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+        report = timing_report()
+        for src, n in sizes.items():
+            s = report[f"load_{src}"]["total_s"]
+            print(f"  load {src}: {n / 2**30:.3f} GiB in {s:.2f} s, {n / s / 1e9:.2f} GB/s",
+                  flush=True)
+        print(f"  loaded in {load_s:.1f} s: {added / 2**30:.2f} GiB resident after the load, "
+              f"card peak during the load {peak / 2**30:.2f} GiB above what was resident "
+              f"before ({(peak - added) / 2**20:.0f} MiB beyond the loaded weights)", flush=True)
+        n = assert_same_weights(built, loaded)
+        tok = loaded.enhance.m.tokenizer
+        ids = tok(["High Quality, HQ, detailed."])
+        if not tok.bpe_ranks or ids.max() >= loaded.enhance.m.text_encoder.cfg.vocab_size:
+            raise AssertionError(f"the tree's tokenizer did not load: {ids}")
+        if loaded.enhance.m.scheduler.cfg != built.enhance.m.scheduler.cfg:
+            raise AssertionError("the scheduler config did not load")
+        print(f"  {n} tensors equal bit for bit; tokenizer {len(tok.encoder)} tokens, "
+              f"{len(tok.bpe_ranks)} merges; scheduler {loaded.enhance.m.scheduler.cfg}",
+              flush=True)
+        del built, loaded
+        _release_earlier_phases()
+
+        image = ((_smooth_image(cfg.height, cfg.width, seed=6).numpy() + 1.0) * 127.5).round()
+        png = os.path.join(tmp, "input.png")
+        Image.fromarray(image.clip(0, 255).astype(np.uint8)).save(png)
+        out_dir = os.path.join(tmp, "results")
+        args = cli.build_parser().parse_args([
+            "--input", png, "--output", out_dir, "--ckpt_dir", tree, "--container", "y4m",
+            "--num_frames", str(frames),
+            "--set", f"first_chunk_sampler.num_steps={first_steps}",
+            "--set", f"sampler.num_steps={ar_steps}",
+            "--set", f"enhance.num_steps={enhance_steps}"])
+        print(f"  CLI: --ckpt_dir, {frames} frames, sampler steps {first_steps} + {ar_steps}, "
+              f"{enhance_steps} DDIM steps", flush=True)
+        reset_timers()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = cli.build_product_pipeline(args)
+        _reset_launches()
+        os.makedirs(out_dir)
+        path = os.path.join(out_dir, "input.y4m")
+        pipe(png, path, seed=args.seed)
+        launches = _read_launches()
+        total = time.perf_counter() - t0
+        info = media.y4m_info(path)
+    run_cfg = pipe.cfg
+    stages = {k: v["total_s"] for k, v in timing_report().items()}
+    print(f"  seconds: {stages}; CLI total {total:.1f} (loads, run and file)", flush=True)
+    print(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stage_finite "
+          f"{pipe.stage_finite}; launches {launches}; file: {info}", flush=True)
+    want = {"width": run_cfg.enhance.width, "height": run_cfg.enhance.height,
+            "fps": float(run_cfg.out_fps), "frames": frames}
+    if info != want:
+        raise AssertionError(f"the y4m file is {info}, not {want}")
+    if pipe.stage_finite != {"stage1": True, "enhance": True, "vfi": True}:
+        raise AssertionError(f"a stage gave non-finite values: {pipe.stage_finite}")
+    _check_product_launches(run_cfg, launches, "the CLI run from the tree")
+    return launches
 
 KERNEL_META = {
     "flash_attention": ("streamingt2v_torch/csrc/flash_attention.cu",
@@ -1431,6 +1759,12 @@ def main(argv=None) -> int:
         for name, n in product_launches.items():
             launches[name] += n
         print(f"phase product: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "loader" in phases:
+        t0 = time.perf_counter()
+        for name, n in run_loader(args.enhance_steps, LOADER_FRAMES, LOADER_SAMPLER_STEPS,
+                                  LOADER_SAMPLER_STEPS).items():
+            launches[name] += n
+        print(f"phase loader: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     print(json.dumps({"kernels": kernel_lines(records, launches, product_launches)}),
           flush=True)

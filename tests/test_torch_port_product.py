@@ -265,13 +265,37 @@ def test_cli_set_overrides_the_config():
         cli.build_config(cli.build_parser().parse_args(["--input", "x", "--set", "bogus=1"]))
 
 
-@pytest.mark.parametrize("flag,value,what", [
-    ("--ckpt_dir", "ckpts", "loader"), ("--mesh", "2,1,1", "multi-device")])
+@pytest.mark.parametrize("flag,value,what", [("--mesh", "2,1,1", "multi-device")])
 def test_cli_unported_flags_raise(input_png, tmp_path, flag, value, what):
     with pytest.raises(NotImplementedError, match=what):
         cli.main(["--input", input_png, "--output", str(tmp_path), "--tiny", "--device", "cpu",
                   flag, value])
     assert not [p for p in os.listdir(tmp_path) if p.endswith((".mp4", ".y4m"))]
+
+
+def test_cli_ckpt_dir_runs_from_the_tree(input_png, tmp_path, capsys):
+    """``--ckpt_dir --tiny``: stage 1 loaded from a reference-named tree
+    written from a pipeline built in memory; the file is the one that
+    pipeline writes, byte for byte."""
+    import chip_smoke
+    from streamingt2v_torch.pipeline.build import build_pipeline
+
+    tree, out_dir = str(tmp_path / "ckpt"), str(tmp_path / "results")
+    argv = ["--input", input_png, "--output", out_dir, "--tiny", "--num_frames", "8",
+            "--device", "cpu", "--container", "y4m", "--seed", "5", "--ckpt_dir", tree]
+    cfg = cli.build_config(cli.build_parser().parse_args(argv))
+    stage1 = build_pipeline(cfg, seed=9, device="cpu")     # not the weights --seed draws
+    # but the tiny config's toy CLIP projection, which no checkpoint holds
+    stage1.models.conditioner.toy_clip.load_state_dict(
+        build_pipeline(cfg, seed=5, device="cpu").models.conditioner.toy_clip.state_dict())
+    chip_smoke.write_reference_tree(tree, stage1=stage1)
+    assert cli.main(argv) == 0
+    assert '"load_streamingsvd"' in capsys.readouterr().out
+    ref = str(tmp_path / "ref.y4m")
+    StreamingT2VPipeline(cfg, stage1)(input_png, ref, seed=5)
+    got = os.path.join(out_dir, "input.y4m")
+    assert media.y4m_info(got)["frames"] == (8 + 1) // 2
+    assert open(got, "rb").read() == open(ref, "rb").read()
 
 
 # --------------------------------------------------------------- timers ---
