@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one NVIDIA GPU: stage 1
-(streaming image-to-video), stage 2 (I2VGen-XL enhancement), stage 3
-(EMA-VFI 2x interpolation), the three-stage product that joins them, and
-the checkpoint loader that fills it from the published weights' names.
+(streaming image-to-video, also with APM and under every other sampler and
+guider), stage 2 (I2VGen-XL enhancement), stage 3 (EMA-VFI 2x
+interpolation), the three-stage product that joins them, and the checkpoint
+loader that fills it from the published weights' names.
 
     python3 chip_smoke.py                  # every phase (the check)
     python3 chip_smoke.py --phases card,build,kernels   # skip the pipelines
@@ -12,7 +13,8 @@ Phases, one line each:
      whether OpenCV and Pillow are installed (the product's path needs
      neither);
   2. build: nvcc of ``streamingt2v_torch/csrc`` (one nvcc per source, run
-     together) into one library (seconds);
+     together) into one library (seconds), and g++ of the native y4m feeder
+     (``streamingt2v_torch/native``);
   3. kernels: each hand-written kernel (K1 flash attention, K2 packed flash
      attention, K3 GEGLU FF, K4 temporal conv, K5 fused GroupNorm, K6
      temporal attention) at the main paths' shapes in bf16 plus f32 cases,
@@ -22,21 +24,35 @@ Phases, one line each:
      main-path shape each;
      there also its bound and its library yardstick (below);
   4. reference: stage 1 end to end on a small input (the tiny config at
-     96x192, f32), stage 2 end to end on a small input (a narrow
-     I2VGen-XL at 64x128, f32, the enhance routing) and stage 3 (the tiny
-     VFI at 64x64, f32, flip-TTA) on the card, stages 1 and 2 through their
-     kernels, against the same pipelines on the CPU (plain versions) with the
-     same weights and noise;
+     96x192, f32), the same with APM (a 3+1-token context, ``apm_alpha``
+     drawn non-zero), the tiny first chunk at 64x128 under each other sampler
+     and guider (3 steps, the same per-step draws on both devices), stage 2
+     end to end on a small input (a narrow I2VGen-XL at 64x128, f32, the
+     enhance routing) and stage 3 (the tiny VFI at 64x64, f32, flip-TTA) on
+     the card, stages 1 and 2 through their kernels, against the same
+     pipelines on the CPU (plain versions) with the same weights and noise;
   5. slice: ``build_pipeline`` at the full-width default ``PipelineConfig``
      with random bf16 weights on the card, then ``image_to_video`` for 43
      frames (first chunk plus one autoregressive chunk), with per-phase
      seconds, peak memory and the launch counts of its kernels;
-  6. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
+  6. apm: the same with ``unet.use_apm`` and ``apm_anchor_frames`` (0, 16)
+     (a 17-token context: the SVD token and 16 anchor frames' CLIP tokens),
+     every ``apm_alpha`` drawn non-zero, samplers cut to 5 + 5 steps: phase
+     seconds with the APM CLIP encode on its own, resident and peak memory,
+     ``stage_finite`` and the launches (K1, K3, K4 and the D=512 body must
+     launch);
+  7. samplers: one full-width first chunk (the SVD-XT UNet, 25 frames, 4
+     steps) under each of Heun, Euler ancestral, DPM++ 2S, DPM++ 2M, LMS,
+     EulerEDM with churn, and EulerEDM under the identity and the
+     triangle-prediction guiders: seconds per guided denoise, finite latents,
+     the network calls against the sampler's rule (n; 2n - 1 for Heun and
+     DPM++ 2S) and K1/K3/K4 launches in proportion to them;
+  8. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
      width (random bf16 weights), then ``enhance_with_keyframe_prepass`` on
      a synthetic 64-frame 720p video (a 2-frame pre-pass, then 2 blended
      38-frame chunks) with ``--enhance-steps`` DDIM steps, with per-phase
      seconds, resident and peak memory and the launch counts of its kernels;
-  7. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
+  9. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
      on a synthetic 720p video whose content moves 3 pixels a frame: seconds
      per pair and peak memory at pair batches 1, 2, 4 and 8 over 16 pairs,
      then the 64-frame video to 127 frames at the pipeline's pair batch,
@@ -44,15 +60,15 @@ Phases, one line each:
      against the known motion (the half-shift warps of both neighbours land
      closer to the true midpoint than either neighbour; a wrong sign would
      land farther);
-  8. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
+  10. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
      stage 2 bf16, stage 3 f32), then ``StreamingT2VPipeline.run`` on a
      synthetic 576x1024 uint8 image held in memory, for ``--product-frames``
      (85: 43 stage-1 frames, full sampler steps; stage 2 at
      ``--enhance-steps``) written as y4m into a temporary directory, with the
      per-stage seconds, resident and peak memory, ``stage_finite``, the
      launch counts of every kernel row, and the file checked (header, frame
-     count, 1280x720);
-  9. loader: ``build_product`` at full width again (every constant tensor
+     count, 1280x720) and written by the native feeder;
+  11. loader: ``build_product`` at full width again (every constant tensor
      given a small draw of its own), written as a checkpoint tree in the
      reference's names and layouts (``write_reference_tree``: the
      StreamingSVD safetensors, the SVD-XT UNet, the i2vgen-xl folders with
@@ -63,7 +79,8 @@ Phases, one line each:
      the CLI's product from the tree (``--ckpt_dir``, 85 frames, samplers
      cut to 5 steps, ``--enhance-steps`` DDIM steps) on a 576x1024 PNG into
      a y4m file, with its stage seconds, ``stage_finite``, the launches of
-     every kernel row and the file checked (header, frame count, 1280x720).
+     every kernel row and the file checked (header, frame count, 1280x720)
+     and written by the native feeder.
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -81,7 +98,8 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-enhance, product and loader phases (``product_launches`` the product's alone).
+apm, samplers, enhance, product and loader phases (``product_launches``,
+``apm_launches`` and ``samplers_launches`` those phases' alone).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
@@ -109,13 +127,18 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
-ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "enhance", "interpolate",
-              "product", "loader")
+ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "apm", "samplers", "enhance",
+              "interpolate", "product", "loader")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
 AR_STEPS = 30
+# The apm phase's sampler steps (first chunk and AR chunk, as the loader
+# phase's CLI), and the samplers phase's steps per sampler.
+APM_STEPS = 5
+SAMPLER_STEPS = 4
 # Stage-2 DDIM steps in the enhance phase (full: 30); at strength 0.97, 3
 # steps leave 2 to run.
 ENHANCE_STEPS = 3
@@ -898,49 +921,221 @@ def check_enhance_reference() -> float:
     return err
 
 
+def _live_weights_(module, seed: int = 0) -> None:
+    """Draw what a random build leaves constant, as the CPU parity tests'
+    weights do: zero-initialised kernels (the UNets' output layers, the
+    transformers' ``proj_out``) lecun-normal, every other constant parameter
+    (biases, norm scales, blend factors) plus N(0, 0.1^2).  At their init
+    values the output layers are zero, so a UNet adds nothing to the video
+    and a comparison through it proves nothing about its kernels."""
+    import torch
+
+    from streamingt2v_torch.models.layers import Conv, Conv1D, ConvTranspose, Dense, TimeConv
+
+    dev = next(module.parameters()).device
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def randn(p):
+        return torch.randn(p.shape, generator=gen, device=dev, dtype=torch.float32).to(p.dtype)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Dense, Conv, Conv1D, ConvTranspose, TimeConv)) and not m.kernel.any():
+                m.kernel.copy_(randn(m.kernel) * m.fan_in() ** -0.5)
+        for p in module.parameters():
+            if p.numel() and bool(p.min() == p.max()):
+                p.add_(0.1 * randn(p))
+
+
+def _tiny_pair(cfg):
+    """Stage 1 at ``cfg`` on the card with its seed-0 weights, every
+    constant of them drawn (``_live_weights_``), and the same weights on the
+    CPU."""
+    from streamingt2v_torch.pipeline.build import build_pipeline
+
+    gpu = build_pipeline(cfg, seed=0, device="cuda")
+    cpu = build_pipeline(cfg, seed=0, device="cpu", init=False)
+    for i, name in enumerate(("unet", "controlnet", "svd_unet", "vae", "conditioner")):
+        _live_weights_(getattr(gpu.models, name), seed=i)
+        getattr(cpu.models, name).load_state_dict(getattr(gpu.models, name).state_dict())
+    return gpu, cpu
+
+
+def _tiny_stage1_config(height: int = 96, width: int = 192, **inference):
+    """The tiny stage 1 at 96x192 (its kernels' gates admit the level-0
+    geometry; 64x128 is the least size at which K1 still takes its 2048
+    tokens) with the f32 decode."""
+    import dataclasses
+
+    from streamingt2v_torch.config import PipelineConfig
+
+    tiny = PipelineConfig.tiny()
+    return dataclasses.replace(tiny, height=height, width=width, inference=dataclasses.replace(
+        tiny.inference, vae_decode_bf16=False, **inference))
+
+
+class _CachedDraws:
+    """Stage-1 noise drawn once on the CPU from fixed seeds and served to
+    both devices: a ``noise(generation, stream, shape)``."""
+
+    def __init__(self):
+        self.draws = {}
+
+    def __call__(self, g, stream, shape):
+        import torch
+
+        if (g, stream) not in self.draws:
+            gen = torch.Generator().manual_seed(1000 * g + len(stream))
+            fn = torch.rand if stream == "cond_aug" else torch.randn
+            self.draws[g, stream] = fn(shape, generator=gen)
+        return self.draws[g, stream]
+
+
+def _draw_apm_alphas_(unet, seed: int = 0) -> int:
+    """Set every APM mixer's ``apm_alpha`` to 1.3 plus a small draw: at its
+    init value of 0 a mixer is the identity on the first token.  Returns the
+    number of mixers."""
+    import torch
+
+    from streamingt2v_torch.models.unet_blocks import APMContextMixer
+
+    gen = torch.Generator().manual_seed(seed)
+    mixers = [m for m in unet.modules() if isinstance(m, APMContextMixer)]
+    with torch.no_grad():
+        for m in mixers:
+            m.apm_alpha.fill_(1.3 + 0.2 * float(torch.randn((), generator=gen)))
+    return len(mixers)
+
+
+def _reference_run(what: str, got, ref, launches: dict) -> float:
+    import torch
+
+    err = (got - ref).abs().max().item()
+    print(f"  {what} {tuple(ref.shape)} f32, card vs CPU: max_abs_err={err:.3e} "
+          f"tol={REFERENCE_ATOL:g}; launches {launches}; ref std {ref.std().item():.3f}",
+          flush=True)
+    if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
+        raise AssertionError(f"{what} disagrees with the plain path ({err:.3e})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{what} skipped a kernel: {launches}")
+    return err
+
+
+def _stage1_launches() -> dict:
+    from streamingt2v_torch.ops.flash_attention import flash_attention
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv
+
+    return {fn.__name__: fn.launches for fn in (flash_attention, geglu_ff, temporal_conv)}
+
+
 def check_reference() -> float:
     """Phase 4: the kernel path on the card agrees with the plain path."""
+    cfg = _tiny_stage1_config()
+    frames = cfg.inference.chunk_frames + 1   # the first chunk plus one AR chunk
+    gpu, cpu = _tiny_pair(cfg)
+    noise = _CachedDraws()
+    image = _smooth_image(cfg.height, cfg.width, seed=1)
+    _reset_launches()
+    got = gpu.image_to_video(image.cuda(), num_frames=frames, noise=noise).cpu()
+    launches = _stage1_launches()
+    ref = cpu.image_to_video(image, num_frames=frames, noise=noise)
+    return _reference_run("small stage 1", got, ref, launches)
+
+
+def check_apm_reference() -> float:
+    """Phase 4, APM: the tiny stage 1 with a 3+1-token APM context and drawn
+    ``apm_alpha``s, card against CPU."""
+    import dataclasses
+
+    cfg = _tiny_stage1_config(apm_anchor_frames=(0, 3))
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, use_apm=True))
+    frames = cfg.inference.chunk_frames + 1
+    gpu, cpu = _tiny_pair(cfg)
+    n = _draw_apm_alphas_(gpu.models.unet)
+    cpu.models.unet.load_state_dict(gpu.models.unet.state_dict())
+    noise = _CachedDraws()
+    image = _smooth_image(cfg.height, cfg.width, seed=4)
+    _reset_launches()
+    got = gpu.image_to_video(image.cuda(), num_frames=frames, noise=noise).cpu()
+    launches = _stage1_launches()
+    ref = cpu.image_to_video(image, num_frames=frames, noise=noise)
+    return _reference_run(f"small stage 1 with APM ({n} mixers, 4 tokens)", got, ref, launches)
+
+
+# The sampler and guider variants of the samplers phase and of its small
+# reference: (label, SamplerConfig fields, guider kind or None for the config's).
+SAMPLER_CASES = (
+    ("heun_edm", dict(kind="heun_edm"), None),
+    ("euler_ancestral", dict(kind="euler_ancestral"), None),
+    ("dpmpp2s", dict(kind="dpmpp2s"), None),
+    ("dpmpp2m", dict(kind="dpmpp2m"), None),
+    ("lms", dict(kind="lms"), None),
+    ("euler_edm churn", dict(kind="euler_edm", s_churn=1.0), None),
+    ("euler_edm identity", dict(kind="euler_edm"), "identity"),
+    ("euler_edm triangle", dict(kind="euler_edm"), "triangle_prediction"),
+)
+
+
+def sampler_config(base, steps: int, fields: dict, guider):
+    """``base`` (a SamplerConfig) at ``steps`` with a case's fields."""
+    import dataclasses
+
+    cfg = dataclasses.replace(base, num_steps=steps, **fields)
+    if guider is not None:
+        cfg = dataclasses.replace(cfg, guider=dataclasses.replace(cfg.guider, kind=guider))
+    return cfg
+
+
+def _step_draws():
+    """A stochastic sampler's per-step draws, made once on the CPU (seeded by
+    step) and served to both devices."""
+    import torch
+
+    cache = {}
+
+    def draw(i, shp):
+        if i not in cache:
+            cache[i] = torch.randn(tuple(shp), generator=torch.Generator().manual_seed(500 + i))
+        return cache[i]
+
+    return draw
+
+
+def check_sampler_references() -> float:
+    """Phase 4, samplers: the tiny first chunk at 64x128 under every other
+    sampler and guider (3 steps on the EDM grid from sigma 80, the CPU
+    parity tests' grid), card against CPU on the same weights, conditioning
+    and per-step draws; each chunk decoded and compared as video.  (From the
+    first-chunk sampler's sigma 700, Heun's correction amplifies the f32
+    rounding of the kernels five times more: 3.96e-4 of the 5e-4 once.)"""
     import dataclasses
 
     import torch
 
-    from streamingt2v_torch.config import PipelineConfig
-    from streamingt2v_torch.ops.flash_attention import flash_attention
-    from streamingt2v_torch.ops.fused_ff import geglu_ff
-    from streamingt2v_torch.ops.temporal_conv import temporal_conv
-    from streamingt2v_torch.pipeline.build import build_pipeline
-
-    tiny = PipelineConfig.tiny()
-    cfg = dataclasses.replace(tiny, height=96, width=192, inference=dataclasses.replace(
-        tiny.inference, vae_decode_bf16=False))
-    frames = tiny.inference.chunk_frames + 1   # the first chunk plus one AR chunk
-    gpu = build_pipeline(cfg, seed=0, device="cuda")
-    cpu = build_pipeline(cfg, seed=0, device="cpu", init=False)
-    for name in ("unet", "controlnet", "svd_unet", "vae", "conditioner"):
-        getattr(cpu.models, name).load_state_dict(getattr(gpu.models, name).state_dict())
-    draws = {}
-
-    def noise(g, stream, shape):
-        if (g, stream) not in draws:
-            gen = torch.Generator().manual_seed(1000 * g + len(stream))
-            fn = torch.rand if stream == "cond_aug" else torch.randn
-            draws[g, stream] = fn(shape, generator=gen)
-        return draws[g, stream]
-
-    image = _smooth_image(cfg.height, cfg.width, seed=1)
-    _reset_launches()
-    got = gpu.image_to_video(image.cuda(), num_frames=frames, noise=noise).cpu()
-    launches = {fn.__name__: fn.launches for fn in (flash_attention, geglu_ff, temporal_conv)}
-    ref = cpu.image_to_video(image, num_frames=frames, noise=noise)
-    err = (got - ref).abs().max().item()
-    print(f"  small stage 1 {tuple(ref.shape)} f32, card vs CPU: max_abs_err={err:.3e} "
-          f"tol={REFERENCE_ATOL:g}; launches {launches}; ref std {ref.std().item():.3f}",
-          flush=True)
-    if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
-        raise AssertionError(f"small-input stage 1 disagrees with the plain path ({err:.3e})")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"the small-input run skipped a kernel: {launches}")
-    return err
+    cfg = _tiny_stage1_config(height=64, width=128)
+    gpu, cpu = _tiny_pair(cfg)
+    noise = _CachedDraws()
+    image = _smooth_image(cfg.height, cfg.width, seed=5)[None]
+    shape = gpu.latent_shape(cfg.inference.chunk_frames)
+    with torch.inference_mode():
+        cond_cpu = cpu.condition(image, noise(0, "cond_aug", tuple(image.shape)))
+        cond_gpu = gpu.condition(image.cuda(), noise(0, "cond_aug", tuple(image.shape)).cuda())
+    worst = 0.0
+    for label, fields, guider in SAMPLER_CASES:
+        scfg = sampler_config(dataclasses.replace(cfg.first_chunk_sampler, sigma_max=80.0), 3,
+                              fields, guider)
+        for pipe in (gpu, cpu):
+            pipe.cfg = dataclasses.replace(cfg, first_chunk_sampler=scfg)
+        draws = _step_draws()
+        with torch.inference_mode():
+            ref = cpu.decode_video(cpu.first_chunk(*cond_cpu, noise(0, "latent", shape), draws))
+            _reset_launches()
+            z = gpu.first_chunk(*cond_gpu, noise(0, "latent", shape).cuda(), draws)
+            launches = _stage1_launches()
+            got = gpu.decode_video(z).cpu()
+        worst = max(worst, _reference_run(f"small first chunk, {label}", got, ref, launches))
+    return worst
 
 
 def _release_earlier_phases() -> None:
@@ -957,7 +1152,7 @@ def _release_earlier_phases() -> None:
 
 
 def run_slice(first_steps: int, ar_steps: int) -> dict:
-    """Phase 4: the full-width stage-1 slice through every kernel."""
+    """Phase 5: the full-width stage-1 slice through every kernel."""
     import dataclasses
 
     import torch
@@ -989,21 +1184,9 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     print(f"  build_pipeline: {time.perf_counter() - t0:.1f} s, resident weights "
           f"{resident / 2**30:.2f} GiB", flush=True)
 
-    # per-phase seconds: wrap the pipeline's stage methods with synchronised timers
+    # per-phase seconds: the pipeline's stage methods with synchronised timers
     phase_s = {"condition": 0.0, "first_chunk": 0.0, "stream_chunk": 0.0, "decode_video": 0.0}
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            phase_s[name] += time.perf_counter() - start
-            return out
-        return wrapper
-
-    for name in phase_s:
-        setattr(pipe, name, timed(name, getattr(pipe, name)))
+    _timed_methods(pipe, phase_s, phase_s)
 
     image = _smooth_image(cfg.height, cfg.width).to(dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1035,8 +1218,183 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     return launches
 
 
+def _timed_methods(obj, names, seconds: dict) -> None:
+    """Wrap ``obj``'s methods ``names`` with synchronised timers adding to
+    ``seconds[name]``."""
+    import torch
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - start
+            return out
+        return wrapper
+
+    for name in names:
+        setattr(obj, name, timed(name, getattr(obj, name)))
+
+
+def run_apm(steps: int) -> dict:
+    """Phase 6: the full-width stage 1 with APM: a 17-token context (the SVD
+    token and 16 anchor frames' CLIP tokens) mixed by every spatial block,
+    seen whole by every temporal block, ``apm_alpha`` drawn non-zero and the
+    streaming UNet's output layers live (``_live_weights_``)."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.pipeline.build import build_pipeline
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, use_apm=True),
+        inference=dataclasses.replace(cfg.inference, apm_anchor_frames=(0, 16)),
+        first_chunk_sampler=dataclasses.replace(cfg.first_chunk_sampler, num_steps=steps),
+        sampler=dataclasses.replace(cfg.sampler, num_steps=steps))
+    print(f"  cut: sampler steps {PipelineConfig().first_chunk_sampler.num_steps} + "
+          f"{PipelineConfig().sampler.num_steps} -> {steps} + {steps}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, seed=0, device=dev, bf16=True)
+    # live output layers, so that what the mixers change reaches the video
+    for i, module in enumerate((pipe.models.unet, pipe.models.controlnet)):
+        _live_weights_(module, seed=i)
+    mixers = _draw_apm_alphas_(pipe.models.unet)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    print(f"  build_pipeline: {time.perf_counter() - t0:.1f} s, resident weights "
+          f"{resident / 2**30:.2f} GiB; {mixers} APM mixers, apm_alpha drawn, the "
+          f"streaming UNet's and ControlNet's constants drawn", flush=True)
+
+    # the mixers must change the context: record the largest |mixed - first token|
+    moved = []
+
+    def hook(module, args, out):
+        moved.append((out - args[0][:, :1]).abs().max().item())
+
+    from streamingt2v_torch.models.unet_blocks import APMContextMixer
+    handle = next(m for m in pipe.models.unet.modules()
+                  if isinstance(m, APMContextMixer)).register_forward_hook(hook)
+    phase_s = dict.fromkeys(("condition", "encode_apm", "first_chunk", "stream_chunk",
+                             "decode_video"), 0.0)
+    _timed_methods(pipe, phase_s, phase_s)
+    tokens = []
+    encode = pipe.encode_apm
+    pipe.encode_apm = lambda frames: tokens.append(tuple(frames.shape)) or encode(frames)
+
+    image = _smooth_image(cfg.height, cfg.width, seed=7).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    video = pipe.image_to_video(image, num_frames=SLICE_FRAMES, seed=cfg.seed)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    handle.remove()
+    peak = torch.cuda.max_memory_allocated()
+    finite = {"stage1": bool(torch.isfinite(video).all())}
+    print("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phase_s.items())
+          + f", image_to_video total {total:.1f}", flush=True)
+    print(f"  resident {resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; stage_finite "
+          f"{finite}; video std {video.std().item():.4f}, AR frames' std "
+          f"{video[cfg.inference.chunk_frames:].std().item():.4f}; APM encodes {tokens}; "
+          f"a mixer moved its token by up to "
+          f"{max(moved or [0.0]):.3f} over {len(moved)} calls; launches {launches}", flush=True)
+    want = (SLICE_FRAMES, cfg.height, cfg.width, 3)
+    if tuple(video.shape) != want or not finite["stage1"]:
+        raise AssertionError(f"video {tuple(video.shape)} (want {want}), finite {finite}")
+    if tokens != [(1, 16, cfg.height, cfg.width, 3)]:
+        raise AssertionError(f"the APM anchor frames were not encoded once: {tokens}")
+    if not moved or max(moved) <= 0.0:
+        raise AssertionError("the APM mixers left the context as it was")
+    dead = [k for k in ("flash_attention", "flash_attention_d512", "geglu_ff", "temporal_conv")
+            if launches[k] <= 0]
+    if dead:
+        raise AssertionError(f"the APM phase never launched: {dead}")
+    return launches
+
+
+def run_samplers(steps: int) -> dict:
+    """Phase 7: each other sampler and guider on one full-width first chunk
+    (the SVD-XT UNet, 25 frames): seconds per guided denoise, finite latents,
+    the network calls against the sampler's rule, and K1/K3/K4 launches in
+    proportion to those calls."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.pipeline.build import build_pipeline
+    from streamingt2v_torch.utils.rng import GeneratorNoise, step_stream
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = PipelineConfig()
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, seed=0, device=dev, bf16=True)
+    torch.cuda.synchronize()
+    print(f"  build_pipeline: {time.perf_counter() - t0:.1f} s; {steps} steps per sampler",
+          flush=True)
+    calls = [0]
+    unet = pipe.models.svd_unet
+    forward = unet.forward
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return forward(*a, **k)
+
+    unet.forward = counted
+    noise = GeneratorNoise(cfg.seed, dev)
+    image = _smooth_image(cfg.height, cfg.width, seed=8).to(dev)[None]
+    shape = pipe.latent_shape(cfg.inference.chunk_frames)
+    kernels = ("flash_attention", "geglu_ff", "temporal_conv")
+    totals = dict.fromkeys(KERNEL_META, 0)
+    per_call = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        c, uc = pipe.condition(image, noise(0, "cond_aug", tuple(image.shape)))
+        for label, fields, guider in SAMPLER_CASES:
+            scfg = sampler_config(cfg.first_chunk_sampler, steps, fields, guider)
+            pipe.cfg = dataclasses.replace(cfg, first_chunk_sampler=scfg)
+            want = 2 * steps - 1 if scfg.kind in ("heun_edm", "dpmpp2s") else steps
+            calls[0] = 0
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            z = pipe.first_chunk(c, uc, noise(0, "latent", shape), step_stream(noise, 0))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = _read_launches()
+            finite = bool(torch.isfinite(z).all())
+            per = {k: launches[k] / max(calls[0], 1) for k in kernels}
+            print(f"  {label}: {calls[0]} network calls (rule {want}), "
+                  f"{dt / max(calls[0], 1):.3f} s per guided denoise ({dt:.2f} s), latents "
+                  f"finite {finite}, |z| max {z.abs().max().item():.3f}; launches per call "
+                  f"{per}", flush=True)
+            if calls[0] != want or not finite:
+                raise AssertionError(f"{label}: {calls[0]} calls (want {want}), finite {finite}")
+            if any(launches[k] <= 0 or launches[k] % calls[0] for k in kernels):
+                raise AssertionError(f"{label}: launches {launches} not a multiple of the calls")
+            group = "identity" if guider == "identity" else "cfg"
+            if per_call.setdefault(group, per) != per:
+                raise AssertionError(f"{label}: launches per call {per} differ from "
+                                     f"{per_call[group]} ({group} guidance)")
+            for k, n in launches.items():
+                totals[k] += n
+    unet.forward = forward
+    print(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {totals}",
+          flush=True)
+    return totals
+
+
 def run_enhance(steps: int) -> dict:
-    """Phase 6: full-width stage 2 through every kernel of its path."""
+    """Phase 8: full-width stage 2 through every kernel of its path."""
     import dataclasses
 
     import torch
@@ -1185,7 +1543,7 @@ def _check_warp_motion(video, dev) -> None:
 
 
 def run_interpolate() -> None:
-    """Phase 7: full-width stage 3 on a 720p video with known motion."""
+    """Phase 9: full-width stage 3 on a 720p video with known motion."""
     import torch
 
     from streamingt2v_torch.config import PipelineConfig
@@ -1249,7 +1607,7 @@ def run_interpolate() -> None:
 
 
 def run_product(enhance_steps: int, frames: int) -> dict:
-    """Phase 8: the three-stage product at full width through ``StreamingT2VPipeline``."""
+    """Phase 10: the three-stage product at full width through ``StreamingT2VPipeline``."""
     import dataclasses
     import tempfile
 
@@ -1306,9 +1664,20 @@ def run_product(enhance_steps: int, frames: int) -> dict:
         raise AssertionError(f"product frames {out.shape}")
     if pipe.stage_finite != {"stage1": True, "enhance": True, "vfi": True}:
         raise AssertionError(f"a stage gave non-finite values: {pipe.stage_finite}")
+    _check_native_writer(stages, "the product")
     _check_product_launches(cfg, launches, "the product")
     print(f"  video {out.shape} uint8, mean {out.mean():.2f}, std {out.std():.2f}", flush=True)
     return launches
+
+
+def _check_native_writer(stages: dict, what: str) -> None:
+    """The y4m was written by the port's native feeder: ``utils/media.py``
+    times the write as ``save_y4m_native`` (``save_y4m_python`` without it)."""
+    if "save_y4m_native" not in stages or "save_y4m_python" in stages:
+        raise AssertionError(f"{what}: the y4m was not written by the native feeder "
+                             f"(timed stages {sorted(stages)})")
+    print(f"  y4m written by the native feeder in {stages['save_y4m_native']:.3f} s",
+          flush=True)
 
 
 def _check_product_launches(cfg, launches: dict, what: str) -> None:
@@ -1511,7 +1880,7 @@ def _distinct_constants_(pipe, seed: int = 0) -> None:
 
 
 def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int) -> dict:
-    """Phase 9: the checkpoint loader at full width.  A reference-named tree is
+    """Phase 11: the checkpoint loader at full width.  A reference-named tree is
     written from ``build_product``'s random weights, loaded back through
     ``utils/loader.py`` and compared bit for bit; then the CLI runs the product
     from the tree (``--ckpt_dir``) on a 576x1024 PNG into a y4m file."""
@@ -1630,6 +1999,7 @@ def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int)
         raise AssertionError(f"the y4m file is {info}, not {want}")
     if pipe.stage_finite != {"stage1": True, "enhance": True, "vfi": True}:
         raise AssertionError(f"a stage gave non-finite values: {pipe.stage_finite}")
+    _check_native_writer(stages, "the CLI run from the tree")
     _check_product_launches(run_cfg, launches, "the CLI run from the tree")
     return launches
 
@@ -1653,10 +2023,12 @@ KERNEL_META = {
 }
 
 
-def kernel_lines(records: dict, launches: dict, product_launches: dict) -> list:
+def kernel_lines(records: dict, launches: dict, product_launches: dict,
+                 phase_launches: Optional[dict] = None) -> list:
     """The kernels JSON line's entries: one per KERNEL_META row, with the
     kernels phase's record (absent keys null), the launches of every
-    pipeline phase and the product's alone."""
+    pipeline phase, the product's alone and, as ``<phase>_launches``, those
+    of each phase in ``phase_launches`` ({phase: {kernel: launches}})."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -1670,7 +2042,10 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict) -> list:
                             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
                             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
                             library_ms=r.get("library_ms"), share=r.get("share"),
-                            product_launches=product_launches[name], **extra))
+                            product_launches=product_launches[name],
+                            **{f"{p}_launches": n[name]
+                               for p, n in (phase_launches or {}).items()},
+                            **extra))
     return kernels
 
 
@@ -1698,6 +2073,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
     try:
+        from streamingt2v_torch import native
         from streamingt2v_torch.ops import _native
     except ImportError:
         print("chip_smoke: run from the root of a repository checkout", file=sys.stderr)
@@ -1723,6 +2099,11 @@ def main(argv=None) -> int:
     _native.library()
     print(f"phase build: {build_s:.1f} s nvcc ({time.perf_counter() - t0:.1f} s with load) "
           f"-> {path.name}", flush=True)
+    t0 = time.perf_counter()
+    feeder = native.build()     # raises if g++ fails: the product phases write through it
+    native.load_library()
+    print(f"  y4m feeder: g++ -> {feeder.parent.name}/{feeder.name} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     for line in _ptxas_summary(log):
         print("  ptxas: " + line, flush=True)
 
@@ -1734,39 +2115,34 @@ def main(argv=None) -> int:
     if "reference" in phases:
         t0 = time.perf_counter()
         check_reference()
+        check_apm_reference()
+        check_sampler_references()
         check_enhance_reference()
         check_vfi_reference()
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict.fromkeys(KERNEL_META, 0)
-    if "slice" in phases:
+    phase_launches = {p: dict.fromkeys(KERNEL_META, 0) for p in ("product", "apm", "samplers")}
+    runs = [("slice", lambda: run_slice(args.first_steps, args.ar_steps)),
+            ("apm", lambda: run_apm(APM_STEPS)),
+            ("samplers", lambda: run_samplers(SAMPLER_STEPS)),
+            ("enhance", lambda: run_enhance(args.enhance_steps)),
+            ("interpolate", lambda: run_interpolate() or {}),
+            ("product", lambda: run_product(args.enhance_steps, args.product_frames)),
+            ("loader", lambda: run_loader(args.enhance_steps, LOADER_FRAMES,
+                                          LOADER_SAMPLER_STEPS, LOADER_SAMPLER_STEPS))]
+    for phase, run in runs:
+        if phase not in phases:
+            continue
         t0 = time.perf_counter()
-        for name, n in run_slice(args.first_steps, args.ar_steps).items():
+        counts = run()
+        for name, n in counts.items():
             launches[name] += n
-        print(f"phase slice: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
-    if "enhance" in phases:
-        t0 = time.perf_counter()
-        for name, n in run_enhance(args.enhance_steps).items():
-            launches[name] += n
-        print(f"phase enhance: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
-    if "interpolate" in phases:
-        t0 = time.perf_counter()
-        run_interpolate()
-        print(f"phase interpolate: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
-    product_launches = dict.fromkeys(KERNEL_META, 0)
-    if "product" in phases:
-        t0 = time.perf_counter()
-        product_launches = run_product(args.enhance_steps, args.product_frames)
-        for name, n in product_launches.items():
-            launches[name] += n
-        print(f"phase product: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
-    if "loader" in phases:
-        t0 = time.perf_counter()
-        for name, n in run_loader(args.enhance_steps, LOADER_FRAMES, LOADER_SAMPLER_STEPS,
-                                  LOADER_SAMPLER_STEPS).items():
-            launches[name] += n
-        print(f"phase loader: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if phase in phase_launches:
+            phase_launches[phase] = counts
+        print(f"phase {phase}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print(json.dumps({"kernels": kernel_lines(records, launches, product_launches)}),
+    product = phase_launches.pop("product")
+    print(json.dumps({"kernels": kernel_lines(records, launches, product, phase_launches)}),
           flush=True)
     if phases != set(ALL_PHASES) or (args.first_steps, args.ar_steps, args.enhance_steps,
                                      args.product_frames) != (

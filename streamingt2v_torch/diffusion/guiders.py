@@ -2,9 +2,10 @@
 ``streamingt2v_tpu/diffusion/guiders.py``).
 
 A guider is ``prepare(x, sigma, c, uc) -> (x_in, sigma_in, cond_in)`` (the
-CFG doubling, batch order [uncond, cond]) and ``combine(denoised)``.
-Latents are (B, T, H, W, C); the per-frame scale of the linear-prediction
-guider broadcasts over axis 1.
+CFG doubling, batch order [uncond, cond]) and ``combine(denoised)``; the
+``identity`` guider runs the conditional half alone (``batch_multiplier``
+1).  Latents are (B, T, H, W, C); the per-frame scales of the linear- and
+triangle-prediction guiders broadcast over axis 1.
 """
 
 from __future__ import annotations
@@ -30,9 +31,15 @@ def _double(x, sigma, c: CondDict, uc: CondDict):
 class Guider:
     prepare: Callable[..., Tuple[torch.Tensor, torch.Tensor, CondDict]]
     combine: Callable[[torch.Tensor], torch.Tensor]
+    batch_multiplier: int  # 2 for the CFG guiders, 1 for identity
 
 
 def make_guider(cfg: GuiderConfig) -> Guider:
+    """An unknown ``cfg.kind`` raises ``ValueError``, as in the JAX package."""
+    if cfg.kind == "identity":
+        return Guider(prepare=lambda x, s, c, uc: (x, s, dict(c)), combine=lambda d: d,
+                      batch_multiplier=1)
+
     if cfg.kind == "vanilla":
         scale = cfg.max_scale
 
@@ -40,10 +47,16 @@ def make_guider(cfg: GuiderConfig) -> Guider:
             x_u, x_c = denoised.chunk(2, dim=0)
             return x_u + scale * (x_c - x_u)
 
-        return Guider(prepare=_double, combine=combine_vanilla)
+        return Guider(prepare=_double, combine=combine_vanilla, batch_multiplier=2)
 
-    if cfg.kind == "linear_prediction":
-        scales = np.linspace(cfg.min_scale, cfg.max_scale, cfg.num_frames).astype(np.float32)
+    if cfg.kind in ("linear_prediction", "triangle_prediction"):
+        if cfg.kind == "linear_prediction":
+            scales = np.linspace(cfg.min_scale, cfg.max_scale, cfg.num_frames)
+        else:   # a triangle wave of period 1 over [0, 1]
+            values = np.linspace(0.0, 1.0, cfg.num_frames)
+            tri = 2.0 * np.abs(values - np.floor(values + 0.5))
+            scales = tri * (cfg.max_scale - cfg.min_scale) + cfg.min_scale
+        scales = scales.astype(np.float32)
 
         def combine_per_frame(denoised):
             x_u, x_c = denoised.chunk(2, dim=0)
@@ -51,6 +64,6 @@ def make_guider(cfg: GuiderConfig) -> Guider:
                 (1, -1) + (1,) * (x_u.ndim - 2)).to(x_u.dtype)
             return x_u + s * (x_c - x_u)
 
-        return Guider(prepare=_double, combine=combine_per_frame)
+        return Guider(prepare=_double, combine=combine_per_frame, batch_multiplier=2)
 
-    raise NotImplementedError(f"guider {cfg.kind!r} is not ported yet")
+    raise ValueError(cfg.kind)

@@ -51,12 +51,14 @@ class Conditioner(nn.Module):
         vcfg = dataclasses.replace(vae_cfg, temporal_decoder=False, scale_factor=1.0)
         self.cond_encoder = AutoencoderKL(vcfg, use_quant_conv=True, encode_only=True, **fk)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        img = batch["cond_frames_without_noise"]
+    def _pooled(self, img: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) in [-1, 1] -> the pooled CLIP embedding (N, D)."""
         if self.cfg.use_clip:
-            pooled, _ = encode_image(self.clip, img)
-        else:  # tiny-test path: project mean pixel statistics
-            pooled = self.toy_clip(img.mean(dim=(1, 2)))
+            return encode_image(self.clip, img)[0]
+        return self.toy_clip(img.mean(dim=(1, 2)))  # tiny configs: mean pixel statistics
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        pooled = self._pooled(batch["cond_frames_without_noise"])
         vec = torch.cat([concat_timestep_embed(batch[k], self.cfg.vector_outdim)
                          for k in ("fps_id", "motion_bucket_id", "cond_aug")], dim=-1)
         z = self.cond_encoder.encode(batch["cond_frames"])
@@ -69,6 +71,12 @@ class Conditioner(nn.Module):
         uc = dict(c, crossattn=torch.zeros_like(c["crossattn"]),
                   concat=torch.zeros_like(c["concat"]))
         return c, uc
+
+    def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
+        """The APM tokens: the pooled CLIP embedding of each anchor frame of
+        the video so far, (B, N, H, W, 3) -> (B, N, D)."""
+        b, n = frames.shape[:2]
+        return self._pooled(frames.reshape((b * n,) + frames.shape[2:])).reshape(b, n, -1)
 
 
 def broadcast_cond(cond: Dict[str, torch.Tensor], num_frames: int) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,10 @@
 """Parameter-holding layers in the JAX package's layouts.
 
-``Dense``, ``Embed``, ``Conv``, ``ConvTranspose`` and ``TimeConv`` carry the
+``Dense``, ``Embed``, ``Conv``, ``Conv1D``, ``ConvTranspose`` and ``TimeConv`` carry the
 flax parameter names (``kernel``, ``bias``) so that a module's state-dict keys
 are the flax paths with ``/`` replaced by ``.``; their kernels are stored in
-PyTorch's layouts: Dense (out, in), Conv (out, in/groups, kh, kw),
-ConvTranspose (in, out, kh, kw), and the (kt, 1, 1) time conv as the
+PyTorch's layouts: Dense (out, in), Conv (out, in/groups, kh, kw), Conv1D
+(out, in, k), ConvTranspose (in, out, kh, kw), and the (kt, 1, 1) time conv as the
 temporal-conv kernel's (kt, in, out).  Activations stay
 channel-last; a Conv permutes to an NCHW view only around the cuDNN call
 (the view of an NHWC tensor is already channels_last, so nothing copies).
@@ -118,6 +118,28 @@ class Conv(nn.Module):
         return y.reshape(lead + y.shape[1:])
 
 
+class Conv1D(nn.Module):
+    """flax ``nn.Conv(out, (k,), padding="SAME")`` over channel-FIRST
+    (N, in, L) input, as torch's ``conv1d``: kernel (out, in, k)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
+                 device=None, dtype=None):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError(f"SAME padding needs an odd kernel, got {kernel_size}")
+        self.zero_init = False
+        self.kernel = _param((out_channels, in_channels, kernel_size), device, dtype)
+        self.bias = _param((out_channels,), device, dtype)
+
+    def fan_in(self) -> int:
+        return self.kernel[0].numel()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _common(x, self.kernel)
+        return F.conv1d(x.to(dt), self.kernel.to(dt), self.bias.to(dt),
+                        padding=self.kernel.shape[-1] // 2)
+
+
 class ConvTranspose(nn.Module):
     """flax ``nn.ConvTranspose(features, (k, k), strides=(s, s), padding="SAME")``
     over channel-last (N, H, W, C): output (N, s*H, s*W, out).  flax convolves
@@ -191,7 +213,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     modules with other initialisers define ``init_extra_(generator)``."""
     done = set()
     for m in module.modules():
-        if isinstance(m, (Dense, Conv, ConvTranspose, TimeConv)):
+        if isinstance(m, (Dense, Conv, Conv1D, ConvTranspose, TimeConv)):
             if m.zero_init:
                 m.kernel.zero_()
             else:

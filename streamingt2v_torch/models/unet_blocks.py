@@ -1,7 +1,8 @@
 """VideoUNet building blocks (counterpart of
 ``streamingt2v_tpu/models/unet_blocks.py``), channel-last.
 
-  - ``FeedForward`` (GEGLU), ``CrossAttention``, ``BasicTransformerBlock``
+  - ``FeedForward`` (GEGLU), ``CrossAttention``, ``APMContextMixer``,
+    ``BasicTransformerBlock``
   - ``VideoTransformerBlock`` (temporal transformer)
   - ``SpatialVideoTransformer`` (spatial + temporal pair, AlphaBlender)
   - ``UNetResBlock``, ``TemporalUNetResBlock``, ``UNetVideoResBlock``
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from streamingt2v_torch.models.layers import (
-    Conv, Dense, TimeConv, _param, norm_pair, norm_params, silu_f32)
+    Conv, Conv1D, Dense, TimeConv, _param, norm_pair, norm_params, silu_f32)
 from streamingt2v_torch.ops import attention, group_norm, layer_norm, timestep_embedding
 from streamingt2v_torch.ops.attention import attention_pre_split
 from streamingt2v_torch.ops.fused_ff import geglu_ff
@@ -112,17 +113,41 @@ class CrossAttention(nn.Module):
         return self.to_out(o)
 
 
+class APMContextMixer(nn.Module):
+    """Appearance Preservation Module context mixing: the ``n_tokens`` APM
+    context (the SVD pooled token and one CLIP token per anchor frame) is
+    mixed by a width-3 conv over the embedding axis with the tokens as
+    in-channels, layer-normed, and gated into the first token by
+    silu(``apm_alpha``) (zero at init, so the mixer starts as the identity on
+    the first token).  A one-token context passes through."""
+
+    def __init__(self, n_tokens: int, dim: int, *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.apm_conv = Conv1D(n_tokens, 1, 3, **fk)
+        norm_params(self, "apm_ln", dim, **fk)
+        self.apm_alpha = _param((), device, dtype)
+
+    def forward(self, context: torch.Tensor) -> torch.Tensor:
+        if context.shape[1] <= 1:
+            return context
+        mixed = layer_norm(self.apm_conv(context), *norm_pair(self, "apm_ln"))  # (B, 1, D)
+        gate = F.silu(self.apm_alpha.float()).to(context.dtype)
+        return context[:, :1] + mixed.to(context.dtype) * gate
+
+
 class BasicTransformerBlock(nn.Module):
-    """Self-attn -> cross-attn -> GEGLU-FF, each pre-LN residual."""
+    """Self-attn -> cross-attn -> GEGLU-FF, each pre-LN residual.  With
+    ``use_apm`` an ``APMContextMixer`` over ``apm_tokens`` tokens first
+    reduces the context to one mixed token."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
-                 disable_self_attn: bool = False, use_apm: bool = False, *,
-                 device=None, dtype=None):
+                 disable_self_attn: bool = False, use_apm: bool = False, apm_tokens: int = 17,
+                 *, device=None, dtype=None):
         super().__init__()
-        if use_apm:
-            raise NotImplementedError("APMContextMixer (use_apm=True) is not ported yet")
         fk = dict(device=device, dtype=dtype)
         self.disable_self_attn = disable_self_attn
+        self.apm = APMContextMixer(apm_tokens, context_dim or dim, **fk) if use_apm else None
         for name in ("norm1", "norm2", "norm3"):
             norm_params(self, name, dim, **fk)
         self.attn1 = CrossAttention(dim, heads, dim_head,
@@ -134,6 +159,8 @@ class BasicTransformerBlock(nn.Module):
         """``pre``/``post``/``pre_split``/``frames`` go to both attentions:
         valid only when both are self-attentions over the same axis (the
         temporal use, ``TransformerTemporal``)."""
+        if self.apm is not None and context is not None:
+            context = self.apm(context)
         kw = dict(pre=pre, post=post, pre_split=pre_split, frames=frames)
         x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")),
                            context if self.disable_self_attn else None, **kw)
@@ -199,11 +226,12 @@ def blend_with_images(mix_factor, spatial, temporal, image_only_indicator):
 class SpatialVideoTransformer(nn.Module):
     """Spatial transformer + parallel temporal stack per depth.  Input
     (B, T, H, W, C); context (B, T, L, D).  The temporal blocks attend to
-    frame 0's context row."""
+    frame 0's whole context row (all L tokens; with APM the spatial blocks
+    mix them into one first)."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, use_apm: bool = False,
-                 disable_temporal_crossattention: bool = False,
+                 apm_tokens: int = 17, disable_temporal_crossattention: bool = False,
                  max_time_embed_period: float = 10000.0, *, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
@@ -218,7 +246,8 @@ class SpatialVideoTransformer(nn.Module):
         self.time_mixer_mix_factor = _param((1,), device, dtype)
         for d in range(depth):
             self.add_module(f"block_{d}", BasicTransformerBlock(
-                inner, heads, dim_head, context_dim, use_apm=use_apm, **fk))
+                inner, heads, dim_head, context_dim, use_apm=use_apm, apm_tokens=apm_tokens,
+                **fk))
             self.add_module(f"time_block_{d}", VideoTransformerBlock(
                 inner, heads, dim_head, context_dim, ff_in=True,
                 disable_temporal_crossattention=disable_temporal_crossattention, **fk))

@@ -27,10 +27,12 @@ from streamingt2v_torch.models.unet_blocks import (
 from streamingt2v_torch.ops import group_norm, timestep_embedding
 
 
-def make_transformer(cfg: VideoUNetConfig, ch: int, *, use_apm: bool, fk: dict):
+def make_transformer(cfg: VideoUNetConfig, ch: int, *, use_apm: bool, apm_tokens: int,
+                     fk: dict):
     return SpatialVideoTransformer(
         ch, heads=ch // cfg.num_head_channels, dim_head=cfg.num_head_channels,
         depth=cfg.transformer_depth, context_dim=cfg.context_dim, use_apm=use_apm,
+        apm_tokens=apm_tokens,
         disable_temporal_crossattention=cfg.disable_temporal_crossattention,
         max_time_embed_period=cfg.max_period, **fk)
 
@@ -54,8 +56,9 @@ def add_embedding_params(m: nn.Module, cfg: VideoUNetConfig, fk: dict) -> None:
 
 
 def add_encoder(m: nn.Module, cfg: VideoUNetConfig, emb_dim: int, *, use_apm: bool,
-                fk: dict) -> List[int]:
-    """Input blocks (``input_{i}_res/attn/down``); returns the skip channels."""
+                fk: dict, apm_tokens: int = 1) -> List[int]:
+    """Input blocks (``input_{i}_res/attn/down``); returns the skip channels.
+    ``apm_tokens``: the APM mixers' context length (with ``use_apm``)."""
     mc = cfg.model_channels
     chans = [mc]
     ch, ds, blk = mc, 1, 0
@@ -65,7 +68,8 @@ def add_encoder(m: nn.Module, cfg: VideoUNetConfig, emb_dim: int, *, use_apm: bo
             m.add_module(f"input_{blk}_res",
                          UNetVideoResBlock(in_ch, ch, emb_dim, cfg.video_kernel_size, **fk))
             if ds in cfg.attention_resolutions:
-                m.add_module(f"input_{blk}_attn", make_transformer(cfg, ch, use_apm=use_apm, fk=fk))
+                m.add_module(f"input_{blk}_attn", make_transformer(
+                    cfg, ch, use_apm=use_apm, apm_tokens=apm_tokens, fk=fk))
             chans.append(ch)
             blk += 1
         if level != len(cfg.channel_mult) - 1:
@@ -74,7 +78,8 @@ def add_encoder(m: nn.Module, cfg: VideoUNetConfig, emb_dim: int, *, use_apm: bo
             chans.append(ch)
             blk += 1
     m.add_module("middle_res_0", UNetVideoResBlock(ch, ch, emb_dim, cfg.video_kernel_size, **fk))
-    m.add_module("middle_attn", make_transformer(cfg, ch, use_apm=use_apm, fk=fk))
+    m.add_module("middle_attn", make_transformer(cfg, ch, use_apm=use_apm,
+                                                 apm_tokens=apm_tokens, fk=fk))
     m.add_module("middle_res_1", UNetVideoResBlock(ch, ch, emb_dim, cfg.video_kernel_size, **fk))
     return chans
 
@@ -102,7 +107,11 @@ def run_encoder(m: nn.Module, cfg: VideoUNetConfig, h, emb, context, ind) -> tup
 
 
 class VideoUNet(nn.Module):
-    def __init__(self, cfg: VideoUNetConfig, *, device=None, dtype=None):
+    """``apm_tokens``: with ``cfg.use_apm``, the context length the APM mixers
+    take (1 + the anchor frames of ``InferenceConfig.apm_anchor_frames``); the
+    mixers' conv has one in-channel per token."""
+
+    def __init__(self, cfg: VideoUNetConfig, *, apm_tokens: int = 17, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -110,7 +119,7 @@ class VideoUNet(nn.Module):
         emb_dim = mc * 4
         add_embedding_params(self, cfg, fk)
         self.in_conv = Conv(cfg.in_channels, mc, 3, **fk)
-        chans = add_encoder(self, cfg, emb_dim, use_apm=cfg.use_apm, fk=fk)
+        chans = add_encoder(self, cfg, emb_dim, use_apm=cfg.use_apm, apm_tokens=apm_tokens, fk=fk)
         if cfg.controlnet_mode:
             for i, c in enumerate(chans):
                 self.add_module(f"cam_merger_input_{i}", CAMConditionalModel(c, min(64, c), **fk))
@@ -125,7 +134,8 @@ class VideoUNet(nn.Module):
                     in_ch, ch, emb_dim, cfg.video_kernel_size, **fk))
                 if ds_out in cfg.attention_resolutions:
                     self.add_module(f"output_{blk}_attn",
-                                    make_transformer(cfg, ch, use_apm=cfg.use_apm, fk=fk))
+                                    make_transformer(cfg, ch, use_apm=cfg.use_apm,
+                                                     apm_tokens=apm_tokens, fk=fk))
                 if level and i == cfg.num_res_blocks:
                     ds_out //= 2
                     self.add_module(f"output_{blk}_up", Upsample(ch, ch, **fk))

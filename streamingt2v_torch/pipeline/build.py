@@ -50,10 +50,12 @@ def build_models(cfg: PipelineConfig, seed: int = 0, *, device="cuda", bf16: boo
     device = _device(device)
     dtype = torch.bfloat16 if bf16 else cfg.unet.dtypes.param_dtype
     fk = dict(device=device, dtype=dtype)
-    # the first chunk is plain SVD-XT: no CAM fusion
+    # the first chunk is plain SVD-XT: no CAM fusion, no APM
     svd_cfg = dataclasses.replace(cfg.unet, controlnet_mode=False, use_apm=False)
+    # APM's context: the SVD pooled token plus one per anchor frame
+    a, b = cfg.inference.apm_anchor_frames
     models = StreamingModels(
-        unet=VideoUNet(cfg.unet, **fk),
+        unet=VideoUNet(cfg.unet, apm_tokens=1 + (b - a), **fk),
         controlnet=ControlNet(cfg.unet, cfg.controlnet, **fk),
         svd_unet=VideoUNet(svd_cfg, **fk),
         vae=AutoencoderKL(cfg.vae, device=device, dtype=cfg.vae.dtypes.vae_compute_dtype),

@@ -6,7 +6,10 @@
   2. Autoregressive chunks, each conditioned on the CLIP + VAE encoding of
      chunk 0's anchor frame and, through the ControlNet/CAM branch, on the
      last ``num_conditional_frames`` frames of the previous chunk; frames
-     from ``num_conditional_frames`` on are kept.
+     from ``num_conditional_frames`` on are kept.  With ``unet.use_apm`` the
+     cross-attention context also carries one CLIP token per APM anchor
+     frame of the video so far (``inference.apm_anchor_frames``): the
+     16+1-token context that the UNet's APM mixers reduce to one token.
   3. Every chunk is decoded by the temporal VAE in chunks of
      ``decode_chunk_size`` frames.
 
@@ -22,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -34,7 +38,7 @@ from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.video_unet import VideoUNet
 from streamingt2v_torch.models.wrappers import openai_wrapper, streaming_wrapper
 from streamingt2v_torch.ops.routing import use_routing
-from streamingt2v_torch.utils.rng import GeneratorNoise, NoiseFn
+from streamingt2v_torch.utils.rng import GeneratorNoise, NoiseFn, StepNoiseFn, step_stream
 
 Cond = Dict[str, torch.Tensor]
 
@@ -52,8 +56,6 @@ class StreamingModels:
 
 class Stage1Pipeline:
     def __init__(self, cfg: PipelineConfig, models: StreamingModels):
-        if cfg.unet.use_apm:
-            raise NotImplementedError("APM conditioning (use_apm=True) is not ported yet")
         self.cfg = cfg
         self.models = models
 
@@ -68,10 +70,12 @@ class Stage1Pipeline:
 
     # ---------- the stages ----------
 
-    def condition(self, anchor_frame: torch.Tensor, aug_noise: torch.Tensor) -> tuple:
+    def condition(self, anchor_frame: torch.Tensor, aug_noise: torch.Tensor,
+                  apm_tokens: Optional[torch.Tensor] = None) -> tuple:
         """anchor (1, H, W, 3) + uniform noise of its shape -> (c, uc), each
         broadcast to the chunk's frames.  The augmentation is uniform noise,
-        as the reference's torch.rand_like."""
+        as the reference's torch.rand_like.  ``apm_tokens`` (1, N, D) are
+        appended to c's crossattn token, zeros of their shape to uc's."""
         inf = self.cfg.inference
         b = anchor_frame.shape[0]
         dev = anchor_frame.device
@@ -83,24 +87,49 @@ class Stage1Pipeline:
             "cond_aug": torch.full((b,), inf.cond_aug, device=dev),
         }
         c, uc = self.models.conditioner.pair(batch)
+        if apm_tokens is not None:
+            c["crossattn"] = torch.cat([c["crossattn"], apm_tokens], dim=1)
+            uc["crossattn"] = torch.cat([uc["crossattn"], torch.zeros_like(apm_tokens)], dim=1)
         return broadcast_cond(c, inf.chunk_frames), broadcast_cond(uc, inf.chunk_frames)
 
+    def apm_frames(self, chunks: List[torch.Tensor]) -> torch.Tensor:
+        """The APM anchor frames of the video so far (the kept frames of every
+        chunk), (1, N, H, W, 3): frames ``apm_anchor_frames`` = [a, b), each
+        index wrapped around the video's length (a short video repeats)."""
+        a, b = self.cfg.inference.apm_anchor_frames
+        starts = np.cumsum([0] + [c.shape[1] for c in chunks])
+        total = int(starts[-1])
+        frames = []
+        for i in range(a, b):
+            gi = i % total
+            ci = int(np.searchsorted(starts, gi, side="right")) - 1
+            frames.append(chunks[ci][:, gi - int(starts[ci])])
+        return torch.stack(frames, dim=1)
+
+    def encode_apm(self, frames: torch.Tensor) -> torch.Tensor:
+        """APM anchor frames (1, N, H, W, 3) -> their CLIP tokens (1, N, D)."""
+        return self.models.conditioner.encode_frames(frames)
+
     def _sample(self, network_fn, noise: torch.Tensor, c: Cond, uc: Cond,
-                sampler_cfg: SamplerConfig) -> torch.Tensor:
+                sampler_cfg: SamplerConfig, step_noise: Optional[StepNoiseFn]) -> torch.Tensor:
         sampler = make_sampler(sampler_cfg)
-        return sampler(lambda x, sigma, cond: denoise(network_fn, x, sigma, cond), noise, c, uc)
+        return sampler(lambda x, sigma, cond: denoise(network_fn, x, sigma, cond), noise, c, uc,
+                       step_noise)
 
-    def first_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor) -> torch.Tensor:
-        """(c, uc) + initial noise -> latents (1, T, h, w, 4)."""
+    def first_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor,
+                    step_noise: Optional[StepNoiseFn] = None) -> torch.Tensor:
+        """(c, uc) + initial noise -> latents (1, T, h, w, 4); ``step_noise``:
+        a stochastic sampler's per-step draws."""
         return self._sample(openai_wrapper(self.models.svd_unet), noise, c, uc,
-                            self.cfg.first_chunk_sampler)
+                            self.cfg.first_chunk_sampler, step_noise)
 
-    def stream_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor) -> torch.Tensor:
+    def stream_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor,
+                     step_noise: Optional[StepNoiseFn] = None) -> torch.Tensor:
         """(c, uc) with ctrl_frames + initial noise -> latents (1, T, h, w, 4)."""
         m = self.models
         net = streaming_wrapper(m.unet, m.controlnet, self.cfg.inference.num_conditional_frames,
                                 ctrl_cfg_shared=True)
-        return self._sample(net, noise, c, uc, self.cfg.sampler)
+        return self._sample(net, noise, c, uc, self.cfg.sampler, step_noise)
 
     def decode_chunk(self, z: torch.Tensor) -> torch.Tensor:
         """z (1, <=cs, h, w, 4) -> frames in [-1, 1], f32.  With
@@ -129,7 +158,8 @@ class Stage1Pipeline:
         """image (H, W, 3) in [-1, 1] -> video (F, H, W, 3) in [-1, 1].
 
         ``num_frames`` is the stage-1 target ((num_frames+1)//2 of the
-        product); ``noise`` overrides the default generator-backed draws."""
+        product); ``noise`` overrides the default generator-backed draws
+        (a stochastic sampler's step draws included: streams "sampler/<i>")."""
         with use_routing(self.cfg.routing):
             return self._image_to_video(image, num_frames, seed, noise)
 
@@ -145,15 +175,19 @@ class Stage1Pipeline:
 
         image = image[None].to(self.device, torch.float32)
         c, uc = self.condition(image, noise(0, "cond_aug", tuple(image.shape)).to(self.device))
-        z0 = self.first_chunk(c, uc, noise(0, "latent", shape).to(self.device))
+        z0 = self.first_chunk(c, uc, noise(0, "latent", shape).to(self.device),
+                              step_stream(noise, 0))
         chunk0 = self.decode_video(z0)
         chunks: List[torch.Tensor] = [chunk0]
         anchor = chunk0[:, inf.anchor_frames]
         for g in range(1, n_gen + 1):
             ctrl = chunks[-1][:, -inf.num_conditional_frames:]
-            c, uc = self.condition(anchor, noise(g, "cond_aug", tuple(anchor.shape)).to(self.device))
+            apm = self.encode_apm(self.apm_frames(chunks)) if cfg.unet.use_apm else None
+            c, uc = self.condition(anchor, noise(g, "cond_aug", tuple(anchor.shape)).to(self.device),
+                                   apm)
             c["ctrl_frames"] = ctrl
             uc["ctrl_frames"] = ctrl
-            z = self.stream_chunk(c, uc, noise(g, "latent", shape).to(self.device))
+            z = self.stream_chunk(c, uc, noise(g, "latent", shape).to(self.device),
+                                  step_stream(noise, g))
             chunks.append(self.decode_video(z)[:, inf.num_conditional_frames:])
         return torch.cat(chunks, dim=1)[0, :target]

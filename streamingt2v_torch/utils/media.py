@@ -5,7 +5,8 @@ loading, and export.
 
 The card's path needs neither OpenCV nor Pillow: ``resize_video`` is torch,
 ``resize_to_stage1`` returns an image that already has the stage-1 size
-as it is, and ``.y4m`` files are written here.  ``cv2`` (mp4, video
+as it is, and ``.y4m`` files are written by the port's native feeder
+(``streamingt2v_torch/native``) or, without a compiler, here.  ``cv2`` (mp4, video
 reading) and ``PIL`` (image files, the stage-1 resize) are imported only
 inside the functions that need them.
 """
@@ -17,6 +18,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from streamingt2v_torch.utils.profiling import stage_timer
 
 
 # ---------------------------------------------------------------------------
@@ -214,9 +217,18 @@ def save_video(path: str, video: np.ndarray, fps: int = 24) -> str:
 
 def _save_y4m(path: str, video: np.ndarray, fps: int) -> str:
     """BT.601 full-range RGB -> YUV 4:2:0 planes (chroma averaged over 2x2),
-    header ``C420jpeg``."""
+    header ``C420jpeg``: by the native feeder (``streamingt2v_torch/native``)
+    where it builds, else in Python; the two write the same bytes.  The
+    write is timed as ``save_y4m_native`` or ``save_y4m_python`` in
+    ``utils/profiling.timing_report``, which so names the writer used."""
+    from streamingt2v_torch import native
+
     f, h, w, _ = video.shape
-    with open(path, "wb") as fh:
+    if native.available():
+        with stage_timer("save_y4m_native"), native.AsyncVideoWriter(path, w, h, fps) as wr:
+            wr.write(video)
+        return path
+    with stage_timer("save_y4m_python"), open(path, "wb") as fh:
         fh.write(f"YUV4MPEG2 W{w} H{h} F{fps}:1 Ip A1:1 C420jpeg\n".encode())
         for frame in video:
             rgb = frame.astype(np.float32)

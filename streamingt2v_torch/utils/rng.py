@@ -3,7 +3,8 @@
 JAX's threefry keys cannot be reproduced with PyTorch's Philox, so the
 port derives one integer seed per address and draws from a
 ``torch.Generator`` on the device.  Stage 1 addresses (seed, generation,
-stream), as ``generation_key`` does: with ``reset_per_generation`` every
+stream), as ``generation_key`` does (a stochastic sampler's step ``i`` is
+stream "sampler/<i>"): with ``reset_per_generation`` every
 autoregressive generation re-seeds from the global seed and its index.
 Stage 2 addresses the draws of ``RngStream(seed, "enhance")``: one normal
 draw per (stream, index) and one blending offset per (DDIM step, chunk).
@@ -17,8 +18,11 @@ from typing import Callable, Protocol, Tuple
 import torch
 
 # noise(generation, stream, shape) -> tensor; streams: "cond_aug"
-# (uniform [0, 1)) and "latent" (standard normal)
+# (uniform [0, 1)), "latent" (standard normal) and "sampler/<i>" (standard
+# normal: the draw of a stochastic sampler's step i)
 NoiseFn = Callable[[int, str, Tuple[int, ...]], torch.Tensor]
+# step_noise(i, shape) -> the standard normal draw of sampler step i
+StepNoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
 
 
 def _address_seed(*parts) -> int:
@@ -37,7 +41,7 @@ class GeneratorNoise:
     """The default noise source: each draw from its own seeded generator
     on ``device``, so a draw depends only on its address."""
 
-    _DRAW = {"cond_aug": torch.rand, "latent": torch.randn}
+    _DRAW = {"cond_aug": torch.rand, "latent": torch.randn, "sampler": torch.randn}
 
     def __init__(self, seed: int, device, reset_per_generation: bool = True):
         self.seed = seed
@@ -47,8 +51,24 @@ class GeneratorNoise:
     def __call__(self, generation: int, stream: str, shape: Tuple[int, ...]) -> torch.Tensor:
         gen = torch.Generator(self.device).manual_seed(
             generation_seed(self.seed, generation, stream, self.reset_per_generation))
-        return self._DRAW[stream](shape, generator=gen, device=self.device,
-                                  dtype=torch.float32)
+        return self._DRAW[stream.split("/")[0]](shape, generator=gen, device=self.device,
+                                                dtype=torch.float32)
+
+
+def step_stream(noise: NoiseFn, generation: int) -> StepNoiseFn:
+    """A sampler's per-step draws as streams "sampler/<i>" of a ``NoiseFn``:
+    their own addresses, so they shift no "cond_aug" or "latent" draw."""
+    return lambda i, shape: noise(generation, f"sampler/{i}", shape)
+
+
+def default_step_noise(device) -> StepNoiseFn:
+    """The per-step draws of a sampler called without any: each from a
+    generator seeded by its step's address."""
+    def draw(i: int, shape) -> torch.Tensor:
+        gen = torch.Generator(device).manual_seed(_address_seed(0, "sampler", i))
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+    return draw
 
 
 class EnhanceNoise(Protocol):

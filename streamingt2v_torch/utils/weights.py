@@ -9,6 +9,8 @@ replaced by ``.``.  The layout transforms are mechanical:
                         in kh and kw; told from a Conv kernel by its path
                         (``<name>_deconv/kernel``)
   time conv             (kt, 1, 1, in, out)  -> (kt, in, out)   (the K4 weight)
+  1-D Conv kernel       (k, in, out)         -> (out, in, k)    (torch Conv1d; APM's
+                        ``apm_conv``, told from the others by its three axes)
   everything else (biases, norms, embeddings, projections) unchanged.
 
 A depthwise Conv kernel (kh, kw, 1, C) takes the Conv rule: (C, 1, kh, kw)
@@ -39,11 +41,14 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
                 a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 3:
+                a = a.transpose(2, 1, 0)
             elif a.ndim == 5 and a.shape[1:3] == (1, 1):
                 a = a.reshape(a.shape[0], a.shape[3], a.shape[4])
             else:
                 raise ValueError(f"{path}: no port layout for a kernel of shape {a.shape}")
-        out[path.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(a))
+        # (ascontiguousarray makes a 0-d array 1-d: APM's scalar apm_alpha)
+        out[path.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     return out
 
 

@@ -33,7 +33,7 @@ def random_flat(params, seed: int) -> dict:
             a = 1.0 + 0.1 * rng.randn(*shape)
         else:
             a = 0.1 * rng.randn(*shape)
-        out[path] = a.astype(np.float32)
+        out[path] = np.asarray(a, dtype=np.float32)   # a 0-d leaf draws a float
     return out
 
 
@@ -65,6 +65,29 @@ def assert_close(got, ref, rel: float, what: str = "") -> float:
 
 # ------------------------------------------------- pipelines and draws ---
 
+def svd_unet_pair(seed: int = 6):
+    """(JAX openai_wrapper, port openai_wrapper, JAX UNet config): the tiny
+    first-chunk VideoUNet on identical ``random_flat`` weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from streamingt2v_tpu import config as jcfg
+    from streamingt2v_tpu.models import video_unet as jvu
+    from streamingt2v_tpu.models import wrappers as jwrap
+    from streamingt2v_torch import config as pcfg
+    from streamingt2v_torch.models import video_unet as pvu
+    from streamingt2v_torch.models import wrappers as pwrap
+
+    ucfg = jcfg.VideoUNetConfig.tiny(controlnet_mode=False)
+    jm = jvu.VideoUNet(ucfg)
+    flat = random_flat(jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 2, 8, 8, 8)), jnp.zeros((1,)),
+        jnp.zeros((1, 2, 1, ucfg.context_dim)),
+        jnp.zeros((1, 2, ucfg.adm_in_channels))))["params"], seed)
+    pm = port_module(pvu.VideoUNet(pcfg.VideoUNetConfig.tiny(controlnet_mode=False)), flat)
+    return jwrap.openai_wrapper(jm, jax_variables(flat)), pwrap.openai_wrapper(pm), ucfg
+
+
 def stage1_pair(jcfg, pcfg, seed: int = 0):
     """(JAX ``Stage1Pipeline``, port ``Stage1Pipeline``) on identical
     weights, one ``random_flat`` tree per model from ``seed``."""
@@ -89,10 +112,14 @@ def stage1_pair(jcfg, pcfg, seed: int = 0):
     return jpipe, pipe
 
 
-def jax_stage1_draws(cfg, seed: int, shape_latent, image_shape, n_gen: int) -> dict:
+def jax_stage1_draws(cfg, seed: int, shape_latent, image_shape, n_gen: int,
+                     sampler_steps=None) -> dict:
     """The JAX stage-1 pipeline's noise, rebuilt from its own key splits
     (pipeline/streaming.py: generation_key -> (k_cond, k_sample); uniform
-    augmentation noise from k_cond; latent noise from split(k_sample)[0])."""
+    augmentation noise from k_cond; latent noise from split(k_sample)[0]);
+    with ``sampler_steps`` ({generation: steps}) also a stochastic sampler's
+    draw of each step i, normal(fold_in(split(k_sample)[1], i)), as stream
+    "sampler/<i>"."""
     import jax
     import jax.numpy as jnp
 
@@ -103,8 +130,11 @@ def jax_stage1_draws(cfg, seed: int, shape_latent, image_shape, n_gen: int) -> d
         k_cond, k_sample = jax.random.split(
             generation_key(seed, g, cfg.inference.reset_seed_per_generation))
         draws[g, "cond_aug"] = np.asarray(jax.random.uniform(k_cond, image_shape, jnp.float32))
-        k_init, _ = jax.random.split(k_sample)
+        k_init, k_loop = jax.random.split(k_sample)
         draws[g, "latent"] = np.asarray(jax.random.normal(k_init, shape_latent, jnp.float32))
+        for i in range((sampler_steps or {}).get(g, 0)):
+            draws[g, f"sampler/{i}"] = np.asarray(jax.random.normal(
+                jax.random.fold_in(k_loop, i), shape_latent, jnp.float32))
     return draws
 
 

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import assert_close, jax_variables, port_module, random_flat, t
+from _torch_port_helpers import (
+    assert_close, jax_variables, port_module, random_flat, svd_unet_pair, t)
 from streamingt2v_tpu import config as jcfg
 from streamingt2v_tpu.diffusion import denoiser as jden
 from streamingt2v_tpu.diffusion import guiders as jguiders
@@ -305,14 +306,7 @@ def test_conditioner_pair_and_broadcast(use_clip):
 
 @pytest.fixture(scope="module")
 def svd_pair():
-    ucfg = jcfg.VideoUNetConfig.tiny(controlnet_mode=False)
-    jm = jvu.VideoUNet(ucfg)
-    flat = random_flat(jax.eval_shape(lambda: jm.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 2, 8, 8, 8)), jnp.zeros((1,)),
-        jnp.zeros((1, 2, 1, ucfg.context_dim)),
-        jnp.zeros((1, 2, ucfg.adm_in_channels))))["params"], 6)
-    pm = port_module(pvu.VideoUNet(pcfg.VideoUNetConfig.tiny(controlnet_mode=False)), flat)
-    return (jwrap.openai_wrapper(jm, jax_variables(flat)), pwrap.openai_wrapper(pm), ucfg)
+    return svd_unet_pair()
 
 
 def _cond_pair(rng, ucfg, b=1, frames=5):
@@ -363,12 +357,19 @@ def test_euler_edm_sampler(svd_pair, kind, disc):
 
 
 def test_unported_samplers_raise():
-    with pytest.raises(NotImplementedError):
-        psamplers.make_sampler(pcfg.SamplerConfig(kind="heun_edm"))
-    with pytest.raises(NotImplementedError):
-        psamplers.make_sampler(pcfg.SamplerConfig(s_churn=1.0))
-    with pytest.raises(NotImplementedError):
-        pub.BasicTransformerBlock(C, HEADS, DH, CTX, use_apm=True)
+    """Every sampler, churn, guider and APM is ported; only an unknown kind
+    raises, as in the JAX package: a sampler KeyError, a guider ValueError."""
+    for kind in ("euler_edm", "heun_edm", "euler_ancestral", "dpmpp2s", "dpmpp2m", "lms"):
+        psamplers.make_sampler(pcfg.SamplerConfig(kind=kind, s_churn=1.0))
+    for kind in ("vanilla", "identity", "linear_prediction", "triangle_prediction"):
+        make_guider(pcfg.GuiderConfig(kind=kind))
+    pub.BasicTransformerBlock(C, HEADS, DH, CTX, use_apm=True, apm_tokens=17)
+    for cfg_mod, make in ((jcfg, jsamplers.make_sampler), (pcfg, psamplers.make_sampler)):
+        with pytest.raises(KeyError):
+            make(cfg_mod.SamplerConfig(kind="ddim"))
+    for cfg_mod, make in ((jcfg, jguiders.make_guider), (pcfg, make_guider)):
+        with pytest.raises(ValueError):
+            make(cfg_mod.GuiderConfig(kind="cfg++"))
 
 
 # ------------------------------------------------------- weight bridge ----
@@ -378,13 +379,16 @@ def test_from_jax_params_layouts():
             "b/kernel": np.zeros((3, 3, 4, 6), np.float32),
             "c/kernel": np.zeros((3, 1, 1, 4, 6), np.float32),
             "c/bias": np.zeros((6,), np.float32),
-            "norm_scale": np.ones((4,), np.float32)}
+            "d/kernel": np.arange(60, dtype=np.float32).reshape(3, 4, 5),
+            "norm_scale": np.ones((4,), np.float32), "alpha": np.float32(0.5)}
     sd = from_jax_params(flat)
     assert {k: tuple(v.shape) for k, v in sd.items()} == {
         "a.kernel": (5, 3), "b.kernel": (6, 4, 3, 3), "c.kernel": (3, 4, 6), "c.bias": (6,),
-        "norm_scale": (4,)}
+        "d.kernel": (5, 4, 3), "norm_scale": (4,), "alpha": ()}
+    # a flax 1-D Conv kernel (k, in, out) is torch's Conv1d (out, in, k)
+    assert torch.equal(sd["d.kernel"], torch.from_numpy(flat["d/kernel"]).permute(2, 1, 0))
     with pytest.raises(ValueError):
-        from_jax_params({"d/kernel": np.zeros((3, 4, 5), np.float32)})
+        from_jax_params({"e/kernel": np.zeros((3, 3, 3, 4, 5), np.float32)})
 
 
 def test_load_jax_params_is_strict():

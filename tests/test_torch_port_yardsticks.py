@@ -195,7 +195,8 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     """Every row of the kernels JSON line has the keys the check reads; the
     D=512 instances have rows of their own with their D=512 launches, their
     SDPA backend and (K2) the encode chunk's numbers; K5's row carries the
-    SD VAE's shape; every row carries the product phase's launches apart."""
+    SD VAE's shape; every row carries the product phase's launches apart,
+    and those of any other phase given (the apm and samplers phases)."""
     rec = dict(ms=2.0, plain_ms=9.0, bound_ms=1.0, bound_by="operations", library_ms=4.0,
                share=0.5, max_abs_err=1e-3)
     records = {name: dict(rec) for name in chip_smoke.KERNEL_META}
@@ -204,7 +205,8 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     records["fused_group_norm"].update(vae_ms=0.6, vae_bound_ms=0.28, vae_share=0.47)
     launches = {name: i + 1 for i, name in enumerate(chip_smoke.KERNEL_META)}
     product = {name: 10 * n for name, n in launches.items()}
-    lines = chip_smoke.kernel_lines(records, launches, product)
+    apm = {name: 100 * n for name, n in launches.items()}
+    lines = chip_smoke.kernel_lines(records, launches, product, {"apm": apm})
     by_name = {line["name"]: line for line in lines}
     assert {"flash_attention_d512", "flash_attention_packed_d512"} <= set(by_name)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -213,6 +215,7 @@ def test_chip_smoke_kernel_lines_carry_every_field():
         assert keys <= set(line) and line["route"] == "cuda"
         assert line["launches"] == launches[line["name"]]
         assert line["product_launches"] == product[line["name"]]
+        assert line["apm_launches"] == apm[line["name"]]
         assert (REPO / line["source"]).exists()
         path, lineno = line["replaces"].split(":")   # the Pallas kernel's def line
         assert (REPO / path).read_text().splitlines()[int(lineno) - 1].startswith("def _")
