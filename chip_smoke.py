@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one NVIDIA GPU: stage 1
 (streaming image-to-video, also with APM and under every other sampler and
-guider), stage 2 (I2VGen-XL enhancement), stage 3 (EMA-VFI 2x
-interpolation), the three-stage product that joins them, and the checkpoint
-loader that fills it from the published weights' names.
+guider), training of the full-width SVD-XT UNet, stage 2 (I2VGen-XL
+enhancement), stage 3 (EMA-VFI 2x interpolation), the three-stage product
+that joins them, and the checkpoint loader that fills it from the published
+weights' names.
 
     python3 chip_smoke.py                  # every phase (the check)
     python3 chip_smoke.py --phases card,build,kernels   # skip the pipelines
@@ -31,6 +32,14 @@ Phases, one line each:
      enhance routing) and stage 3 (the tiny VFI at 64x64, f32, flip-TTA) on
      the card, stages 1 and 2 through their kernels, against the same
      pipelines on the CPU (plain versions) with the same weights and noise;
+     then training: each kernel's ``torch.autograd.Function`` (K1, K2, K3
+     with and without LN, K4 bare, pre, res and pre+res) against autograd
+     through its plain version at a training shape in bf16 (its backward
+     timed: ``bwd_ms``, ``bwd_chunks``) and in f32, K5 and K6 refusing
+     inputs that require grad, and the tiny first-chunk VideoUNet (f32,
+     remat, every constant drawn) trained 2 AdamW steps on the card and on
+     the CPU with the same weights and draws (loss, every gradient, the
+     parameters after each step);
   5. slice: ``build_pipeline`` at the full-width default ``PipelineConfig``
      with random bf16 weights on the card, then ``image_to_video`` for 43
      frames (first chunk plus one autoregressive chunk), with per-phase
@@ -47,12 +56,25 @@ Phases, one line each:
      triangle-prediction guiders: seconds per guided denoise, finite latents,
      the network calls against the sampler's rule (n; 2n - 1 for Heun and
      DPM++ 2S) and K1/K3/K4 launches in proportion to them;
-  8. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
+  8. train: the earlier models freed, the full-width SVD-XT UNet alone
+     (``use_checkpoint`` on, bf16, random weights from seed 0) through
+     ``openai_wrapper`` and ``DiffusionEngine`` (AdamW 1e-4, weight decay
+     1e-4, EMA 0.9999), 4 steps on one 25-frame 576x1024 clip of latents
+     with one generator seed: the parameter count, seconds per step
+     (forward+backward, optimizer+EMA; the first step apart), resident and
+     peak memory, each step's loss (finite, the last below the first), the
+     gradients at step 3 of a level-0 attention's ``to_q`` and a level-0
+     temporal conv (non-zero: they crossed K1 and K4; the zero-initialised
+     output layers hold them at zero in steps 1 and 2), K1/K3/K4 launches per
+     step (the forward's plus the remat recompute's: twice a no-grad
+     forward's when every call sits in a remat'd block), the backward's
+     chunks and the share of parameters each update changed;
+  9. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
      width (random bf16 weights), then ``enhance_with_keyframe_prepass`` on
      a synthetic 64-frame 720p video (a 2-frame pre-pass, then 2 blended
      38-frame chunks) with ``--enhance-steps`` DDIM steps, with per-phase
      seconds, resident and peak memory and the launch counts of its kernels;
-  9. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
+  10. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
      on a synthetic 720p video whose content moves 3 pixels a frame: seconds
      per pair and peak memory at pair batches 1, 2, 4 and 8 over 16 pairs,
      then the 64-frame video to 127 frames at the pipeline's pair batch,
@@ -60,7 +82,7 @@ Phases, one line each:
      against the known motion (the half-shift warps of both neighbours land
      closer to the true midpoint than either neighbour; a wrong sign would
      land farther);
-  10. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
+  11. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
      stage 2 bf16, stage 3 f32), then ``StreamingT2VPipeline.run`` on a
      synthetic 576x1024 uint8 image held in memory, for ``--product-frames``
      (85: 43 stage-1 frames, full sampler steps; stage 2 at
@@ -68,7 +90,7 @@ Phases, one line each:
      per-stage seconds, resident and peak memory, ``stage_finite``, the
      launch counts of every kernel row, and the file checked (header, frame
      count, 1280x720) and written by the native feeder;
-  11. loader: ``build_product`` at full width again (every constant tensor
+  12. loader: ``build_product`` at full width again (every constant tensor
      given a small draw of its own), written as a checkpoint tree in the
      reference's names and layouts (``write_reference_tree``: the
      StreamingSVD safetensors, the SVD-XT UNet, the i2vgen-xl folders with
@@ -98,8 +120,9 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-apm, samplers, enhance, product and loader phases (``product_launches``,
-``apm_launches`` and ``samplers_launches`` those phases' alone).
+apm, samplers, train, enhance, product and loader phases
+(``product_launches``, ``apm_launches``, ``samplers_launches`` and
+``train_launches`` those phases' alone).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
@@ -110,7 +133,13 @@ have records of their own, ``flash_attention_d512`` at (8, 9216, 512) and
 4-frame encode chunk; their ``library_ms`` is the first SDPA backend that
 takes D=512 (``sdpa_backend``), and their ``launches`` are the wrappers'
 ``launches_d512``.  K5's record adds ``vae_ms``, ``vae_bound_ms`` and
-``vae_share`` at the SD VAE's (2, 921600, 128).
+``vae_share`` at the SD VAE's (2, 921600, 128).  K1-K4 carry their backward
+(the VJP of the plain version in chunks, from the reference phase):
+``bwd_ms`` at a training shape (``bwd_shape``; K1 and K4 the SVD UNet's
+level 0, K3 level 0 with LN and residual, K2 stage 2's level 1),
+``bwd_chunks`` there and ``bwd_max_abs_err`` against autograd through the
+plain version; K5 and K6 have none (null).  ``train_launches`` are the
+train phase's.
 
 There is no CPU path: without CUDA the script exits non-zero before any
 result.  Every failed phase raises.
@@ -129,8 +158,8 @@ import sys
 import time
 from typing import Optional
 
-ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "apm", "samplers", "enhance",
-              "interpolate", "product", "loader")
+ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "apm", "samplers", "train",
+              "enhance", "interpolate", "product", "loader")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -1393,6 +1422,442 @@ def run_samplers(steps: int) -> dict:
     return totals
 
 
+# ------------------------------------------------------------- training ---
+
+# The train phase: the full-width SVD-XT UNet (the first chunk's network)
+# with remat, batch 1 of 25 frames of 72x128x4 latents, TRAIN_STEPS AdamW
+# steps on one batch with one generator seed, so that the sigmas and noise
+# repeat (the JAX package's descent check, tests/test_training.py).
+TRAIN_FRAMES = 25
+TRAIN_STEPS = 4
+TRAIN_EMA_DECAY = 0.9999
+TRAIN_KERNELS = ("flash_attention", "geglu_ff", "temporal_conv")
+# The tiny card-against-CPU training reference (f32, remat on): the loss
+# relative to |loss|; each gradient leaf relative to its own max |CPU
+# gradient|, or to REF_GRAD_FLOOR times the network's largest where that is
+# more (a bias that a one-channel GroupNorm removes has a gradient of f32
+# noise); the parameters after each AdamW step, the CPU's AdamW fed the
+# card's gradients, in learning rates beyond both sides' f32 rounding.
+REF_LOSS_TOL = 1e-4
+REF_GRAD_TOL = 1e-3
+REF_GRAD_FLOOR = 1e-5
+REF_ADAM_TOL = 1e-3
+REF_LR = 1e-3
+
+
+def _backward_of(fn, leaves, g):
+    """(gradients of fn(*leaves) for the cotangent g, the output, the graph
+    kept for more backward calls)."""
+    import torch
+
+    out = fn(*leaves)
+    live = [x for x in leaves if x is not None and x.requires_grad]
+    return torch.autograd.grad(out, live, g, retain_graph=True), out, live
+
+
+def _check_backward(name: str, fn, plain, leaves, g, tol: float, counter, *, rows=None,
+                    timed: bool = False) -> dict:
+    """fn (a kernel's autograd.Function on the card) against autograd through
+    its plain version on the same leaves: each gradient's max error relative
+    to its max |plain gradient|.  ``rows``: compare the first rows only (the
+    plain version's f32 scores at a full training shape would not fit), the
+    leaves being independent along their first axis.  ``timed``: also the
+    backward's device time and its chunks."""
+    import torch
+
+    before = counter.bwd_chunks
+    grads, out, live = _backward_of(fn, leaves, g)
+    chunks = counter.bwd_chunks - before
+    if rows is not None:
+        sub = [None if x is None else x[:rows].detach().requires_grad_(x.requires_grad)
+               for x in leaves]
+        ref, _, _ = _backward_of(plain, sub, g[:rows])
+        grads = [gr[:rows] for gr in grads]
+    else:
+        sub = [None if x is None else x.detach().requires_grad_(x.requires_grad) for x in leaves]
+        ref, _, _ = _backward_of(plain, sub, g)
+    err = max(_compare(f"{name} grad {i} {tuple(r.shape)} {r.dtype}", gr, r, tol)
+              for i, (gr, r) in enumerate(zip(grads, ref)))
+    rec = dict(bwd_max_abs_err=err, bwd_chunks=chunks)
+    if timed:
+        rec["bwd_ms"] = _time_ms(lambda: torch.autograd.grad(out, live, g, retain_graph=True),
+                                 reps=3)
+        rec["bwd_shape"] = list(leaves[0].shape)
+        print(f"  {name} backward time: {rec['bwd_ms']:.3f} ms in {chunks} chunks", flush=True)
+    return rec
+
+
+def check_backward() -> dict:
+    """Phase 4, training: each kernel's autograd.Function (K1, K2, K3 with and
+    without LN, K4 bare, pre, res and pre+res) against autograd through its
+    plain version, at a training shape in bf16 (timed: ``bwd_ms``,
+    ``bwd_chunks``) and in f32; K5 and K6 refuse inputs that require grad."""
+    import torch
+
+    from streamingt2v_torch.ops.flash_attention import (
+        flash_attention, flash_attention_packed, flash_attention_packed_reference,
+        flash_attention_reference)
+    from streamingt2v_torch.ops.fused_ff import geglu_ff, geglu_ff_reference
+    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
+    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
+
+    randn, gen = _randn_factory(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    recs = {}
+
+    def leaf(*shape, dtype=bf16, std=1.0, mean=0.0):
+        return randn(*shape, dtype=dtype, std=std, mean=mean).requires_grad_()
+
+    # K1: the SVD UNet's level-0 self-attention (25 frames, 5 heads), f32 smaller
+    for shape, dtype in (((125, 9216, 64), bf16), ((8, 2048, 64), f32)):
+        qkv = [leaf(*shape, dtype=dtype) for _ in range(3)]
+        rec = _check_backward(f"K1 {shape}", flash_attention, flash_attention_reference, qkv,
+                              randn(*shape, dtype=dtype), _tol(dtype), flash_attention,
+                              rows=4 if dtype == bf16 else None, timed=dtype == bf16)
+        recs.setdefault("flash_attention", rec)
+        del qkv
+    # K2: stage 2's level-1 geometry, 4 frames, 10 heads; f32 smaller
+    for (b, length, heads), dtype in (((4, 3600, 10), bf16), ((2, 1024, 2), f32)):
+        qkv = [leaf(b, length, heads * 64, dtype=dtype) for _ in range(3)]
+        rec = _check_backward(
+            f"K2 {(b, length, heads * 64)} {heads} heads",
+            lambda q, k, v: flash_attention_packed(q, k, v, num_heads=heads),
+            lambda q, k, v: flash_attention_packed_reference(q, k, v, heads), qkv,
+            randn(b, length, heads * 64, dtype=dtype), _tol(dtype), flash_attention_packed,
+            timed=dtype == bf16)
+        recs.setdefault("flash_attention_packed", rec)
+        del qkv
+    # K3: level 0 with LN and residual (the transformer blocks), level 1
+    # without (the kernel's other mode), f32 smaller
+    for n, c, ln, dtype in ((230400, 320, True, bf16), (57600, 640, False, bf16),
+                            (4096, 320, True, f32)):
+        inner = 4 * c
+        ops = [leaf(n, c, dtype=dtype), leaf(2 * inner, c, dtype=dtype, std=c ** -0.5),
+               leaf(2 * inner, dtype=f32, std=0.1), leaf(c, inner, dtype=dtype, std=inner ** -0.5),
+               leaf(c, dtype=f32, std=0.1),
+               leaf(c, dtype=f32, std=0.1, mean=1.0) if ln else None,
+               leaf(c, dtype=f32, std=0.1) if ln else None]
+        rec = _check_backward(
+            f"K3 {(n, c)} inner {inner} {'LN+residual' if ln else 'no LN/residual'}",
+            lambda x, w1, b1, w2, b2, s, sb: geglu_ff(x, w1, b1, w2, b2, ln_scale=s, ln_bias=sb,
+                                                      residual=ln),
+            lambda *a: geglu_ff_reference(*a, ln), ops, randn(n, c, dtype=dtype), _tol(dtype),
+            geglu_ff, timed=(n, ln, dtype) == (230400, True, bf16))
+        recs.setdefault("geglu_ff", rec)
+        del ops
+    # K4: the UNet's level-0 temporal conv (1 clip of 25 frames) in its four
+    # variants, the timed one pre+res as the VideoResBlock's out_conv; f32 smaller
+    for (b, t, s, c), pre, res, dtype in (((1, 25, 9216, 320), True, True, bf16),
+                                          ((1, 25, 9216, 320), False, False, bf16),
+                                          ((1, 25, 9216, 320), True, False, bf16),
+                                          ((1, 25, 9216, 320), False, True, bf16),
+                                          ((2, 8, 576, 64), True, True, f32)):
+        ops = [leaf(b, t, s, c, dtype=dtype), leaf(3, c, c, dtype=dtype, std=(3 * c) ** -0.5),
+               leaf(c, dtype=f32, std=0.1),
+               leaf(b, t, s, c, dtype=dtype) if res else None,
+               torch.rand((b, t), generator=gen, device="cuda").requires_grad_() if res else None,
+               leaf(b, c, dtype=f32, std=0.1, mean=1.0) if pre else None,
+               leaf(b, c, dtype=f32, std=0.1) if pre else None]
+        rec = _check_backward(
+            f"K4 {(b, t, s, c)} {'pre' if pre else ''}{'+' if pre and res else ''}"
+            f"{'res' if res else ''}{'' if pre or res else 'bare'}",
+            temporal_conv, temporal_conv_reference, ops, randn(b, t, s, c, dtype=dtype),
+            _tol(dtype), temporal_conv, timed=(pre, res, dtype) == (True, True, bf16))
+        recs.setdefault("temporal_conv", rec)
+        del ops
+    # K5 and K6 have no backward: under grad they refuse, without it they run
+    x = leaf(2, 4096, 64)
+    scale, bias = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    qkv = [leaf(2 * 8, 64, 128) for _ in range(3)]
+    for name, call in (("K5", lambda: fused_group_norm(x, scale, bias, num_groups=32)),
+                       ("K6", lambda: fused_temporal_attention(*qkv, batch=2, frames_q=8,
+                                                               frames_kv=8, num_heads=2))):
+        try:
+            call()
+        except RuntimeError as e:
+            print(f"  {name} under grad refuses: {e}", flush=True)
+        else:
+            raise AssertionError(f"{name} returned an output under grad (it has no backward)")
+        with torch.no_grad():
+            if not torch.isfinite(call()).all():
+                raise AssertionError(f"{name} without grad gave non-finite values")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _train_batch(frames: int, height: int, width: int, context_dim: int, adm: int, device,
+                 seed: int = 0) -> dict:
+    """Latents and conditioning drawn with numpy from ``seed``, in the order
+    tests/test_training.py draws them: latents, concat, crossattn, vector."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    shape = (1, frames, height, width, 4)
+
+    def draw(*s):
+        return torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+
+    latents = draw(*shape)
+    cond = {"concat": draw(*shape), "crossattn": draw(1, frames, 1, context_dim),
+            "vector": draw(1, frames, adm)}
+    return {"latents": latents, "cond": cond}
+
+
+def _grad_errors(got: dict, ref: dict) -> float:
+    """The largest gradient error over the leaves, each against its bound
+    (REF_GRAD_TOL of its own max, or REF_GRAD_FLOOR of the largest); raises
+    past it.  ``got`` on the card, ``ref`` on the CPU."""
+    top = max(float(g.abs().max()) for g in ref.values() if g is not None)
+    worst = 0.0
+    for name, r in ref.items():
+        bound = max(REF_GRAD_TOL * float(r.abs().max()), REF_GRAD_FLOOR * top)
+        err = float((got[name].cpu() - r).abs().max())
+        if not err <= bound:
+            raise AssertionError(f"gradient of {name}: card vs CPU {err:.3e} > {bound:.3e}")
+        worst = max(worst, err / max(bound, 1e-30))
+    return worst
+
+
+def check_train_reference() -> float:
+    """Phase 4, training: the tiny first-chunk VideoUNet (remat on, f32,
+    every constant drawn by ``_live_weights_``) at 32x64 latents, where K1,
+    K3 and K4 launch, trained for 2 AdamW steps on the card and on the CPU
+    with the same weights and draws: the loss and every parameter's gradient
+    of each step, and the parameters after each step (the CPU's AdamW fed
+    the card's gradients)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from streamingt2v_torch.config import VideoUNetConfig
+    from streamingt2v_torch.diffusion.loss import DiffusionLossConfig
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.video_unet import VideoUNet
+    from streamingt2v_torch.models.wrappers import openai_wrapper
+    from streamingt2v_torch.ops.flash_attention import flash_attention
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv
+    from streamingt2v_torch.parallel.train import make_train_step
+
+    cfg = dataclasses.replace(VideoUNetConfig.tiny(controlnet_mode=False), use_checkpoint=True)
+    gpu = VideoUNet(cfg, device="cuda")
+    init_random_(gpu, torch.Generator("cuda").manual_seed(0))
+    _live_weights_(gpu, seed=3)
+    cpu = VideoUNet(cfg)
+    cpu.load_state_dict(gpu.state_dict())
+    loss_cfg = DiffusionLossConfig(offset_noise_level=0.05)
+    steps = {}
+    for side, m in (("card", gpu), ("host", cpu)):
+        m.requires_grad_(True)
+        steps[side] = make_train_step(lambda m=m: openai_wrapper(m), loss_cfg,
+                                     torch.optim.AdamW(m.parameters(), lr=REF_LR,
+                                                       weight_decay=1e-4))
+    frames, height, width = 5, 32, 64
+    batch = _train_batch(frames, height, width, cfg.context_dim, cfg.adm_in_channels, "cpu",
+                         seed=5)
+    to_gpu = {"latents": batch["latents"].cuda(),
+              "cond": {k: v.cuda() for k, v in batch["cond"].items()}}
+    rng = np.random.RandomState(6)
+    worst = 0.0
+    chunks = {fn.__name__: fn.bwd_chunks for fn in (flash_attention, geglu_ff, temporal_conv)}
+    _reset_launches()
+    for i in range(2):
+        draws = dict(sigmas=torch.from_numpy(np.exp(-1.2 + 1.2 * rng.randn(1)).astype(np.float32)),
+                     noise=torch.from_numpy(rng.randn(*batch["latents"].shape).astype(np.float32)),
+                     offset=torch.from_numpy(rng.randn(1, 1, 1, 1, 4).astype(np.float32)))
+        got = steps["card"].backward(to_gpu, **{k: v.cuda() for k, v in draws.items()})
+        ref = steps["host"].backward(batch, **draws)
+        rel = abs(got.item() - ref.item()) / abs(ref.item())
+        if not (math.isfinite(got.item()) and rel <= REF_LOSS_TOL):
+            raise AssertionError(f"tiny training step {i}: loss {got.item()} vs {ref.item()}")
+        grad_ratio = _grad_errors({n: p.grad for n, p in gpu.named_parameters()},
+                                  {n: p.grad for n, p in cpu.named_parameters()})
+        for pc, pg in zip(cpu.parameters(), gpu.parameters()):
+            pc.grad.copy_(pg.grad.cpu())
+        steps["card"].update()
+        steps["host"].update()
+        adam = 0.0
+        for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+            a, b = pg.detach().cpu().double(), pc.detach().double()
+            err = float(((a - b).abs() - 2 * np.spacing(b.abs().float().numpy())).max()) / REF_LR
+            if not err <= REF_ADAM_TOL:
+                raise AssertionError(f"tiny training step {i}, {name}: AdamW differs by "
+                                     f"{err:.3e} learning rates")
+            adam = max(adam, err)
+        worst = max(worst, grad_ratio)
+        print(f"  tiny training step {i} (f32, remat, 1x{frames}x{height}x{width}), card vs "
+              f"CPU: loss {got.item():.6f} vs {ref.item():.6f} (rel {rel:.2e}, tol "
+              f"{REF_LOSS_TOL:g}); worst gradient leaf at {grad_ratio:.3f} of its bound; "
+              f"AdamW within {max(adam, 0.0):.2e} learning rates", flush=True)
+    launches = _stage1_launches()
+    bwd = {fn.__name__: fn.bwd_chunks - chunks[fn.__name__]
+           for fn in (flash_attention, geglu_ff, temporal_conv)}
+    print(f"  tiny training launches {launches}, backward chunks {bwd}", flush=True)
+    if min(launches.values()) <= 0 or min(bwd.values()) <= 0:
+        raise AssertionError(f"the tiny training steps skipped a kernel or a backward: "
+                             f"{launches} {bwd}")
+    return worst
+
+
+def _count_remat_launches():
+    """Patch ``unet_blocks._remat`` to add up the launches of TRAIN_KERNELS
+    made inside remat'd blocks (``inside``, during the forward; the backward's
+    recompute calls the blocks without it); returns (inside, restore)."""
+    from streamingt2v_torch.models import unet_blocks
+
+    inside = dict.fromkeys(TRAIN_KERNELS, 0)
+    remat = unet_blocks._remat
+
+    def counted(block, forward, *args):
+        before = _stage1_launches()
+        out = remat(block, forward, *args)
+        for k, n in _stage1_launches().items():
+            inside[k] += n - before[k]
+        return out
+
+    unet_blocks._remat = counted
+    return inside, lambda: setattr(unet_blocks, "_remat", remat)
+
+
+def run_train(steps: int) -> dict:
+    """Phase 8: the full-width SVD-XT UNet (``controlnet_mode`` and APM off,
+    ``use_checkpoint`` on, bf16, random weights from seed 0) through
+    ``openai_wrapper`` and ``DiffusionEngine`` (AdamW 1e-4, weight decay
+    1e-4, EMA 0.9999) for ``steps`` steps on one 25-frame 576x1024 clip with
+    one generator seed: per-step seconds (forward+backward, then
+    optimizer+EMA, between device syncs), loss, peak memory, K1/K3/K4
+    launches against a no-grad forward's, backward chunks, and the share of
+    parameters each update changed."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.diffusion.denoiser import denoise
+    from streamingt2v_torch.diffusion.engine import DiffusionEngine
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.video_unet import VideoUNet
+    from streamingt2v_torch.models.wrappers import openai_wrapper
+    from streamingt2v_torch.ops.flash_attention import flash_attention
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    base = PipelineConfig()
+    ucfg = dataclasses.replace(base.unet, controlnet_mode=False, use_apm=False,
+                               use_checkpoint=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    unet = VideoUNet(ucfg, device=dev, dtype=torch.bfloat16)
+    init_random_(unet, torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in unet.parameters())
+    engine = DiffusionEngine(unet, openai_wrapper, ema_decay=TRAIN_EMA_DECAY)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    h, w = base.height // 8, base.width // 8
+    batch = _train_batch(TRAIN_FRAMES, h, w, ucfg.context_dim, ucfg.adm_in_channels, dev)
+    print(f"  SVD-XT UNet: {n_params} parameters ({n_params * 2 / 2**30:.2f} GiB bf16), built "
+          f"with its EMA in {time.perf_counter() - t0:.1f} s, resident {resident / 2**30:.2f} "
+          f"GiB; batch 1 x {TRAIN_FRAMES} x {h} x {w} x 4 latents, AdamW lr 1e-4 wd 1e-4, EMA "
+          f"{TRAIN_EMA_DECAY}, {steps} steps on one batch and one generator seed", flush=True)
+
+    # one no-grad forward of the same UNet: the launches a training step doubles
+    _reset_launches()
+    with torch.inference_mode():
+        sigma = torch.ones(1, device=dev)
+        denoise(openai_wrapper(unet), batch["latents"], sigma, batch["cond"])
+    forward = _stage1_launches()
+    print(f"  one no-grad forward launches {forward}", flush=True)
+
+    inside, restore = _count_remat_launches()
+    to_q = unet.input_0_attn.block_0.attn1.to_q.kernel
+    conv = unet.input_0_res.time_stack.in_conv.kernel
+    counters = (flash_attention, geglu_ff, temporal_conv)
+    losses, records = [], []
+    try:
+        for step in range(steps):
+            gen = torch.Generator(dev).manual_seed(1)
+            chunks = {fn.__name__: fn.bwd_chunks for fn in counters}
+            for k in inside:
+                inside[k] = 0
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = engine.backward(batch, gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            launches = _stage1_launches()
+            grads = {"to_q": float(to_q.grad.abs().max()), "conv": float(conv.grad.abs().max())}
+            before = [p.detach().clone() for p in unet.parameters()]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t2 = time.perf_counter()
+            engine.apply_updates()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            opt_extra = torch.cuda.max_memory_allocated() - base
+            changed = sum(int((p.detach() != b).sum()) for p, b in zip(unet.parameters(), before))
+            del before
+            losses.append(loss.item())
+            rec = dict(loss=losses[-1], fwd_bwd_s=t1 - t0, opt_ema_s=t3 - t2,
+                       peak_gib=peak / 2**30, opt_extra_gib=opt_extra / 2**30, launches=launches,
+                       inside=dict(inside), changed=changed / n_params, grads=grads,
+                       bwd_chunks={fn.__name__: fn.bwd_chunks - chunks[fn.__name__]
+                                   for fn in counters})
+            records.append(rec)
+            print(f"  step {step + 1}: loss {rec['loss']:.6f}; forward+backward "
+                  f"{rec['fwd_bwd_s']:.3f} s, optimizer+EMA {rec['opt_ema_s']:.3f} s; peak "
+                  f"{rec['peak_gib']:.2f} GiB in the forward+backward, the update "
+                  f"{rec['opt_extra_gib']:.2f} GiB above its start; resident "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; launches {launches} (inside remat'd blocks "
+                  f"{rec['inside']}); backward chunks {rec['bwd_chunks']}; max |grad| level-0 "
+                  f"to_q {grads['to_q']:.3e}, temporal conv {grads['conv']:.3e}; parameters "
+                  f"changed {100 * rec['changed']:.4f}%", flush=True)
+    finally:
+        restore()
+    later = records[1:]
+    print(f"  seconds per step: first {records[0]['fwd_bwd_s'] + records[0]['opt_ema_s']:.3f}, "
+          f"then {statistics.mean(r['fwd_bwd_s'] + r['opt_ema_s'] for r in later):.3f} "
+          f"(forward+backward {statistics.mean(r['fwd_bwd_s'] for r in later):.3f}, "
+          f"optimizer+EMA {statistics.mean(r['opt_ema_s'] for r in later):.3f}); resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+          f"{max(r['peak_gib'] for r in records):.2f} GiB; losses {losses}", flush=True)
+
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the training loss is not finite and descending: {losses}")
+    # zero-initialised output layers hold every gradient upstream of them at
+    # zero until they move: the UNet's out_conv in step 1, the transformers'
+    # proj_out and the time stacks' out_conv (behind it) in step 2; from step
+    # 3 the gradients reach to_q through K1 and the time stack's in_conv
+    # through K4 (its out_conv's dx, its in_conv's dw)
+    if not (records[2]["grads"]["to_q"] > 0 and records[2]["grads"]["conv"] > 0):
+        raise AssertionError(f"step 3 gave no gradient across K1 or K4: {records[2]['grads']}")
+    for step, rec in enumerate(records):
+        outside = {k: forward[k] - rec["inside"][k] for k in TRAIN_KERNELS}
+        if any(outside.values()):
+            print(f"  step {step + 1}: launched outside remat'd blocks (counted once): "
+                  f"{outside}", flush=True)
+        want = {k: forward[k] + rec["inside"][k] for k in TRAIN_KERNELS}
+        if rec["launches"] != want or min(want.values()) <= 0:
+            raise AssertionError(f"step {step + 1}: launches {rec['launches']}, want the "
+                                 f"forward's plus the recompute's {want}")
+        if min(rec["bwd_chunks"].values()) <= 0:
+            raise AssertionError(f"step {step + 1}: a kernel's backward did not run: "
+                                 f"{rec['bwd_chunks']}")
+    totals = dict.fromkeys(KERNEL_META, 0)
+    for rec in records:
+        for k, n in rec["launches"].items():
+            totals[k] += n
+    return totals
+
+
 def run_enhance(steps: int) -> dict:
     """Phase 8: full-width stage 2 through every kernel of its path."""
     import dataclasses
@@ -2026,7 +2491,7 @@ KERNEL_META = {
 def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  phase_launches: Optional[dict] = None) -> list:
     """The kernels JSON line's entries: one per KERNEL_META row, with the
-    kernels phase's record (absent keys null), the launches of every
+    kernels and reference phases' records (absent keys null), the launches of every
     pipeline phase, the product's alone and, as ``<phase>_launches``, those
     of each phase in ``phase_launches`` ({phase: {kernel: launches}})."""
     kernels = []
@@ -2034,6 +2499,7 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
         r = records.get(name, {})
         extra = {k: v for k, v in r.items()
                  if k in ("bare_ms", "sdpa_backend")
+                 or k in ("bwd_max_abs_err", "bwd_shape")
                  or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_"))}
         if "stage1" in r:   # K6 at the stage-1 geometry
             extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
@@ -2042,6 +2508,7 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
                             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
                             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
                             library_ms=r.get("library_ms"), share=r.get("share"),
+                            bwd_ms=r.get("bwd_ms"), bwd_chunks=r.get("bwd_chunks"),
                             product_launches=product_launches[name],
                             **{f"{p}_launches": n[name]
                                for p, n in (phase_launches or {}).items()},
@@ -2119,12 +2586,17 @@ def main(argv=None) -> int:
         check_sampler_references()
         check_enhance_reference()
         check_vfi_reference()
+        for name, rec in check_backward().items():
+            records.setdefault(name, {}).update(rec)
+        check_train_reference()
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict.fromkeys(KERNEL_META, 0)
-    phase_launches = {p: dict.fromkeys(KERNEL_META, 0) for p in ("product", "apm", "samplers")}
+    phase_launches = {p: dict.fromkeys(KERNEL_META, 0)
+                      for p in ("product", "apm", "samplers", "train")}
     runs = [("slice", lambda: run_slice(args.first_steps, args.ar_steps)),
             ("apm", lambda: run_apm(APM_STEPS)),
             ("samplers", lambda: run_samplers(SAMPLER_STEPS)),
+            ("train", lambda: run_train(TRAIN_STEPS)),
             ("enhance", lambda: run_enhance(args.enhance_steps)),
             ("interpolate", lambda: run_interpolate() or {}),
             ("product", lambda: run_product(args.enhance_steps, args.product_frames)),

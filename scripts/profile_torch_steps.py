@@ -9,6 +9,7 @@ one NVIDIA GPU.
     python3 scripts/profile_torch_steps.py --stages 2,vae,vfi
     python3 scripts/profile_torch_steps.py --stages 1 --stage1-routing off,on
     python3 scripts/profile_torch_steps.py --stages vae --root DIR   # another checkout
+    python3 scripts/profile_torch_steps.py --stages train    # one training step
 
 Stage 1 runs ``image_to_video`` for 43 frames (the first chunk with one
 sampler step, then one AR chunk with two) and profiles the AR chunk's last
@@ -22,8 +23,13 @@ its SD VAE (the bf16 copy, under the enhance routing) at the chunk sizes
 ``_vae_chunk_frames`` gives at 720p: a 2-frame decode and a 4-frame
 encode.  "vfi" builds stage 3 and profiles one ``interpolate_pair`` call
 (flip-TTA) of the pipeline's pair batch at 720p, with cuDNN's TF32 off (as
-``chip_smoke.py`` runs) and on (PyTorch's default).  Earlier calls warm the
-kernels and libraries up.  ``--root``
+``chip_smoke.py`` runs) and on (PyTorch's default).  "train" profiles one
+training step of the full-width SVD-XT UNet as ``chip_smoke.py``'s train
+phase takes it, split into the forward, the blocks' remat recompute, each
+kernel's backward, the rest of autograd's backward and the optimizer and
+EMA update (``record_function`` ranges; a kernel counts under the range
+of the op that launched it).  Earlier calls warm the kernels and libraries
+up.  ``--root``
 imports the port from another checkout (e.g. an unpacked parent commit).
 ``torch.profiler`` (CUPTI) gives each kernel's device time; the classes
 are the port's six kernels, indexing gathers (the VFI's warp), cuBLAS
@@ -78,11 +84,19 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return out, device_ms(prof), wall
+
+
+def device_ms(prof) -> dict:
+    """{kernel: ms} of the device events, without the device spans of
+    ``record_function`` ranges (user annotations: no kernels of their own)."""
+    import torch
+
     by_name = defaultdict(float)
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             by_name[evt.key] += evt.self_device_time_total / 1e3
-    return out, dict(by_name), wall
+    return dict(by_name)
 
 
 def report(title: str, by_name: dict, wall: float) -> None:
@@ -229,7 +243,143 @@ def profile_stage3() -> None:
     torch.cuda.empty_cache()
 
 
-STAGES = ("1", "2", "vae", "vfi")
+BACKWARD_OTHER = "backward, other ops"
+
+
+def _attributed(prof, labels: tuple) -> dict:
+    """{label: {kernel: ms}}: each kernel under the innermost of ``labels``
+    (``record_function`` ranges) around the CPU op that launched it, else
+    under BACKWARD_OTHER (autograd runs the backward's ops on a thread of
+    its own, outside the main thread's ranges)."""
+    import torch
+
+    out = defaultdict(lambda: defaultdict(float))
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or not evt.kernels:
+            continue
+        node, label = evt, BACKWARD_OTHER
+        while node is not None:
+            if node.name in labels:
+                label = node.name
+                break
+            node = node.cpu_parent
+        for k in evt.kernels:
+            if not (evt.is_user_annotation and k.name == evt.name):   # the range's span
+                out[label][k.name] += k.duration / 1e3
+    return out
+
+
+def profile_train() -> None:
+    """One training step of the full-width SVD-XT UNet (remat on, bf16,
+    batch 1 of 25 frames at 576x1024), as ``chip_smoke.py``'s train phase
+    takes it (TF32 off), after one step unprofiled, in three profiled
+    windows: the forward (the loss); the backward, split into the blocks'
+    remat recompute and each kernel's backward (the chunked VJP of its
+    plain version), ``record_function`` ranges whose kernels count under
+    the range around the op that launched them, and the rest of the
+    window's device time (autograd's other backward ops); then the
+    optimizer and EMA update."""
+    import torch
+
+    from chip_smoke import TRAIN_EMA_DECAY, TRAIN_FRAMES, _train_batch
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.diffusion.engine import DiffusionEngine
+    from streamingt2v_torch.diffusion.loss import DiffusionLossConfig, diffusion_loss
+    from streamingt2v_torch.models import unet_blocks
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.video_unet import VideoUNet
+    from streamingt2v_torch.models.wrappers import openai_wrapper
+    from streamingt2v_torch.ops import flash_attention, fused_ff, temporal_conv
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    base = PipelineConfig()
+    ucfg = dataclasses.replace(base.unet, controlnet_mode=False, use_apm=False,
+                               use_checkpoint=True)
+    unet = VideoUNet(ucfg, device=dev, dtype=torch.bfloat16)
+    init_random_(unet, torch.Generator(dev).manual_seed(0))
+    engine = DiffusionEngine(unet, openai_wrapper, ema_decay=TRAIN_EMA_DECAY)
+    batch = _train_batch(TRAIN_FRAMES, base.height // 8, base.width // 8, ucfg.context_dim,
+                         ucfg.adm_in_channels, dev)
+    engine.train_step(batch, torch.Generator(dev).manual_seed(1))
+
+    recompute = "remat recompute"
+    labels = {flash_attention: ("flash_attention_backward", "K1 backward"),
+              fused_ff: ("geglu_ff_backward", "K3 backward"),
+              temporal_conv: ("temporal_conv_backward", "K4 backward")}
+    saved = [(mod, fn, getattr(mod, fn)) for mod, (fn, _) in labels.items()]
+    saved += [(cls, "_forward", cls._forward) for cls in (unet_blocks.UNetVideoResBlock,
+                                                          unet_blocks.SpatialVideoTransformer)]
+    in_backward = [False]
+
+    def ranged(label, fn, when=lambda: True):
+        def wrapper(*args, **kwargs):
+            if not when():
+                return fn(*args, **kwargs)
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    for mod, (fn, label) in labels.items():
+        setattr(mod, fn, ranged(label, getattr(mod, fn)))
+    for cls in (unet_blocks.UNetVideoResBlock, unet_blocks.SpatialVideoTransformer):
+        cls._forward = ranged(recompute, cls._forward, lambda: in_backward[0])
+    gen = torch.Generator(dev).manual_seed(1)
+    parts, totals = {}, {}
+    try:
+        engine.optimizer.zero_grad(set_to_none=True)
+        loss, parts["forward"], totals["forward"] = profiled(lambda: diffusion_loss(
+            DiffusionLossConfig(), openai_wrapper(unet), batch["latents"], batch["cond"], gen))
+        in_backward[0] = True
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            totals["backward"] = (time.perf_counter() - t0) * 1e3
+        in_backward[0] = False
+        _, parts["optimizer + EMA"], totals["optimizer + EMA"] = profiled(engine.apply_updates)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    # the backward window: the labelled ranges' kernels, and the rest of the
+    # window's device time (key_averages) as autograd's other backward ops
+    labelled = _attributed(prof, (recompute,) + tuple(label for _, label in labels.values()))
+    labelled.pop(BACKWARD_OTHER, None)
+    rest = device_ms(prof)
+    for by_name in labelled.values():
+        for name, ms in by_name.items():
+            rest[name] = rest.get(name, 0.0) - ms
+    if min(rest.values(), default=0.0) < -1.0:
+        raise RuntimeError("the backward's ranges hold more device time than its window")
+    parts.update(labelled)
+    parts[BACKWARD_OTHER] = rest
+    wall = sum(totals.values())
+    total = sum(sum(v.values()) for v in parts.values())
+    print(f"train, one step of the SVD-XT UNet (bf16, remat, 1 x {TRAIN_FRAMES} x "
+          f"{base.height // 8} x {base.width // 8}; loss {loss.item():.6f}): device busy "
+          f"{total:.1f} ms of {wall:.1f} ms wall ({100 * total / wall:.1f}%: forward "
+          f"{totals['forward']:.1f}, backward {totals['backward']:.1f}, optimizer + EMA "
+          f"{totals['optimizer + EMA']:.1f} ms, each between syncs)", flush=True)
+    if total <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    for label, by_name in sorted(parts.items(), key=lambda kv: -sum(kv[1].values())):
+        ms = sum(by_name.values())
+        print(f"  {label}: {ms:.1f} ms ({100 * ms / total:.1f}%)", flush=True)
+        by_class = defaultdict(float)
+        for name, t in by_name.items():
+            by_class[classify(name)] += t
+        for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print(f"    {cls}: {t:.1f} ms ({100 * t / ms:.1f}%)", flush=True)
+        for t, name in sorted(((t, n) for n, t in by_name.items()), reverse=True)[:3]:
+            print(f"      {t:.1f} ms {name[:100]}", flush=True)
+    del engine, unet
+    torch.cuda.empty_cache()
+
+
+STAGES = ("1", "2", "vae", "vfi", "train")
 
 
 def main() -> int:
@@ -267,6 +417,8 @@ def main() -> int:
         profile_stage2_vae()
     if "vfi" in stages:
         profile_stage3()
+    if "train" in stages:
+        profile_train()
     return 0
 
 

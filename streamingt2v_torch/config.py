@@ -137,7 +137,9 @@ class VideoUNetConfig:
     merging_mode: str = "attention_cross_attention"
     controlnet_mode: bool = True
     use_apm: bool = False
-    use_checkpoint: bool = False  # activation remat (training only; not ported)
+    # remat: the video res blocks and spatial video transformers recompute their
+    # activations in the backward (only under grad: training)
+    use_checkpoint: bool = False
     dtypes: DTypePolicy = field(default_factory=DTypePolicy)
 
     @property

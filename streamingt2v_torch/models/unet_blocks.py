@@ -16,6 +16,12 @@ conv (K4) from ``_time_conv``, flash attention (K1, or K2 under the
 ``flash_packed`` routing) through the attention dispatcher, and, under the
 ``temporal_attention`` routing, K6 from the temporal self-attentions, each
 only for tensors on a CUDA device and inside its gate.
+
+``UNetVideoResBlock`` and ``SpatialVideoTransformer`` built with
+``use_checkpoint`` recompute their activations in the backward
+(``torch.utils.checkpoint``, non-reentrant) whenever grad is on: the
+blocks the JAX package wraps in ``nn.remat`` under the same flag
+(``streamingt2v_tpu/models/video_unet.py:93-99``).  Inference is unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from streamingt2v_torch.models.layers import (
     Conv, Conv1D, Dense, TimeConv, _param, norm_pair, norm_params, silu_f32)
@@ -223,6 +230,15 @@ def blend_with_images(mix_factor, spatial, temporal, image_only_indicator):
     return alpha * spatial + (1.0 - alpha) * temporal
 
 
+def _remat(block: nn.Module, forward, *args):
+    """``forward(*args)``, recomputed in the backward when ``block`` remats
+    and grad is on.  The blocks draw no random numbers, so no RNG state is
+    kept for the recompute."""
+    if block.use_checkpoint and torch.is_grad_enabled():
+        return checkpoint(forward, *args, use_reentrant=False, preserve_rng_state=False)
+    return forward(*args)
+
+
 class SpatialVideoTransformer(nn.Module):
     """Spatial transformer + parallel temporal stack per depth.  Input
     (B, T, H, W, C); context (B, T, L, D).  The temporal blocks attend to
@@ -232,10 +248,12 @@ class SpatialVideoTransformer(nn.Module):
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, use_apm: bool = False,
                  apm_tokens: int = 17, disable_temporal_crossattention: bool = False,
-                 max_time_embed_period: float = 10000.0, *, device=None, dtype=None):
+                 max_time_embed_period: float = 10000.0, use_checkpoint: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         c, inner = channels, heads * dim_head
+        self.use_checkpoint = use_checkpoint
         self.depth = depth
         self.disable_temporal_crossattention = disable_temporal_crossattention
         self.max_time_embed_period = max_time_embed_period
@@ -254,6 +272,9 @@ class SpatialVideoTransformer(nn.Module):
         self.proj_out = Dense(inner, c, zero_init=True, **fk)
 
     def forward(self, x, context, image_only_indicator):
+        return _remat(self, self._forward, x, context, image_only_indicator)
+
+    def _forward(self, x, context, image_only_indicator):
         b, t, hh, ww, c = x.shape
         s = hh * ww
         h = group_norm(x.reshape(b * t, hh, ww, c), *norm_pair(self, "norm"), eps=1e-6)
@@ -372,15 +393,20 @@ class UNetVideoResBlock(nn.Module):
     rows) is the temporal block's scaled residual."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
-                 video_kernel_size: Tuple[int, int, int] = (3, 1, 1), *, device=None, dtype=None):
+                 video_kernel_size: Tuple[int, int, int] = (3, 1, 1),
+                 use_checkpoint: bool = False, *, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
+        self.use_checkpoint = use_checkpoint
         self.spatial = UNetResBlock(in_channels, out_channels, emb_dim, **fk)
         self.time_mixer_mix_factor = _param((1,), device, dtype)
         self.time_stack = TemporalUNetResBlock(out_channels, out_channels, emb_dim,
                                                video_kernel_size, **fk)
 
     def forward(self, x, emb, image_only_indicator):
+        return _remat(self, self._forward, x, emb, image_only_indicator)
+
+    def _forward(self, x, emb, image_only_indicator):
         b, t, hh, ww, c = x.shape
         h = self.spatial(x.reshape(b * t, hh, ww, c), emb.reshape(b * t, -1))
         h = h.reshape(b, t, hh, ww, h.shape[-1])

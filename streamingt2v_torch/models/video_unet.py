@@ -34,7 +34,7 @@ def make_transformer(cfg: VideoUNetConfig, ch: int, *, use_apm: bool, apm_tokens
         depth=cfg.transformer_depth, context_dim=cfg.context_dim, use_apm=use_apm,
         apm_tokens=apm_tokens,
         disable_temporal_crossattention=cfg.disable_temporal_crossattention,
-        max_time_embed_period=cfg.max_period, **fk)
+        max_time_embed_period=cfg.max_period, use_checkpoint=cfg.use_checkpoint, **fk)
 
 
 def embed(m: nn.Module, cfg: VideoUNetConfig, t_cont, y, b: int, t: int, dtype) -> torch.Tensor:
@@ -66,7 +66,8 @@ def add_encoder(m: nn.Module, cfg: VideoUNetConfig, emb_dim: int, *, use_apm: bo
         for _ in range(cfg.num_res_blocks):
             in_ch, ch = ch, mult * mc
             m.add_module(f"input_{blk}_res",
-                         UNetVideoResBlock(in_ch, ch, emb_dim, cfg.video_kernel_size, **fk))
+                         UNetVideoResBlock(in_ch, ch, emb_dim, cfg.video_kernel_size,
+                                           cfg.use_checkpoint, **fk))
             if ds in cfg.attention_resolutions:
                 m.add_module(f"input_{blk}_attn", make_transformer(
                     cfg, ch, use_apm=use_apm, apm_tokens=apm_tokens, fk=fk))
@@ -77,10 +78,12 @@ def add_encoder(m: nn.Module, cfg: VideoUNetConfig, emb_dim: int, *, use_apm: bo
             m.add_module(f"input_{blk}_down", Downsample(ch, ch, **fk))
             chans.append(ch)
             blk += 1
-    m.add_module("middle_res_0", UNetVideoResBlock(ch, ch, emb_dim, cfg.video_kernel_size, **fk))
+    m.add_module("middle_res_0", UNetVideoResBlock(ch, ch, emb_dim, cfg.video_kernel_size,
+                                                   cfg.use_checkpoint, **fk))
     m.add_module("middle_attn", make_transformer(cfg, ch, use_apm=use_apm,
                                                  apm_tokens=apm_tokens, fk=fk))
-    m.add_module("middle_res_1", UNetVideoResBlock(ch, ch, emb_dim, cfg.video_kernel_size, **fk))
+    m.add_module("middle_res_1", UNetVideoResBlock(ch, ch, emb_dim, cfg.video_kernel_size,
+                                                   cfg.use_checkpoint, **fk))
     return chans
 
 
@@ -131,7 +134,7 @@ class VideoUNet(nn.Module):
             for i in range(cfg.num_res_blocks + 1):
                 in_ch, ch = ch + chans.pop(), mc * mult
                 self.add_module(f"output_{blk}_res", UNetVideoResBlock(
-                    in_ch, ch, emb_dim, cfg.video_kernel_size, **fk))
+                    in_ch, ch, emb_dim, cfg.video_kernel_size, cfg.use_checkpoint, **fk))
                 if ds_out in cfg.attention_resolutions:
                     self.add_module(f"output_{blk}_attn",
                                     make_transformer(cfg, ch, use_apm=cfg.use_apm,

@@ -26,15 +26,26 @@ warp 64 of the 512 output columns.  f32 runs on the FMA units in full f32
 zero-padded to 64 (``pad_head_dim``), with the scale of the true head dim.
 Each wrapper counts its launches (``launches``) and, apart, those of the
 bf16 D=512 instance (``launches_d512``).
+
+Gradients: on the card each wrapper is a ``torch.autograd.Function`` whose
+forward launches the kernel and saves q, k and v, and whose backward is the
+VJP of the plain version (the JAX package's ``custom_vjp``: its backward
+differentiates ``_attention_reference`` at ``:155``), with f32 scores, over
+chunks of the batch*head axis that keep one chunk's probabilities and their
+gradient within ``BWD_CHUNK_BYTES`` (``flash_attention_backward``).  Each
+wrapper counts the chunks its backward ran (``bwd_chunks``).  On the CPU
+the plain version is returned and autograd differentiates it.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from streamingt2v_torch.ops import _native
+from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES
 
 _HEAD_DIMS = (64, 512)
 # the JAX package's cap on the packed lane width (PACKED_MAX_LANES)
@@ -67,25 +78,47 @@ def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return tuple(torch.nn.functional.pad(t, (0, kd - d)) for t in (q, k, v))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Softmax attention over (B*H, L, D).  CPU tensors take the plain
-    version; CUDA tensors launch K1 (or raise)."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention: tensors must share one CUDA device, got {q.device}")
-    if q.dtype not in _native.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: f32 or bf16 of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 or k.shape[0] != q.shape[0] \
-            or k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
+def backward_chunk_rows(lq: int, lk: int) -> int:
+    """Batch*head rows per backward chunk: as many as keep two f32 (Lq, Lk)
+    matrices a row within ``BWD_CHUNK_BYTES``, at least one."""
+    return max(1, BWD_CHUNK_BYTES // (2 * 4 * lq * lk))
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                             chunk: Optional[int] = None) -> tuple:
+    """The VJP of ``flash_attention_reference`` at (q, k, v) for the
+    cotangent g, over (B*H, L, D) in chunks of ``chunk`` batch*head rows
+    (``backward_chunk_rows`` unless given): f32 scores, the gradients in the
+    inputs' dtypes.  Returns (dq, dk, dv, chunks run).
+
+    Per chunk: P = softmax(q k^T / sqrt(d)); dv = P^T g; dP = g v^T;
+    dS = P * (dP - rowsum(g * P v)) (rowsum(dP * P) without a third
+    (Lq, Lk) matrix); dq = dS k / sqrt(d); dk = dS^T q / sqrt(d)."""
+    bh, lq, d = q.shape
+    rows = chunk or backward_chunk_rows(lq, k.shape[1])
+    scale = d ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    chunks = 0
+    for start in range(0, bh, rows):
+        part = slice(start, start + rows)
+        qf, kf, vf, gf = (t[part].float() for t in (q, k, v, g))
+        p = torch.matmul(qf, kf.transpose(-1, -2)).mul_(scale)
+        p.sub_(p.amax(dim=-1, keepdim=True)).exp_()
+        p.div_(p.sum(dim=-1, keepdim=True))
+        dv[part] = torch.matmul(p.transpose(-1, -2), gf)
+        delta = (gf * torch.matmul(p, vf)).sum(dim=-1, keepdim=True)
+        ds = torch.matmul(gf, vf.transpose(-1, -2)).sub_(delta).mul_(p)
+        del p
+        dq[part] = torch.matmul(ds, kf).mul_(scale)
+        dk[part] = torch.matmul(ds.transpose(-1, -2), qf).mul_(scale)
+        chunks += 1
+    return dq, dk, dv, chunks
+
+
+def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One K1 launch on checked inputs."""
     bh, lq, d = q.shape
     lk = k.shape[1]
-    if not 0 < bh <= 65535:
-        raise ValueError(f"flash_attention: batch*heads {bh} outside (0, 65535]")
     q, k, v = pad_head_dim(q, k, v)
     kd = q.shape[-1]
     out = torch.empty_like(q)
@@ -98,8 +131,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out[..., :d] if kd != d else out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch_flash(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv, chunks = flash_attention_backward(*ctx.saved_tensors, g)
+        flash_attention.bwd_chunks += chunks
+        return dq, dk, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention over (B*H, L, D).  CPU tensors take the plain
+    version; CUDA tensors launch K1 (or raise), differentiable through
+    ``flash_attention_backward``."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"flash_attention: tensors must share one CUDA device, got {q.device}")
+    if q.dtype not in _native.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: f32 or bf16 of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 or k.shape[0] != q.shape[0] \
+            or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if not 0 < q.shape[0] <= 65535:
+        raise ValueError(f"flash_attention: batch*heads {q.shape[0]} outside (0, 65535]")
+    _kernel_head_dim(q.shape[-1])
+    return _FlashAttention.apply(q, k, v)
+
+
 flash_attention.launches = 0
 flash_attention.launches_d512 = 0
+flash_attention.bwd_chunks = 0
 
 
 # ---------------------------------------------------------------- K2 -----
@@ -127,7 +198,8 @@ def flash_attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            num_heads: int) -> torch.Tensor:
     """Softmax attention over head-packed q (B, Lq, H*D), k/v (B, Lk, H*D).
-    CPU tensors take the plain version; CUDA tensors launch K2 (or raise)."""
+    CPU tensors take the plain version; CUDA tensors launch K2 (or raise),
+    differentiable through ``flash_attention_packed_backward``."""
     if q.device.type == "cpu":
         return flash_attention_packed_reference(q, k, v, num_heads)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -140,8 +212,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention_packed: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    b, lq, hd = q.shape
-    lk = k.shape[1]
+    b, _, hd = q.shape
     d = hd // num_heads
     if num_heads * d != hd or not packed_applicable(num_heads, d):
         raise ValueError(f"flash_attention_packed: {num_heads} heads of {hd} channels "
@@ -153,15 +224,67 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_packed: q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_packed: q, k and v must be 16-byte aligned")
+    return _FlashAttentionPacked.apply(q, k, v, num_heads)
+
+
+def _fold_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B*H, L, D)."""
+    b, length, hd = t.shape
+    return t.reshape(b, length, num_heads, hd // num_heads).transpose(1, 2).reshape(
+        b * num_heads, length, hd // num_heads)
+
+
+def _unfold_heads(t: torch.Tensor, b: int) -> torch.Tensor:
+    """(B*H, L, D) -> (B, L, H*D)."""
+    bh, length, d = t.shape
+    return t.reshape(b, bh // b, length, d).transpose(1, 2).reshape(b, length, bh // b * d)
+
+
+def flash_attention_packed_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    g: torch.Tensor, num_heads: int,
+                                    chunk: Optional[int] = None) -> tuple:
+    """The VJP of ``flash_attention_packed_reference`` (the JAX package's
+    ``_attention_reference_packed``): ``flash_attention_backward`` on the
+    head-folded copies, over chunks of batch rows x heads.  Returns (dq, dk,
+    dv, chunks run) in the packed layout."""
+    b = q.shape[0]
+    dq, dk, dv, chunks = flash_attention_backward(
+        *(_fold_heads(t, num_heads) for t in (q, k, v, g)), chunk)
+    return _unfold_heads(dq, b), _unfold_heads(dk, b), _unfold_heads(dv, b), chunks
+
+
+def _launch_flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """One K2 launch on checked inputs."""
+    b, lq, hd = q.shape
+    d = hd // num_heads
     out = torch.empty_like(q)
     rc = _native.library().st2v_flash_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, lq, lk, d,
-        _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, lq, k.shape[1],
+        d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
     _native.check(rc, "flash_attention_packed")
     flash_attention_packed.launches += 1
     flash_attention_packed.launches_d512 += int(d == 512 and q.dtype == torch.bfloat16)
     return out
 
 
+class _FlashAttentionPacked(torch.autograd.Function):
+    """K2 forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return _launch_flash_packed(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv, chunks = flash_attention_packed_backward(*ctx.saved_tensors, g,
+                                                             ctx.num_heads)
+        flash_attention_packed.bwd_chunks += chunks
+        return dq, dk, dv, None
+
+
 flash_attention_packed.launches = 0
 flash_attention_packed.launches_d512 = 0
+flash_attention_packed.bwd_chunks = 0

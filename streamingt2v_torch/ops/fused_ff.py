@@ -23,6 +23,13 @@ The f32 path keeps the first, fused kernel (output widths up to
 
 Weights come in the PyTorch Linear layout: ``w1`` (2*inner, C) holding
 [a | b] and ``w2`` (C_out, inner).
+
+Gradients: on the card ``geglu_ff`` is a ``torch.autograd.Function`` whose
+forward launches K3 and saves the caller's operands, and whose backward is
+the VJP of ``geglu_ff_reference`` (the JAX package's ``_geglu_core_bwd``,
+``:207``: with and without LN, ``None`` for an absent LN), in chunks of rows
+that keep one chunk's f32 intermediates within ``BWD_CHUNK_BYTES``
+(``geglu_ff_backward``); ``geglu_ff.bwd_chunks`` counts them.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from streamingt2v_torch.ops import _native
+from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES, chunked_vjp
 
 # widest output the f32 kernel's register accumulator takes (16 rows x 1280)
 MAX_C_OUT_F32 = 1280
@@ -111,7 +119,7 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
              ln_bias: Optional[torch.Tensor] = None, residual: bool = False) -> torch.Tensor:
     """x: (..., C); w1 (2*inner, C); b1 (2*inner,); w2 (C_out, inner);
     b2 (C_out,).  CPU tensors take the plain version; CUDA tensors launch
-    K3 (or raise)."""
+    K3 (or raise), differentiable through ``geglu_ff_backward``."""
     if x.device.type == "cpu":
         return geglu_ff_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
     if not x.is_cuda:
@@ -140,10 +148,17 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     for t in (x, w1, w2):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("geglu_ff: x, w1 and w2 must be contiguous on one device")
+    return _GegluFF.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
+
+
+def _launch_geglu(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool) -> torch.Tensor:
+    """One K3 call (its chunks of rows) on checked operands."""
+    c = x.shape[-1]
+    c_out, inner = w2.shape
     n = x.numel() // c
     out = torch.empty(x.shape[:-1] + (c_out,), dtype=x.dtype, device=x.device)
     lib, stream, code = _native.library(), _native.stream_of(x), _native.DTYPE_CODE[x.dtype]
-    if f32:
+    if x.dtype == torch.float32:
         plan, g, xn, cols, sms = [(0, n)], None, None, 0, 0
     else:
         x, w1, b1, w2, ln_scale, ln_bias = map(_native.aligned,
@@ -167,4 +182,48 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     return out
 
 
+def backward_chunk_rows(c: int, inner: int, c_out: int) -> int:
+    """Rows per backward chunk: autograd through the plain version keeps
+    about 4C + 8*inner + 2*C_out f32 values a row (x, LN, [a | b], GEGLU,
+    G, the output and their gradients); as many rows as fit
+    ``BWD_CHUNK_BYTES``, at least one."""
+    return max(1, BWD_CHUNK_BYTES // (4 * (4 * c + 8 * inner + 2 * c_out)))
+
+
+def geglu_ff_backward(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool, g: torch.Tensor,
+                      chunk: Optional[int] = None) -> tuple:
+    """The VJP of ``geglu_ff_reference`` at the operands for the cotangent
+    g (x's leading shape by C_out), in chunks of ``chunk`` rows
+    (``backward_chunk_rows`` unless given).  Returns ((dx, dw1, db1, dw2,
+    db2, dln_scale, dln_bias), chunks run): each in its operand's dtype,
+    ``None`` for an absent LN."""
+    c = x.shape[-1]
+    c_out, inner = w2.shape
+    rows = chunk or backward_chunk_rows(c, inner, c_out)
+
+    def plain(x_, w1_, b1_, w2_, b2_, lns_, lnb_):
+        return geglu_ff_reference(x_, w1_, b1_, w2_, b2_, lns_, lnb_, residual)
+
+    grads, chunks = chunked_vjp(plain, (x.reshape(-1, c), w1, b1, w2, b2, ln_scale, ln_bias),
+                                (0,), g.reshape(-1, c_out), 0, rows)
+    return (grads[0].reshape(x.shape),) + grads[1:], chunks
+
+
+class _GegluFF(torch.autograd.Function):
+    """K3 forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ln_scale, ln_bias, residual):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ln_scale, ln_bias)
+        ctx.residual = residual
+        return _launch_geglu(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads, chunks = geglu_ff_backward(*ctx.saved_tensors, ctx.residual, g)
+        geglu_ff.bwd_chunks += chunks
+        return grads + (None,)
+
+
 geglu_ff.launches = 0
+geglu_ff.bwd_chunks = 0

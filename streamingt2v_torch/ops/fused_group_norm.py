@@ -17,6 +17,11 @@ normalised tensor and its f32 upcast out of device memory; the plain
 version materialises both.  Every thread of both passes owns one 16-byte
 vector of channels and a row slot (``launch_plan``), so the statistics stay
 in registers and the affine is computed once per thread.
+
+No gradient: the JAX package defines no VJP for its kernel (``jax.grad``
+through it fails in pallas_call's JVP rule), so on the card an input that
+requires grad under grad mode raises rather than return an output that
+autograd cannot see through.
 """
 
 from __future__ import annotations
@@ -95,6 +100,9 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *
                                           act=act)
     if not x.is_cuda:
         raise ValueError(f"fused_group_norm: expected a CUDA tensor, got {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        raise RuntimeError("fused_group_norm: K5 has no backward (the JAX package defines no "
+                           "VJP for it); train with the fused_group_norm routing off")
     if x.dtype not in _native.DTYPE_CODE:
         raise TypeError(f"fused_group_norm: f32 or bf16, got {x.dtype}")
     if x.ndim != 3:

@@ -20,6 +20,11 @@ of two buffers while the other group's products run on the tensor cores
 (``mma.sync``; scores and probabilities in registers), and writes o in
 16-byte stores.  f32 and other head dims keep the first body, which stages
 keys and values as f32 and runs its products on the FMA units.
+
+No gradient: the JAX package defines no VJP for its kernel (``jax.grad``
+through it fails to linearise the pallas_call), so on the card an input
+that requires grad under grad mode raises rather than return an output that
+autograd cannot see through.
 """
 
 from __future__ import annotations
@@ -76,6 +81,9 @@ def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"temporal_attention: tensors must share one CUDA device, got "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("temporal_attention: K6 has no backward (the JAX package defines "
+                           "no VJP for it); train with the temporal_attention routing off")
     if q.dtype not in _native.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"temporal_attention: f32 or bf16 of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")

@@ -23,6 +23,14 @@ and applies bias and epilogue before each output frame's one store.  It
 takes C in multiples of 8 and W with C_out rounded up to 8: the wrapper
 zero-pads both (``kernel_operands``).  The f32 kernel keeps the first,
 simple design (16 positions by 32 output channels per block, FMA units).
+
+Gradients: on the card ``temporal_conv`` is a ``torch.autograd.Function``
+whose forward launches K4 and saves the caller's operands (not the padded
+copies the kernel reads), and whose backward is the VJP of
+``temporal_conv_reference`` over the live operands, ``None`` for the absent
+ones (the JAX package's ``_tc_core_bwd``, ``:159``), in chunks of positions
+that keep one chunk's f32 intermediates within ``BWD_CHUNK_BYTES``
+(``temporal_conv_backward``); ``temporal_conv.bwd_chunks`` counts them.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Optional
 import torch
 
 from streamingt2v_torch.ops import _native
+from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES, chunked_vjp
 
 # positions per block of the f32 kernel, which bounds S the most (the bf16
 # kernel's blocks take 128)
@@ -100,7 +109,8 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``pre_a``/``pre_b`` ((B, C) f32) fuse ``silu(x * a + b)`` into the input
     read; ``res`` ((B, T, S, C_out)) with ``res_w`` ((B, T) f32) fuses
     ``res + res_w * conv`` into the store.  CPU tensors take the plain
-    version; CUDA tensors launch K4 (or raise)."""
+    version; CUDA tensors launch K4 (or raise), differentiable through
+    ``temporal_conv_backward``."""
     if x.device.type == "cpu":
         return temporal_conv_reference(x, w, b, res, res_w, pre_a, pre_b)
     if not x.is_cuda:
@@ -129,6 +139,13 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     operands = [x, w] + [tensor for tensor, _ in f32] + ([] if res is None else [res])
     if any(o.device != x.device or not o.is_contiguous() for o in operands):
         raise ValueError("temporal_conv: operands must be contiguous on one device")
+    return _TemporalConv.apply(x, w, b, res, res_w, pre_a, pre_b)
+
+
+def _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b) -> torch.Tensor:
+    """One K4 launch on checked operands."""
+    bsz, t, s, c = x.shape
+    kt, _, c_out = w.shape
     if x.dtype == torch.bfloat16:
         x, w, pre_a, pre_b = kernel_operands(x, w, pre_a, pre_b)
         c = x.shape[3]
@@ -146,4 +163,42 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def backward_chunk_positions(b: int, t: int, c: int, c_out: int) -> int:
+    """Positions per backward chunk: autograd through the plain version
+    keeps about 8 (C + C_out) f32 values a (row, frame, position) (x, the
+    prologue's steps, the padded input, the taps' sums, the output and
+    their gradients); as many positions as fit ``BWD_CHUNK_BYTES``, at least
+    one."""
+    return max(1, BWD_CHUNK_BYTES // (4 * b * t * 8 * (c + c_out)))
+
+
+def temporal_conv_backward(x, w, b, res, res_w, pre_a, pre_b, g: torch.Tensor,
+                           chunk: Optional[int] = None) -> tuple:
+    """The VJP of ``temporal_conv_reference`` at the operands for the
+    cotangent g (B, T, S, C_out), in chunks of ``chunk`` positions
+    (``backward_chunk_positions`` unless given).  Returns ((dx, dw, db, dres,
+    dres_w, dpre_a, dpre_b), chunks run): each in its operand's dtype,
+    ``None`` for an absent one."""
+    bsz, t, _, c = x.shape
+    rows = chunk or backward_chunk_positions(bsz, t, c, w.shape[2])
+    return chunked_vjp(temporal_conv_reference, (x, w, b, res, res_w, pre_a, pre_b), (0, 3),
+                       g, 2, rows)
+
+
+class _TemporalConv(torch.autograd.Function):
+    """K4 forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, res, res_w, pre_a, pre_b):
+        ctx.save_for_backward(x, w, b, res, res_w, pre_a, pre_b)
+        return _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads, chunks = temporal_conv_backward(*ctx.saved_tensors, g)
+        temporal_conv.bwd_chunks += chunks
+        return grads
+
+
 temporal_conv.launches = 0
+temporal_conv.bwd_chunks = 0
