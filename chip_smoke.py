@@ -102,7 +102,29 @@ Phases, one line each:
      cut to 5 steps, ``--enhance-steps`` DDIM steps) on a 576x1024 PNG into
      a y4m file, with its stage seconds, ``stage_finite``, the launches of
      every kernel row and the file checked (header, frame count, 1280x720)
-     and written by the native feeder.
+     and written by the native feeder;
+  13. mesh: the multi-device layer on the one card.  The CLI's product at
+     the loader phase's cut with random weights (``--random_weights``) under
+     ``--mesh 1,1,1`` (a world of one NCCL rank: its launches are the
+     phase's ``mesh_launches``, every kernel row must launch) and without
+     ``--mesh``, both with cuDNN's deterministic algorithms: the two files
+     byte-equal; then under that mesh, stage 2's
+     ``_denoise_step_dp`` at full width (64 frames at 720p, the 2 x 2 UNet
+     calls of a DDIM step as one batch) against the sequential step, and a
+     full-width SVD-XT training step against the same step without the mesh
+     (seconds and peaks); then each rank's share of the split kernels, one
+     simulated rank after another (``_sim_rank``): K3 split over model = 2
+     and 4 at the three UNet widths (``shard_params`` and the
+     FeedForward's tensor-parallel forward; the partials summed), K1's rows
+     over 2 and 4 ranks (``_flash_rows``, gathered) and the ring's blocks
+     over seq = 4 (``ring_fold``), each against the unsplit kernel; the
+     same K3 and K1 splits under grad, each rank's input gradients summed
+     over the ranks against the unsplit Function's (``_mesh_split_grads``:
+     the world-1 steps above run none of the model-side split code); last
+     the training losses (LPIPS, the discriminator with the hinge loss, the
+     Laplacian and census losses, the KL, the vector quantizer) on the card
+     against the CPU at a small size, and LPIPS and the discriminator timed
+     on 25 frames at 576x1024 and the VFI losses on 720p pairs.
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -120,9 +142,9 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-apm, samplers, train, enhance, product and loader phases
-(``product_launches``, ``apm_launches``, ``samplers_launches`` and
-``train_launches`` those phases' alone).
+apm, samplers, train, enhance, product, loader and mesh phases
+(``product_launches``, ``apm_launches``, ``samplers_launches``,
+``train_launches`` and ``mesh_launches`` those phases' alone).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
@@ -159,7 +181,7 @@ import time
 from typing import Optional
 
 ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "apm", "samplers", "train",
-              "enhance", "interpolate", "product", "loader")
+              "enhance", "interpolate", "product", "loader", "mesh")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -2468,6 +2490,500 @@ def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int)
     _check_product_launches(run_cfg, launches, "the CLI run from the tree")
     return launches
 
+# ------------------------------------------------------------ the mesh ---
+# The multi-device layer on the one card: the CLI under a world of one rank
+# (NCCL), stage 2's data-parallel step and a training step under that mesh,
+# each rank's share of a split K3, K1 and ring attention run one rank after
+# another (``_sim_rank``), forward and backward, and the training losses.
+
+MESH_K3_SPLITS = (2, 4)
+MESH_FLASH_SPLITS = (2, 4)
+MESH_RING_SEQ = 4
+MESH_LOSS_FRAMES = 25
+MESH_VFI_PAIRS = 4
+MESH_VFI_LEVELS = 4     # 720 = 16 x 45: five halvings do not divide 720p
+LOSS_TOL = 1e-4         # f32, card against CPU (summation order; no TF32)
+
+
+def _sim_rank(model: int, rank: int):
+    """Model rank ``rank`` of a (1, 1, model) mesh simulated in this
+    process: the mesh's index math (``MeshLayout``) with an all-reduce
+    that hands back this rank's own tensor, so that a unit split by
+    ``shard_params`` returns its partial result (and the replicated inputs
+    their partial gradients); the phase sums the ranks' results itself."""
+    from streamingt2v_torch.config import MeshConfig
+    from streamingt2v_torch.parallel.mesh import MeshLayout
+
+    class SimRank(MeshLayout):
+        def all_reduce(self, x, axes, op=None):
+            return x
+
+    return SimRank(MeshConfig(data=1, seq=1, model=model),
+                   {"data": 0, "seq": 0, "model": rank})
+
+
+def _mesh_cli(png: str, out_dir: str, enhance_steps: int, mesh: bool):
+    """The CLI's product pipeline at the loader phase's cut (random weights
+    at production width), under ``--mesh 1,1,1`` or without it."""
+    from streamingt2v_torch.pipeline import cli
+
+    argv = ["--input", png, "--output", out_dir, "--random_weights", "--container", "y4m",
+            "--num_frames", str(LOADER_FRAMES),
+            "--set", f"first_chunk_sampler.num_steps={LOADER_SAMPLER_STEPS}",
+            "--set", f"sampler.num_steps={LOADER_SAMPLER_STEPS}",
+            "--set", f"enhance.num_steps={enhance_steps}"] + (["--mesh", "1,1,1"] if mesh else [])
+    args = cli.build_parser().parse_args(argv)
+    return args, cli.build_product_pipeline(args)
+
+
+def _stage3_determinism(pipe, video) -> None:
+    """Stage 3 of ``pipe`` twice on ``video`` (uint8) with cuDNN's default
+    algorithms, then twice with its deterministic ones: the uint8 values
+    that differ between the two runs of each (a measurement, not a check:
+    why the byte-equality above runs on the deterministic ones)."""
+    import numpy as np
+    import torch
+
+    was = torch.backends.cudnn.deterministic
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        a, b = (pipe.interpolate_video(video).astype(np.int16) for _ in range(2))
+        diff = a != b
+        print(f"  stage 3 twice on {video.shape[0]} frames at {video.shape[2]}x{video.shape[1]}, "
+              f"cuDNN {'deterministic' if deterministic else 'default'} algorithms: "
+              f"{int(diff.sum())} of {diff.size} uint8 values differ (max "
+              f"{int(np.abs(a - b).max())} levels)", flush=True)
+    torch.backends.cudnn.deterministic = was
+
+
+def _mesh_dp_step(mesh) -> None:
+    """Stage 2 at full I2VGen-XL width: one DDIM step of a 64-frame 720p
+    video in two blended 38-frame chunks, its 2 x 2 UNet calls as one batch
+    (``_denoise_step_dp``) against the sequential step."""
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.ops.routing import use_routing
+    from streamingt2v_torch.pipeline.build import build_enhance
+    from streamingt2v_torch.utils.rng import GeneratorEnhanceNoise
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    ecfg = PipelineConfig().enhance
+    pipe = build_enhance(ecfg, seed=0, device=dev, mesh=mesh)
+    cs, ov = ecfg.chunk_size, ecfg.overlap_size
+    stride = cs - ov
+    n = (ENHANCE_FRAMES - cs) // stride + 1
+    h, w = ecfg.height // 8, ecfg.width // 8
+    gen = torch.Generator(dev).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)   # noqa: E731
+    latents = randn(1, ENHANCE_FRAMES, h, w, 4)
+    clip_embs = randn(n, 2, pipe.m.clip_vision.cfg.output_dim)
+    image_latents = randn(n, 2, cs, h, w, 4)
+    t = int(pipe.m.scheduler.sdedit_timesteps(ecfg.num_steps, ecfg.strength)[0])
+    noise = GeneratorEnhanceNoise(0, dev)
+    kw = dict(chunk_size=cs, stride=stride, overlap_size=ov)
+    out, sec, peak = {}, {}, {}
+    with torch.inference_mode(), use_routing(ecfg.routing):
+        pe = pipe.encode_prompts()
+        for name, fn in (("sequential", pipe._denoise_step), ("dp", pipe._denoise_step_dp)):
+            args = (latents, 0, t, pe, clip_embs, image_latents, noise)
+            fn(*args, **kw)                                 # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[name] = fn(*args, **kw)
+            torch.cuda.synchronize()
+            sec[name] = time.perf_counter() - t0
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  stage-2 DDIM step at 720p, {ENHANCE_FRAMES} frames in {n} chunks of {cs}: "
+          f"sequential ({2 * n} UNet calls of batch 1) {sec['sequential']:.3f} s, peak "
+          f"{peak['sequential']:.2f} GiB; _denoise_step_dp (one batch of {2 * n}) "
+          f"{sec['dp']:.3f} s, peak {peak['dp']:.2f} GiB", flush=True)
+    _compare("stage-2 _denoise_step_dp against the sequential step", out["dp"],
+             out["sequential"], TOL["bf16"])
+
+
+def _mesh_train_step(mesh) -> None:
+    """One full-width SVD-XT training step (the train phase's model, batch
+    and draws) under the world-1 mesh against the same step without it."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.diffusion.loss import DiffusionLossConfig
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.video_unet import VideoUNet
+    from streamingt2v_torch.models.wrappers import openai_wrapper
+    from streamingt2v_torch.parallel.train import init_sharded_state, make_train_step
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    base = PipelineConfig()
+    ucfg = dataclasses.replace(base.unet, controlnet_mode=False, use_apm=False,
+                               use_checkpoint=True)
+    unet = VideoUNet(ucfg, device=dev, dtype=torch.bfloat16)
+    init_random_(unet, torch.Generator(dev).manual_seed(0))
+    unet.requires_grad_(True)
+    unet, opt = init_sharded_state(unet, lambda ps: torch.optim.AdamW(ps, lr=1e-4,
+                                                                      weight_decay=1e-4), mesh)
+    batch = _train_batch(TRAIN_FRAMES, base.height // 8, base.width // 8, ucfg.context_dim,
+                         ucfg.adm_in_channels, dev)
+    loss_cfg = DiffusionLossConfig()
+    results = {}
+    for name, m in (("no mesh", None), ("world-1 mesh", mesh)):
+        step = make_train_step(lambda: openai_wrapper(unet, mesh=m), loss_cfg, opt, mesh=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step.backward(batch, torch.Generator(dev).manual_seed(1))
+        torch.cuda.synchronize()
+        results[name] = (loss.item(), [p.grad.clone() for p in unet.parameters()],
+                         time.perf_counter() - t0)
+    (la, ga, sa), (lb, gb, sb) = results["no mesh"], results["world-1 mesh"]
+    same = sum(int(torch.equal(a, b)) for a, b in zip(ga, gb))
+    worst = max(float((a.float() - b.float()).abs().max()) / max(float(a.float().abs().max()),
+                                                                  1e-30)
+                for a, b in zip(ga, gb))
+    print(f"  SVD-XT training step at batch 1 x {TRAIN_FRAMES} x 576x1024: loss {la!r} "
+          f"without the mesh ({sa:.3f} s forward+backward), {lb!r} under the world-1 mesh "
+          f"({sb:.3f} s); {same} of {len(ga)} gradients equal bit for bit, the worst leaf "
+          f"{worst:.3e} of its max", flush=True)
+    # the forward is deterministic; cuDNN's weight-gradient algorithms may sum
+    # in another order from run to run
+    if la != lb or not math.isfinite(la) or worst > TOL["bf16"]:
+        raise AssertionError("the training step under the world-1 mesh is not the step "
+                             "without it")
+    t0 = time.perf_counter()
+    step.update()
+    torch.cuda.synchronize()
+    print(f"  AdamW update under the mesh: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def _mesh_splits() -> dict:
+    """Each rank's share of the split kernels at full width, one simulated
+    rank after another, against the unsplit call: K3 over model = 2 and 4
+    at the three stage-1 UNet widths (``shard_params`` on a FeedForward and
+    its tensor-parallel forward), K1 over the batch*heads rows
+    (``_flash_rows``, the rank's part of ``_flash_sharded``) and ring
+    attention over seq = 4 (``ring_fold``, the ring's per-hop update)."""
+    import copy
+
+    import torch
+
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.unet_blocks import FeedForward
+    from streamingt2v_torch.ops.attention import _flash_rows
+    from streamingt2v_torch.ops.flash_attention import flash_attention
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+    from streamingt2v_torch.parallel.ring_attention import ring_finish, ring_fold, ring_start
+    from streamingt2v_torch.parallel.sharding import shard_params
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    randn, gen = _randn_factory(7)
+    counts = {"geglu_ff": 0, "flash_attention": 0}
+    errs = []
+    with torch.inference_mode():
+        for level, (n, c) in enumerate(K3_LEVELS):
+            ff = init_random_(FeedForward(c, c, device=dev, dtype=bf16), gen)
+            ff.proj.bias.copy_(randn(2 * 4 * c, dtype=bf16, std=0.1))
+            ff.out.bias.copy_(randn(c, dtype=bf16, std=0.1))
+            ln = (1.0 + randn(c, dtype=torch.float32, std=0.1), randn(c, dtype=torch.float32,
+                                                                      std=0.1))
+            x = randn(n, c, dtype=bf16)
+            whole = ff(x, ln=ln, residual=True)
+            for m in MESH_K3_SPLITS:
+                # shard_params reads the FF's name (``ff``) as the JAX rules do
+                parts = [shard_params(torch.nn.ModuleDict({"ff": copy.deepcopy(ff)}),
+                                      _sim_rank(m, r))["ff"] for r in range(m)]
+                if any(p.tp is None for p in parts):
+                    raise AssertionError(f"K3 level {level}: the FF did not split over {m}")
+                before = geglu_ff.launches
+                total = sum(p(x, ln=ln, residual=True).float() for p in parts)
+                launched = geglu_ff.launches - before
+                counts["geglu_ff"] += launched
+                if launched != m:
+                    raise AssertionError(f"K3 split {m} at level {level}: {launched} launches")
+                ms = _time_ms(lambda: parts[1](x, ln=ln, residual=True), reps=3)
+                errs.append(_compare(
+                    f"K3 split over model={m}, level {level} ({n}, {c}), inner {4 * c // m} a "
+                    f"rank ({ms:.3f} ms a rank), summed", total, whole, TOL["bf16"]))
+            del ff, parts, x, whole, total
+
+        q, k, v = (randn(250, 9216, 64, dtype=bf16) for _ in range(3))
+        whole = flash_attention(q, k, v)
+        for m in MESH_FLASH_SPLITS:
+            before = flash_attention.launches
+            rows = [_flash_rows(q, k, v, m, i) for i in range(m)]
+            counts["flash_attention"] += flash_attention.launches - before
+            ms = _time_ms(lambda: _flash_rows(q, k, v, m, 0), reps=3)
+            errs.append(_compare(f"K1 over {m} ranks, {rows[0].shape[0]} of 250 rows a rank "
+                                 f"({ms:.3f} ms a rank), gathered",
+                                 torch.cat(rows)[:250], whole, TOL["bf16"]))
+            del rows
+        s = MESH_RING_SEQ
+        blk = 9216 // s
+        kb = [k[:, j * blk:(j + 1) * blk] for j in range(s)]
+        vb = [v[:, j * blk:(j + 1) * blk] for j in range(s)]
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(s):
+            state = ring_start(q[:, r * blk:(r + 1) * blk])
+            for j in range(s):
+                state = ring_fold(state, kb[(r - j) % s], vb[(r - j) % s])
+            outs.append(ring_finish(state, q.dtype))
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        errs.append(_compare(f"ring attention over seq={s} at (250, 9216, 64), {s} blocks of "
+                             f"{blk} tokens a rank ({ring_s / s * 1e3:.1f} ms a rank), against "
+                             f"the unsplit K1", torch.cat(outs, dim=1), whole, TOL["bf16"]))
+    print(f"  split launches (comparisons, not counted as the path's): {counts}; worst "
+          f"max_abs_err {max(errs):.3e}", flush=True)
+    return counts
+
+
+def _mesh_split_grads() -> None:
+    """The split kernels' backward at full width, one simulated rank after
+    another: each rank's gradient of a replicated input is its partial one
+    (K3: of x and the LN affine, through ``copy_to_model``; K1: of its own
+    q/k/v rows, ``_flash_rows``), and the ranks' sum must be the unsplit
+    Function's gradient, as the all-reduce of ``copy_to`` makes it on a
+    real mesh."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.unet_blocks import FeedForward
+    from streamingt2v_torch.ops.attention import _flash_rows
+    from streamingt2v_torch.parallel.sharding import shard_params
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    randn, gen = _randn_factory(9)
+    errs = []
+
+    def timed_grads(fn, inputs, g):
+        """The gradients of ``fn(*inputs)`` against ``g`` to fresh copies of
+        ``inputs`` in f32, and the seconds of forward + backward."""
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*xs).backward(g)
+        torch.cuda.synchronize()
+        return [t.grad.float() for t in xs], time.perf_counter() - t0
+
+    for level, (n, c) in enumerate(K3_LEVELS):
+        ff = init_random_(FeedForward(c, c, device=dev, dtype=bf16), gen)
+        inputs = (randn(n, c, dtype=bf16), 1.0 + randn(c, dtype=torch.float32, std=0.1),
+                  randn(c, dtype=torch.float32, std=0.1))
+        g = randn(n, c, dtype=bf16)
+        whole, _ = timed_grads(lambda x, s, b: ff(x, ln=(s, b), residual=True), inputs, g)
+        for m in MESH_K3_SPLITS:
+            parts = [shard_params(torch.nn.ModuleDict({"ff": copy.deepcopy(ff)}),
+                                  _sim_rank(m, r))["ff"] for r in range(m)]
+            ranks = [timed_grads(lambda x, s, b, p=p: p(x, ln=(s, b), residual=True), inputs, g)
+                     for p in parts]
+            for i, what in enumerate(("x", "LN scale", "LN bias")):
+                errs.append(_compare(
+                    f"K3 backward split over model={m}, level {level} ({n}, {c}) "
+                    f"({ranks[1][1] * 1e3:.1f} ms forward+backward a rank): d{what} summed "
+                    f"over the ranks", sum(r[0][i] for r in ranks), whole[i], TOL["bf16"]))
+            del parts, ranks
+        del ff, inputs, g, whole
+
+    rows = 250
+    inputs = tuple(randn(rows, 9216, 64, dtype=bf16) for _ in range(3))
+    g = randn(rows, 9216, 64, dtype=bf16)
+    whole, _ = timed_grads(lambda q, k, v: _flash_rows(q, k, v, 1, 0), inputs, g)
+    for m in MESH_FLASH_SPLITS:
+        gp = F.pad(g, (0, 0, 0, 0, 0, (-rows) % m))
+        per = gp.shape[0] // m
+        ranks = [timed_grads(lambda q, k, v, i=i: _flash_rows(q, k, v, m, i), inputs,
+                             gp[i * per:(i + 1) * per]) for i in range(m)]
+        for i, what in enumerate("qkv"):
+            errs.append(_compare(
+                f"K1 backward over {m} ranks, {per} of {rows} rows a rank "
+                f"({ranks[0][1] * 1e3:.1f} ms forward+backward a rank): d{what} summed over "
+                f"the ranks", sum(r[0][i] for r in ranks), whole[i], TOL["bf16"]))
+        del ranks
+    print(f"  split backward: worst max_abs_err {max(errs):.3e}", flush=True)
+
+
+def _mesh_losses() -> None:
+    """The training losses (``diffusion/lpips.py``, ``gan_loss.py``,
+    ``regularizers.py``, ``models/vfi_loss.py``; plain torch ops) on the card
+    against the CPU at a small size, then forward + backward timed at full
+    size: LPIPS and the discriminator on 25 frames at 576x1024, the VFI
+    losses on 720p pairs."""
+    import torch
+
+    from streamingt2v_torch.diffusion.gan_loss import PatchDiscriminator, hinge_d_loss
+    from streamingt2v_torch.diffusion.lpips import LPIPS
+    from streamingt2v_torch.diffusion.regularizers import VectorQuantizer, diagonal_gaussian
+    from streamingt2v_torch.models.layers import init_random_
+    from streamingt2v_torch.models.vfi_loss import lap_loss, ternary_loss
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    gen = torch.Generator().manual_seed(11)
+    lpips = init_random_(LPIPS(), gen)
+    disc = init_random_(PatchDiscriminator(), gen)
+    vq = init_random_(VectorQuantizer(512, 4), gen)
+
+    def small(fn, *inputs):
+        """fn's value and its gradients to the inputs on each device."""
+        res = []
+        for d in ("cpu", "cuda"):
+            xs = [x.detach().to(d).clone().requires_grad_(True) for x in inputs]
+            val = fn(d, *xs)
+            val.backward()
+            res.append((val.detach().cpu(), [x.grad.cpu() for x in xs]))
+        return res
+
+    img = lambda *s: torch.rand(s, generator=gen) * 2 - 1   # noqa: E731
+    cases = {
+        "lpips": (lambda d, x, y: lpips.to(d)(x, y).sum(), img(2, 3, 64, 64), img(2, 3, 64, 64)),
+        "discriminator + hinge": (lambda d, x, y: hinge_d_loss(disc.to(d)(x), disc.to(d)(y)),
+                                  img(2, 3, 64, 64), img(2, 3, 64, 64)),
+        "lap_loss": (lambda d, x, y: lap_loss(x, y), img(2, 3, 64, 64), img(2, 3, 64, 64)),
+        "ternary_loss": (lambda d, x, y: ternary_loss(x, y).sum(), img(2, 3, 64, 64),
+                         img(2, 3, 64, 64)),
+        "diagonal_gaussian": (lambda d, m, e: sum(v.sum() for v in (
+            diagonal_gaussian(m, noise=e)[0], diagonal_gaussian(m, noise=e)[1]["kl_loss"])),
+                              img(2, 8, 8, 8), img(2, 8, 8, 4)),
+        "vector quantizer": (lambda d, z: (lambda o: o[0].sum() + o[1]["vq_loss"])(
+            vq.to(d)(z)), img(2, 8, 8, 4) * 0.02),
+    }
+    for name, (fn, *inputs) in cases.items():
+        (vc, gc), (vg, gg) = small(fn, *inputs)
+        _compare(f"{name} on the card against the CPU", vg, vc, LOSS_TOL)
+        for i, (a, b) in enumerate(zip(gg, gc)):
+            _compare(f"{name} d input {i}", a, b, LOSS_TOL)
+
+    def timed(name, fn, shapes, grads, params=None):
+        """fn's forward + backward at ``shapes``, gradients to the inputs
+        marked in ``grads`` (and to ``params``' parameters)."""
+        xs = [(torch.rand(s, device=dev) * 2 - 1).requires_grad_(g) for s, g in zip(shapes, grads)]
+        if params is not None:
+            params.requires_grad_(True)
+        fn(*xs).backward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        val = fn(*xs)
+        val.backward()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = [x.grad for x in xs if x.requires_grad]
+        got += [] if params is None else [p.grad for p in params.parameters()]
+        if not (torch.isfinite(val) and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"{name}: non-finite loss or gradient")
+        print(f"  {name}: forward + backward {sec:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if params is not None:
+            params.requires_grad_(False)
+
+    lp, ds = lpips.to(dev), disc.to(dev)
+    frames = (MESH_LOSS_FRAMES, 3, 576, 1024)
+    timed(f"LPIPS on {MESH_LOSS_FRAMES} frames at 576x1024 (f32; gradient to the "
+          f"reconstruction)", lambda x, y: lp(x, y).sum(), (frames, frames), (True, False))
+    timed(f"discriminator + hinge on {MESH_LOSS_FRAMES} real and {MESH_LOSS_FRAMES} fake frames "
+          f"at 576x1024 (f32; gradient to its parameters)",
+          lambda x, y: hinge_d_loss(ds(x), ds(y)), (frames, frames), (False, False), ds)
+    pairs = (MESH_VFI_PAIRS, 3, 720, 1280)
+    timed(f"lap_loss ({MESH_VFI_LEVELS} levels) + ternary_loss on {MESH_VFI_PAIRS} 720p pairs "
+          f"(gradient to the prediction)",
+          lambda x, y: lap_loss(x, y, MESH_VFI_LEVELS) + ternary_loss(x, y).mean(),
+          (pairs, pairs), (True, False))
+    del lp, ds, lpips, disc, vq
+
+
+def run_mesh(enhance_steps: int) -> dict:
+    """Phase 13: the multi-device layer on the one card.  The CLI's product
+    under ``--mesh 1,1,1`` (a world of one rank, NCCL) at the loader phase's
+    cut, its file byte-equal to the same CLI's without ``--mesh``; stage 2's
+    data-parallel step and a training step under that mesh at full width;
+    each simulated rank's share of the split kernels; the training losses."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from PIL import Image
+
+    from streamingt2v_torch.config import PipelineConfig
+    from streamingt2v_torch.utils import media
+    from streamingt2v_torch.utils.profiling import reset_timers, timing_report
+
+    _release_earlier_phases()
+    cfg = PipelineConfig()
+    files, launches, mesh = {}, None, None
+    # cuDNN's default algorithms for stage 3's f32 convolutions are not
+    # deterministic from run to run (a few output values one level apart
+    # between two plain runs, PERF.md); its deterministic ones give equal
+    # bytes
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory(prefix="st2v_mesh_") as tmp:
+        image = ((_smooth_image(cfg.height, cfg.width, seed=8).numpy() + 1.0) * 127.5).round()
+        png = os.path.join(tmp, "input.png")
+        Image.fromarray(image.clip(0, 255).astype(np.uint8)).save(png)
+        for name, use_mesh in (("mesh", True), ("plain", False)):
+            out_dir = os.path.join(tmp, name)
+            reset_timers()
+            t0 = time.perf_counter()
+            args, pipe = _mesh_cli(png, out_dir, enhance_steps, use_mesh)
+            if use_mesh:
+                mesh = pipe.stage1.mesh
+                if (mesh is None or not dist.is_initialized() or dist.get_world_size() != 1
+                        or dist.get_backend() != "nccl" or pipe.enhance.mesh is not mesh):
+                    raise AssertionError(f"--mesh 1,1,1 did not form a world of one NCCL rank: "
+                                         f"{mesh}")
+                _reset_launches()
+            os.makedirs(out_dir)
+            path = os.path.join(out_dir, "input.y4m")
+            frames = pipe.run(png, path, seed=args.seed)
+            if use_mesh:
+                launches = _read_launches()
+            total = time.perf_counter() - t0
+            stages = {k: round(v["total_s"], 3) for k, v in timing_report().items()}
+            print(f"  CLI {'--mesh 1,1,1 (NCCL, world of 1)' if use_mesh else 'without --mesh'}: "
+                  f"{LOADER_FRAMES} frames, sampler steps {LOADER_SAMPLER_STEPS} + "
+                  f"{LOADER_SAMPLER_STEPS}, {enhance_steps} DDIM steps; {total:.1f} s with the "
+                  f"build; stages {stages}; stage_finite {pipe.stage_finite}; file "
+                  f"{media.y4m_info(path)}", flush=True)
+            if pipe.stage_finite != {"stage1": True, "enhance": True, "vfi": True}:
+                raise AssertionError(f"a stage gave non-finite values: {pipe.stage_finite}")
+            if use_mesh:
+                print(f"  the mesh run's launches: {launches}", flush=True)
+                _check_product_launches(pipe.cfg, launches, "the CLI under --mesh 1,1,1")
+            with open(path, "rb") as f:
+                files[name] = f.read()
+            if not use_mesh:
+                _stage3_determinism(pipe, frames[::2])
+            del pipe, frames
+            _release_earlier_phases()
+    torch.backends.cudnn.deterministic = deterministic
+    if files["mesh"] != files["plain"]:
+        a, b = (np.frombuffer(files[k], np.uint8) for k in ("mesh", "plain"))
+        diff = int(np.abs(a.astype(int) - b.astype(int)).max()) if a.shape == b.shape else None
+        raise AssertionError(f"the --mesh 1,1,1 file differs from the plain run's (max byte "
+                             f"difference {diff})")
+    print(f"  the two files are byte-equal ({len(files['mesh'])} bytes)", flush=True)
+    try:
+        _mesh_dp_step(mesh)
+        _mesh_train_step(mesh)
+    finally:
+        dist.destroy_process_group()
+    _mesh_splits()
+    _mesh_split_grads()
+    _mesh_losses()
+    return launches
+
+
 KERNEL_META = {
     "flash_attention": ("streamingt2v_torch/csrc/flash_attention.cu",
                         "streamingt2v_tpu/ops/flash_attention.py:38"),
@@ -2592,7 +3108,7 @@ def main(argv=None) -> int:
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict.fromkeys(KERNEL_META, 0)
     phase_launches = {p: dict.fromkeys(KERNEL_META, 0)
-                      for p in ("product", "apm", "samplers", "train")}
+                      for p in ("product", "apm", "samplers", "train", "mesh")}
     runs = [("slice", lambda: run_slice(args.first_steps, args.ar_steps)),
             ("apm", lambda: run_apm(APM_STEPS)),
             ("samplers", lambda: run_samplers(SAMPLER_STEPS)),
@@ -2601,7 +3117,8 @@ def main(argv=None) -> int:
             ("interpolate", lambda: run_interpolate() or {}),
             ("product", lambda: run_product(args.enhance_steps, args.product_frames)),
             ("loader", lambda: run_loader(args.enhance_steps, LOADER_FRAMES,
-                                          LOADER_SAMPLER_STEPS, LOADER_SAMPLER_STEPS))]
+                                          LOADER_SAMPLER_STEPS, LOADER_SAMPLER_STEPS)),
+            ("mesh", lambda: run_mesh(args.enhance_steps))]
     for phase, run in runs:
         if phase not in phases:
             continue

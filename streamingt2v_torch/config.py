@@ -61,12 +61,17 @@ class KernelRouting:
                           on head-folded copies;
       fused_group_norm:   per-frame (4-D) GroupNorm(+SiLU) runs K5;
       temporal_attention: the temporal transformers give their spatial-major
-                          q/k/v to K6 instead of transposing them.
+                          q/k/v to K6 instead of transposing them;
+      ring_attention:     under a mesh with a seq axis, the token-split spatial
+                          self-attention rotates k/v around the seq ranks
+                          (on, the JAX default) instead of gathering them
+                          (off: the JAX package's ``STREAMINGT2V_RING_ATTN=0``).
     """
 
     flash_packed: bool = False
     fused_group_norm: bool = False
     temporal_attention: bool = False
+    ring_attention: bool = True
 
     @classmethod
     def all_on(cls) -> "KernelRouting":

@@ -57,14 +57,13 @@ class DiffusionLossConfig:
     scaling: str = "v_edm_cnoise"
 
 
-def diffusion_loss(cfg: DiffusionLossConfig, network_fn: NetworkFn, x0: torch.Tensor,
-                   cond: Dict[str, Any], generator: Optional[torch.Generator] = None, *,
-                   sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                   offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-example loss, mean-reduced to an f32 scalar.  x0: clean latents
-    (B, ...); cond: conditioner outputs.  ``sigmas`` (B,), ``noise`` (x0's
-    shape) and ``offset`` ((B, 1, ..., 1, C), with ``offset_noise_level``)
-    replace the generator's draws where given."""
+def draw_loss_noise(cfg: DiffusionLossConfig, x0: torch.Tensor,
+                    generator: Optional[torch.Generator] = None, *,
+                    sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                    offset: Optional[torch.Tensor] = None) -> tuple:
+    """(sigmas (B,), noise (x0's shape), offset ((B, 1, ..., 1, C), or None
+    without ``offset_noise_level``) for the batch x0: each one given, else
+    drawn from ``generator`` in that order."""
     b, dev = x0.shape[0], x0.device
     if sigmas is None:
         if cfg.sigma_sampler == "edm":
@@ -73,11 +72,27 @@ def diffusion_loss(cfg: DiffusionLossConfig, network_fn: NetworkFn, x0: torch.Te
             sigmas = discrete_sigma_sampler(b, generator, num_idx=cfg.num_idx, device=dev)
     if noise is None:
         noise = torch.randn(x0.shape, generator=generator, device=dev, dtype=x0.dtype)
-    if cfg.offset_noise_level > 0.0:
-        # per-(batch, channel) offset noise, broadcast over space and time
-        if offset is None:
-            offset = torch.randn((b,) + (1,) * (x0.ndim - 2) + (x0.shape[-1],),
-                                 generator=generator, device=dev, dtype=x0.dtype)
+    if cfg.offset_noise_level <= 0.0:
+        return sigmas, noise, None
+    # per-(batch, channel) offset noise, broadcast over space and time
+    if offset is None:
+        offset = torch.randn((b,) + (1,) * (x0.ndim - 2) + (x0.shape[-1],),
+                             generator=generator, device=dev, dtype=x0.dtype)
+    return sigmas, noise, offset
+
+
+def diffusion_loss(cfg: DiffusionLossConfig, network_fn: NetworkFn, x0: torch.Tensor,
+                   cond: Dict[str, Any], generator: Optional[torch.Generator] = None, *,
+                   sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                   offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-example loss, mean-reduced to an f32 scalar.  x0: clean latents
+    (B, ...); cond: conditioner outputs.  ``sigmas`` (B,), ``noise`` (x0's
+    shape) and ``offset`` ((B, 1, ..., 1, C), with ``offset_noise_level``)
+    replace the generator's draws where given."""
+    b = x0.shape[0]
+    sigmas, noise, offset = draw_loss_noise(cfg, x0, generator, sigmas=sigmas, noise=noise,
+                                            offset=offset)
+    if offset is not None:
         noise = noise + cfg.offset_noise_level * offset
     sigmas_bc = sigmas.reshape((b,) + (1,) * (x0.ndim - 1))
     pred = denoise(network_fn, x0 + noise * sigmas_bc, sigmas, cond, scaling=cfg.scaling)

@@ -55,9 +55,13 @@ class Dense(nn.Module):
         return self.kernel.shape[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply_bias(x, self.bias)
+
+    def apply_bias(self, x: torch.Tensor, bias) -> torch.Tensor:
+        """x W^T + ``bias`` (None: no bias): a row-parallel slice adds its
+        layer's bias once, after the reduction."""
         dt = _common(x, self.kernel)
-        return F.linear(x.to(dt), self.kernel.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
+        return F.linear(x.to(dt), self.kernel.to(dt), None if bias is None else bias.to(dt))
 
 
 class Embed(nn.Module):

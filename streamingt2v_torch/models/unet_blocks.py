@@ -17,6 +17,13 @@ conv (K4) from ``_time_conv``, flash attention (K1, or K2 under the
 ``temporal_attention`` routing, K6 from the temporal self-attentions, each
 only for tensors on a CUDA device and inside its gate.
 
+Under a mesh (``parallel/sharding.py``): ``shard_params`` splits the
+tensor-parallel units (``FeedForward``, ``CrossAttention`` by heads, the
+transformer's ``proj_in``), each of which then computes its part and
+reduces (or gathers) over ``model``; ``SpatialVideoTransformer`` splits its
+tokens over ``seq`` after ``proj_in`` and gathers them before
+``proj_out``, its spatial self-attentions going around the seq ring.
+
 ``UNetVideoResBlock`` and ``SpatialVideoTransformer`` built with
 ``use_checkpoint`` recompute their activations in the backward
 (``torch.utils.checkpoint``, non-reentrant) whenever grad is on: the
@@ -26,6 +33,7 @@ blocks the JAX package wraps in ``nn.remat`` under the same flag
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -42,12 +50,20 @@ from streamingt2v_torch.ops.norms import group_norm_affine
 from streamingt2v_torch.ops.routing import current_routing
 from streamingt2v_torch.ops.temporal_attention import temporal_attention
 from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
+from streamingt2v_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
+from streamingt2v_torch.parallel.sharding import (
+    copy_to_model, gather_dim, get_active_mesh, reduce_from_model, shard_dim, split_over)
 
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: proj to 2*inner, a * gelu(b), project back.  On
     a CUDA device, at >= 256 rows and inner % 128 == 0 (the JAX package's
-    Pallas gate), the whole pre-LN residual block is one K3 launch."""
+    Pallas gate), the whole pre-LN residual block is one K3 launch.
+
+    Split by ``shard_params`` (``tp``), each model rank holds matching
+    column blocks of a and b and the rows of W2 for them, computes LN on
+    the whole x and its partial output (K3 on its own inner width; the
+    residual and b2 on model rank 0 only), and the partials are summed."""
 
     def __init__(self, dim: int, dim_out: int, mult: int = 4, *, device=None, dtype=None):
         super().__init__()
@@ -55,14 +71,36 @@ class FeedForward(nn.Module):
         inner = dim * mult
         self.proj = Dense(dim, inner * 2, **fk)
         self.out = Dense(inner, dim_out, **fk)
+        self.tp = None
+
+    def tp_divides(self, m: int) -> bool:
+        return self.out.kernel.shape[1] % m == 0
 
     def forward(self, x: torch.Tensor, ln=None, residual: bool = False) -> torch.Tensor:
+        if self.tp is None:
+            return self._ff(x, ln, residual, self.out.bias, 1)
+        mesh = self.tp
+        m = mesh.shape[AXIS_MODEL]
+        first = mesh.axis_index(AXIS_MODEL) == 0
+        # the replicated operands (x, the LN affine, b2) enter every rank's
+        # partial: their gradients are the sum of the ranks' (copy_to_model)
+        if ln is not None:
+            ln = (copy_to_model(ln[0], mesh), copy_to_model(ln[1], mesh))
+        b2 = copy_to_model(self.out.bias, mesh)
+        if not first:
+            b2 = b2 * 0.0
+        y = self._ff(copy_to_model(x, mesh), ln, residual and first, b2, m)
+        return reduce_from_model(y, mesh)
+
+    def _ff(self, x, ln, residual: bool, b2, m: int) -> torch.Tensor:
+        """x + (a * gelu(b)) W2 + b2 on this rank's inner width (the gate
+        reads the whole width, inner * m)."""
         inner = self.out.kernel.shape[1]
         n_rows = x.numel() // x.shape[-1]
-        if x.is_cuda and n_rows >= 256 and inner % 128 == 0:
+        if x.is_cuda and n_rows >= 256 and (inner * m) % 128 == 0:
             return geglu_ff(
                 x.contiguous(), self.proj.kernel.to(x.dtype), self.proj.bias.float(),
-                self.out.kernel.to(x.dtype), self.out.bias.float(),
+                self.out.kernel.to(x.dtype), b2.float().contiguous(),
                 ln_scale=None if ln is None else ln[0].float(),
                 ln_bias=None if ln is None else ln[1].float(),
                 residual=residual)
@@ -71,7 +109,7 @@ class FeedForward(nn.Module):
             x = layer_norm(x, ln[0], ln[1])
         a, b = self.proj(x).chunk(2, dim=-1)
         # exact (erf) GELU in f32
-        h = self.out(a * F.gelu(b.float()).to(b.dtype))
+        h = self.out.apply_bias(a * F.gelu(b.float()).to(b.dtype), b2)
         return x_in + h if residual else h
 
 
@@ -81,7 +119,11 @@ class CrossAttention(nn.Module):
     core; ``pre_split`` means ``pre`` already folded heads into the batch.
     ``frames=(batch, T)`` makes it a self-attention over the frame axis of a
     spatial-major (B*T, S, C) input, computed on that layout by
-    ``ops.temporal_attention`` (K6 on the card): no transposes."""
+    ``ops.temporal_attention`` (K6 on the card): no transposes.
+
+    Split by ``shard_params`` (``tp``, whole heads only), each model rank
+    projects its heads' q/k/v, attends over them, and sums its part of the
+    output projection with the other ranks' before the bias."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, *, device=None, dtype=None):
@@ -89,23 +131,41 @@ class CrossAttention(nn.Module):
         fk = dict(device=device, dtype=dtype)
         inner = heads * dim_head
         ctx = query_dim if context_dim is None else context_dim
-        self.heads = heads
+        self.heads, self.dim_head = heads, dim_head
         self.to_q = Dense(query_dim, inner, bias=False, **fk)
         self.to_k = Dense(ctx, inner, bias=False, **fk)
         self.to_v = Dense(ctx, inner, bias=False, **fk)
         self.to_out = Dense(inner, query_dim, **fk)
+        self.tp = None
+
+    def tp_divides(self, m: int) -> bool:
+        return self.heads % m == 0
+
+    def _project_out(self, o: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.to_out(o)
+        y = reduce_from_model(self.to_out.apply_bias(o, None), self.tp)
+        return y + self.to_out.bias.to(y.dtype)
 
     def forward(self, x, context=None, pre=None, post=None, pre_split: bool = False,
                 frames: Optional[Tuple[int, int]] = None):
+        if self.tp is not None:
+            x, context = copy_to_model(x, self.tp), copy_to_model(context, self.tp)
+            with split_over(AXIS_MODEL):
+                return self._attend(x, context, pre, post, pre_split, frames)
+        return self._attend(x, context, pre, post, pre_split, frames)
+
+    def _attend(self, x, context, pre, post, pre_split, frames):
+        heads = self.to_q.kernel.shape[0] // self.dim_head      # this rank's heads
         if frames is not None:
             q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
             b, t = frames
-            return self.to_out(temporal_attention(q, k, v, batch=b, frames_q=t, frames_kv=t,
-                                                  num_heads=self.heads))
+            return self._project_out(temporal_attention(q, k, v, batch=b, frames_q=t,
+                                                        frames_kv=t, num_heads=heads))
         if context is not None and context.shape[1] == 1 and pre is None and post is None:
             # one key: the softmax is exactly 1, so the output is v for
             # every query (the SVD pooled-CLIP context)
-            out = self.to_out(self.to_v(context))
+            out = self._project_out(self.to_v(context))
             return out.expand(x.shape[0], x.shape[1], out.shape[-1])
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
@@ -114,10 +174,10 @@ class CrossAttention(nn.Module):
         if pre_split:
             o = attention_pre_split(q, k, v)
         else:
-            o = attention(q, k, v, num_heads=self.heads)
+            o = attention(q, k, v, num_heads=heads, over_tokens=context is None and pre is None)
         if post is not None:
             o = post(o)
-        return self.to_out(o)
+        return self._project_out(o)
 
 
 class APMContextMixer(nn.Module):
@@ -185,7 +245,7 @@ class VideoTransformerBlock(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        self.heads, self.dim_head = heads, dim_head
+        self.dim_head = dim_head
         self.has_ff_in = ff_in
         self.disable_temporal_crossattention = disable_temporal_crossattention
         if ff_in:
@@ -201,13 +261,15 @@ class VideoTransformerBlock(nn.Module):
 
     def forward(self, x, context=None, *, batch: int, frames: int):
         b, t, s = batch, frames, x.shape[1]
-        hd, dh = self.heads, self.dim_head
+        dh = self.dim_head
 
-        def to_time_split(z):  # (b t) s (h d) -> (b s h) t d
-            return z.reshape(b, t, s, hd, dh).permute(0, 2, 3, 1, 4).reshape(b * s * hd, t, dh)
+        def to_time_split(z):  # (b t) s (h d) -> (b s h) t d; h: this rank's heads
+            h = z.shape[-1] // dh
+            return z.reshape(b, t, s, h, dh).permute(0, 2, 3, 1, 4).reshape(b * s * h, t, dh)
 
         def from_time_split(z):
-            return z.reshape(b, s, hd, t, dh).permute(0, 3, 1, 2, 4).reshape(b * t, s, hd * dh)
+            h = z.shape[0] // (b * s)
+            return z.reshape(b, s, h, t, dh).permute(0, 3, 1, 2, 4).reshape(b * t, s, h * dh)
 
         if current_routing().temporal_attention:
             layout = dict(frames=(b, t))
@@ -270,6 +332,10 @@ class SpatialVideoTransformer(nn.Module):
                 inner, heads, dim_head, context_dim, ff_in=True,
                 disable_temporal_crossattention=disable_temporal_crossattention, **fk))
         self.proj_out = Dense(inner, c, zero_init=True, **fk)
+        self.tp = None
+
+    def tp_divides(self, m: int) -> bool:
+        return self.proj_in.kernel.shape[0] % m == 0
 
     def forward(self, x, context, image_only_indicator):
         return _remat(self, self._forward, x, context, image_only_indicator)
@@ -278,10 +344,28 @@ class SpatialVideoTransformer(nn.Module):
         b, t, hh, ww, c = x.shape
         s = hh * ww
         h = group_norm(x.reshape(b * t, hh, ww, c), *norm_pair(self, "norm"), eps=1e-6)
-        h = self.proj_in(h)
+        if self.tp is None:
+            h = self.proj_in(h)
+        else:   # column-parallel, gathered
+            h = gather_dim(self.proj_in(copy_to_model(h, self.tp)), self.tp, AXIS_MODEL, -1)
         inner = h.shape[-1]
+        mesh = get_active_mesh()
+        seq = mesh is not None and mesh.shape[AXIS_SEQ] > 1 and s % mesh.shape[AXIS_SEQ] == 0
+        with split_over(AXIS_SEQ) if seq else contextlib.nullcontext():
+            h = self._blocks(h.reshape(b * t, s, inner), context, image_only_indicator, b, t, c,
+                             mesh if seq else None)
+        h = self.proj_out(h)
+        return x + h.reshape(b, t, hh, ww, c)
 
-        frame_ids = torch.arange(t, dtype=torch.float32, device=x.device)
+    def _blocks(self, h, context, image_only_indicator, b: int, t: int, c: int, seq_mesh):
+        """The spatial and temporal stacks on (B*T, S, inner); with
+        ``seq_mesh`` the tokens are split over its seq ranks on the way in
+        and gathered on the way out."""
+        if seq_mesh is not None:
+            h = shard_dim(h, seq_mesh, AXIS_SEQ, 1)
+        s, inner = h.shape[1], h.shape[2]
+
+        frame_ids = torch.arange(t, dtype=torch.float32, device=h.device)
         t_emb = timestep_embedding(frame_ids, c, max_period=self.max_time_embed_period)
         pos = self.time_pos_embed_2(F.silu(self.time_pos_embed_0(t_emb))).to(h.dtype)  # (T, C)
 
@@ -292,7 +376,6 @@ class SpatialVideoTransformer(nn.Module):
             ctx_rep = ctx_time[:, None].expand((b, t) + ctx_time.shape[1:]).reshape(
                 (b * t,) + ctx_time.shape[1:])
 
-        h = h.reshape(b * t, s, inner)
         for d in range(self.depth):
             h = getattr(self, f"block_{d}")(h, ctx_sp)
             h_time_in = h + pos[:, None, :].repeat(b, 1, 1)
@@ -300,8 +383,7 @@ class SpatialVideoTransformer(nn.Module):
             h = blend_with_images(self.time_mixer_mix_factor, h.reshape(b, t, s, inner),
                                   h_time.reshape(b, t, s, inner),
                                   image_only_indicator).reshape(b * t, s, inner)
-        h = self.proj_out(h)
-        return x + h.reshape(b, t, hh, ww, c)
+        return h if seq_mesh is None else gather_dim(h, seq_mesh, AXIS_SEQ, 1)
 
 
 class UNetResBlock(nn.Module):

@@ -9,6 +9,13 @@ device, exactly the geometries the JAX package sends to its Pallas kernel
 on a TPU: K1 on head-folded copies, or K2 on the packed layout when the
 routing in force (``ops/routing.py``) has ``flash_packed``; small ones take
 plain matrix products with an f32 softmax.
+
+Under an active mesh (``parallel/sharding.py``): a self-attention over
+tokens split by the seq axis goes around the ring (``_maybe_ring``), or,
+with the routing's ``ring_attention`` off, against k/v gathered over seq;
+a flash geometry whose rows are whole on several ranks splits its
+batch*heads rows over them (``_flash_sharded``), each rank running K1 on
+its slice.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import torch
 from streamingt2v_torch.ops.flash_attention import (
     flash_attention, flash_attention_packed, packed_applicable)
 from streamingt2v_torch.ops.routing import current_routing
+from streamingt2v_torch.parallel.mesh import AXIS_SEQ
+from streamingt2v_torch.parallel.sharding import (
+    copy_to, current_scope, gather_dim, is_split)
 
 # Below this many score elements per (batch*head) the plain path is used.
 _FLASH_MIN_SCORE_ELEMS = 2048 * 2048
@@ -74,11 +84,70 @@ def _grouped_tiny_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor
     return o[:b] if pad else o
 
 
+def _maybe_ring(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, mesh) -> Optional[torch.Tensor]:
+    """Ring attention over the seq ranks, or None where it does not apply
+    (no mesh, or the routing's ``ring_attention`` off: the JAX package's
+    ``STREAMINGT2V_RING_ATTN=0``)."""
+    from streamingt2v_torch.parallel.ring_attention import (
+        ring_attention, ring_attention_available)
+
+    if mesh is None or not current_routing().ring_attention:
+        return None
+    if not ring_attention_available(mesh, qf.shape[0], qf.shape[1], kf.shape[1]):
+        return None
+    return ring_attention(qf, kf, vf, mesh)
+
+
+def _seq_split_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, mesh) -> torch.Tensor:
+    """Self-attention of this rank's token block against every rank's: the
+    ring, else k/v gathered over seq (each rank's queries whole against the
+    gathered keys).  Forward only, as the ring is: each rank's gathered k/v
+    would take a gradient from its own queries alone."""
+    o = _maybe_ring(qf, kf, vf, mesh)
+    if o is not None:
+        return o
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qf, kf, vf)):
+        raise RuntimeError("attention over tokens split by seq has no backward (training "
+                           "with seq > 1 is not supported)")
+    kf, vf = gather_dim(kf, mesh, AXIS_SEQ, 1), gather_dim(vf, mesh, AXIS_SEQ, 1)
+    return attention_pre_split(qf, kf, vf)
+
+
+def _flash_rows(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, n: int, i: int
+                ) -> torch.Tensor:
+    """Rank i of n's part of ``_flash_sharded``: the (B*H) rows zero-padded
+    to a multiple of n, its block of them through flash attention."""
+    pad = (-qf.shape[0]) % n
+    if pad:
+        widths = (0, 0, 0, 0, 0, pad)
+        qf, kf, vf = (torch.nn.functional.pad(t, widths) for t in (qf, kf, vf))
+    per = qf.shape[0] // n
+    return flash_attention(*(t[i * per:(i + 1) * per].contiguous() for t in (qf, kf, vf)))
+
+
+def _flash_sharded(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Flash attention over (B*H, L, D) rows that are whole on every rank of
+    the mesh ``axes``: each rank runs K1 on its slice of the rows
+    (``_flash_rows``) and the slices are gathered back (attention is
+    independent per row).  Each rank's q/k/v gradient covers its own rows
+    only: ``copy_to`` sums them over ``axes``."""
+    b = qf.shape[0]
+    qf, kf, vf = (copy_to(t, mesh, axes) for t in (qf, kf, vf))
+    o = _flash_rows(qf, kf, vf, mesh.axis_size(axes), mesh.axis_index(axes))
+    return gather_dim(o, mesh, axes, 0)[:b]
+
+
 def attention_pre_split(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
-    """Attention on head-folded (B*H, L, D) tensors; returns the same layout."""
+    """Attention on head-folded (B*H, L, D) tensors; returns the same layout.
+    Flash on its geometries (its rows split over the ranks that hold the
+    same rows, where an active mesh has them), else the plain paths."""
     bh, lq, _ = qf.shape
     lk = kf.shape[1]
     if _use_flash(bh, lq, lk, qf.device):
+        scope = current_scope()
+        axes = scope.replicated() if scope is not None else ()
+        if axes:
+            return _flash_sharded(qf, kf, vf, scope.mesh, axes)
         return flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous())
     if lq <= _GROUP_MAX_LEN and lk <= _GROUP_MAX_LEN and bh >= 256:
         return _grouped_tiny_attention(qf, kf, vf)
@@ -86,24 +155,32 @@ def attention_pre_split(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) ->
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              num_heads: int = 1) -> torch.Tensor:
-    """Multi-head attention over flat (B, L, H*D) tensors."""
+              num_heads: int = 1, over_tokens: bool = False) -> torch.Tensor:
+    """Multi-head attention over flat (B, L, H*D) tensors.  ``over_tokens``
+    marks a self-attention over the token axis: where the active mesh has
+    split the tokens over seq, it attends across the ranks."""
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // num_heads
     if num_heads * d != hd:
         raise ValueError(f"{hd} channels do not split into {num_heads} heads")
     bh = b * num_heads
+    seq_split = over_tokens and is_split(AXIS_SEQ)
+    scope = current_scope()
     if (_use_flash(bh, lq, lk, q.device) and current_routing().flash_packed
-            and packed_applicable(num_heads, d)):
+            and packed_applicable(num_heads, d) and not seq_split
+            and (scope is None or not scope.replicated())):
         return flash_attention_packed(q.contiguous(), k.contiguous(), v.contiguous(),
                                       num_heads=num_heads)
     qh = q.reshape(b, lq, num_heads, d).transpose(1, 2)
     kh = k.reshape(b, lk, num_heads, d).transpose(1, 2)
     vh = v.reshape(b, lk, num_heads, d).transpose(1, 2)
-    if _use_flash(bh, lq, lk, q.device):
-        o = flash_attention(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
-                            vh.reshape(bh, lk, d)).reshape(b, num_heads, lq, d)
+    if seq_split:
+        o = _seq_split_attention(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
+                                 vh.reshape(bh, lk, d), scope.mesh).reshape(b, num_heads, lq, d)
+    elif _use_flash(bh, lq, lk, q.device):
+        o = attention_pre_split(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
+                                vh.reshape(bh, lk, d)).reshape(b, num_heads, lq, d)
     elif lq <= _GROUP_MAX_LEN and lk <= _GROUP_MAX_LEN and bh >= 256:
         o = _grouped_tiny_attention(qh.reshape(bh, lq, d), kh.reshape(bh, lk, d),
                                     vh.reshape(bh, lk, d)).reshape(b, num_heads, lq, d)

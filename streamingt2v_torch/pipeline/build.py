@@ -9,6 +9,12 @@ its own ``torch.Generator`` seeded from ``seed``; checkpoint loading
 replaces the weights afterwards (``utils/weights.py`` for JAX trees).
 ``device`` defaults to the card: without one the builders raise, and a
 caller that wants CPU modules (the parity tests) asks for ``"cpu"``.
+
+``mesh`` (``parallel/mesh.py``) builds a stage for a multi-rank run, every
+rank with the same weights from the same seed: stage 1's models keep each
+rank's slice of their tensor-parallel weights (``shard_stage1_models``) and
+its network calls split over the mesh; stages 2 and 3 split their batches
+over ``data`` (the JAX package's ``pipeline/build.py:137-167``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from streamingt2v_torch.models.layers import init_random_
 from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.vfi import MultiScaleFlow
 from streamingt2v_torch.models.video_unet import VideoUNet
+from streamingt2v_torch.parallel.sharding import shard_params
 from streamingt2v_torch.pipeline.enhance import EnhanceModels, EnhancePipeline
 from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
 from streamingt2v_torch.pipeline.interpolate import InterpolatePipeline
@@ -68,9 +75,19 @@ def build_models(cfg: PipelineConfig, seed: int = 0, *, device="cuda", bf16: boo
     return models
 
 
+def shard_stage1_models(models: StreamingModels, mesh) -> StreamingModels:
+    """Keep this rank's slice of every tensor-parallel weight of the stage-1
+    models (the transformers' projections and FFs, CAM's; the rest stays
+    whole), in place.  The identity without a model axis."""
+    for field in dataclasses.fields(models):
+        shard_params(getattr(models, field.name), mesh)
+    return models
+
+
 def build_pipeline(cfg: PipelineConfig, seed: int = 0, *, device="cuda", bf16: bool = False,
-                   init: bool = True) -> Stage1Pipeline:
-    return Stage1Pipeline(cfg, build_models(cfg, seed, device=device, bf16=bf16, init=init))
+                   init: bool = True, mesh=None) -> Stage1Pipeline:
+    models = build_models(cfg, seed, device=device, bf16=bf16, init=init)
+    return Stage1Pipeline(cfg, shard_stage1_models(models, mesh), mesh=mesh)
 
 
 def build_enhance_models(seed: int = 0, *, device="cuda", bf16: bool = True, init: bool = True,
@@ -102,20 +119,20 @@ def build_enhance_models(seed: int = 0, *, device="cuda", bf16: bool = True, ini
     return models
 
 
-def build_enhance(cfg: EnhanceConfig, seed: int = 0, **kw) -> EnhancePipeline:
+def build_enhance(cfg: EnhanceConfig, seed: int = 0, mesh=None, **kw) -> EnhancePipeline:
     """``EnhancePipeline`` over ``build_enhance_models(seed, **kw)``."""
-    return EnhancePipeline(cfg, build_enhance_models(seed, **kw))
+    return EnhancePipeline(cfg, build_enhance_models(seed, **kw), mesh=mesh)
 
 
 def build_interpolate(cfg: PipelineConfig, seed: int = 0, *, device="cuda",
-                      init: bool = True) -> InterpolatePipeline:
+                      init: bool = True, mesh=None) -> InterpolatePipeline:
     """Stage 3: the EMA-VFI network of ``cfg.vfi`` in f32 on ``device``, with
     flip-TTA as ``cfg.vfi.tta`` says."""
     device = _device(device)
     model = MultiScaleFlow(cfg.vfi, device=device).eval()
     if init:
         init_random_(model, torch.Generator(device).manual_seed(seed * 1000 + 200))
-    return InterpolatePipeline(model, tta=cfg.vfi.tta)
+    return InterpolatePipeline(model, tta=cfg.vfi.tta, mesh=mesh)
 
 
 def build_product(cfg: PipelineConfig, seed: int = 0, *, device="cuda") -> StreamingT2VPipeline:

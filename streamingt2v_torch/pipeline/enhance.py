@@ -17,9 +17,12 @@ Draws come from an ``EnhanceNoise`` (``utils/rng.py``), so a caller can
 inject those of another implementation.  Every call runs under the
 pipeline's kernel routing (``EnhanceConfig.routing``).  All weights stay
 resident on the device; the JAX package's residency and offload machinery,
-its one-program compile granularity, its data-parallel step and its
-out-of-memory ladder around decode are TPU-platform measures and are not
-ported.
+its one-program compile granularity and its out-of-memory ladder around
+decode are TPU-platform measures and are not ported.
+
+With a mesh of more than one rank, each DDIM step runs every (chunk, CFG
+half) UNet call of the step as one batch split over the ``data`` ranks
+(``_denoise_step_dp``); the rest runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from streamingt2v_torch.models.clip_text import CLIPTextTower, CLIPTokenizer
 from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet
 from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.ops.routing import use_routing
+from streamingt2v_torch.parallel.sharding import batch_rows, data_parallel, gather
 from streamingt2v_torch.utils.rng import EnhanceNoise, GeneratorEnhanceNoise
 
 
@@ -72,9 +76,10 @@ def _routed(fn):
 
 
 class EnhancePipeline:
-    def __init__(self, cfg: EnhanceConfig, models: EnhanceModels):
+    def __init__(self, cfg: EnhanceConfig, models: EnhanceModels, mesh=None):
         self.cfg = cfg
         self.m = models
+        self.mesh = mesh
         # the reference runs the whole i2vgen pipeline, VAE included, in fp16;
         # with vae_bf16 the VAE runs on a bf16 copy of its weights
         self.vae = (copy.deepcopy(models.vae).to(torch.bfloat16) if cfg.vae_bf16
@@ -139,18 +144,59 @@ class EnhancePipeline:
 
     def _denoise_step(self, latents, si: int, t: int, prompt_embeds, clip_embs, image_latents,
                       noise: EnhanceNoise, *, chunk_size: int, stride: int, overlap_size: int):
-        """One DDIM step over all chunks; chunk ci > 0 keeps the frames of
-        the already written chunk below its random offset."""
+        """One DDIM step over all chunks, one chunk's two UNet calls after
+        another, written back by ``_write_back``."""
+        denoised = torch.cat([
+            self._denoise_chunk(latents[:, ci * stride:ci * stride + chunk_size], t,
+                                prompt_embeds, clip_embs[ci], image_latents[ci])
+            for ci in range(clip_embs.shape[0])])
+        return self._write_back(latents, denoised, si, noise, chunk_size=chunk_size,
+                                stride=stride, overlap_size=overlap_size)
+
+    @staticmethod
+    def _write_back(latents, denoised, si: int, noise: EnhanceNoise, *, chunk_size: int,
+                    stride: int, overlap_size: int):
+        """``latents`` with each chunk's denoised frames (``denoised``: one
+        chunk a row) written in turn; chunk ci > 0 keeps the frames of the
+        already written chunk below its random offset."""
         new = latents.clone()
-        for ci in range(clip_embs.shape[0]):
+        for ci in range(denoised.shape[0]):
             start = ci * stride
-            denoised = self._denoise_chunk(latents[:, start:start + chunk_size], t,
-                                           prompt_embeds, clip_embs[ci], image_latents[ci])
+            chunk = denoised[ci:ci + 1].clone()
             if overlap_size > 0 and ci > 0:
                 offset = noise.offset(si, ci, overlap_size)
-                denoised[:, :offset] = new[:, start:start + offset]
-            new[:, start:start + chunk_size] = denoised
+                chunk[:, :offset] = new[:, start:start + offset]
+            new[:, start:start + chunk_size] = chunk
         return new
+
+    def _denoise_step_dp(self, latents, si: int, t: int, prompt_embeds, clip_embs, image_latents,
+                         noise: EnhanceNoise, *, chunk_size: int, stride: int, overlap_size: int):
+        """``_denoise_step`` with all 2 * n_chunks UNet calls as one batch,
+        split over the mesh's data ranks: the unconditional halves of every
+        chunk first, then the conditional ones (the JAX package's order,
+        ``streamingt2v_tpu/pipeline/enhance.py:306-360``).  The guided
+        results are then written back as the sequential step writes them
+        (``_write_back``), so the two steps agree to rounding."""
+        m = self.m
+        n = clip_embs.shape[0]
+        chunks = torch.cat([latents[:, ci * stride:ci * stride + chunk_size] for ci in range(n)])
+        xb = torch.cat([chunks, chunks])
+        ce = torch.cat([clip_embs[:, 0], clip_embs[:, 1]])
+        il = torch.cat([image_latents[:, 0], image_latents[:, 1]])
+        pe = torch.cat([prompt_embeds[i:i + 1].expand((n,) + prompt_embeds.shape[1:])
+                        for i in (0, 1)])
+        b = 2 * n
+        t_vec = torch.full((b,), int(t), dtype=torch.int32, device=xb.device)
+        fps_vec = torch.full((b,), float(self.cfg.fps), device=xb.device)
+        with data_parallel(self.mesh, b) as split:
+            eps_all = m.unet(*(batch_rows(split, b, v) for v in (xb, t_vec, fps_vec, il, ce, pe)))
+            if split:
+                eps_all = gather(eps_all, "batch")
+        eps_u, eps_c = eps_all[:n], eps_all[n:]
+        eps = eps_u + self.cfg.guidance_scale * (eps_c - eps_u)
+        return self._write_back(latents, m.scheduler.step(eps, t, chunks, self.cfg.num_steps),
+                                si, noise, chunk_size=chunk_size, stride=stride,
+                                overlap_size=overlap_size)
 
     # ---------- video latents ----------
 
@@ -237,10 +283,11 @@ class EnhancePipeline:
         z0 = self._encode_video(video, noise)
         latents = scheduler.add_noise(z0, noise.normal("latent", 0, tuple(z0.shape)).to(z0.device),
                                       timesteps[0])
+        step = (self._denoise_step_dp if self.mesh is not None and self.mesh.size > 1
+                else self._denoise_step)
         for si, t in enumerate(timesteps):
-            latents = self._denoise_step(latents, si, t, prompt_embeds, clip_embs, image_latents,
-                                         noise, chunk_size=chunk_size, stride=stride,
-                                         overlap_size=overlap_size)
+            latents = step(latents, si, t, prompt_embeds, clip_embs, image_latents, noise,
+                           chunk_size=chunk_size, stride=stride, overlap_size=overlap_size)
         return self._decode_latents(latents)
 
     @_routed

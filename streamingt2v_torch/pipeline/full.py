@@ -90,18 +90,20 @@ class StreamingT2VPipeline:
             self.stage_finite["vfi"] = _finite(out)
             return media.fetch_uint8(out, input_range=(0.0, 1.0))
 
-    def run(self, image: Union[str, np.ndarray], output_path: str,
+    def run(self, image: Union[str, np.ndarray], output_path: Optional[str],
             seed: Optional[int] = None) -> np.ndarray:
         """The product from an image file or a uint8 (H, W, 3) array: writes
-        the video (mp4 or y4m by the path's suffix) and returns its uint8
-        frames (F, H, W, 3)."""
+        the video (mp4 or y4m by the path's suffix; not with ``output_path``
+        None, as the other ranks of a mesh run) and returns its uint8 frames
+        (F, H, W, 3)."""
         image_u8 = media.load_image(image) if isinstance(image, str) else image
         video = self.image_to_video(image_u8, seed)
         if self.enhance is not None:
             video = self.enhance_video(video, image_u8, seed)
         if self.interpolate is not None:
             video = self.interpolate_video(video)
-        media.save_video(output_path, video, fps=self.cfg.out_fps)
+        if output_path is not None:
+            media.save_video(output_path, video, fps=self.cfg.out_fps)
         return video
 
     def __call__(self, image: Union[str, np.ndarray], output_path: str,

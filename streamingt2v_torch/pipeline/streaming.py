@@ -18,6 +18,12 @@ under the configuration's kernel routing (``PipelineConfig.routing``, all
 off: the JAX package's default kernels).  Noise comes from a
 ``noise(generation, stream, shape)`` function (``utils/rng.py``), so a
 caller can inject the draws of another implementation.
+
+With a ``mesh`` (``build_pipeline(mesh=)``, whose models
+``shard_stage1_models`` split over ``model``) the network calls run under
+it: the CFG-doubled batch splits over ``data`` and the transformers over
+``seq`` and ``model`` (``models/wrappers.py``); everything else, the
+conditioning, the sampler and the decode, runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -55,9 +61,10 @@ class StreamingModels:
 
 
 class Stage1Pipeline:
-    def __init__(self, cfg: PipelineConfig, models: StreamingModels):
+    def __init__(self, cfg: PipelineConfig, models: StreamingModels, mesh=None):
         self.cfg = cfg
         self.models = models
+        self.mesh = mesh
 
     @property
     def device(self) -> torch.device:
@@ -120,7 +127,7 @@ class Stage1Pipeline:
                     step_noise: Optional[StepNoiseFn] = None) -> torch.Tensor:
         """(c, uc) + initial noise -> latents (1, T, h, w, 4); ``step_noise``:
         a stochastic sampler's per-step draws."""
-        return self._sample(openai_wrapper(self.models.svd_unet), noise, c, uc,
+        return self._sample(openai_wrapper(self.models.svd_unet, mesh=self.mesh), noise, c, uc,
                             self.cfg.first_chunk_sampler, step_noise)
 
     def stream_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor,
@@ -128,7 +135,7 @@ class Stage1Pipeline:
         """(c, uc) with ctrl_frames + initial noise -> latents (1, T, h, w, 4)."""
         m = self.models
         net = streaming_wrapper(m.unet, m.controlnet, self.cfg.inference.num_conditional_frames,
-                                ctrl_cfg_shared=True)
+                                ctrl_cfg_shared=True, mesh=self.mesh)
         return self._sample(net, noise, c, uc, self.cfg.sampler, step_noise)
 
     def decode_chunk(self, z: torch.Tensor) -> torch.Tensor:

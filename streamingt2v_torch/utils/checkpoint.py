@@ -511,6 +511,27 @@ def clip_visual_map(cfg, torch_prefix: str) -> MapDict:
 # Conversion
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# LPIPS (diffusion/lpips.py)
+# --------------------------------------------------------------------------
+
+def lpips_map(vgg_prefix: str = "net", lin_prefix: str = "") -> MapDict:
+    """torchvision VGG16 + LPIPS lin heads -> ``LPIPS`` (the JAX package's
+    ``diffusion/lpips.lpips_map``).  The LPIPS release stores the VGG
+    weights as ``net.slice{s}.{i}.weight`` and the heads as
+    ``lin{i}.model.1.weight``; all are torch conv layouts already."""
+    from streamingt2v_torch.diffusion.lpips import _VGG_STAGES
+
+    m: MapDict = {}
+    for si, idxs in enumerate(_VGG_STAGES):
+        for li in idxs:
+            _conv(m, f"vgg.conv_{li}", f"{vgg_prefix}.slice{si + 1}.{li}")
+    p = f"{lin_prefix}." if lin_prefix else ""
+    for i in range(len(_VGG_STAGES)):
+        m[f"lin_{i}.kernel"] = (f"{p}lin{i}.model.1.weight", t_id)
+    return m
+
+
 def _keys(tk) -> tuple:
     return tk if isinstance(tk, tuple) else (tk,)
 

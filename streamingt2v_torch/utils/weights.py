@@ -11,7 +11,13 @@ replaced by ``.``.  The layout transforms are mechanical:
   time conv             (kt, 1, 1, in, out)  -> (kt, in, out)   (the K4 weight)
   1-D Conv kernel       (k, in, out)         -> (out, in, k)    (torch Conv1d; APM's
                         ``apm_conv``, told from the others by its three axes)
-  everything else (biases, norms, embeddings, projections) unchanged.
+  everything else (biases, norms, embeddings, projections, the VQ codebook)
+  unchanged.
+
+A flax norm submodule (``nn.GroupNorm``/``nn.LayerNorm``: the
+discriminator's ``norm{i}``) holds ``<name>/scale`` and ``<name>/bias``; the
+port keeps a norm's affine as ``<name>_scale``/``<name>_bias`` on the
+owning module (``models/layers.norm_params``), so those two are renamed.
 
 A depthwise Conv kernel (kh, kw, 1, C) takes the Conv rule: (C, 1, kh, kw)
 is torch's grouped layout.
@@ -29,6 +35,7 @@ from torch import nn
 def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """{'a/b/kernel': array} (``utils/checkpoint.py`` ``flatten_params`` of a
     flax ``params`` tree) -> a state dict in the port's names and layouts."""
+    norms = {p[:-len("/scale")] for p in flat if p.endswith("/scale")}
     out = {}
     for path, value in flat.items():
         a = np.asarray(value)
@@ -47,6 +54,9 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
                 a = a.reshape(a.shape[0], a.shape[3], a.shape[4])
             else:
                 raise ValueError(f"{path}: no port layout for a kernel of shape {a.shape}")
+        head, _, leaf = path.rpartition("/")
+        if head in norms and leaf in ("scale", "bias"):
+            path = f"{head}_{leaf}"
         # (ascontiguousarray makes a 0-d array 1-d: APM's scalar apm_alpha)
         out[path.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     return out

@@ -267,7 +267,10 @@ def test_cli_set_overrides_the_config():
 
 @pytest.mark.parametrize("flag,value,what", [("--mesh", "2,1,1", "multi-device")])
 def test_cli_unported_flags_raise(input_png, tmp_path, flag, value, what):
-    with pytest.raises(NotImplementedError, match=what):
+    """A multi-device mesh in a world of one process (no torchrun) is
+    refused before anything runs (the mesh run itself:
+    tests/test_torch_port_parallel.py)."""
+    with pytest.raises(ValueError, match=what):
         cli.main(["--input", input_png, "--output", str(tmp_path), "--tiny", "--device", "cpu",
                   flag, value])
     assert not [p for p in os.listdir(tmp_path) if p.endswith((".mp4", ".y4m"))]

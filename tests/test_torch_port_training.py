@@ -89,18 +89,19 @@ def jax_draws(cfg, key, shape) -> dict:
     return dict(sigmas=t(sigmas), noise=t(noise), offset=t(offset))
 
 
-def unet_pair(remat: bool, seed: int = 6):
+def unet_pair(remat: bool, seed: int = 6, **cfg):
     """(JAX UNet, its flat weights, the port's UNet on them): the tiny
-    first-chunk VideoUNet, ``use_checkpoint`` = remat on both sides."""
+    first-chunk VideoUNet, ``use_checkpoint`` = remat on both sides, and
+    ``cfg``'s other fields."""
     jc = dataclasses.replace(jcfg.VideoUNetConfig.tiny(controlnet_mode=False),
-                             use_checkpoint=remat)
+                             use_checkpoint=remat, **cfg)
     jm = jvu.VideoUNet(jc)
     flat = random_flat(jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jnp.zeros((1, 2, 8, 8, 8)), jnp.zeros((1,)),
         jnp.zeros((1, 2, 1, jc.context_dim)), jnp.zeros((1, 2, jc.adm_in_channels))))["params"],
         seed)
     pc = dataclasses.replace(pcfg.VideoUNetConfig.tiny(controlnet_mode=False),
-                             use_checkpoint=remat)
+                             use_checkpoint=remat, **cfg)
     return jm, flat, port_module(pvu.VideoUNet(pc), flat)
 
 
@@ -314,8 +315,10 @@ def test_adamw_steps_match_optax():
 
 
 def test_train_step_refuses_a_mesh():
+    """Anything but a ``parallel.mesh.Mesh`` is refused as the mesh (the
+    multi-rank step itself: tests/test_torch_port_parallel.py)."""
     _, _, pm = unet_pair(False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         make_train_step(lambda: pwrap.openai_wrapper(pm), ploss.DiffusionLossConfig(),
                         torch.optim.AdamW(pm.parameters()), mesh=object())
 
