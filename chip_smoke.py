@@ -107,8 +107,12 @@ Phases, one line each:
      the loader phase's cut with random weights (``--random_weights``) under
      ``--mesh 1,1,1`` (a world of one NCCL rank: its launches are the
      phase's ``mesh_launches``, every kernel row must launch) and without
-     ``--mesh``, both with cuDNN's deterministic algorithms: the two files
-     byte-equal; then under that mesh, stage 2's
+     ``--mesh``, with no cuDNN flag set by this script: the two files
+     byte-equal (a same-seed two-run check of the product); stage 3 of the
+     plain run twice more on its 43 stage-2 frames with every module's
+     output on one pair batch compared, 0 uint8 values apart, and the same
+     with ``ConvTranspose`` as ``F.conv_transpose2d`` measured beside it
+     (the op whose cuDNN algorithm varied); then under that mesh, stage 2's
      ``_denoise_step_dp`` at full width (64 frames at 720p, the 2 x 2 UNet
      calls of a DDIM step as one batch) against the sequential step, and a
      full-width SVD-XT training step against the same step without the mesh
@@ -120,11 +124,17 @@ Phases, one line each:
      over seq = 4 (``ring_fold``), each against the unsplit kernel; the
      same K3 and K1 splits under grad, each rank's input gradients summed
      over the ranks against the unsplit Function's (``_mesh_split_grads``:
-     the world-1 steps above run none of the model-side split code); last
-     the training losses (LPIPS, the discriminator with the hinge loss, the
-     Laplacian and census losses, the KL, the vector quantizer) on the card
-     against the CPU at a small size, and LPIPS and the discriminator timed
-     on 25 frames at 576x1024 and the VFI losses on 720p pairs.
+     the world-1 steps above run none of the model-side split code); the
+     token split under grad at the training shape (125, 9216, 64) bf16 over
+     simulated seq = 2 and 4 against K1's Function backward on the whole
+     call: the ring's backward through its per-hop functions
+     (``ring_bwd_fold``; ms a rank and chunks) and the gathered path (each
+     rank's queries through K1, the ranks' dk/dv summed); the training
+     losses (LPIPS, the discriminator with the hinge loss, the Laplacian and
+     census losses, the KL, the vector quantizer) on the card against the
+     CPU at a small size, and LPIPS and the discriminator timed on 25 frames
+     at 576x1024 and the VFI losses on 720p pairs; last the two
+     single-process examples of ``examples/torch/`` at their tiny widths.
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -2499,6 +2509,8 @@ def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int)
 MESH_K3_SPLITS = (2, 4)
 MESH_FLASH_SPLITS = (2, 4)
 MESH_RING_SEQ = 4
+MESH_RING_GRAD_SEQS = (2, 4)
+TRAIN_RING_ROWS = 125   # batch 1 x 25 frames x 5 heads at level 0 (the train phase's clip)
 MESH_LOSS_FRAMES = 25
 MESH_VFI_PAIRS = 4
 MESH_VFI_LEVELS = 4     # 720 = 16 x 45: five halvings do not divide 720p
@@ -2536,24 +2548,156 @@ def _mesh_cli(png: str, out_dir: str, enhance_steps: int, mesh: bool):
     return args, cli.build_product_pipeline(args)
 
 
+def _stage3_divergence(model, img0, img1) -> list:
+    """One pair batch through stage 3's network (``interpolate_pair`` with
+    flip-TTA) twice on the same input, with a forward hook on every module
+    of ``model`` that keeps a fingerprint of each output (the sum of its
+    f32 bit patterns as integers): the names of the module calls whose
+    output differs between the two runs, in the order the hooks fire (the
+    first is the op where the runs part; the rest carry its difference)."""
+    import torch
+
+    from streamingt2v_torch.models.vfi import interpolate_pair
+
+    names = {m: n or type(m).__name__ for n, m in model.named_modules()}
+    prints = [[], []]
+    run = [0]
+
+    def fingerprint(x):
+        if x.dtype == torch.float32:
+            return int(x.contiguous().view(torch.int32).sum(dtype=torch.int64))
+        return float(x.double().sum())
+
+    def hook(module, args, out):
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        prints[run[0]].append((names[module], tuple(fingerprint(o) for o in outs
+                                                   if torch.is_tensor(o))))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()]
+    try:
+        with torch.inference_mode():
+            for run[0] in (0, 1):
+                interpolate_pair(model, img0, img1, tta=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return [a[0] for a, b in zip(*prints) if a != b]
+
+
+def _unpinned_conv_transpose(self, x):
+    """``ConvTranspose``'s forward as ``F.conv_transpose2d``, which cuDNN runs
+    as a backward-data algorithm: stage 3 as it was before the layer became
+    ``conv_transpose_subpixel``, for the measurement only."""
+    import torch.nn.functional as F
+
+    from streamingt2v_torch.models.layers import _common
+
+    dt = _common(x, self.kernel)
+    y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt), self.bias.to(dt),
+                           stride=self.stride, padding=self.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def _deconv_timings(model, img0, img1) -> None:
+    """Each ``ConvTranspose`` of stage 3's network at the input it takes on
+    one pair batch (flip-TTA): device ms of ``conv_transpose_subpixel`` (the
+    port), of ``F.conv_transpose2d`` on cuDNN's default algorithms, and of
+    the same under ``cudnn.deterministic`` (the flag restored), each run
+    twice and checked for equal bits (printed, not a check)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streamingt2v_torch.models.layers import ConvTranspose, conv_transpose_subpixel
+    from streamingt2v_torch.models.vfi import interpolate_pair
+
+    inputs = {}
+
+    def keep_shape(module, args, out):
+        inputs.setdefault(module, args[0].shape)
+
+    mods = [(n, m) for n, m in model.named_modules() if isinstance(m, ConvTranspose)]
+    hooks = [m.register_forward_hook(keep_shape) for _, m in mods]
+    try:
+        with torch.inference_mode():
+            interpolate_pair(model, img0, img1, tta=True)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def deterministic(fn):
+        def call(*a):
+            was = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                return fn(*a)
+            finally:
+                torch.backends.cudnn.deterministic = was
+        return call
+
+    randn, _ = _randn_factory(17)
+    with torch.inference_mode():
+        for name, m in mods:
+            n, h, w, c = inputs[m]
+            x = randn(n, c, h, w, dtype=torch.float32)
+            plain = lambda x, m=m: F.conv_transpose2d(x, m.kernel, m.bias,   # noqa: E731
+                                                      stride=m.stride, padding=m.padding)
+            cells = []
+            for label, fn in (("subpixel", lambda x, m=m: conv_transpose_subpixel(
+                    x, m.kernel, m.bias, m.stride, m.padding)),
+                              ("conv_transpose2d", plain),
+                              ("deterministic", deterministic(plain))):
+                same = torch.equal(fn(x), fn(x))
+                cells.append(f"{label} {_time_ms(lambda: fn(x), reps=5):.3f} ms"
+                             f"{'' if same else ' (runs differ)'}")
+            print(f"  {name} on ({n}, {c}, {h}, {w}) -> {m.kernel.shape[1]} channels: "
+                  + ", ".join(cells), flush=True)
+
+
 def _stage3_determinism(pipe, video) -> None:
-    """Stage 3 of ``pipe`` twice on ``video`` (uint8) with cuDNN's default
-    algorithms, then twice with its deterministic ones: the uint8 values
-    that differ between the two runs of each (a measurement, not a check:
-    why the byte-equality above runs on the deterministic ones)."""
+    """Stage 3 of the product ``pipe`` on ``video`` (uint8) with no cuDNN flag
+    set by this script: one pair batch through the network twice with every
+    module's output compared (``_stage3_divergence``), then the whole stage
+    twice; any module or uint8 value apart fails the phase.  Then, as a
+    measurement, the same with ``ConvTranspose`` run as
+    ``F.conv_transpose2d`` (``_unpinned_conv_transpose``): the modules that
+    part, the values apart and the seconds, beside the pinned ones."""
     import numpy as np
     import torch
 
-    was = torch.backends.cudnn.deterministic
-    for deterministic in (False, True):
-        torch.backends.cudnn.deterministic = deterministic
-        a, b = (pipe.interpolate_video(video).astype(np.int16) for _ in range(2))
-        diff = a != b
-        print(f"  stage 3 twice on {video.shape[0]} frames at {video.shape[2]}x{video.shape[1]}, "
-              f"cuDNN {'deterministic' if deterministic else 'default'} algorithms: "
-              f"{int(diff.sum())} of {diff.size} uint8 values differ (max "
-              f"{int(np.abs(a - b).max())} levels)", flush=True)
-    torch.backends.cudnn.deterministic = was
+    from streamingt2v_torch.models.layers import ConvTranspose
+    from streamingt2v_torch.utils import media
+
+    frames = media.put_unit_range(video[:pipe.interpolate.pair_batch + 1],
+                                  pipe.interpolate.device)
+    i0, i1 = frames[:-1], frames[1:]
+    label = (f"{video.shape[0]} -> {pipe.cfg.num_frames} frames at "
+             f"{video.shape[2]}x{video.shape[1]}")
+    results = {}
+    pinned = ConvTranspose.forward
+    try:
+        for name in ("pinned", "unpinned"):
+            ConvTranspose.forward = pinned if name == "pinned" else _unpinned_conv_transpose
+            parted = _stage3_divergence(pipe.interpolate.model, i0, i1)
+            outs, secs = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(pipe.interpolate_video(video).astype(np.int16))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            diff = outs[0] != outs[1]
+            results[name] = (parted, int(diff.sum()))
+            print(f"  stage 3 twice, {label}, ConvTranspose "
+                  f"{'as conv_transpose_subpixel (the port)' if name == 'pinned' else 'as F.conv_transpose2d'}: "
+                  f"{secs[0]:.3f} s and {secs[1]:.3f} s; {int(diff.sum())} of {diff.size} uint8 "
+                  f"values differ (max {int(np.abs(outs[0] - outs[1]).max())} levels); one "
+                  f"{i0.shape[0]}-pair batch: {len(parted)} module outputs differ"
+                  + (f", first {parted[:4]}" if parted else ""), flush=True)
+    finally:
+        ConvTranspose.forward = pinned
+    _deconv_timings(pipe.interpolate.model, i0, i1)
+    if results["pinned"] != ([], 0):
+        raise AssertionError(f"stage 3 is not the same from run to run: {results['pinned']}")
 
 
 def _mesh_dp_step(mesh) -> None:
@@ -2900,12 +3044,156 @@ def _mesh_losses() -> None:
     del lp, ds, lpips, disc, vq
 
 
+def _stage_digests(pipe) -> dict:
+    """Wrap the product's three stage methods so that each records the
+    SHA-256 of its uint8 output in the returned dict (by method name)."""
+    import hashlib
+
+    digests = {}
+
+    def recorded(name, fn):
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            digests[name] = hashlib.sha256(out.tobytes()).hexdigest()
+            return out
+        return wrapper
+
+    for name in ("image_to_video", "enhance_video", "interpolate_video"):
+        setattr(pipe, name, recorded(name, getattr(pipe, name)))
+    return digests
+
+
+def _mesh_token_split_grads(rows: int = TRAIN_RING_ROWS, length: int = 9216) -> None:
+    """The token split under grad at the training shape (125, 9216, 64)
+    bf16, stage 1's level-0 spatial self-attention at batch 1 x 25 frames x
+    5 heads, over simulated seq = 2 and 4, one rank after another, against
+    K1's Function backward on the whole call (``flash_attention_backward``):
+    the ring's backward through its per-hop functions (the forward's
+    log-sum-exp from ``ring_fold``/``ring_lse``, then ``ring_bwd_fold`` at
+    every hop: each rank's dq, each owner's dk/dv summed in the order its
+    accumulator travels), and the gathered path (each rank's q block through
+    K1's Function against the whole k/v, the ranks' dk/dv summed as the
+    reduce-scatter sums them)."""
+    import torch
+
+    from streamingt2v_torch.ops.flash_attention import (
+        backward_chunk_rows, flash_attention, flash_attention_backward)
+    from streamingt2v_torch.parallel.ring_attention import (
+        ring_bwd_fold, ring_delta, ring_finish, ring_fold, ring_lse, ring_start)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    randn, _ = _randn_factory(13)
+    q, k, v, g = (randn(rows, length, 64, dtype=bf16) for _ in range(4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = flash_attention_backward(q, k, v, g)
+    torch.cuda.synchronize()
+    print(f"  K1's Function backward on the whole ({rows}, {length}, 64) bf16: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {whole[3]} chunks", flush=True)
+    errs = []
+    for n in MESH_RING_GRAD_SEQS:
+        blk = length // n
+        qb, kb, vb, gb = ([x[:, j * blk:(j + 1) * blk].contiguous() for j in range(n)]
+                          for x in (q, k, v, g))
+        fwd = []
+        for r in range(n):
+            state = ring_start(qb[r])
+            for j in range(n):
+                state = ring_fold(state, kb[(r - j) % n], vb[(r - j) % n])
+            fwd.append((ring_lse(state), ring_delta(ring_finish(state, bf16), gb[r])))
+        dq = [torch.zeros(qb[r].shape, dtype=f32, device=q.device) for r in range(n)]
+        dk, dv, rank_s = [None] * n, [None] * n, [0.0] * n
+        for j in range(n):          # hop j: rank r holds block (r - j) % n
+            for r in range(n):
+                b = (r - j) % n
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dq_p, dk_p, dv_p = ring_bwd_fold(qb[r], kb[b], vb[b], gb[r], *fwd[r])
+                dq[r] += dq_p
+                if j:
+                    dk_p += dk[b]
+                    dv_p += dv[b]
+                dk[b], dv[b] = dk_p, dv_p
+                torch.cuda.synchronize()
+                rank_s[r] += time.perf_counter() - t0
+        chunks = n * -(-rows // backward_chunk_rows(blk, blk))
+        label = (f"ring backward over seq={n} at ({rows}, {length}, 64), {blk} tokens a rank "
+                 f"({sum(rank_s) / n * 1e3:.1f} ms a rank, {chunks} chunks a rank)")
+        for name, got, want in zip("qkv", (dq, dk, dv), whole):
+            errs.append(_compare(f"{label}: d{name} against K1's Function backward",
+                                 torch.cat([x.to(bf16) for x in got], dim=1), want,
+                                 TOL["bf16"]))
+        del fwd, dq, dk, dv
+
+        dqs, dk_sum, dv_sum, rank_s = [], 0, 0, []
+        for r in range(n):
+            qr, kw, vw = (x.detach().clone().requires_grad_(True) for x in (qb[r], k, v))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flash_attention(qr, kw, vw).backward(gb[r])
+            torch.cuda.synchronize()
+            rank_s.append(time.perf_counter() - t0)
+            dqs.append(qr.grad)
+            dk_sum = dk_sum + kw.grad.float()
+            dv_sum = dv_sum + vw.grad.float()
+        label = (f"gathered path over seq={n}: a rank's {blk} queries through K1 against the "
+                 f"whole k/v ({sum(rank_s) / n * 1e3:.1f} ms forward + backward a rank)")
+        for name, got, want in zip("qkv", (torch.cat(dqs, dim=1), dk_sum, dv_sum), whole):
+            errs.append(_compare(f"{label}: d{name}" + (" summed over the ranks" if name != "q"
+                                                        else ""), got, want, TOL["bf16"]))
+        del qb, kb, vb, gb, dqs, dk_sum, dv_sum
+    print(f"  token split under grad: worst max_abs_err {max(errs):.3e}", flush=True)
+
+
+def _mesh_examples() -> None:
+    """The port's two single-process examples (``examples/torch/``) on the
+    card at their tiny widths: the three-stage product to a y4m file, and
+    every sampler x discretization x guider on one denoiser."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from streamingt2v_torch.utils import media
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch")
+
+    def example(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(root, name + ".py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    with tempfile.TemporaryDirectory(prefix="st2v_examples_") as tmp:
+        path = os.path.join(tmp, "tiny.y4m")
+        t0 = time.perf_counter()
+        example("tiny_image_to_video").main(["--device", "cuda", "--output", path])
+        info = media.y4m_info(path)
+        print(f"  examples/torch/tiny_image_to_video.py on the card: "
+              f"{time.perf_counter() - t0:.1f} s, {info}", flush=True)
+        if info["frames"] < 2 or (info["width"], info["height"]) != (32, 32):
+            raise AssertionError(f"tiny_image_to_video wrote {info}")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        example("custom_schedule").main(["--device", "cuda"])
+    lines = [ln for ln in log.getvalue().splitlines() if "->" in ln]
+    print(f"  examples/torch/custom_schedule.py on the card: {time.perf_counter() - t0:.1f} s, "
+          f"{len(lines)} sampler x discretization x guider runs, "
+          f"{sum('finite=True' in ln for ln in lines)} finite", flush=True)
+    if len(lines) != 72 or not all("finite=True" in ln for ln in lines):
+        raise AssertionError("custom_schedule: " + log.getvalue()[-2000:])
+
+
 def run_mesh(enhance_steps: int) -> dict:
     """Phase 13: the multi-device layer on the one card.  The CLI's product
     under ``--mesh 1,1,1`` (a world of one rank, NCCL) at the loader phase's
     cut, its file byte-equal to the same CLI's without ``--mesh``; stage 2's
     data-parallel step and a training step under that mesh at full width;
-    each simulated rank's share of the split kernels; the training losses."""
+    stage 3 twice with every module's output compared
+    (``_stage3_determinism``); each simulated rank's share of the split
+    kernels, forward and under grad, and of the ring's backward and the
+    gathered path's; the training losses; the single-process examples."""
     import os
     import tempfile
 
@@ -2920,13 +3208,7 @@ def run_mesh(enhance_steps: int) -> dict:
 
     _release_earlier_phases()
     cfg = PipelineConfig()
-    files, launches, mesh = {}, None, None
-    # cuDNN's default algorithms for stage 3's f32 convolutions are not
-    # deterministic from run to run (a few output values one level apart
-    # between two plain runs, PERF.md); its deterministic ones give equal
-    # bytes
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    files, digests, launches, mesh = {}, {}, None, None
     with tempfile.TemporaryDirectory(prefix="st2v_mesh_") as tmp:
         image = ((_smooth_image(cfg.height, cfg.width, seed=8).numpy() + 1.0) * 127.5).round()
         png = os.path.join(tmp, "input.png")
@@ -2945,7 +3227,9 @@ def run_mesh(enhance_steps: int) -> dict:
                 _reset_launches()
             os.makedirs(out_dir)
             path = os.path.join(out_dir, "input.y4m")
+            recorded = _stage_digests(pipe)
             frames = pipe.run(png, path, seed=args.seed)
+            digests[name] = dict(recorded)
             if use_mesh:
                 launches = _read_launches()
             total = time.perf_counter() - t0
@@ -2966,12 +3250,12 @@ def run_mesh(enhance_steps: int) -> dict:
                 _stage3_determinism(pipe, frames[::2])
             del pipe, frames
             _release_earlier_phases()
-    torch.backends.cudnn.deterministic = deterministic
     if files["mesh"] != files["plain"]:
         a, b = (np.frombuffer(files[k], np.uint8) for k in ("mesh", "plain"))
         diff = int(np.abs(a.astype(int) - b.astype(int)).max()) if a.shape == b.shape else None
+        stages = [k for k in digests["mesh"] if digests["mesh"][k] != digests["plain"][k]]
         raise AssertionError(f"the --mesh 1,1,1 file differs from the plain run's (max byte "
-                             f"difference {diff})")
+                             f"difference {diff}; stages whose output differs: {stages})")
     print(f"  the two files are byte-equal ({len(files['mesh'])} bytes)", flush=True)
     try:
         _mesh_dp_step(mesh)
@@ -2980,7 +3264,9 @@ def run_mesh(enhance_steps: int) -> dict:
         dist.destroy_process_group()
     _mesh_splits()
     _mesh_split_grads()
+    _mesh_token_split_grads()
     _mesh_losses()
+    _mesh_examples()
     return launches
 
 

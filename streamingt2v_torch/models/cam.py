@@ -8,7 +8,9 @@ Under a mesh: split by ``shard_params`` (``tp``, whole heads), proj_in is
 column-parallel and gathered, q/k/v column-parallel by heads and to_out
 row-parallel with a reduction over ``model``; with a seq axis that divides
 the pixels, the per-pixel attention runs on this rank's pixels (the GroupNorm
-before it on the whole activation) and they are gathered after proj_out."""
+before it on the whole activation) and they are gathered after proj_out:
+the layers in between are named for the training step's sum over seq
+(``seq_partial_parameters``)."""
 
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from streamingt2v_torch.ops import group_norm
 from streamingt2v_torch.ops.attention import attention_pre_split
 from streamingt2v_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from streamingt2v_torch.parallel.sharding import (
-    copy_to_model, gather_dim, get_active_mesh, reduce_from_model, shard_dim, split_over)
+    copy_to_model, gather_dim, get_active_mesh, reduce_from_model, seq_partial, shard_dim,
+    split_over)
 
 
 class CAMConditionalModel(nn.Module):
@@ -43,6 +46,11 @@ class CAMConditionalModel(nn.Module):
     def tp_divides(self, m: int) -> bool:
         return (self.to_out.kernel.shape[1] // self.attention_head_dim) % m == 0
 
+    def seq_partial_parameters(self) -> list:
+        """The layers that run on this rank's pixels under a seq split."""
+        return [p for n in ("to_q", "to_k", "to_v", "to_out", "proj_out")
+                for p in getattr(self, n).parameters()]
+
     def forward(self, sample: torch.Tensor, conditioning: torch.Tensor) -> torch.Tensor:
         b, f, h, w, c = sample.shape
         f_cond = conditioning.shape[1]
@@ -61,6 +69,7 @@ class CAMConditionalModel(nn.Module):
         seq = mesh is not None and mesh.shape[AXIS_SEQ] > 1 and (h * w) % mesh.shape[AXIS_SEQ] == 0
         if seq:     # this rank's pixels
             hn, kv = shard_dim(hn, mesh, AXIS_SEQ, 2), shard_dim(kv, mesh, AXIS_SEQ, 2)
+            seq_partial(self.seq_partial_parameters())
         s = hn.shape[2]
         heads = self.to_q.kernel.shape[0] // d      # this rank's heads
 

@@ -149,7 +149,9 @@ class ConvTranspose(nn.Module):
     over channel-last (N, H, W, C): output (N, s*H, s*W, out).  flax convolves
     the stride-dilated input with its (kh, kw, in, out) kernel as it is;
     ``conv_transpose2d`` convolves with the spatially flipped kernel, so the
-    kernel is stored flipped, as (in, out, kh, kw) (``utils/weights.py``)."""
+    kernel is stored flipped, as (in, out, kh, kw) (``utils/weights.py``).
+    It runs as ``conv_transpose_subpixel``: the same function from forward
+    convolutions only, so that it is the same from run to run on a card."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 4, *,
                  stride: int = 2, device=None, dtype=None):
@@ -168,9 +170,44 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _common(x, self.kernel)
-        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt),
-                               self.bias.to(dt), stride=self.stride, padding=self.padding)
+        y = conv_transpose_subpixel(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt),
+                                    self.bias.to(dt), self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose_subpixel(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                            stride: int, padding: int) -> torch.Tensor:
+    """``F.conv_transpose2d(x, kernel, bias, stride, padding)`` over NCHW,
+    for an output of stride times the input's size, as one ordinary
+    stride-1 convolution and an interleave: output row s*m + a (phase a)
+    takes input row m + d through tap t wherever d = (a + padding - t) / s
+    is whole, so each of the s*s phases is a small convolution of x (its
+    taps at their offsets d in a window shared by the phases), and all of
+    them are one convolution into s*s*out channels.  Every convolution is
+    then a forward one: the transposed one runs cuDNN's backward-data
+    algorithms, whose default sums in an order that varies between runs."""
+    cin, cout, k, _ = kernel.shape
+    s = stride
+    taps = [[(t, (a + padding - t) // s) for t in range(k) if (a + padding - t) % s == 0]
+            for a in range(s)]
+    first = [min(d for _, d in phase) for phase in taps]
+    win = max(max(d for _, d in phase) - f + 1 for phase, f in zip(taps, first))
+    pad = max(-min(first), max(first) + win - 1)    # (k 4, stride 2: window 2, pad 1)
+    sub = kernel.new_zeros(s, s, cout, cin, win, win)
+    for a, (rows, fa) in enumerate(zip(taps, first)):
+        for b, (cols, fb) in enumerate(zip(taps, first)):
+            for ty, dy in rows:
+                for tx, dx in cols:
+                    sub[a, b, :, :, dy - fa, dx - fb] = kernel[:, :, ty, tx].t()
+    y = F.conv2d(x, sub.reshape(s * s * cout, cin, win, win), bias.repeat(s * s), padding=pad)
+    n, _, h, w = x.shape
+    y = y.view(n, s, s, cout, y.shape[-2], y.shape[-1])
+    out = y.new_empty(n, cout, h, s, w, s)
+    for a in range(s):
+        for b in range(s):
+            ra, rb = first[a] + pad, first[b] + pad
+            out[:, :, :, a, :, b] = y[:, a, b, :, ra:ra + h, rb:rb + w]
+    return out.view(n, cout, h * s, w * s)
 
 
 def prelu_param(module: nn.Module, name: str, c: int, device=None, dtype=None) -> None:

@@ -22,7 +22,9 @@ tensor-parallel units (``FeedForward``, ``CrossAttention`` by heads, the
 transformer's ``proj_in``), each of which then computes its part and
 reduces (or gathers) over ``model``; ``SpatialVideoTransformer`` splits its
 tokens over ``seq`` after ``proj_in`` and gathers them before
-``proj_out``, its spatial self-attentions going around the seq ring.
+``proj_out``, its spatial self-attentions going around the seq ring, and
+names the parameters used in between (``seq_partial_parameters``), whose
+gradients the training step sums over seq.
 
 ``UNetVideoResBlock`` and ``SpatialVideoTransformer`` built with
 ``use_checkpoint`` recompute their activations in the backward
@@ -43,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from streamingt2v_torch.models.layers import (
     Conv, Conv1D, Dense, TimeConv, _param, norm_pair, norm_params, silu_f32)
-from streamingt2v_torch.ops import attention, group_norm, layer_norm, timestep_embedding
+from streamingt2v_torch.ops import (
+    alpha_blend, attention, group_norm, layer_norm, timestep_embedding)
 from streamingt2v_torch.ops.attention import attention_pre_split
 from streamingt2v_torch.ops.fused_ff import geglu_ff
 from streamingt2v_torch.ops.norms import group_norm_affine
@@ -52,7 +55,8 @@ from streamingt2v_torch.ops.temporal_attention import temporal_attention
 from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
 from streamingt2v_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from streamingt2v_torch.parallel.sharding import (
-    copy_to_model, gather_dim, get_active_mesh, reduce_from_model, shard_dim, split_over)
+    copy_to, copy_to_model, gather_dim, get_active_mesh, reduce_from_model, seq_partial,
+    shard_dim, split_over)
 
 
 class FeedForward(nn.Module):
@@ -284,12 +288,11 @@ class VideoTransformerBlock(nn.Module):
 
 
 def blend_with_images(mix_factor, spatial, temporal, image_only_indicator):
-    """UNet AlphaBlender: alpha = sigmoid(mix) weights the SPATIAL branch;
-    image rows take alpha = 1.  Indicator (B, T); branches (B, T, ..., C)."""
-    alpha = torch.sigmoid(mix_factor.float())
-    alpha = torch.where(image_only_indicator, torch.ones_like(alpha), alpha)
-    alpha = alpha.reshape(alpha.shape + (1,) * (spatial.ndim - alpha.ndim)).to(spatial.dtype)
-    return alpha * spatial + (1.0 - alpha) * temporal
+    """UNet AlphaBlender (``alpha_blend``, ``learned_with_images``): alpha =
+    sigmoid(mix) weights the SPATIAL branch; image rows take alpha = 1.
+    Indicator (B, T); branches (B, T, ..., C)."""
+    return alpha_blend(spatial, temporal, mix_factor, strategy="learned_with_images",
+                       image_indicator=image_only_indicator)
 
 
 def _remat(block: nn.Module, forward, *args):
@@ -337,6 +340,15 @@ class SpatialVideoTransformer(nn.Module):
     def tp_divides(self, m: int) -> bool:
         return self.proj_in.kernel.shape[0] % m == 0
 
+    def seq_partial_parameters(self) -> list:
+        """The parameters used between the seq split and the gather (the
+        spatial and temporal stacks, the frame embedding, the mixer): each
+        seq rank's gradient of them covers its own tokens only."""
+        names = [f"{stack}_{d}" for d in range(self.depth) for stack in ("block", "time_block")]
+        names += ["time_pos_embed_0", "time_pos_embed_2"]
+        return [p for n in names for p in getattr(self, n).parameters()] + [
+            self.time_mixer_mix_factor]
+
     def forward(self, x, context, image_only_indicator):
         return _remat(self, self._forward, x, context, image_only_indicator)
 
@@ -351,6 +363,8 @@ class SpatialVideoTransformer(nn.Module):
         inner = h.shape[-1]
         mesh = get_active_mesh()
         seq = mesh is not None and mesh.shape[AXIS_SEQ] > 1 and s % mesh.shape[AXIS_SEQ] == 0
+        if seq:
+            seq_partial(self.seq_partial_parameters())
         with split_over(AXIS_SEQ) if seq else contextlib.nullcontext():
             h = self._blocks(h.reshape(b * t, s, inner), context, image_only_indicator, b, t, c,
                              mesh if seq else None)
@@ -360,9 +374,11 @@ class SpatialVideoTransformer(nn.Module):
     def _blocks(self, h, context, image_only_indicator, b: int, t: int, c: int, seq_mesh):
         """The spatial and temporal stacks on (B*T, S, inner); with
         ``seq_mesh`` the tokens are split over its seq ranks on the way in
-        and gathered on the way out."""
+        and gathered on the way out (the context, whole on every rank, then
+        takes the sum of the ranks' partial gradients)."""
         if seq_mesh is not None:
             h = shard_dim(h, seq_mesh, AXIS_SEQ, 1)
+            context = copy_to(context, seq_mesh, AXIS_SEQ)
         s, inner = h.shape[1], h.shape[2]
 
         frame_ids = torch.arange(t, dtype=torch.float32, device=h.device)

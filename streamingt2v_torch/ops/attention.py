@@ -100,16 +100,14 @@ def _maybe_ring(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, mesh) -> O
 
 def _seq_split_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, mesh) -> torch.Tensor:
     """Self-attention of this rank's token block against every rank's: the
-    ring, else k/v gathered over seq (each rank's queries whole against the
-    gathered keys).  Forward only, as the ring is: each rank's gathered k/v
-    would take a gradient from its own queries alone."""
+    ring, else k/v gathered over seq (each rank's queries against the
+    gathered keys).  The gathered k/v take a gradient from this rank's
+    queries alone: their backward sums the ranks' gradients and keeps this
+    rank's block (a reduce-scatter)."""
     o = _maybe_ring(qf, kf, vf, mesh)
     if o is not None:
         return o
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (qf, kf, vf)):
-        raise RuntimeError("attention over tokens split by seq has no backward (training "
-                           "with seq > 1 is not supported)")
-    kf, vf = gather_dim(kf, mesh, AXIS_SEQ, 1), gather_dim(vf, mesh, AXIS_SEQ, 1)
+    kf, vf = (gather_dim(t, mesh, AXIS_SEQ, 1, sum_grads=True) for t in (kf, vf))
     return attention_pre_split(qf, kf, vf)
 
 

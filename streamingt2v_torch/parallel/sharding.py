@@ -9,16 +9,26 @@ Both are ``autograd.Function``s, as are ``copy_to`` (the tensor-parallel
 ``copy_to_model``) and ``reduce_from_model``, so training differentiates
 through them:
 
-  shard   forward: this rank's block          backward: all-gather
-  gather  forward: all-gather                 backward: this rank's block
-  copy    forward: identity                   backward: all-reduce (sum)
-  reduce  forward: all-reduce (sum)           backward: identity
+  shard       forward: this rank's block      backward: all-gather
+  gather      forward: all-gather             backward: this rank's block
+  gather sum  forward: all-gather             backward: reduce-scatter (sum)
+  copy        forward: identity               backward: all-reduce (sum)
+  reduce      forward: all-reduce (sum)       backward: identity
 
 A tensor that is whole on every rank of a line carries the same gradient
 on each of them; work split over the line hands each rank a partial
 gradient of its input, which ``copy`` sums.  ``gather``'s backward keeps
 this rank's block of a gradient that every rank holds whole, so it is
-right only where the gathered tensor is used alike on every rank.
+right only where the gathered tensor is used alike on every rank; where
+each rank uses the gathered tensor for its own rows (k/v gathered over
+seq for this rank's queries), ``gather_dim(..., sum_grads=True)`` sums the
+ranks' gradients and keeps this rank's block.
+
+A parameter used inside a block whose activations are split over seq
+(``SpatialVideoTransformer._blocks``, CAM's per-pixel attention) gets only
+this rank's tokens' part of its gradient: such a block names those
+parameters (``seq_partial``), and the training step sums their gradients
+over seq (``collect_seq_partial``).
 
 Logical axes:
 
@@ -158,6 +168,18 @@ class _Gather(torch.autograd.Function):
         return ctx.mesh.local_slice(g, ctx.axes, ctx.dim).contiguous(), None, None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.mesh.all_reduce(g.clone(), ctx.axes)
+        return ctx.mesh.local_slice(g, ctx.axes, ctx.dim).contiguous(), None, None, None
+
+
 class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -184,9 +206,14 @@ def shard_dim(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     return _Shard.apply(x, mesh, axes, dim) if mesh.axis_size(axes) > 1 else x
 
 
-def gather_dim(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
-    """Every rank's block along ``dim`` over the mesh ``axes``, concatenated."""
-    return _Gather.apply(x, mesh, axes, dim) if mesh.axis_size(axes) > 1 else x
+def gather_dim(x: torch.Tensor, mesh: Mesh, axes, dim: int, *,
+               sum_grads: bool = False) -> torch.Tensor:
+    """Every rank's block along ``dim`` over the mesh ``axes``, concatenated.
+    Its backward keeps this rank's block of the gradient, or with
+    ``sum_grads`` of the ranks' summed gradients (a reduce-scatter)."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return (_GatherSum if sum_grads else _Gather).apply(x, mesh, axes, dim)
 
 
 def copy_to(x: Optional[torch.Tensor], mesh: Mesh, axes) -> Optional[torch.Tensor]:
@@ -261,6 +288,32 @@ def batch_rows(split: bool, batch: int, x: Optional[torch.Tensor]) -> Optional[t
     if not split or x is None or x.ndim == 0 or x.shape[0] != batch:
         return x
     return shard(x, "batch")
+
+
+# ------------------------------------- gradients split over the tokens ---
+
+_SEQ_PARTIAL: ContextVar[Optional[dict]] = ContextVar("seq_partial", default=None)
+
+
+@contextlib.contextmanager
+def collect_seq_partial():
+    """Yields a dict that collects, by id, the parameters that blocks running
+    with their tokens split over seq name (``seq_partial``) while the scope
+    is open: each seq rank holds only its tokens' part of their
+    gradients."""
+    found: dict = {}
+    token = _SEQ_PARTIAL.set(found)
+    try:
+        yield found
+    finally:
+        _SEQ_PARTIAL.reset(token)
+
+
+def seq_partial(params) -> None:
+    """Name ``params`` as used on this rank's seq block of the tokens."""
+    found = _SEQ_PARTIAL.get()
+    if found is not None:
+        found.update((id(p), p) for p in params)
 
 
 # ------------------------------------------------ tensor parallelism -----

@@ -8,10 +8,13 @@ step's, and each rank keeps the rows of its ``data`` index.  The loss runs
 under the mesh (the model's tensor-parallel units, split by
 ``init_sharded_state``, reduce over ``model``), and the gradients are
 averaged over ``data``: the step is the one-process step on the global
-batch.  The non-finite guard decides on the reduced gradients of every
-rank, so all ranks skip a step together.  A mesh with seq > 1 is refused:
-the attention over tokens split by seq (the ring, or k/v gathered) has no
-backward.
+batch.  With seq > 1 the blocks that split their tokens over seq name the
+parameters they use on this rank's tokens (``sharding.seq_partial``); each
+seq rank holds only its tokens' part of those gradients, so they are summed
+over seq first (bucketed), while the others (and the loss, computed
+outside the split) are whole and equal on every seq rank already.  The
+non-finite guard decides on the reduced gradients of every rank, so all
+ranks skip a step together.
 """
 
 from __future__ import annotations
@@ -25,8 +28,33 @@ from streamingt2v_torch.diffusion.denoiser import NetworkFn
 from streamingt2v_torch.diffusion.loss import DiffusionLossConfig, diffusion_loss, draw_loss_noise
 from streamingt2v_torch.parallel.mesh import AXIS_DATA, AXIS_NAMES, AXIS_SEQ, Mesh
 from streamingt2v_torch.parallel.multihost import process_batch_slice
-from streamingt2v_torch.parallel.sharding import active_mesh, shard_params, split_over
+from streamingt2v_torch.parallel.sharding import (
+    active_mesh, collect_seq_partial, shard_params, split_over)
 from streamingt2v_torch.utils.resilience import tree_all_finite
+
+
+# Gradients summed over seq go in flat buckets of at most this many bytes
+# (one all-reduce each).
+SEQ_BUCKET_BYTES = 64 << 20
+
+
+def sum_over_seq(mesh: Mesh, grads: list) -> None:
+    """Sum ``grads`` over the seq ranks in place, in buckets of one dtype
+    and at most ``SEQ_BUCKET_BYTES`` (a larger tensor alone)."""
+    if mesh.shape[AXIS_SEQ] == 1:
+        return
+    buckets: Dict[torch.dtype, list] = {}     # dtype -> [[bytes, grads], ...]
+    for g in grads:
+        runs = buckets.setdefault(g.dtype, [[0, []]])
+        size = g.numel() * g.element_size()
+        if runs[-1][1] and runs[-1][0] + size > SEQ_BUCKET_BYTES:
+            runs.append([0, []])
+        runs[-1][0] += size
+        runs[-1][1].append(g)
+    for _, bucket in (b for per_dtype in buckets.values() for b in per_dtype):
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in bucket]), AXIS_SEQ)
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
 
 
 class TrainStep:
@@ -70,7 +98,7 @@ class TrainStep:
                 return x[rows] if torch.is_tensor(x) and x.ndim and x.shape[0] == b else x
 
             # the backward inside the scope too: remat'd blocks recompute there
-            with active_mesh(mesh), split_over(AXIS_DATA):
+            with active_mesh(mesh), split_over(AXIS_DATA), collect_seq_partial() as partial:
                 loss = diffusion_loss(self.loss_cfg, self.network_builder(), local(latents),
                                       {k: local(v) for k, v in cond.items()}, None,
                                       sigmas=local(sigmas), noise=local(noise),
@@ -81,6 +109,7 @@ class TrainStep:
                 p.grad = torch.zeros_like(p)
         if mesh is None:
             return loss.detach()
+        sum_over_seq(mesh, [p.grad for p in self.params() if id(p) in partial])
         d = mesh.shape[AXIS_DATA]
         for p in self.params():
             p.grad = mesh.all_reduce(p.grad, AXIS_DATA).div_(d)
@@ -119,9 +148,6 @@ def make_train_step(network_builder: Callable[[], NetworkFn], loss_cfg: Diffusio
     returned as it is, so that monitoring sees the event."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
-    if mesh is not None and mesh.shape[AXIS_SEQ] > 1:
-        raise ValueError("training with seq > 1 is not supported: attention over tokens "
-                         "split by seq has no backward")
     return TrainStep(network_builder, loss_cfg, optimizer, skip_nonfinite, mesh)
 
 

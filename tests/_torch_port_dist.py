@@ -149,7 +149,8 @@ def mesh_rank(rank, world, payload):
 
 def ring_rank(rank, world, payload):
     """World 4, mesh (1, 4, 1): the ring against whole attention, the
-    gathered fallback, and the flash rows split over the seq ranks."""
+    gathered fallback, both under grad, and the flash rows split over the
+    seq ranks."""
     from streamingt2v_torch.config import KernelRouting
     from streamingt2v_torch.ops.attention import _flash_sharded, _maybe_ring, _seq_split_attention
     from streamingt2v_torch.ops.routing import use_routing
@@ -164,16 +165,13 @@ def ring_rank(rank, world, payload):
         out["maybe_ring_off"] = _maybe_ring(*local, mesh)
         out["gathered"] = _seq_split_attention(*local, mesh)
     out["flash_sharded"] = _flash_sharded(*payload["rows6"], mesh, ("seq",))
-    grads = [t.clone().requires_grad_(True) for t in local]
-    try:
-        ring_attention(*grads, mesh)
-    except RuntimeError as e:
-        out["grad_refused"] = str(e)
-    with use_routing(KernelRouting(ring_attention=False)):
-        try:
-            _seq_split_attention(*grads, mesh)
-        except RuntimeError as e:
-            out["gathered_grad_refused"] = str(e)
+    g = mesh.local_slice(payload["qkv"][0].flip(1), "seq", 1)    # a cotangent
+    for name, routing in (("ring_grads", KernelRouting()),
+                          ("gathered_grads", KernelRouting(ring_attention=False))):
+        grads = [t.clone().requires_grad_(True) for t in local]
+        with use_routing(routing):
+            _seq_split_attention(*grads, mesh).backward(g)
+        out[name] = [t.grad for t in grads]
     return out
 
 
@@ -256,4 +254,61 @@ def dp_rank(rank, world, payload):
 
     cli.main(payload["cli_argv"])
     out["cli_files"] = sorted(os.listdir(payload["cli_out"])) if rank == 0 else None
+    return out
+
+
+def seq_rank(rank, world, payload):
+    """World 4: the ring at (1, 4, 1) under grad, and the gathered path with
+    the routing's ring off; the tiny SVD UNet's training step at (2, 2, 1)
+    (two AdamW steps, and one backward without the sum over seq) and its
+    backward at (1, 2, 2), remat on."""
+    import copy
+
+    from streamingt2v_torch.config import KernelRouting
+    from streamingt2v_torch.diffusion.loss import DiffusionLossConfig
+    from streamingt2v_torch.models.wrappers import openai_wrapper
+    from streamingt2v_torch.ops.attention import _seq_split_attention
+    from streamingt2v_torch.ops.routing import use_routing
+    from streamingt2v_torch.parallel import train
+    from streamingt2v_torch.parallel.ring_attention import ring_attention
+    from streamingt2v_torch.parallel.sharding import gather_params, tp_units
+
+    out = {}
+    ring_mesh = _mesh((1, 4, 1))
+    q, k, v, g = payload["qkvg"]
+    for name, routing in (("ring", KernelRouting()), ("gathered", KernelRouting(
+            ring_attention=False))):
+        local = [ring_mesh.local_slice(t, "seq", 1).clone().requires_grad_(True)
+                 for t in (q, k, v)]
+        with use_routing(routing):
+            o = _seq_split_attention(*local, ring_mesh)
+        o.backward(ring_mesh.local_slice(g, "seq", 1))
+        out[name] = dict(out=o.detach(), grads=[t.grad for t in local])
+    blocks = []
+    ring_attention(*(ring_mesh.local_slice(t, "seq", 1) for t in (q, k, v)), ring_mesh,
+                   blocks=blocks)
+    out["ring"]["blocks"] = blocks
+
+    lr, wd = payload["lr_wd"]
+    meshes = {cfg: _mesh(cfg) for cfg in ((2, 2, 1), (1, 2, 2))}
+    for cfg, mesh in meshes.items():
+        tm, opt = train.init_sharded_state(
+            copy.deepcopy(payload["train_unet"]).requires_grad_(True),
+            lambda ps: torch.optim.AdamW(ps, lr=lr, weight_decay=wd), mesh)
+        step = train.make_train_step(lambda: openai_wrapper(tm), DiffusionLossConfig(), opt,
+                                     mesh=mesh)
+        res = out[cfg] = {"losses": [], "grads": [], "tp_units": len(tp_units(tm))}
+        if cfg == (2, 2, 1):    # the first backward without the seq sum
+            real, train.sum_over_seq = train.sum_over_seq, lambda mesh, grads: None
+            try:
+                step.backward(payload["batch"], **payload["draws"][0])
+            finally:
+                train.sum_over_seq = real
+            res["unsummed"] = {n: p.grad.clone() for n, p in tm.named_parameters()}
+        steps = payload["draws"] if cfg == (2, 2, 1) else payload["draws"][:1]
+        for draws in steps:
+            res["losses"].append(step.backward(payload["batch"], **draws))
+            res["grads"].append(gather_params(tm, {n: p.grad for n, p in tm.named_parameters()}))
+            step.update()
+        res["params"] = gather_params(tm, {n: p.detach() for n, p in tm.named_parameters()})
     return out

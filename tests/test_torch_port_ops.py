@@ -448,10 +448,11 @@ def test_flash_gate_matches_jax_on_an_accelerator(bh, lq, lk, monkeypatch):
 # ------------------------------------------------------- import boundary ---
 
 def test_port_imports_without_jax():
-    """Every module of the port imports in a process where JAX cannot, nor
+    """Every module of the port, and each of its examples
+    (``examples/torch/``), imports in a process where JAX cannot, nor
     OpenCV, Pillow or safetensors (the product's path needs none of them;
     the card's machine has no safetensors)."""
-    code = ("import importlib, pkgutil, sys\n"
+    code = ("import importlib, importlib.util, pathlib, pkgutil, sys\n"
             "for m in ('jax', 'flax', 'jaxlib', 'streamingt2v_tpu', 'cv2', 'PIL',\n"
             "          'safetensors'):\n"
             "    sys.modules[m] = None\n"
@@ -459,16 +460,22 @@ def test_port_imports_without_jax():
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
-            "print(len(names))\n")
+            "examples = sorted(pathlib.Path('examples/torch').glob('*.py'))\n"
+            "for path in examples:\n"
+            "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "print(len(names), len(examples))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 52, proc.stdout
+    modules, examples = (int(v) for v in proc.stdout.split())
+    assert modules >= 52 and examples == 3, proc.stdout
 
 
 def test_port_sources_name_no_jax():
     banned = ("jax", "flax", "jaxlib", "streamingt2v_tpu")
     files = list((REPO / "streamingt2v_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files += list((REPO / "examples" / "torch").glob("*.py"))
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

@@ -124,17 +124,22 @@ def test_multihost_initialize_single_process_noop(monkeypatch):
 
 
 def test_training_refuses_a_seq_axis():
-    """The token split's attention (the ring, or k/v gathered over seq) has
-    no backward: ``make_train_step`` refuses a mesh with seq > 1."""
-    from streamingt2v_torch.parallel.train import make_train_step
+    """No longer refused: the token split's attention (the ring, or k/v
+    gathered over seq) has a backward, and ``make_train_step`` takes a mesh
+    with seq > 1 (its gradients: ``test_torch_port_seq_training.py``).  It
+    still refuses a mesh that is not a ``Mesh``."""
+    from streamingt2v_torch.parallel.train import TrainStep, make_train_step
 
     class SeqMesh(pmesh.Mesh):      # the layout of rank 0 of (1, 2, 1), no groups
         def __init__(self):
             pmesh.MeshLayout.__init__(self, MeshConfig(1, 2, 1),
                                       {"data": 0, "seq": 0, "model": 0})
 
-    with pytest.raises(ValueError, match="seq > 1"):
-        make_train_step(lambda: None, None, None, mesh=SeqMesh())
+    mesh = SeqMesh()
+    step = make_train_step(lambda: None, None, None, mesh=mesh)
+    assert isinstance(step, TrainStep) and step.mesh is mesh
+    with pytest.raises(TypeError, match="Mesh"):
+        make_train_step(lambda: None, None, None, mesh=MeshConfig(1, 2, 1))
 
 
 def test_without_an_active_mesh_nothing_splits():
@@ -255,13 +260,14 @@ def test_ring_attention_matches_gathered(ring_results):
 
 def test_ring_opt_out_gathers_kv(ring_results):
     """With the routing's ring off, ``_maybe_ring`` declines and the
-    token-split attention gathers k/v instead: the same result.  Neither
-    has a backward: both raise under grad."""
+    token-split attention gathers k/v instead: the same result.  Both run
+    under grad, with the same q/k/v gradients on each rank (each held
+    against ``jax.vjp`` in ``test_torch_port_seq_training.py``)."""
     for res in ring_results["results"]:
         assert res["maybe_ring_off"] is None
         close(res["gathered"], res["ring"], "gathered", 2e-5)
-        assert "no backward" in res["grad_refused"]
-        assert "no backward" in res["gathered_grad_refused"]
+        for name, a, b in zip("qkv", res["ring_grads"], res["gathered_grads"]):
+            close(a, b.numpy(), f"d{name}", 2e-5)
 
 
 def test_flash_sharded_splits_padded_rows(ring_results):

@@ -214,6 +214,23 @@ def test_tiny_product_runs_end_to_end(product_pair, tmp_path):
     assert set(pipe.stage_finite) == {"stage1", "enhance", "vfi"}
 
 
+def _run_all_stages(pipe, image, seed: int) -> np.ndarray:
+    video = pipe.image_to_video(image, seed=seed)
+    return pipe.interpolate_video(pipe.enhance_video(video, image, seed=seed))
+
+
+def test_full_three_stage_bitwise_determinism(product_pair):
+    """The port's counterpart of ``tests/test_e2e_determinism.py``'s test of
+    the same name: the tiny three-stage product twice with one seed gives
+    the same uint8 frames, and another seed other frames (the draws are
+    live)."""
+    _, pipe, image, _, _ = product_pair
+    first = _run_all_stages(pipe, image, SEED)
+    assert first.shape[0] == pipe.cfg.num_frames and first.dtype == np.uint8
+    np.testing.assert_array_equal(_run_all_stages(pipe, image, SEED), first)
+    assert not np.array_equal(_run_all_stages(pipe, image, SEED + 1), first)
+
+
 def test_mawe_matches_jax(product_pair):
     _, pipe, _, ref, (jmod, jvars) = product_pair
     video = ref["vfi"].astype(np.float32) / 255.0

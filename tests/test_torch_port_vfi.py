@@ -171,6 +171,44 @@ def test_conv_transpose_matches_flax(cin, cout):
         assert conv_rule.shape != mod.kernel.shape
 
 
+@pytest.mark.parametrize("kernel,stride", [(4, 2), (2, 2), (6, 2), (3, 3), (5, 3)])
+def test_conv_transpose_runs_no_transposed_convolution(kernel, stride, monkeypatch):
+    """The layer computes ``F.conv_transpose2d``'s function from forward
+    convolutions only (``conv_transpose_subpixel``): a transposed
+    convolution runs as cuDNN's backward-data algorithm, whose default sums
+    in an order that varies between runs (stage 3 was not the same from run
+    to run on the card).  With ``conv_transpose2d`` patched to raise, the
+    layer gives its result within 1e-5 of max, and it sets no cuDNN flag."""
+    rng = np.random.RandomState(kernel * stride)
+    x = t(rng.randn(2, 5, 7, 3).astype(np.float32))
+    mod = ConvTranspose(3, 4, kernel, stride=stride)
+    with torch.no_grad():
+        mod.kernel.copy_(t(rng.randn(*mod.kernel.shape).astype(np.float32)))
+        mod.bias.copy_(t(rng.randn(4).astype(np.float32)))
+        ref = F.conv_transpose2d(x.permute(0, 3, 1, 2), mod.kernel, mod.bias, stride=stride,
+                                 padding=mod.padding).permute(0, 2, 3, 1)
+    flags = []
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("conv_transpose2d called")
+
+    real_conv2d = F.conv2d
+
+    def conv2d(*args, **kwargs):
+        flags.append(torch.backends.cudnn.deterministic)
+        return real_conv2d(*args, **kwargs)
+
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    monkeypatch.setattr(F, "conv_transpose2d", refuse)
+    monkeypatch.setattr(F, "conv2d", conv2d)
+    with torch.no_grad():
+        got = mod(x)
+    assert got.shape == (2, 5 * stride, 7 * stride, 4) == ref.shape
+    assert _max_err(got, ref.numpy()) <= 1e-5 * float(ref.abs().max())
+    assert flags == [was[0]]
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == was
+
+
 @pytest.mark.parametrize("stride,padding,dilation,groups", [
     (2, 2, 2, 1), (4, 3, 3, 1), (1, 1, 1, 6),
 ])
