@@ -23,7 +23,8 @@ Phases, one line each:
      (CUDA events, median of a few runs, each call queued behind a device
      sleep so that the host's work before it is not timed) at one timed
      main-path shape each;
-     there also its bound and its library yardstick (below);
+     there also its bound and its library yardstick (below).  The build
+     phase fails if ptxas serialized any kernel's ``wgmma``;
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32), the same with APM (a 3+1-token context, ``apm_alpha``
      drawn non-zero), the tiny first chunk at 64x128 under each other sampler
@@ -171,7 +172,10 @@ takes D=512 (``sdpa_backend``), and their ``launches`` are the wrappers'
 level 0, K3 level 0 with LN and residual, K2 stage 2's level 1),
 ``bwd_chunks`` there and ``bwd_max_abs_err`` against autograd through the
 plain version; K5 and K6 have none (null).  ``train_launches`` are the
-train phase's.
+train phase's.  K2 adds ``cross_*`` at stage 2's level-0 cross-attention (145 keys), K4 ``t38_*``
+at stage 2's level 0; K1, K4 and K6 add ``f32_*``, their f32 instance
+(the first bodies) against its one-call equivalent in f32 (SDPA, ``F.conv3d``;
+TF32 off) with its bound at the FP32 rate (67 TFLOP/s).
 
 There is no CPU path: without CUDA the script exits non-zero before any
 result.  Every failed phase raises.
@@ -224,6 +228,8 @@ TOL = {"bf16": 2e-2, "f32": 1e-4}
 # kernels' bounds: bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# the FP32 rate outside the tensor cores (the f32 instances: no TF32)
+PEAK_F32_FLOPS = 67e12
 # Small-input references: max-abs on the [-1, 1] video, f32 on both devices
 # (stage 1 measured 5.3e-5 on an H100; the sampler's 1/sigma steps and stage
 # 2's guidance scale of 9 amplify summation-order differences).
@@ -302,19 +308,20 @@ def work_temporal_attention(b: int, tq: int, tkv: int, s: int, heads: int, d: in
             elem * b * s * heads * d * (2 * tq + 2 * tkv))
 
 
-def bound(work: tuple) -> dict:
-    """The least time the card could take for (flops, bytes) in bf16: the
-    larger of flops over the tensor-core peak and bytes over HBM's rate."""
+def bound(work: tuple, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take for (flops, bytes): the larger of
+    flops over the peak rate for their type (bf16 on the tensor cores unless
+    given) and bytes over HBM's rate."""
     flops, nbytes = work
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    ops_ms = flops / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _yardstick(rec: dict, work: tuple) -> dict:
+def _yardstick(rec: dict, work: tuple, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """Adds bound_ms, bound_by and share (bound over kernel time) to rec."""
-    rec.update(bound(work))
+    rec.update(bound(work, peak_flops))
     rec["share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
@@ -341,6 +348,15 @@ def _ptxas_summary(log: str) -> list:
             used = re.search(r"Used (\d+) registers", line)
             out.append(f"{name}: {used.group(1) if used else '?'} registers, {spill}")
     return out
+
+
+def check_wgmma_notes(lines: list) -> None:
+    """Fails on ptxas's note that it serialized a kernel's ``wgmma`` (C7510 to
+    C7515: "wgmma.mma_async instructions are serialized"); other numbered
+    notes pass."""
+    bad = [line for line in lines if "serialized" in line and re.search(r"\(C\d+\)", line)]
+    if bad:
+        raise AssertionError("ptxas serialized wgmma:\n" + "\n".join(bad))
 
 
 def _compare(name: str, got, ref, tol: float) -> float:
@@ -377,10 +393,13 @@ def _tol(dtype) -> float:
     return TOL["f32" if dtype == torch.float32 else "bf16"]
 
 
-def _time_first_body(name: str, fn) -> None:
-    """Times a flash instance that keeps the first, synchronous body (the f32
-    ones) and prints it."""
-    print(f"  {name} (first body): kernel {_time_ms(fn):.3f} ms", flush=True)
+def _f32_record(kernel, library, work: tuple) -> dict:
+    """An f32 instance (the first, synchronous bodies on the FMA units)
+    timed beside its one-call equivalent (TF32 off for the whole run), its
+    bound at the FP32 rate: ``f32_*`` keys of its kernel's record."""
+    rec = _yardstick(dict(ms=_time_ms(kernel), library_ms=_time_ms(library)), work,
+                     PEAK_F32_FLOPS)
+    return {f"f32_{key}": value for key, value in rec.items()}
 
 
 def _sdpa_backend(qh, kh, vh) -> tuple:
@@ -422,16 +441,16 @@ def _d512_record(name: str, kernel, plain, views: tuple, ref, unview, work: tupl
 
 
 def check_k1(randn) -> dict:
-    """K1 at the stage-1 geometries; the D=512 instance (the VAE mid-block
-    attention) gets a record of its own."""
+    """K1 at the stage-1 geometries, the ragged cases and a zero-padded head
+    dim; the D=512 instance (the VAE mid-block attention) gets a record of its own, the f32
+    instance ``f32_*`` keys in K1's."""
     import torch
     import torch.nn.functional as F
 
-    from streamingt2v_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+    from streamingt2v_torch.ops import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs, rec512, errs512 = {}, [], {}, []
+    rec, errs, rec512, errs512, f32_rec = {}, [], {}, [], {}
     for bh, length, d, dtype, label in [
             (250, 9216, 64, bf16, "unet level0 self-attn"),
             (500, 2304, 64, bf16, "unet level1 self-attn"),
@@ -441,21 +460,30 @@ def check_k1(randn) -> dict:
             (2, 40, 512, bf16, "D=512 L=40, one ragged tile"),
             (1, 9216, 512, f32, "vae encoder mid attn (f32)"),
             (6, 77, 64, bf16, "ragged L=77"),
+            (4, 1000, 64, bf16, "ragged L=1000"),
             (5, 130, 32, bf16, "head dim 32, zero-padded")]:
         q, k, v = (randn(bh, length, d, dtype=dtype) for _ in range(3))
-        out = flash_attention(q, k, v)
+        out = fa.flash_attention(q, k, v)
         rows = min(bh, 4)
-        ref = flash_attention_reference(q[:rows], k[:rows], v[:rows])
+        ref = fa.flash_attention_reference(q[:rows], k[:rows], v[:rows])
         err = _compare(f"K1 {label} {(bh, length, d)} {dtype}", out[:rows], ref, _tol(dtype))
         errs.append(err)
         if d == 512 and dtype == bf16:
             errs512.append(err)
-        if (bh, length, d, dtype) == (1, 9216, 512, f32):
-            _time_first_body(f"K1 time {(bh, length, d)} {dtype}", lambda: flash_attention(q, k, v))
+        if dtype == f32:
+            library, backend = _sdpa_backend(q[:, None], k[:, None], v[:, None])
+            _compare(f"K1 yardstick SDPA ({backend}) f32", library()[:rows, 0], ref, _tol(dtype))
+            f32_rec = _f32_record(lambda: fa.flash_attention(q, k, v), library,
+                                  work_flash(bh, 1, length, length, d, elem=4))
+            f32_rec.update(f32_shape=[bh, length, d], f32_sdpa_backend=backend)
+            print(f"  K1 time {(bh, length, d)} f32 (first body): kernel {f32_rec['f32_ms']:.3f} "
+                  f"ms, SDPA ({backend}) {f32_rec['f32_library_ms']:.3f} ms, bound "
+                  f"{f32_rec['f32_bound_ms']:.3f} ms at the FP32 rate "
+                  f"({f32_rec['f32_bound_by']}), share {f32_rec['f32_share']:.3f}", flush=True)
         if (bh, length, d) == (8, 9216, 512):
             rec512 = _d512_record(
-                f"K1 {(bh, length, d)}", lambda: flash_attention(q, k, v),
-                lambda: flash_attention_reference(q, k, v), (q[:, None], k[:, None], v[:, None]),
+                f"K1 {(bh, length, d)}", lambda: fa.flash_attention(q, k, v),
+                lambda: fa.flash_attention_reference(q, k, v), (q[:, None], k[:, None], v[:, None]),
                 ref, lambda o: o[:rows, 0], work_flash(bh, 1, length, length, d))
             rec512["shape"] = [bh, length, d]
         if (bh, length, d) == (250, 9216, 64):
@@ -463,44 +491,46 @@ def check_k1(randn) -> dict:
 
             def plain_full():
                 for i in range(0, bh, chunk):
-                    flash_attention_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
+                    fa.flash_attention_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
 
             def library():
                 return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])
 
             _compare("K1 yardstick SDPA on (B*H, 1, L, D)", library()[:rows, 0], ref,
                      _tol(dtype))
-            rec = _yardstick(dict(ms=_time_ms(lambda: flash_attention(q, k, v)),
+            rec = _yardstick(dict(ms=_time_ms(lambda: fa.flash_attention(q, k, v)),
                                   plain_ms=_time_ms(plain_full, reps=3),
                                   library_ms=_time_ms(library), shape=[bh, length, d]),
                              work_flash(bh, 1, length, length, d))
-            print(f"  K1 time {(bh, length, d)} bf16: kernel {rec['ms']:.3f} ms, SDPA "
-                  f"{rec['library_ms']:.3f} ms, plain (in {chunk}-row chunks) "
-                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-                  f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
+            print(f"  K1 time {(bh, length, d)} bf16: kernel {rec['ms']:.3f} ms, "
+                  f"SDPA {rec['library_ms']:.3f} ms, "
+                  f"plain (in {chunk}-row chunks) {rec['plain_ms']:.3f} ms, bound "
+                  f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), share {rec['share']:.3f}",
+                  flush=True)
         del q, k, v, out, ref
-    rec["max_abs_err"] = max(errs)
+    rec.update(f32_rec, max_abs_err=max(errs))
     rec512["max_abs_err"] = max(errs512)
     return {"flash_attention": rec, "flash_attention_d512": rec512}
 
 
 def check_k2(randn) -> dict:
-    """K2 at the stage-2 geometries; timed against K1 with its head-fold
-    transposes and against the plain version.  The D=512 instance (the SD
+    """K2 at the stage-2 geometries and a ragged one; timed against SDPA, K1 with its head-fold transposes and the plain
+    version at the level-0 self-attention, and against SDPA at the level-0
+    cross-attention (145 keys: ``cross_*``).  The D=512 instance (the SD
     VAE's mid-block attention, one head) gets a record of its own, timed at
     the 2-frame decode and 4-frame encode chunks."""
     import torch
     import torch.nn.functional as F
 
-    from streamingt2v_torch.ops.flash_attention import (
-        flash_attention, flash_attention_packed, flash_attention_packed_reference)
+    from streamingt2v_torch.ops import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs, rec512, errs512 = {}, [], {}, []
+    rec, errs, rec512, errs512, cross = {}, [], {}, [], {}
     for b, lq, lk, heads, d, dtype, label in [
             (38, 14400, 14400, 5, 64, bf16, "i2vgen level0 self-attn"),
             (38, 3600, 3600, 10, 64, bf16, "i2vgen level1 self-attn"),
             (38, 14400, 145, 5, 64, bf16, "i2vgen level0 cross-attn"),
+            (3, 1001, 145, 5, 64, bf16, "ragged q 1001, kv 145"),
             (2, 14400, 14400, 1, 512, bf16, "sd-vae mid attn, decode chunk"),
             (4, 14400, 14400, 1, 512, bf16, "sd-vae mid attn, encode chunk"),
             (2, 777, 130, 1, 512, bf16, "D=512 ragged q 777, kv 130"),
@@ -508,21 +538,22 @@ def check_k2(randn) -> dict:
             (2, 2048, 2048, 2, 64, f32, "f32")]:
         q = randn(b, lq, heads * d, dtype=dtype)
         k, v = (randn(b, lk, heads * d, dtype=dtype) for _ in range(2))
-        out = flash_attention_packed(q, k, v, num_heads=heads)
-        ref = flash_attention_packed_reference(q[:1], k[:1], v[:1], heads)
-        err = _compare(f"K2 {label} q{(b, lq, heads * d)} kv{(b, lk)} {heads} heads {dtype}",
-                       out[:1], ref, _tol(dtype))
+        out = fa.flash_attention_packed(q, k, v, num_heads=heads)
+        ref = fa.flash_attention_packed_reference(q[:1], k[:1], v[:1], heads)
+        name = f"K2 {label} q{(b, lq, heads * d)} kv{(b, lk)} {heads} heads {dtype}"
+        err = _compare(name, out[:1], ref, _tol(dtype))
         errs.append(err)
         if d == 512 and dtype == bf16:
             errs512.append(err)
         if dtype == f32:
-            _time_first_body(f"K2 time q{(b, lq, heads * d)} {heads} heads {dtype}",
-                             lambda: flash_attention_packed(q, k, v, num_heads=heads))
+            print(f"  K2 time q{(b, lq, heads * d)} {heads} heads {dtype} (first body): kernel "
+                  f"{_time_ms(lambda: fa.flash_attention_packed(q, k, v, num_heads=heads)):.3f} "
+                  f"ms", flush=True)
         if d == 512 and lq == 14400:
             r = _d512_record(
                 f"K2 {(b, lq, heads * d)}",
-                lambda: flash_attention_packed(q, k, v, num_heads=heads),
-                lambda: flash_attention_packed_reference(q, k, v, heads),
+                lambda: fa.flash_attention_packed(q, k, v, num_heads=heads),
+                lambda: fa.flash_attention_packed_reference(q, k, v, heads),
                 tuple(t.view(b, -1, 1, d).transpose(1, 2) for t in (q, k, v)), ref,
                 lambda o: o[:1].transpose(1, 2).reshape(1, lq, d), work_flash(b, 1, lq, lk, d))
             if b == 2:
@@ -530,37 +561,43 @@ def check_k2(randn) -> dict:
             else:   # the encode chunk
                 rec512.update({f"b{b}_{key}": r[key] for key in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "share")})
-        if label == "i2vgen level0 self-attn":
-            def folded():
-                fold = [t.reshape(b, -1, heads, d).transpose(1, 2).reshape(b * heads, -1, d)
-                        .contiguous() for t in (q, k, v)]
-                o = flash_attention(*fold)
-                return o.reshape(b, heads, lq, d).transpose(1, 2).reshape(b, lq, heads * d) \
-                    .contiguous()
-
-            def plain_full():
-                for i in range(b):
-                    flash_attention_packed_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], heads)
-
+        if label in ("i2vgen level0 self-attn", "i2vgen level0 cross-attn"):
             qh, kh, vh = (t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v))
 
             def library():
                 return F.scaled_dot_product_attention(qh, kh, vh)
 
-            _compare("K2 yardstick SDPA on the (B, H, L, D) strided view",
+            _compare(f"K2 yardstick SDPA on the (B, H, L, D) strided view, {label}",
                      library()[:1].transpose(1, 2).reshape(1, lq, heads * d), ref, _tol(dtype))
-            rec = _yardstick(
-                dict(ms=_time_ms(lambda: flash_attention_packed(q, k, v, num_heads=heads)),
-                     k1_ms=_time_ms(folded), plain_ms=_time_ms(plain_full, reps=3),
+            r = _yardstick(
+                dict(ms=_time_ms(lambda: fa.flash_attention_packed(q, k, v, num_heads=heads)),
                      library_ms=_time_ms(library), shape=[b, lq, heads * d]),
                 work_flash(b, heads, lq, lk, d))
-            print(f"  K2 time {(b, lq, heads * d)} bf16: kernel {rec['ms']:.3f} ms, SDPA "
-                  f"{rec['library_ms']:.3f} ms, K1 with head-fold transposes "
-                  f"{rec['k1_ms']:.3f} ms, plain (one batch row at a time) "
-                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-                  f"({rec['bound_by']}), share {rec['share']:.3f}", flush=True)
+            line = (f"  K2 time {(b, lq, heads * d)} kv {lk} bf16: kernel {r['ms']:.3f} ms, "
+                    f"SDPA {r['library_ms']:.3f} ms")
+            if lk == lq:
+                def folded():
+                    fold = [t.reshape(b, -1, heads, d).transpose(1, 2)
+                            .reshape(b * heads, -1, d).contiguous() for t in (q, k, v)]
+                    o = fa.flash_attention(*fold)
+                    return o.reshape(b, heads, lq, d).transpose(1, 2).reshape(
+                        b, lq, heads * d).contiguous()
+
+                def plain_full():
+                    for i in range(b):
+                        fa.flash_attention_packed_reference(q[i:i + 1], k[i:i + 1],
+                                                            v[i:i + 1], heads)
+
+                r.update(k1_ms=_time_ms(folded), plain_ms=_time_ms(plain_full, reps=3))
+                line += (f", K1 with head-fold transposes {r['k1_ms']:.3f} ms, plain (one "
+                         f"batch row at a time) {r['plain_ms']:.3f} ms")
+                rec = r
+            else:
+                cross = {f"cross_{key}": value for key, value in r.items()}
+            print(line + f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}), share "
+                  f"{r['share']:.3f}", flush=True)
         del q, k, v, out, ref
-    rec["max_abs_err"] = max(errs)
+    rec.update(cross, max_abs_err=max(errs))
     rec512["max_abs_err"] = max(errs512)
     return {"flash_attention_packed": rec, "flash_attention_packed_d512": rec512}
 
@@ -628,74 +665,110 @@ def check_k3(randn) -> dict:
     return rec
 
 
-def check_k4(randn, gen) -> dict:
+def _conv_args(randn, gen, b, t, s, c, co, kt, pre, res, dtype):
+    import torch
+
+    x = randn(b, t, s, c, dtype=dtype)
+    w = randn(kt, c, co, dtype=dtype, std=(kt * c) ** -0.5)
+    bias = randn(co, dtype=torch.float32, std=0.1)
+    pa = (1.0 + randn(b, c, dtype=torch.float32, std=0.1)) if pre else None
+    pb = randn(b, c, dtype=torch.float32, std=0.1) if pre else None
+    r = randn(b, t, s, co, dtype=dtype) if res else None
+    rw = torch.rand((b, t), generator=gen, device=x.device) if res else None
+    return x, w, bias, r, rw, pa, pb
+
+
+def _conv3d_view(x, w, bias):
+    """The bare variant as one ``F.conv3d`` on the (B, C, T, S, 1)
+    channels-last-3d view of x, with the bias in x's dtype as conv3d wants it:
+    (call, the bias it used)."""
     import torch
     import torch.nn.functional as F
 
-    from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
+    xv = x.permute(0, 3, 1, 2).unsqueeze(-1)
+    wv = w.permute(2, 1, 0)[..., None, None].contiguous(memory_format=torch.channels_last_3d)
+    bias_lo = bias.to(x.dtype)
+    pad = w.shape[0] // 2
+    return (lambda: F.conv3d(xv, wv, bias_lo, padding=(pad, 0, 0)).squeeze(-1).permute(0, 2, 3, 1),
+            bias_lo)
+
+
+# K4's variants: (prologue, epilogue)
+K4_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
+
+
+def check_k4(randn, gen) -> dict:
+    """K4 at the main paths' geometries, the ragged cases in each of the four variants (the VAE's 3 -> 128 and 128 -> 3, T =
+    1 and 2, kt 1 and 5), timed at stage 1's and stage 2's level 0 (pre+res,
+    as the UNets call it, and bare against ``F.conv3d``: ``t38_*`` the
+    latter) and in f32 at the VAE decoder's top level (bare, ``f32_*``)."""
+    import torch
+
+    from streamingt2v_torch.ops import temporal_conv as tc
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs = {}, []
-    for b, t, s, c, co, kt, pre, res, dtype, label in [
-            (2, 25, 9216, 320, 320, 3, True, True, bf16, "unet level0 out_conv"),
-            (2, 25, 2304, 640, 640, 3, True, False, bf16, "unet level1 in_conv"),
-            (2, 7, 576, 1280, 1280, 3, True, True, bf16, "controlnet level2"),
-            (1, 8, 589824, 128, 128, 3, True, True, bf16, "vae decoder top level"),
-            (1, 8, 589824, 3, 3, 3, False, False, bf16, "vae AE3DConv time mix C=3"),
-            (1, 2, 14400, 320, 320, 3, True, False, bf16, "i2vgen pre-pass T=2"),
-            (1, 38, 14400, 320, 320, 3, True, True, bf16, "i2vgen level0 T=38"),
-            (1, 38, 240, 1280, 1280, 3, True, True, bf16, "i2vgen level3 T=38"),
-            (1, 64, 3600, 640, 640, 3, True, True, bf16, "T=64"),
-            (2, 25, 576, 64, 96, 3, False, True, f32, "f32 res only"),
-            (1, 40, 1024, 48, 32, 3, True, False, f32, "f32 prologue only T=40"),
-            (1, 9, 1000, 64, 96, 1, True, True, bf16, "kt=1"),
-            (2, 11, 777, 128, 64, 5, True, True, bf16, "kt=5"),
-            (1, 1, 4100, 320, 320, 3, True, True, bf16, "T=1")]:
-        x = randn(b, t, s, c, dtype=dtype)
-        w = randn(kt, c, co, dtype=dtype, std=(kt * c) ** -0.5)
-        bias = randn(co, dtype=f32, std=0.1)
-        pa = (1.0 + randn(b, c, dtype=f32, std=0.1)) if pre else None
-        pb = randn(b, c, dtype=f32, std=0.1) if pre else None
-        r = randn(b, t, s, co, dtype=dtype) if res else None
-        rw = torch.rand((b, t), generator=gen, device=x.device) if res else None
-        args = (x, w, bias, r, rw, pa, pb)
-        out = temporal_conv(*args)
-        ref = temporal_conv_reference(*args)
-        errs.append(_compare(f"K4 {label} x{(b, t, s, c)}->{co} kt {kt} {dtype}", out, ref,
-                             _tol(dtype)))
+    rec, errs, t38, f32_rec = {}, [], {}, {}
+    cases = [(2, 25, 9216, 320, 320, 3, True, True, bf16, "unet level0 out_conv"),
+             (2, 25, 2304, 640, 640, 3, True, False, bf16, "unet level1 in_conv"),
+             (2, 7, 576, 1280, 1280, 3, True, True, bf16, "controlnet level2"),
+             (1, 8, 589824, 128, 128, 3, True, True, bf16, "vae decoder top level"),
+             (1, 8, 589824, 3, 3, 3, False, False, bf16, "vae AE3DConv time mix C=3"),
+             (1, 38, 14400, 320, 320, 3, True, True, bf16, "i2vgen level0 T=38"),
+             (1, 38, 240, 1280, 1280, 3, True, True, bf16, "i2vgen level3 T=38"),
+             (1, 64, 3600, 640, 640, 3, True, True, bf16, "T=64"),
+             (2, 25, 576, 64, 96, 3, False, True, f32, "f32 res only"),
+             (1, 40, 1024, 48, 32, 3, True, False, f32, "f32 prologue only T=40"),
+             (1, 8, 589824, 128, 128, 3, False, False, f32, "f32 vae decoder top level")]
+    for (b, t, s, c, co, kt), label in [((1, 8, 9216, 3, 128, 3), "vae 3->128"),
+                                        ((1, 8, 9216, 128, 3, 3), "vae 128->3"),
+                                        ((1, 1, 4100, 320, 320, 3), "T=1"),
+                                        ((1, 2, 14400, 320, 320, 3), "i2vgen pre-pass T=2"),
+                                        ((1, 9, 1000, 64, 96, 1), "kt=1"),
+                                        ((2, 11, 777, 128, 64, 5), "kt=5")]:
+        cases += [(b, t, s, c, co, kt, pre, res, bf16, f"{label} pre={pre} res={res}")
+                  for pre, res in K4_VARIANTS]
+    for b, t, s, c, co, kt, pre, res, dtype, label in cases:
+        args = _conv_args(randn, gen, b, t, s, c, co, kt, pre, res, dtype)
+        x, w, bias = args[:3]
+        out = tc.temporal_conv(*args)
+        ref = tc.temporal_conv_reference(*args)
+        name = f"K4 {label} x{(b, t, s, c)}->{co} kt {kt} {dtype}"
+        errs.append(_compare(name, out, ref, _tol(dtype)))
         if label in ("unet level0 out_conv", "i2vgen level0 T=38"):
-            # the bare variant (no prologue, no epilogue) is what one conv3d
-            # computes: on the (B, C, T, S, 1) channels-last-3d view of x,
-            # with the bias rounded to x's dtype as conv3d wants it
-            xv = x.permute(0, 3, 1, 2).unsqueeze(-1)
-            wv = w.permute(2, 1, 0)[..., None, None].contiguous(
-                memory_format=torch.channels_last_3d)
-            bias_lo = bias.to(dtype)
-
-            def library():
-                return F.conv3d(xv, wv, bias_lo, padding=(1, 0, 0))
-
-            _compare(f"K4 yardstick conv3d {(b, t, s, c, co)} bare",
-                     library().squeeze(-1).permute(0, 2, 3, 1),
-                     temporal_conv_reference(x, w, bias_lo.float()), _tol(dtype))
-            r = _yardstick(dict(ms=_time_ms(lambda: temporal_conv(*args)),
-                                plain_ms=_time_ms(lambda: temporal_conv_reference(*args), reps=3),
-                                bare_ms=_time_ms(lambda: temporal_conv(x, w, bias)),
+            library, bias_lo = _conv3d_view(x, w, bias)
+            _compare(f"K4 yardstick conv3d {(b, t, s, c, co)} bare", library(),
+                     tc.temporal_conv_reference(x, w, bias_lo.float()), _tol(dtype))
+            r = _yardstick(dict(ms=_time_ms(lambda: tc.temporal_conv(*args)),
+                                plain_ms=_time_ms(lambda: tc.temporal_conv_reference(*args),
+                                                  reps=3),
+                                bare_ms=_time_ms(lambda: tc.temporal_conv(x, w, bias)),
                                 library_ms=_time_ms(library), shape=[b, t, s, c, co]),
                            work_temporal_conv(b, t, s, c, co))
             r["bare_share"] = bound(work_temporal_conv(b, t, s, c, co, res=False, pre=False))[
                 "bound_ms"] / r["bare_ms"]
-            print(f"  K4 time {(b, t, s, c, co)} bf16 pre+res: kernel {r['ms']:.3f} ms, "
-                  f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-                  f"({r['bound_by']}), share {r['share']:.3f}; bare: kernel "
-                  f"{r['bare_ms']:.3f} ms, conv3d {r['library_ms']:.3f} ms, share "
+            print(f"  K4 time {(b, t, s, c, co)} bf16 pre+res: kernel "
+                  f"{r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+                  f"share {r['share']:.3f}; bare: kernel {r['bare_ms']:.3f} ms, conv3d {r['library_ms']:.3f} ms, share "
                   f"{r['bare_share']:.3f}", flush=True)
             if not rec:
                 rec = r
             else:
-                rec["t38"] = r
-        del x, out, ref, r
-    rec["max_abs_err"] = max(errs)
+                t38 = {f"t38_{key}": value for key, value in r.items()}
+        if dtype == f32 and s == 589824:
+            library, bias_lo = _conv3d_view(x, w, bias)
+            _compare(f"K4 yardstick conv3d {(b, t, s, c, co)} f32", library(),
+                     tc.temporal_conv_reference(x, w, bias_lo), _tol(dtype))
+            f32_rec = _f32_record(lambda: tc.temporal_conv(*args), library,
+                                  work_temporal_conv(b, t, s, c, co, res=False, pre=False,
+                                                     elem=4))
+            f32_rec["f32_shape"] = [b, t, s, c, co]
+            print(f"  K4 time {(b, t, s, c, co)} f32 bare (first body): kernel "
+                  f"{f32_rec['f32_ms']:.3f} ms, conv3d {f32_rec['f32_library_ms']:.3f} ms, "
+                  f"bound {f32_rec['f32_bound_ms']:.3f} ms at the FP32 rate "
+                  f"({f32_rec['f32_bound_by']}), share {f32_rec['f32_share']:.3f}", flush=True)
+        del args, x, w, bias, out, ref
+    rec.update(t38, **f32_rec, max_abs_err=max(errs))
     return rec
 
 
@@ -790,7 +863,7 @@ def check_k6(randn) -> dict:
         fused_temporal_attention, temporal_attention_reference)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs = {}, []
+    rec, errs, f32_rec = {}, [], {}
     for b, tq, tkv, s, heads, d, dtype, label in [
             (1, 38, 38, 14400, 5, 64, bf16, "i2vgen level0"),
             (1, 38, 38, 3600, 10, 64, bf16, "i2vgen level1"),
@@ -803,7 +876,8 @@ def check_k6(randn) -> dict:
             (1, 64, 64, 3600, 5, 64, bf16, "T=64"),
             (3, 20, 9, 1001, 3, 64, bf16, "ragged pairs 20x9"),
             (2, 16, 16, 1000, 2, 128, f32, "f32 d=128"),
-            (1, 64, 64, 333, 3, 32, f32, "f32 T=64 ragged")]:
+            (1, 64, 64, 333, 3, 32, f32, "f32 T=64 ragged"),
+            (1, 38, 38, 14400, 5, 64, f32, "f32 i2vgen level0")]:
         q = randn(b * tq, s, heads * d, dtype=dtype)
         k, v = (randn(b * tkv, s, heads * d, dtype=dtype) for _ in range(2))
         kw = dict(batch=b, frames_q=tq, frames_kv=tkv, num_heads=heads)
@@ -811,7 +885,21 @@ def check_k6(randn) -> dict:
         ref = temporal_attention_reference(q, k, v, **kw)
         errs.append(_compare(f"K6 {label} T {tq}x{tkv} S {s} {heads}x{d} {dtype}", out, ref,
                              _tol(dtype)))
-        if tq == tkv and d == 64 and (b, tq, s, heads) in K6_TIMED:
+        if dtype == f32 and s == 14400:
+            # the first body against the first SDPA backend that takes f32 on
+            # the (S, H, T, D) strided view, its bound at the FP32 rate
+            views = tuple(z.view(-1, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
+            library, backend = _sdpa_backend(*views)
+            _compare(f"K6 yardstick SDPA ({backend}) f32", library().permute(2, 0, 1, 3).reshape(
+                b * tq, s, heads * d), ref, _tol(dtype))
+            f32_rec = _f32_record(lambda: fused_temporal_attention(q, k, v, **kw), library,
+                                  work_temporal_attention(b, tq, tkv, s, heads, d, elem=4))
+            f32_rec.update(f32_shape=[b * tq, s, heads * d], f32_sdpa_backend=backend)
+            print(f"  K6 time {(b * tq, s, heads * d)} T={tq} f32 (first body): kernel "
+                  f"{f32_rec['f32_ms']:.3f} ms, SDPA ({backend}) {f32_rec['f32_library_ms']:.3f} "
+                  f"ms, bound {f32_rec['f32_bound_ms']:.3f} ms at the FP32 rate "
+                  f"({f32_rec['f32_bound_by']}), share {f32_rec['f32_share']:.3f}", flush=True)
+        if tq == tkv and d == 64 and dtype == bf16 and (b, tq, s, heads) in K6_TIMED:
             # strided views, no copy: (S, H, T, D) for one batch row, else
             # (B, S*H, T, D), each (pixel, head) pair a head of SDPA
             if b == 1:
@@ -843,7 +931,7 @@ def check_k6(randn) -> dict:
             else:
                 rec["stage1"] = r
         del q, k, v, out, ref
-    rec["max_abs_err"] = max(errs)
+    rec.update(f32_rec, max_abs_err=max(errs))
     return rec
 
 
@@ -3300,9 +3388,10 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
         extra = {k: v for k, v in r.items()
-                 if k in ("bare_ms", "sdpa_backend")
+                 if k in ("bare_ms", "bare_share", "sdpa_backend", "k1_ms")
                  or k in ("bwd_max_abs_err", "bwd_shape")
-                 or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_"))}
+                 or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_",
+                                  "cross_", "t38_", "f32_"))}
         if "stage1" in r:   # K6 at the stage-1 geometry
             extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3373,8 +3462,10 @@ def main(argv=None) -> int:
     native.load_library()
     print(f"  y4m feeder: g++ -> {feeder.parent.name}/{feeder.name} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    for line in _ptxas_summary(log):
+    ptxas = _ptxas_summary(log)
+    for line in ptxas:
         print("  ptxas: " + line, flush=True)
+    check_wgmma_notes(ptxas)
 
     records = {}
     if "kernels" in phases:

@@ -13,6 +13,12 @@ script times any revision of the port, e.g. an unpacked parent commit beside
 this one (run parent, change, change, parent in one call).  Kernels
 (``--kernels``, comma-separated):
 
+  d64   flash attention at D=64 in bf16: K1 at stage 1's (250, 9216, 64), K2
+        at stage 2's level-0 self-attention (38, 14400, 5x64) and
+        cross-attention (145 keys), each beside SDPA;
+  k4    temporal conv in bf16 at stage 1's (2, 25, 9216, 320) and stage 2's
+        (1, 38, 14400, 320) level 0, pre+res (as the UNets call it) and bare,
+        the bare one beside ``F.conv3d``;
   k3    GEGLU FF, x (n, C), inner 4C, LN and residual on, at ``chip_smoke``'s
         three stage-1 UNet widths and stage 2's level 0;
   k6    temporal attention at ``chip_smoke``'s timed geometries;
@@ -23,8 +29,8 @@ this one (run parent, change, change, parent in one call).  Kernels
 
 Inputs from seed 0; ``chip_smoke``'s timer (CUDA events, median of
 ``--reps`` after one warm-up) and tolerances; each time beside its bound.
-The first call at each d512 and k5 shape is checked against the plain
-version; k5 also prints the device time of each of its two passes
+The first call at each d64, k4, d512 and k5 shape is checked against the
+plain version; k5 also prints the device time of each of its two passes
 (``torch.profiler``).
 
 ``--budgets-mib`` times K3 instead for each G budget of its row chunk
@@ -58,7 +64,7 @@ def k3_operands(randn, n: int, c: int) -> tuple:
 def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
     import torch
 
-    from streamingt2v_torch.ops import fused_ff
+    from streamingt2v_torch.ops import _native, fused_ff
 
     shipped = fused_ff.G_CHUNK_BYTES
     for n, c in shapes:
@@ -78,7 +84,7 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
             del out
             ms = chip_smoke._time_ms(lambda: fused_ff.geglu_ff(*args, **kw), reps=reps)
             print(f"  K3 x{(n, c)} inner {inner} budget {mib or 'all'} MiB: chunk "
-                  f"{fused_ff.chunk_size(n, inner, c, fused_ff._sm_count(args[0].device))} "
+                  f"{fused_ff.chunk_size(n, inner, c, _native.sm_count(args[0].device))} "
                   f"rows, {ms:.3f} ms, share {b['bound_ms'] / ms:.3f}, scratch "
                   f"{extra / 2**20:.1f} MiB", flush=True)
         fused_ff.G_CHUNK_BYTES = shipped
@@ -87,7 +93,63 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = ("k3", "k6", "d512", "k5")
+KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5")
+
+
+def _timed(chip_smoke, name: str, call, library, work: tuple, reps: int) -> None:
+    ms, lib = chip_smoke._time_ms(call, reps=reps), chip_smoke._time_ms(library, reps=reps)
+    bd = chip_smoke.bound(work)
+    print(f"  {name} bf16: {ms:.3f} ms, library {lib:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
+          f"share {bd['bound_ms'] / ms:.3f}", flush=True)
+
+
+def time_d64(chip_smoke, randn, reps: int) -> None:
+    import torch.nn.functional as F
+
+    from streamingt2v_torch.ops import flash_attention as fa
+
+    tol = chip_smoke.TOL["bf16"]
+    q, k, v = (randn(250, 9216, 64) for _ in range(3))
+    chip_smoke._compare("D64 K1", fa.flash_attention(q, k, v)[:2],
+                        fa.flash_attention_reference(q[:2], k[:2], v[:2]), tol)
+    _timed(chip_smoke, "D64 K1 (250, 9216, 64)", lambda: fa.flash_attention(q, k, v),
+           lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None]),
+           chip_smoke.work_flash(250, 1, 9216, 9216, 64), reps)
+    del q, k, v
+    for lk in (14400, 145):
+        q = randn(38, 14400, 320)
+        k, v = (randn(38, lk, 320) for _ in range(2))
+        chip_smoke._compare(f"D64 K2 kv {lk}", fa.flash_attention_packed(q, k, v, num_heads=5)[:1],
+                            fa.flash_attention_packed_reference(q[:1], k[:1], v[:1], 5), tol)
+        qh, kh, vh = (t.view(38, -1, 5, 64).transpose(1, 2) for t in (q, k, v))
+        _timed(chip_smoke, f"D64 K2 (38, 14400, 5x64) kv {lk}",
+               lambda: fa.flash_attention_packed(q, k, v, num_heads=5),
+               lambda: F.scaled_dot_product_attention(qh, kh, vh),
+               chip_smoke.work_flash(38, 5, 14400, lk, 64), reps)
+        del q, k, v, qh, kh, vh
+
+
+def time_k4(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tol = chip_smoke.TOL["bf16"]
+    for shape in ((2, 25, 9216, 320, 320), (1, 38, 14400, 320, 320)):
+        args = chip_smoke._conv_args(randn, gen, *shape, 3, True, True, torch.bfloat16)
+        x, w, bias = args[:3]
+        x1, r1, rw1, pa1, pb1 = (a[:1] for a in (x, *args[3:]))   # the first batch row
+        chip_smoke._compare(f"K4 {shape} pre+res", temporal_conv(*args)[:1],
+                            temporal_conv_reference(x1, w, bias, r1, rw1, pa1, pb1), tol)
+        ms = chip_smoke._time_ms(lambda: temporal_conv(*args), reps=reps)
+        bd = chip_smoke.bound(chip_smoke.work_temporal_conv(*shape))
+        print(f"  K4 {shape} pre+res bf16: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, share "
+              f"{bd['bound_ms'] / ms:.3f}", flush=True)
+        library, _ = chip_smoke._conv3d_view(x, w, bias)
+        _timed(chip_smoke, f"K4 {shape} bare", lambda: temporal_conv(x, w, bias), library,
+               chip_smoke.work_temporal_conv(*shape, res=False, pre=False), reps)
+        del args, x, w, bias
 
 
 def time_k3(chip_smoke, randn, reps: int) -> None:
@@ -205,7 +267,7 @@ def main() -> int:
         sweep_budgets(chip_smoke, randn, chip_smoke.K3_LEVELS + ((547200, 320),),
                       [int(b) for b in args.budgets_mib.split(",")], args.reps)
         return 0
-    timers = dict(k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5)
+    timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5)
     for name in kernels:
         timers[name](chip_smoke, randn, args.reps)
         torch.cuda.empty_cache()

@@ -16,18 +16,13 @@
 // TPU's zero-pad denominator correction is not needed.
 //
 // What bounds it on the H100: at D=64 the UNet geometries do 4*L^2*D flops on
-// 4*L*D*2 bytes per head, so the tensor cores.  The bf16 D=64 instance, which
-// carries all UNet attention, is the register-resident FlashAttention-2
-// structure on `mma.sync` (wgmma is not used): four warps each own 32 query
-// rows (two 16-row tiles) of a 128-row tile, with their Q fragments held in
-// registers, so each K and V fragment loaded feeds two products;
-// S = Q K^T stays in the mma accumulators, the row max and sum go through
-// quad shuffles, and P is repacked in registers as the A fragments of P V.
-// K fragments come from `ldmatrix` and V's from `ldmatrix.trans` on the
-// row-major V tile.  K/V tiles are double-buffered by `cp.async` (zero-filled
-// past the ragged edge), with one block barrier per tile: the next tile's copy
-// is in flight while this one's products run.  Masking runs on the last tile
-// only.
+// 4*L*D*2 bytes per head, so the tensor cores (and, at D=64, the exp2 of
+// every score on the SFU: one per 2*D = 128 flops).  The bf16 D=64 instance,
+// which carries all UNet attention, is FlashAttention-3's outline on `wgmma`
+// (`flash_kernel_bf16_d64_wgmma`, below), masking the ragged KV edge on the
+// last tile only.  It replaced an earlier register-resident FlashAttention-2
+// body on `mma.sync`, which it beat at both main-path shapes on the H100
+// (PERF.md).
 //
 // The bf16 D=512 instance (the VAE mid-block attention, one head) does
 // 4*L^2*512 flops on 4*L*512*2 bytes per batch row, so it is bound by the
@@ -190,200 +185,189 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-// ---- bf16, D = 64: the register-resident body ----
-constexpr int FA_D = 64;
-constexpr int FA_MT = 2;                // 16-row query tiles per warp
-constexpr int FA_THREADS = 128;
-constexpr int FA_BQ = FA_THREADS / 32 * 16 * FA_MT;  // query rows per block
-constexpr int FA_BK = 64;               // keys per KV tile
-constexpr int FA_LD = FA_D + 8;         // smem row stride: conflict-free ldmatrix
-constexpr size_t FA_SMEM = sizeof(bf16) * FA_LD * (FA_BQ + 2 * 2 * FA_BK);  // Q, 2 x (K, V)
+// ---- bf16, D = 64 on wgmma: the FlashAttention-3 outline ----
+constexpr int FW_D = 64;
+constexpr int FW_THREADS = 256;               // two consumer warpgroups
+constexpr int FW_BQ = 128;                    // query rows per block: 64 per warpgroup
+constexpr int FW_BK = 128;                    // keys per KV tile
+constexpr int FW_STAGES = 2;                  // K/V tiles: this one and the next
+constexpr int FW_BLOCKS = 2;                  // blocks per SM: at most 128 registers a thread
+constexpr int FW_Q_BYTES = FW_BQ * FW_D * 2;  // rows of 128 bytes in the 128-byte swizzle
+constexpr int FW_TILE_BYTES = FW_BK * FW_D * 2;  // a K or V tile
+constexpr size_t FW_SMEM = 1024 + FW_Q_BYTES + size_t(FW_STAGES) * 2 * FW_TILE_BYTES;
+static_assert(FW_BLOCKS * (FW_SMEM + 1024) <= 233472, "two blocks' shared memory per SM");
 
-// ROWS rows x 64 columns from rows [row0, row0 + ROWS) at stride ld; rows at
-// or past `rows` are zero-filled.
+// ROWS rows x 64 columns from rows [row0, row0 + ROWS) at stride ld into the
+// 128-byte swizzle (`sw128_off`); rows at or past `rows` are zero-filled.
+// Eight neighbouring threads copy one 128-byte row, so thread i's copies are
+// rows i / 8 + 32 it, at byte sw128_off(i / 8, i % 8) + 4096 it.
 template <int ROWS>
-__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src, int row0, int rows,
-                                             int ld) {
+__device__ __forceinline__ void fw_load(unsigned char* dst, const bf16* src, int row0, int rows,
+                                        int ld) {
+  const int cr = threadIdx.x >> 3, cg = threadIdx.x & 7;
+  unsigned char* d = dst + sw128_off(cr, cg);
+  const bf16* p = src + size_t(row0 + cr) * ld + cg * 8;
+  const size_t step = size_t(32) * ld;
 #pragma unroll
-  for (int it = 0; it < ROWS * (FA_D / 8) / FA_THREADS; ++it) {
-    const int i = threadIdx.x + it * FA_THREADS;
-    const int r = i >> 3, col = (i & 7) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async_16(dst + r * FA_LD + col, src + size_t(ok ? row0 + r : 0) * ld + col, ok);
+  for (int it = 0; it < ROWS / 32; ++it, p += step) {
+    const bool ok = row0 + cr + 32 * it < rows;
+    cp_async_16(d + 4096 * it, ok ? p : src, ok);
   }
 }
 
-__global__ void __launch_bounds__(FA_THREADS)
-flash_kernel_bf16_d64(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int lq, int lk,
-                      int heads, int ld, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KV = Qs + FA_BQ * FA_LD;  // stage s: K at KV + 2*s*FA_BK*FA_LD, V after it
+// A block owns 128 query rows; warpgroup wg owns rows [64 wg, 64 wg + 64).
+// Per KV tile j of 128 keys: S = Q K_j^T (wgmma m64n128k16, Q and K K-major
+// in the swizzle), the online softmax on S in registers, P repacked in
+// registers as the A operand of O += P V_j (wgmma m64n64k16, V_j read
+// N-major: the V rows as they are in memory, transposed by the descriptor),
+// one k16 slice of P packed before each product, so S's registers free as
+// P's fill.  The exponentials run as `ex2.approx.ftz` (no subnormal fix-up:
+// at D=64 the SFU and the ALU are as busy per tile as the tensor cores, and
+// the fix-up cost 10% of the call).  Each product group is waited for at once: a group left in flight
+// across the loop (P V_j under the next S) made ptxas serialize the wgmma,
+// and two blocks an SM (128 registers a thread) hide more than that overlap
+// did.  K/V tiles alternate between two stages: tile j + 1 is copied during
+// tile j into the stage of tile j - 1, which every warpgroup finished before
+// the barrier.
+__global__ void __launch_bounds__(FW_THREADS, FW_BLOCKS)
+flash_kernel_bf16_d64_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o, int lq, int lk,
+                            int heads, int ld, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  // the swizzle atoms need 1024-byte alignment (the launch adds the slack)
+  unsigned char* Qs = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  unsigned char* KV = Qs + FW_Q_BYTES;  // stage s: K at KV + 2 s FW_TILE_BYTES, V after it
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix and row this lane addresses
-  const int q0 = blockIdx.x * FA_BQ;
+  const int wg = warp >> 2;
+  const int q0 = blockIdx.x * FW_BQ;
   const size_t bi = blockIdx.y / heads, hi = blockIdx.y % heads;
-  const bf16* qb = q + bi * lq * ld + hi * FA_D;
-  const bf16* kb = k + bi * lk * ld + hi * FA_D;
-  const bf16* vb = v + bi * lk * ld + hi * FA_D;
-  bf16* ob = o + bi * lq * ld + hi * FA_D;
+  const bf16* qb = q + bi * lq * ld + hi * FW_D;
+  const bf16* kb = k + bi * lk * ld + hi * FW_D;
+  const bf16* vb = v + bi * lk * ld + hi * FW_D;
+  bf16* ob = o + bi * lq * ld + hi * FW_D;
 
-  fa_load_tile<FA_BQ>(Qs, qb, q0, lq, ld);
-  fa_load_tile<FA_BK>(KV, kb, 0, lk, ld);
-  fa_load_tile<FA_BK>(KV + FA_BK * FA_LD, vb, 0, lk, ld);
+  fw_load<FW_BQ>(Qs, qb, q0, lq, ld);
+  fw_load<FW_BK>(KV, kb, 0, lk, ld);
+  fw_load<FW_BK>(KV + FW_TILE_BYTES, vb, 0, lk, ld);
   cp_async_commit();
 
-  // Per 16-row tile mt of this warp (rows warp*16*FA_MT + mt*16 + g and +8):
   const float neg_inf = __int_as_float(0xff800000);
-  uint32_t qf[FA_MT][FA_D / 16][4];  // Q A-fragments, one per 16 columns of D
-  float acc[FA_MT][FA_D / 8][4];     // O, 8 column tiles of 8
-  float mx[FA_MT][2], den[FA_MT][2];  // running max (log2 units); this lane's denominator share
+  float acc[FW_D / 2];     // O: rows g (elements 4n, 4n+1) and g+8 (4n+2, 4n+3), columns 8n + 2t
+  float s[FW_BK / 2];      // S of this tile, the same layout over its 128 keys
+  uint32_t pa[FW_BK / 4];  // P in bf16: the A fragments of the 8 k16 slices of P V
+  float mx[2] = {neg_inf, neg_inf};  // running max (log2 units) of rows g and g+8
+  float den[2] = {0.f, 0.f};         // this lane's share of their denominators
 #pragma unroll
-  for (int mt = 0; mt < FA_MT; ++mt) {
-    mx[mt][0] = mx[mt][1] = neg_inf;
-    den[mt][0] = den[mt][1] = 0.f;
-#pragma unroll
-    for (int n = 0; n < FA_D / 8; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-  }
+  for (int i = 0; i < FW_D / 2; ++i) acc[i] = 0.f;
 
-  const int tiles = (lk + FA_BK - 1) / FA_BK;
+  // descriptors: this warpgroup's 64 rows of Q; stage 0's K and V.  A k16
+  // slice of Q or K is 32 bytes (2 units) along the row; one of V is 16 rows
+  // (2048 bytes, 128 units) down; a stage is 2 FW_TILE_BYTES further.
+  const uint64_t q_desc = gmma_desc(smem_u32(Qs) + wg * 64 * 128);
+  const uint64_t kv_desc = gmma_desc(smem_u32(KV));
+  constexpr uint64_t TILE_UNITS = FW_TILE_BYTES >> 4;
+  const int tiles = (lk + FW_BK - 1) / FW_BK;
+  int stage = 0;
   for (int j = 0; j < tiles; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j landed for all; tile j-1's stage is no longer read
+    cp_async_wait_all();  // this thread's copies of tile j (and Q) landed
+    fence_proxy_async();  // ... and are visible to wgmma
+    __syncthreads();      // for all; tile j - 1 is done everywhere
     if (j + 1 < tiles) {
-      bf16* next = KV + ((j + 1) & 1) * 2 * FA_BK * FA_LD;
-      fa_load_tile<FA_BK>(next, kb, (j + 1) * FA_BK, lk, ld);
-      fa_load_tile<FA_BK>(next + FA_BK * FA_LD, vb, (j + 1) * FA_BK, lk, ld);
-      cp_async_commit();
+      unsigned char* next = KV + (stage == FW_STAGES - 1 ? 0 : stage + 1) * 2 * FW_TILE_BYTES;
+      fw_load<FW_BK>(next, kb, (j + 1) * FW_BK, lk, ld);
+      fw_load<FW_BK>(next + FW_TILE_BYTES, vb, (j + 1) * FW_BK, lk, ld);
     }
-    if (j == 0) {
-#pragma unroll
-      for (int mt = 0; mt < FA_MT; ++mt)
-#pragma unroll
-        for (int ks = 0; ks < FA_D / 16; ++ks)
-          ldmatrix_x4(qf[mt][ks], Qs + ((warp * FA_MT + mt) * 16 + (lane & 15)) * FA_LD +
-                                      ks * 16 + (lane >> 4) * 8);
-    }
-    const bf16* Ks = KV + (j & 1) * 2 * FA_BK * FA_LD;
-    const bf16* Vs = Ks + FA_BK * FA_LD;
+    cp_async_commit();  // empty on the last tile
 
-    // S = Q K^T: 64 keys per tile, 8 key tiles of 8; each K fragment feeds
-    // every query tile of the warp
-    float sc[FA_MT][FA_BK / 8][4];
+    const uint64_t k_desc = kv_desc + stage * 2 * TILE_UNITS;
+    gmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < FA_MT; ++mt)
-#pragma unroll
-      for (int n = 0; n < FA_BK / 8; ++n) sc[mt][n][0] = sc[mt][n][1] = sc[mt][n][2] = sc[mt][n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < FA_D / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < FA_BK / 16; ++np) {
-        uint32_t b[4];  // key tiles 2np, 2np+1; D columns ks*16 .. +15
-        ldmatrix_x4(b, Ks + (np * 16 + (mi >> 1) * 8 + r8) * FA_LD + ks * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < FA_MT; ++mt) {
-          mma_bf16(sc[mt][2 * np], qf[mt][ks], b[0], b[1]);
-          mma_bf16(sc[mt][2 * np + 1], qf[mt][ks], b[2], b[3]);
-        }
-      }
-    }
-    if ((j + 1) * FA_BK > lk) {  // the ragged last tile
-#pragma unroll
-      for (int n = 0; n < FA_BK / 8; ++n) {
-        const int key = j * FA_BK + n * 8 + 2 * t;
-#pragma unroll
-        for (int mt = 0; mt < FA_MT; ++mt) {
-          if (key >= lk) sc[mt][n][0] = sc[mt][n][2] = neg_inf;
-          if (key + 1 >= lk) sc[mt][n][1] = sc[mt][n][3] = neg_inf;
-        }
-      }
-    }
+    for (int kk = 0; kk < FW_D / 16; ++kk)
+      wgmma_m64n128k16(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    gmma_commit();
+    gmma_wait<0>();
+    fence_regs(s);
 
-    // online softmax: rows g (elements 0, 1) and g+8 (2, 3); a row's 64
-    // scores sit in the four lanes of a quad
+    if ((j + 1) * FW_BK > lk) {  // the ragged last tile
 #pragma unroll
-    for (int mt = 0; mt < FA_MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float r = neg_inf;
-#pragma unroll
-        for (int n = 0; n < FA_BK / 8; ++n) r = fmaxf(r, fmaxf(sc[mt][n][2 * h], sc[mt][n][2 * h + 1]));
-        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
-        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
-        const float mnew = fmaxf(mx[mt][h], r * scale_log2);
-        const float alpha = exp2f(mx[mt][h] - mnew);
-        mx[mt][h] = mnew;
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < FA_BK / 8; ++n) {
-          sc[mt][n][2 * h] = exp2f(fmaf(sc[mt][n][2 * h], scale_log2, -mnew));
-          sc[mt][n][2 * h + 1] = exp2f(fmaf(sc[mt][n][2 * h + 1], scale_log2, -mnew));
-          sum += sc[mt][n][2 * h] + sc[mt][n][2 * h + 1];
-        }
-        den[mt][h] = den[mt][h] * alpha + sum;
-#pragma unroll
-        for (int n = 0; n < FA_D / 8; ++n) {
-          acc[mt][n][2 * h] *= alpha;
-          acc[mt][n][2 * h + 1] *= alpha;
-        }
+      for (int n = 0; n < FW_BK / 8; ++n) {
+        const int key = j * FW_BK + n * 8 + 2 * t;
+        if (key >= lk) s[4 * n] = s[4 * n + 2] = neg_inf;
+        if (key + 1 >= lk) s[4 * n + 1] = s[4 * n + 3] = neg_inf;
       }
     }
-
-    // O += P V: P's accumulators repacked as A fragments, 16 keys at a time;
-    // each V fragment feeds every query tile of the warp
-#pragma unroll
-    for (int kk = 0; kk < FA_BK / 16; ++kk) {
-      uint32_t a[FA_MT][4];
-#pragma unroll
-      for (int mt = 0; mt < FA_MT; ++mt) {
-        a[mt][0] = pack_bf16x2(sc[mt][2 * kk][0], sc[mt][2 * kk][1]);
-        a[mt][1] = pack_bf16x2(sc[mt][2 * kk][2], sc[mt][2 * kk][3]);
-        a[mt][2] = pack_bf16x2(sc[mt][2 * kk + 1][0], sc[mt][2 * kk + 1][1]);
-        a[mt][3] = pack_bf16x2(sc[mt][2 * kk + 1][2], sc[mt][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int dp = 0; dp < FA_D / 16; ++dp) {
-        uint32_t b[4];  // D tiles 2dp, 2dp+1; keys kk*16 .. +15
-        ldmatrix_x4_trans(b, Vs + (kk * 16 + (mi & 1) * 8 + r8) * FA_LD + dp * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < FA_MT; ++mt) {
-          mma_bf16(acc[mt][2 * dp], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * dp + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < FA_MT; ++mt) {
+    // online softmax: a row's 128 scores sit in the four lanes of a quad
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float l = den[mt][h];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = 1.f / l;
-      const int row = q0 + (warp * FA_MT + mt) * 16 + g + 8 * h;
-      if (row >= lq) continue;
+      float r = neg_inf;
 #pragma unroll
-      for (int n = 0; n < FA_D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(ob + size_t(row) * ld + n * 8 + 2 * t) =
-            pack_bf16x2(acc[mt][n][2 * h] * inv, acc[mt][n][2 * h + 1] * inv);
+      for (int n = 0; n < FW_BK / 8; ++n) r = fmaxf(r, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+      // every tile has a key in range, so r is finite
+      const float mnew = fmaxf(mx[h], r * scale_log2);
+      const float alpha = ex2_ftz(mx[h] - mnew);
+      mx[h] = mnew;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < FW_BK / 8; ++n) {
+        s[4 * n + 2 * h] = ex2_ftz(fmaf(s[4 * n + 2 * h], scale_log2, -mnew));
+        s[4 * n + 2 * h + 1] = ex2_ftz(fmaf(s[4 * n + 2 * h + 1], scale_log2, -mnew));
+        sum += s[4 * n + 2 * h] + s[4 * n + 2 * h + 1];
+      }
+      den[h] = den[h] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < FW_D / 8; ++n) {
+        acc[4 * n + 2 * h] *= alpha;
+        acc[4 * n + 2 * h + 1] *= alpha;
+      }
     }
+    // P's accumulator layout is the A-fragment layout: keys 16kk .. 16kk + 15
+    // are column blocks 2kk and 2kk + 1
+    const uint64_t v_desc = k_desc + TILE_UNITS;
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk) {
+      pa[4 * kk] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+      pa[4 * kk + 1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[4 * kk + 2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[4 * kk + 3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+      gmma_fence();  // this slice's P registers, to wgmma
+      wgmma_m64n64k16_rt(acc, pa + 4 * kk, v_desc + 128 * kk);
+    }
+    gmma_commit();
+    gmma_wait<0>();
+    fence_regs(acc);
+    stage = stage == FW_STAGES - 1 ? 0 : stage + 1;
   }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = den[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+    const int row = q0 + wg * 64 + (warp & 3) * 16 + g + 8 * h;
+    if (row >= lq) continue;
+#pragma unroll
+    for (int n = 0; n < FW_D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(ob + size_t(row) * ld + n * 8 + 2 * t) =
+          pack_bf16x2(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv);
+  }
+  cp_async_wait_all();  // the last (empty) group
 }
 
-static int launch_flash_bf16_d64(const void* q, const void* k, const void* v, void* o,
-                                 int batch, int heads, int lq, int lk, float scale_log2,
-                                 cudaStream_t stream) {
-  cudaError_t err = set_smem(flash_kernel_bf16_d64, FA_SMEM);
+static int launch_flash_bf16_d64_wgmma(const void* q, const void* k, const void* v, void* o,
+                                       int batch, int heads, int lq, int lk, float scale_log2,
+                                       cudaStream_t stream) {
+  auto kernel = flash_kernel_bf16_d64_wgmma;
+  cudaError_t err = set_smem(kernel, FW_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((lq + FA_BQ - 1) / FA_BQ, batch * heads);
-  flash_kernel_bf16_d64<<<grid, FA_THREADS, FA_SMEM, stream>>>(
+  dim3 grid((lq + FW_BQ - 1) / FW_BQ, batch * heads);
+  kernel<<<grid, FW_THREADS, FW_SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lq, lk, heads, heads * FA_D, scale_log2);
+      static_cast<bf16*>(o), lq, lk, heads, heads * FW_D, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,7 +654,7 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || heads <= 0 || batch * heads > 65535 || lq <= 0 || lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && d == 64) return launch_flash_bf16_d64(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 1 && d == 64) return launch_flash_bf16_d64_wgmma(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 1 && d == 512) return launch_flash_bf16_d512(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 512) return launch_flash<float, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
@@ -680,8 +664,8 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
 }  // namespace st2v
 
 // K1.  q/o (bh, lq, d), k/v (bh, lk, d).  dtype: 0 = float32, 1 = bfloat16.
-// d must be 64 or 512 (the wrapper pads other head dims with zeros).
-// Returns a cudaError_t (0 = launched).
+// d must be 64 or 512 (the wrapper pads other head dims with zeros).  Returns
+// a cudaError_t (0 = launched).
 extern "C" int st2v_flash_attention(const void* q, const void* k, const void* v, void* o,
                                     int bh, int lq, int lk, int d, int dtype,
                                     float scale_log2, void* stream) {

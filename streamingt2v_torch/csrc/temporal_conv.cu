@@ -13,24 +13,38 @@
 // 2*C_out) bytes (with res), so the tensor cores at the UNet's 320-1280
 // channels and the memory at the VAE's 128.
 //
-// The bf16 body.  A block owns one batch row, 128 positions and 64 output
-// channels for every frame, and walks the input frames in order, each in
-// 64-channel steps.  Each staged input tile feeds all kt taps: the block keeps
-// kt output-frame accumulators in registers (acc[j] holds output frame
-// f - kt/2 + j while input frame f is staged, so tap k adds into acc[kt-1-k]),
-// and when frame f's last step is done, output frame f - kt/2 is complete: its
-// epilogue stores it from registers and the window rolls by one.  So each
-// input frame is read once per block, no halo frame is read again, and any T
-// works.  The zero padding is a skipped tap.  Eight warps, 4 x 2, each own a
-// 32 x 32 piece of every accumulator (`mma.sync` with `ldmatrix`; wgmma is not
-// used).  A step's x tile and its chunk's kt W taps arrive by 16-byte
-// `cp.async` into a ring of three stages, two steps ahead of the products; the
-// GroupNorm+SiLU prologue runs once per element per block, in place in shared
-// memory: each thread transforms the elements it copied itself, one step
-// ahead, so the step's one barrier publishes them and it costs no other.  The
-// 128 x 64 tile keeps the W taps, which every block streams again for every
-// frame, at 24 KB of the 40 KB a step copies.  The wrapper pads C and W's
-// C_out rows to multiples of 8 with zeros, so every copy is 16 bytes.
+// The bf16 body (`temporal_conv_bf16_wgmma_kernel`).  A tile is one output
+// frame of one batch row: 128 positions x 320 output channels (every channel
+// of a UNet level's block, as one m64n256k16 and one m64n64k16 product per 16
+// channels; 128 or 64 columns at other widths, `conv_tile_cols` in the
+// wrapper).  Its contraction runs over the taps whose input frame exists (the
+// zero SAME padding is a skipped tap) and, within each, C in 64-channel
+// steps: the kt input frames are staged through the ring, not held, because
+// a rolling window of kt output-frame accumulators at 320 columns would need
+// kt x 160 f32 registers a thread.  So one tile's accumulators are 160
+// registers a thread; the 256 + 64 instance builds at 255 registers with 8
+// bytes of spill (its epilogue issues 16 residual loads at once, so their
+// latencies overlap; 4 at once spilled nothing but ran slower).  Two warpgroups take
+// 64 positions each; both operands are read by `wgmma.mma_async` from shared
+// memory in the 128-byte swizzle: the step's x tile (128 x 64) and the tap's
+// W rows, which the wrapper repacks tap-major and K-major, (kt, C_out, C).
+// The 320-column tile makes W 40 KB of the 56 KB a step stages, against 24 of
+// 40 KB for 64 columns, and every x tile staged feeds all 320 columns.
+// Operands arrive by 16-byte `cp.async` into a ring of 3 stages (4 at the
+// narrower tiles); each thread fences its landed copies to the async proxy
+// (`fence.proxy.async.shared::cta`) before the stage's barrier, and one group
+// of products stays in flight while the next stage is published.  The
+// GroupNorm+SiLU prologue runs in place in shared memory on the elements a
+// thread copied, after its own wait and before the same fence (wgmma reads
+// the result); it runs once per staged element, so kt times per input
+// element at C_out <= 320.  The grid is persistent (one block per SM walks
+// tiles, output-channel blocks fastest), the copies run ahead across tile
+// boundaries, and the bias and `res + res_w * y` epilogue store from
+// registers, so the next tile's first stages land during it.
+//
+// It replaced an earlier `mma.sync` body (128 positions x 64 output channels
+// for every frame, a rolling window of kt accumulators), which it beat at
+// both main-path shapes on the H100 (PERF.md).
 //
 // The f32 body (full f32 on the FMA units) is the first, simple design: a
 // block owns 16 positions and 32 output channels, reads its input element by
@@ -40,99 +54,152 @@
 
 namespace st2v {
 
-// ---- bf16: the implicit-GEMM body ----
-constexpr int TCB_THREADS = 256;
-constexpr int TCB_BM = 128;           // positions per block: the rows of one frame's tile
-constexpr int TCB_BN = 64;            // output channels per block
-constexpr int TCB_BK = 64;            // input channels per step
-constexpr int TCB_STAGES = 3;
-constexpr int TCB_LDX = TCB_BK + 8;   // smem row strides: conflict-free ldmatrix
-constexpr int TCB_LDW = TCB_BN + 8;
-
-template <int KT>
-struct TCBLayout {
-  static constexpr int X_ELEMS = TCB_BM * TCB_LDX;        // [position][channel]
-  static constexpr int W_ELEMS = KT * TCB_BK * TCB_LDW;   // [tap][channel][out channel]
-  static constexpr int STAGE = X_ELEMS + W_ELEMS;
-  static constexpr size_t SMEM = TCB_STAGES * STAGE * sizeof(bf16);
-};
-
 __device__ __forceinline__ float silu_fast(float y) {
   float th;
   asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(0.5f * y));
   return 0.5f * y * (1.f + th);  // y * sigmoid(y)
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
+// ---- bf16 on wgmma: an implicit GEMM with the taps in the contraction ----
+constexpr int TW_THREADS = 256;      // two warpgroups, 64 positions each
+constexpr int TW_BM = 128;           // positions per tile
+constexpr int TW_BK = 64;            // channels per step: one 128-byte swizzle row
+constexpr int TW_SMEM = 220 * 1024;  // the ring's budget: one block per SM
 
-template <int KT>
-__global__ void __launch_bounds__(TCB_THREADS)
-temporal_conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                          const float* __restrict__ bias, const float* __restrict__ pre_a,
-                          const float* __restrict__ pre_b, const bf16* __restrict__ res,
-                          const float* __restrict__ res_w, bf16* __restrict__ out, int t_len,
-                          int s_len, int c, int c_out) {
-  typedef TCBLayout<KT> L;
-  constexpr int LO = KT / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+// A stage holds the step's x tile (TW_BM positions x TW_BK channels) and W
+// tile (BN output channels x TW_BK channels), both K-major in the 128-byte
+// swizzle (`sw128_off`, `gmma_desc`).  BN = NB + NS output channels go
+// through one m64nNBk16 (NB = 256, 128 or 0) and one m64nNSk16 (NS = 64 or 0)
+// per 16 channels.
+template <int NB, int NS>
+struct TWShape {
+  static constexpr int BN = NB + NS;
+  static constexpr int A_BYTES = TW_BM * TW_BK * 2, B_BYTES = BN * TW_BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int FIT = (TW_SMEM - 1024) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM = size_t(STAGES) * STAGE_BYTES + 1024;  // + alignment
+  static_assert(STAGE_BYTES % 1024 == 0 && STAGES >= 3, "stages start on swizzle atoms");
+  static_assert(SMEM <= 232448, "a block's 227 KB of shared memory");
+};
+
+struct ConvArgs {
+  const bf16* x;        // (B, T, S, C), C % 8 == 0
+  const bf16* w;        // (kt, C_out, C): tap-major, each output channel's row K-major
+  const float* bias;    // (C_out,)
+  const float* pre_a;   // (B, C) or null
+  const float* pre_b;
+  const bf16* res;      // (B, T, S, C_out) or null
+  const float* res_w;   // (B, T)
+  bf16* out;            // (B, T, S, C_out)
+  int batch, t_len, s_len, c, c_out, kt;
+};
+
+// A tile is one output frame t of one batch row: TW_BM positions x BN output
+// channels, contraction over the taps k whose input frame t + k - kt/2 exists
+// (the zero padding is a skipped tap) and, within each, C in TW_BK steps.  A
+// block walks tiles blockIdx.x, + gridDim.x, ... (output-channel blocks
+// fastest, then positions, frames, batch rows, so the blocks at work share
+// their x frames in L2); its copies run STAGES - 1 steps ahead of the products
+// across tile boundaries, and a tile's epilogue stores from registers, so the
+// next tile's first stages land while it runs.
+template <int NB, int NS>
+__global__ void __launch_bounds__(TW_THREADS, 1)
+temporal_conv_bf16_wgmma_kernel(const ConvArgs p) {
+  typedef TWShape<NB, NS> S;
+  constexpr int BN = S::BN, STAGES = S::STAGES;
+  constexpr int A_IT = TW_BM / 32, B_IT = BN / 32;  // 16-byte copies per thread per stage
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  // the swizzle atoms need 1024-byte alignment (the launch adds the slack)
+  unsigned char* smem_raw = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int mi8 = lane >> 3, r8 = lane & 7;   // ldmatrix: matrix and row this lane addresses
-  const int wm = warp & 3, wn = warp >> 2;    // this warp's 32 rows and 32 columns
-  const int co0 = blockIdx.x * TCB_BN, s0 = blockIdx.y * TCB_BM, b = blockIdx.z;
-  const int ldw = (c_out + 7) & ~7;           // W's rows, padded by the wrapper
-  const int chunks = (c + TCB_BK - 1) / TCB_BK;
-  const int steps = t_len * chunks;
-  const bool active = co0 + wn * 32 < c_out;  // the warp has output columns
+  const int wg = warp >> 2;  // warpgroup: tile rows wg*64 ..
+  // this thread's copies: rows cr + 32*it, channels [cc, cc + 8), at byte
+  // my_off + 4096*it of the tile (8 neighbouring threads copy one row)
+  const int cr = tid >> 3, cc = (tid & 7) * 8;
+  const int my_off = sw128_off(cr, tid & 7);
+  const int lo = p.kt / 2;
+  const int col_blocks = (p.c_out + BN - 1) / BN;
+  const int row_blocks = (p.s_len + TW_BM - 1) / TW_BM;
+  const int tiles = col_blocks * row_blocks * p.t_len * p.batch;
+  const size_t frame = size_t(p.s_len) * p.c;  // x elements a frame
+  const size_t tap = size_t(p.c_out) * p.c;    // W elements a tap
+  const size_t rstep = size_t(32) * p.c;       // 32 rows of x or W
 
-  // a step's x tile (frame f, one channel chunk) and the chunk's kt W taps,
-  // by 16-byte cp.async into the step's stage, zero-filled past S, C, C_out
-  auto load = [&](int step) {
-    if (step < steps) {
-      bf16* Xs = smem + (step % TCB_STAGES) * L::STAGE;
-      bf16* Ws = Xs + L::X_ELEMS;
-      const int f = step / chunks, kc = (step % chunks) * TCB_BK;
+  // tile -> output channel, position, frame, batch row
+  auto tile_co0 = [&](int tile) { return (tile % col_blocks) * BN; };
+  auto tile_s0 = [&](int tile) { return (tile / col_blocks % row_blocks) * TW_BM; };
+  auto tile_t = [&](int tile) { return tile / (col_blocks * row_blocks) % p.t_len; };
+  auto tile_b = [&](int tile) { return tile / (col_blocks * row_blocks) / p.t_len; };
+
+  // the loader: its tile, tap and channel step, the ring slot it fills next,
+  // and its copies' first sources (frame 0, tap 0) and rows that exist
+  int l_tile = blockIdx.x, l_slot = 0, l_t = 0, l_k = 0, l_k_end = 0, l_kc = 0;
+  const bf16* a_src = p.x;
+  const bf16* b_src = p.w;
+  uint32_t a_ok = 0, b_ok = 0;
+  auto start_tile = [&]() {
+    const int s0 = tile_s0(l_tile), co0 = tile_co0(l_tile);
+    l_t = tile_t(l_tile);
+    l_k = max(0, lo - l_t);
+    l_k_end = min(p.kt - 1, p.t_len - 1 - l_t + lo);
+    l_kc = 0;
+    a_src = p.x + (size_t(tile_b(l_tile)) * p.t_len * p.s_len + s0 + cr) * p.c + cc;
+    b_src = p.w + size_t(co0 + cr) * p.c + cc;
+    a_ok = b_ok = 0;
 #pragma unroll
-      for (int it = 0; it < TCB_BM * (TCB_BK / 8) / TCB_THREADS; ++it) {
-        const int i = tid + it * TCB_THREADS;
-        const int r = i >> 3, col = (i & 7) * 8;
-        const bool ok = s0 + r < s_len && kc + col < c;
-        cp_async_16(Xs + r * TCB_LDX + col,
-                    ok ? x + ((size_t(b) * t_len + f) * s_len + s0 + r) * c + kc + col : x, ok);
+    for (int it = 0; it < A_IT; ++it)
+      if (s0 + cr + 32 * it < p.s_len) a_ok |= 1u << it;
+#pragma unroll
+    for (int it = 0; it < B_IT; ++it)
+      if (co0 + cr + 32 * it < p.c_out) b_ok |= 1u << it;
+  };
+  auto load_next = [&]() {
+    if (l_tile < tiles) {
+      unsigned char* As = smem_raw + l_slot * S::STAGE_BYTES;
+      unsigned char* Bs = As + S::A_BYTES;
+      const bool kin = l_kc + cc < p.c;
+      const bf16* a = a_src + size_t(l_t + l_k - lo) * frame + l_kc;
+      const bf16* bw = b_src + size_t(l_k) * tap + l_kc;
+#pragma unroll
+      for (int it = 0; it < A_IT; ++it) {
+        const bool ok = kin && ((a_ok >> it) & 1u);
+        cp_async_16(As + my_off + 4096 * it, ok ? a + it * rstep : p.x, ok);
       }
 #pragma unroll
-      for (int it = 0; it < KT * TCB_BK * (TCB_BN / 8) / TCB_THREADS; ++it) {
-        const int i = tid + it * TCB_THREADS;
-        const int k = i / (TCB_BK * TCB_BN / 8), rem = i % (TCB_BK * TCB_BN / 8);
-        const int r = rem / (TCB_BN / 8), col = (rem % (TCB_BN / 8)) * 8;
-        const bool ok = kc + r < c && co0 + col < ldw;
-        cp_async_16(Ws + (k * TCB_BK + r) * TCB_LDW + col,
-                    ok ? w + (size_t(k) * c + kc + r) * ldw + co0 + col : w, ok);
+      for (int it = 0; it < B_IT; ++it) {
+        const bool ok = kin && ((b_ok >> it) & 1u);
+        cp_async_16(Bs + my_off + 4096 * it, ok ? bw + it * rstep : p.w, ok);
+      }
+      l_kc += TW_BK;
+      if (l_kc >= p.c) {
+        l_kc = 0;
+        if (++l_k > l_k_end) {
+          l_tile += gridDim.x;
+          if (l_tile < tiles) start_tile();
+        }
       }
     }
-    cp_async_commit();  // one group per step, empty past the end
+    cp_async_commit();  // one group per step, empty past the last tile
+    l_slot = l_slot + 1 == STAGES ? 0 : l_slot + 1;
   };
   // the GroupNorm+SiLU prologue, in place on the x elements this thread
-  // copied (visible to it after its own wait; the next barrier publishes them)
-  auto prologue = [&](int step) {
-    if (pre_a == nullptr || step >= steps) return;
-    bf16* Xs = smem + (step % TCB_STAGES) * L::STAGE;
-    const int kc = (step % chunks) * TCB_BK;
+  // copied (landed: its own wait came first); the zero-filled channels past C
+  // stay zero, and rows past S are never stored
+  auto prologue = [&](unsigned char* As, int b, int kc) {
+    const int ch = kc + cc;
+    if (ch >= p.c) return;
+    const float4* pa = reinterpret_cast<const float4*>(p.pre_a + size_t(b) * p.c + ch);
+    const float4* pb = reinterpret_cast<const float4*>(p.pre_b + size_t(b) * p.c + ch);
+    const float4 a0 = __ldg(pa), a1 = __ldg(pa + 1), b0 = __ldg(pb), b1 = __ldg(pb + 1);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int it = 0; it < TCB_BM * (TCB_BK / 8) / TCB_THREADS; ++it) {
-      const int i = tid + it * TCB_THREADS;
-      const int r = i >> 3, col = (i & 7) * 8, ch = kc + col;
-      if (ch >= c) continue;  // zero-filled channels stay zero
-      const float4* pa = reinterpret_cast<const float4*>(pre_a + size_t(b) * c + ch);
-      const float4* pb = reinterpret_cast<const float4*>(pre_b + size_t(b) * c + ch);
-      const float4 a0 = __ldg(pa), a1 = __ldg(pa + 1), b0 = __ldg(pb), b1 = __ldg(pb + 1);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint4 raw = *reinterpret_cast<const uint4*>(Xs + r * TCB_LDX + col);
+    for (int it = 0; it < A_IT; ++it) {
+      uint4* q = reinterpret_cast<uint4*>(As + my_off + 4096 * it);
+      uint4 raw = *q;
       __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -140,143 +207,123 @@ temporal_conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
         h[e] = __floats2bfloat162_rn(silu_fast(fmaf(fv.x, av[2 * e], bv[2 * e])),
                                      silu_fast(fmaf(fv.y, av[2 * e + 1], bv[2 * e + 1])));
       }
-      *reinterpret_cast<uint4*>(Xs + r * TCB_LDX + col) = raw;
+      *q = raw;
     }
   };
 
-  float acc[KT][2][4][4];  // [window slot][16-row tile][8-column tile][fragment]
+  float acc[NB > 0 ? NB / 2 : 1];  // the m64nNBk16 accumulator
+  float acs[NS > 0 ? NS / 2 : 1];  // the m64nNSk16 accumulator
+  if (l_tile < tiles) start_tile();
 #pragma unroll
-  for (int j = 0; j < KT; ++j)
+  for (int s = 0; s < STAGES - 1; ++s) load_next();
+  const int chunks = (p.c + TW_BK - 1) / TW_BK;
+  const bool pairs = (p.c_out & 1) == 0;
+  int slot = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int co0 = tile_co0(tile), s0 = tile_s0(tile), t = tile_t(tile), b = tile_b(tile);
+    const int steps = (min(p.kt - 1, p.t_len - 1 - t + lo) - max(0, lo - t) + 1) * chunks;
+    int kc = 0;
+    for (int i = 0; i < steps; ++i) {
+      cp_async_wait_group<STAGES - 2>();  // this thread's copies of this step landed
+      unsigned char* As = smem_raw + slot * S::STAGE_BYTES;
+      if (p.pre_a != nullptr) prologue(As, b, kc);
+      fence_proxy_async();  // the copies and the prologue's writes, to wgmma
+      __syncthreads();      // the step is complete for all
+      const uint32_t a0 = smem_u32(As) + wg * 64 * 128;
+      const uint32_t b0 = smem_u32(As + S::A_BYTES);
+      gmma_fence();
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[j][m][n][0] = acc[j][m][n][1] = acc[j][m][n][2] = acc[j][m][n][3] = 0.f;
-  float bias_r[4][2];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int co = co0 + wn * 32 + n * 8 + 2 * t4 + e;
-      bias_r[n][e] = co < c_out ? bias[co] : 0.f;
+      for (int kk = 0; kk < TW_BK / 16; ++kk) {
+        const uint64_t da = gmma_desc(a0 + kk * 32);
+        const int scale = i > 0 || kk > 0;  // the tile's first product overwrites
+        if constexpr (NB == 256) wgmma_m64n256k16(acc, da, gmma_desc(b0 + kk * 32), scale);
+        if constexpr (NB == 128) wgmma_m64n128k16(acc, da, gmma_desc(b0 + kk * 32), scale);
+        if constexpr (NS == 64) wgmma_m64n64k16(acs, da, gmma_desc(b0 + NB * 128 + kk * 32), scale);
+      }
+      gmma_commit();
+      // the previous step's products are done (this step's run on), in every
+      // warpgroup: its slot takes the copies STAGES - 1 steps ahead
+      gmma_wait<1>();
+      __syncthreads();
+      load_next();
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+      kc = kc + TW_BK >= p.c ? 0 : kc + TW_BK;
     }
-  const bool pairs = (c_out & 1) == 0;
+    gmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(acs);
 
-  // store output frame `tt` from acc[0], then roll the window by one
-  auto retire = [&](int tt) {
-    if (tt >= 0) {
-      const float rw = res != nullptr ? res_w[size_t(b) * t_len + tt] : 0.f;
+    // the epilogue from registers: a thread holds, of each 8-column block j
+    // of its accumulator, rows r (elements 0, 1) and r + 8 (2, 3) at columns
+    // 8j + 2*t4 and + 1.  The residual loads of EPI_GROUP blocks are issued
+    // together, so their latencies overlap.
+    const float rw = p.res != nullptr ? p.res_w[size_t(b) * p.t_len + t] : 0.f;
+    const int r_lo = wg * 64 + (warp & 3) * 16 + g;
+    const size_t row0 = ((size_t(b) * p.t_len + t) * p.s_len + s0 + r_lo) * p.c_out + co0;
+    const bool rows_in[2] = {s0 + r_lo < p.s_len, s0 + r_lo + 8 < p.s_len};
+    const size_t row_step = size_t(8) * p.c_out;  // row r_lo + 8
+    constexpr int BLOCKS = NB / 8 + NS / 8, EPI_GROUP = 8;
+    static_assert(BLOCKS % EPI_GROUP == 0, "whole groups of column blocks");
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+    for (int j0 = 0; j0 < BLOCKS; j0 += EPI_GROUP) {
+      __nv_bfloat162 rv[EPI_GROUP][2];
+      if (pairs && p.res != nullptr) {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int s = s0 + wm * 32 + m * 16 + g + 8 * half;
-          if (s >= s_len) continue;
-          const size_t row = ((size_t(b) * t_len + tt) * s_len + s) * c_out;
+        for (int jj = 0; jj < EPI_GROUP; ++jj) {
+          const int cl = 8 * (j0 + jj) + 2 * t4;
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const int co = co0 + wn * 32 + n * 8 + 2 * t4;
-            float y0 = acc[0][m][n][2 * half] + bias_r[n][0];
-            float y1 = acc[0][m][n][2 * half + 1] + bias_r[n][1];
-            if (pairs && co < c_out) {
-              if (res != nullptr) {
-                const float2 rv = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(res + row + co));
-                y0 = rv.x + rw * y0;
-                y1 = rv.y + rw * y1;
-              }
-              *reinterpret_cast<__nv_bfloat162*>(out + row + co) = __floats2bfloat162_rn(y0, y1);
-            } else if (!pairs) {
-              if (co < c_out)
-                out[row + co] = __float2bfloat16(
-                    res != nullptr ? __bfloat162float(res[row + co]) + rw * y0 : y0);
-              if (co + 1 < c_out)
-                out[row + co + 1] = __float2bfloat16(
-                    res != nullptr ? __bfloat162float(res[row + co + 1]) + rw * y1 : y1);
+          for (int h = 0; h < 2; ++h)
+            if (co0 + cl < p.c_out && rows_in[h])
+              rv[jj][h] = *reinterpret_cast<const __nv_bfloat162*>(p.res + row0 + h * row_step + cl);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < EPI_GROUP; ++jj) {
+        const int j = j0 + jj;
+        const float* d = j < NB / 8 ? acc + 4 * j : acs + 4 * (j - NB / 8);
+        const int cl = 8 * j + 2 * t4, co = co0 + cl;
+        if (co >= p.c_out) continue;
+        const bool two = co + 1 < p.c_out;
+        const float bias0 = p.bias[co], bias1 = two ? p.bias[co + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!rows_in[h]) continue;
+          const size_t idx = row0 + h * row_step + cl;
+          float y0 = d[2 * h] + bias0, y1 = d[2 * h + 1] + bias1;
+          if (pairs) {  // co is even, so co + 1 < C_out and the pair is 4-byte aligned
+            if (p.res != nullptr) {
+              const float2 r2 = __bfloat1622float2(rv[jj][h]);
+              y0 = r2.x + rw * y0;
+              y1 = r2.y + rw * y1;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(p.out + idx) = __floats2bfloat162_rn(y0, y1);
+          } else {
+            if (p.res != nullptr) y0 = __bfloat162float(p.res[idx]) + rw * y0;
+            p.out[idx] = __float2bfloat16(y0);
+            if (two) {
+              if (p.res != nullptr) y1 = __bfloat162float(p.res[idx + 1]) + rw * y1;
+              p.out[idx + 1] = __float2bfloat16(y1);
             }
           }
         }
-    }
-#pragma unroll
-    for (int j = 0; j + 1 < KT; ++j)
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][m][n][e] = acc[j + 1][m][n][e];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        acc[KT - 1][m][n][0] = acc[KT - 1][m][n][1] = acc[KT - 1][m][n][2] = acc[KT - 1][m][n][3] = 0.f;
-  };
-
-  load(0);
-  load(1);
-  cp_async_wait_one();  // step 0's copies landed
-  prologue(0);
-  for (int i = 0; i < steps; ++i) {
-    const int f = i / chunks, kc = (i - f * chunks) * TCB_BK;
-    const bf16* Xs = smem + (i % TCB_STAGES) * L::STAGE;
-    const bf16* Ws = Xs + L::X_ELEMS;
-    __syncthreads();      // step i's stage is complete; step i-1's is no longer read
-    load(i + 2);          // into step i-1's stage
-    cp_async_wait_one();  // step i+1's copies landed (step i+2's are in flight)
-    prologue(i + 1);
-    if (active) {
-#pragma unroll
-      for (int ks = 0; ks < TCB_BK / 16; ++ks) {
-        if (ks * 16 >= c - kc) break;  // past C (zero-filled up to the next 16)
-        uint32_t a[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-          ldmatrix_x4(a[m], Xs + (wm * 32 + m * 16 + (lane & 15)) * TCB_LDX + ks * 16 +
-                                (lane >> 4) * 8);
-#pragma unroll
-        for (int k = 0; k < KT; ++k) {
-          const int tout = f + LO - k;  // the output frame tap k of frame f feeds
-          if (tout < 0 || tout >= t_len) continue;
-          uint32_t bw[4][2];
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t r4[4];  // column tiles 2np, 2np+1; channels ks*16 .. +15
-            ldmatrix_x4_trans(r4, Ws + (k * TCB_BK + ks * 16 + (mi8 & 1) * 8 + r8) * TCB_LDW +
-                                      wn * 32 + np * 16 + (mi8 >> 1) * 8);
-            bw[2 * np][0] = r4[0];
-            bw[2 * np][1] = r4[1];
-            bw[2 * np + 1][0] = r4[2];
-            bw[2 * np + 1][1] = r4[3];
-          }
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int n = 0; n < 4; ++n) mma_bf16(acc[KT - 1 - k][m][n], a[m], bw[n][0], bw[n][1]);
-        }
-      }
-    }
-    if (kc + TCB_BK >= c) {  // frame f is done: output frame f - LO is complete
-      retire(f - LO);
-      if (f == t_len - 1) {
-#pragma unroll
-        for (int e = 1; e <= LO; ++e) retire(f - LO + e);
       }
     }
   }
   cp_async_wait_all();
 }
 
-template <int KT>
-static int launch_tc_bf16(const void* x, const void* w, const float* bias, const float* pre_a,
-                          const float* pre_b, const void* res, const float* res_w, void* out,
-                          int batch, int t_len, int s_len, int c, int c_out,
-                          cudaStream_t stream) {
-  auto kernel = temporal_conv_bf16_kernel<KT>;
-  cudaError_t err = set_smem(kernel, TCBLayout<KT>::SMEM);
+// Persistent: one block per SM (grid = min(tiles, sms)).
+template <int NB, int NS>
+static int launch_tc_wgmma(const ConvArgs& a, int sms, cudaStream_t stream) {
+  typedef TWShape<NB, NS> S;
+  auto kernel = temporal_conv_bf16_wgmma_kernel<NB, NS>;
+  cudaError_t err = set_smem(kernel, S::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((c_out + TCB_BN - 1) / TCB_BN, (s_len + TCB_BM - 1) / TCB_BM, batch);
-  kernel<<<grid, TCB_THREADS, TCBLayout<KT>::SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, pre_a, pre_b,
-      static_cast<const bf16*>(res), res_w, static_cast<bf16*>(out), t_len, s_len, c, c_out);
+  const long long tiles = static_cast<long long>((a.c_out + S::BN - 1) / S::BN) *
+                          ((a.s_len + TW_BM - 1) / TW_BM) * a.t_len * a.batch;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
+  kernel<<<grid, TW_THREADS, S::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -413,25 +460,29 @@ static int launch_tc(const void* x, const void* w, const float* bias, const floa
 }  // namespace st2v
 
 // dtype: 0 = float32, 1 = bfloat16.  w is (kt, C, C_out) for f32 and
-// (kt, C, C_out rounded up to 8) for bf16, with C % 8 == 0 (the wrapper pads
-// both with zeros); pre_a/pre_b are (B, C) f32 or null; res (B, T, S, C_out)
-// and res_w (B, T) f32 or null.  Requires odd kt <= 5; any T >= 1.
+// (kt, C_out, C) with C % 8 == 0 for bf16 (the wrapper pads and repacks);
+// pre_a/pre_b are (B, C) f32 or null; res (B, T, S, C_out) and res_w (B, T)
+// f32 or null.  bf16 takes `cols` output channels a tile (320, 128 or 64)
+// and a grid of at most `sms` blocks.  Requires odd kt <= 5; any T >= 1.
 extern "C" int st2v_temporal_conv(const void* x, const void* w, const float* bias,
                                   const float* pre_a, const float* pre_b, const void* res,
                                   const float* res_w, void* out, int batch, int t_len,
-                                  int s_len, int c, int c_out, int kt, int dtype,
-                                  void* stream) {
+                                  int s_len, int c, int c_out, int kt, int dtype, int cols,
+                                  int sms, void* stream) {
   using namespace st2v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || batch > 65535 || s_len <= 0 || c <= 0 || c_out <= 0 || kt % 2 != 1 ||
       kt > 5 || t_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
-    if (c % 8 != 0 || (s_len + TCB_BM - 1) / TCB_BM > 65535)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (kt == 1) return launch_tc_bf16<1>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, s);
-    if (kt == 3) return launch_tc_bf16<3>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, s);
-    return launch_tc_bf16<5>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, s);
+    if (c % 8 != 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const ConvArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, pre_a,
+                     pre_b, static_cast<const bf16*>(res), res_w, static_cast<bf16*>(out),
+                     batch, t_len, s_len, c, c_out, kt};
+    if (cols == 320) return launch_tc_wgmma<256, 64>(a, sms, s);
+    if (cols == 128) return launch_tc_wgmma<128, 0>(a, sms, s);
+    if (cols == 64) return launch_tc_wgmma<0, 64>(a, sms, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0 && (s_len + TC_BS - 1) / TC_BS <= 65535)
     return launch_tc<float>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, kt, s);

@@ -46,8 +46,7 @@ _SIGNATURES = {
     "st2v_fused_group_norm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "st2v_temporal_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "st2v_geglu_ff": ([_P] * 10 + [_I] * 8 + [_P], _I),
-    "st2v_temporal_conv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-                           _I),
+    "st2v_temporal_conv": ([_P] * 8 + [_I] * 9 + [_P], _I),
 }
 
 
@@ -71,12 +70,14 @@ def source_hash() -> str:
 
 
 def build() -> tuple:
-    """Compile the library if it is not cached; returns (path, seconds, log).
+    """Compile the library if it is not cached; returns (path, seconds, log),
+    the log being nvcc's (ptxas's lines too) of the build that made it.
     One nvcc per source, all running at once, then one link."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
-        return lib, 0.0, "cached"
+        saved = out_dir / "ptxas.log"
+        return lib, 0.0, saved.read_text() if saved.exists() else "cached"
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
@@ -121,6 +122,12 @@ def library() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The device's SM count (the persistent kernels' grid cap)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

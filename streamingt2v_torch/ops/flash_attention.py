@@ -16,9 +16,11 @@ f32 at the level-0 geometry).  The kernel keeps a q-tile's scores, running
 max, denominator and f32 output accumulator on chip and walks the KV tiles
 inside the block, so the scores never reach device memory.  It masks the
 ragged KV edge directly, so the TPU's zero-pad denominator correction is
-not needed.  The bf16 D=64 instance (all UNet attention) is register
-resident: S stays in the mma accumulators, P is repacked in registers for
-P V, and K/V tiles are double-buffered by cp.async.  The bf16 D=512
+not needed.  The bf16 D=64 instance (all UNet attention) is
+FlashAttention-3's outline: two warpgroups of 64 query rows, S = Q K^T on
+``wgmma`` from the 128-byte swizzle, P kept in registers as the A operand
+of P V on ``wgmma`` with V read N-major, K/V tiles of 128 keys
+double-buffered by ``cp.async``, two blocks an SM.  The bf16 D=512
 instance (the VAE mid-block attention, one head) gives a 64-row q tile to
 two warpgroups: S = Q K^T once on wgmma, P through shared memory, and each
 warp 64 of the 512 output columns.  f32 runs on the FMA units in full f32
@@ -115,20 +117,31 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return dq, dk, dv, chunks
 
 
+def kernel_geometry(q_shape: tuple, k_shape: tuple, num_heads: int = 1) -> dict:
+    """What the kernel is told about (B, L, H*D) operands (K1: H = 1 over
+    (B*H, L, D)): ``batch``, ``heads``, ``lq``, ``lk`` and the head dim it
+    runs ``d`` (64 or 512, ``_kernel_head_dim``).  The kernel reads head h of
+    batch row b at the row stride H*d from element (b*L)*H*d + h*d: in K2's
+    packed layout a head is a d-wide column slice."""
+    batch, lq, hd = q_shape
+    d = _kernel_head_dim(hd // num_heads)
+    return dict(batch=batch, heads=num_heads, lq=lq, lk=k_shape[1], d=d)
+
+
 def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One K1 launch on checked inputs."""
-    bh, lq, d = q.shape
-    lk = k.shape[1]
+    d = q.shape[-1]
     q, k, v = pad_head_dim(q, k, v)
-    kd = q.shape[-1]
+    geo = kernel_geometry(q.shape, k.shape)
     out = torch.empty_like(q)
     rc = _native.library().st2v_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, lq, lk, kd,
-        _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo["batch"], geo["lq"],
+        geo["lk"], geo["d"], _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
+        _native.stream_of(q))
     _native.check(rc, "flash_attention")
     flash_attention.launches += 1
-    flash_attention.launches_d512 += int(kd == 512 and q.dtype == torch.bfloat16)
-    return out[..., :d] if kd != d else out
+    flash_attention.launches_d512 += int(geo["d"] == 512 and q.dtype == torch.bfloat16)
+    return out[..., :d] if geo["d"] != d else out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -256,12 +269,13 @@ def flash_attention_packed_backward(q: torch.Tensor, k: torch.Tensor, v: torch.T
 def _launch_flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
     """One K2 launch on checked inputs."""
-    b, lq, hd = q.shape
-    d = hd // num_heads
+    geo = kernel_geometry(q.shape, k.shape, num_heads)
+    d = geo["d"]
     out = torch.empty_like(q)
     rc = _native.library().st2v_flash_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, num_heads, lq, k.shape[1],
-        d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e), _native.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo["batch"], geo["heads"],
+        geo["lq"], geo["lk"], d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
+        _native.stream_of(q))
     _native.check(rc, "flash_attention_packed")
     flash_attention_packed.launches += 1
     flash_attention_packed.launches_d512 += int(d == 512 and q.dtype == torch.bfloat16)

@@ -34,7 +34,6 @@ that keep one chunk's f32 intermediates within ``BWD_CHUNK_BYTES``
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -109,11 +108,6 @@ def chunk_plan(n: int, rows: int) -> list:
     return [(start, min(rows, n - start)) for start in range(0, n, rows)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
              b2: torch.Tensor, *, ln_scale: Optional[torch.Tensor] = None,
              ln_bias: Optional[torch.Tensor] = None, residual: bool = False) -> torch.Tensor:
@@ -163,7 +157,7 @@ def _launch_geglu(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool) -> torch
     else:
         x, w1, b1, w2, ln_scale, ln_bias = map(_native.aligned,
                                                 (x, w1, b1, w2, ln_scale, ln_bias))
-        cols, sms = down_cols(c_out), _sm_count(x.device)
+        cols, sms = down_cols(c_out), _native.sm_count(x.device)
         rows = chunk_size(n, inner, c_out, sms)
         plan = chunk_plan(n, rows)
         g = torch.empty((rows, inner), dtype=x.dtype, device=x.device)

@@ -14,15 +14,16 @@ What bounds it on the H100: at the VAE decoder's 128-channel,
 589824-position levels it moves x and out once each and is bandwidth
 bound; at the UNet's 320-1280-channel levels it is a kt-tap matrix product
 on the tensor cores.  The bf16 kernel treats it as the implicit GEMM it is
-(rows (b, t, s), columns C_out, contraction kt x C): a block owns 64
-positions by 128 output channels for every frame, stages each input frame
-once (the GroupNorm+SiLU prologue applied on the way into shared memory, so
-the normalised activation never reaches device memory), feeds it to all kt
-taps through a rolling window of kt output-frame accumulators in registers,
-and applies bias and epilogue before each output frame's one store.  It
-takes C in multiples of 8 and W with C_out rounded up to 8: the wrapper
-zero-pads both (``kernel_operands``).  The f32 kernel keeps the first,
-simple design (16 positions by 32 output channels per block, FMA units).
+(rows (b, t, s), columns C_out, contraction kt x C): a persistent kernel
+whose tile is one output frame's 128 positions by 320, 128 or 64 output
+channels (``conv_tile_cols``), the contraction running over the taps that
+exist and C on ``wgmma`` from a ``cp.async`` ring in the 128-byte swizzle.
+It reads W tap-major with each output channel's row K-major, (kt, C_out,
+C8) (``kernel_operands``), applies the GroupNorm+SiLU prologue in shared
+memory (the normalised activation never reaches device memory) and the
+bias and epilogue before each tile's one store, and takes C in multiples
+of 8: the wrapper zero-pads x's channels.  The f32 kernel keeps the first, simple design
+(16 positions by 32 output channels per block, FMA units).
 
 Gradients: on the card ``temporal_conv`` is a ``torch.autograd.Function``
 whose forward launches K4 and saves the caller's operands (not the padded
@@ -48,6 +49,14 @@ _TILE_S = 16
 _MAX_GRID = 65535
 # the JAX package's VMEM budget in its gate (streamingt2v_tpu/ops/temporal_conv.py)
 _JAX_VMEM_BUDGET = 10 * 1024 * 1024
+
+
+def conv_tile_cols(c_out: int) -> int:
+    """The bf16 kernel's output channels a tile: all 320 of a UNet level's
+    block (or 320 of 640 and 1280) as one 256 + 64 product, so each x tile
+    staged feeds every output channel and the W taps are 40 of a stage's
+    56 KB; 128 at the VAE's 128 channels; 64 elsewhere."""
+    return 320 if c_out % 320 == 0 else 128 if c_out % 128 == 0 else 64
 
 
 def _kernel_takes(kt: int, s: int, batch: int) -> bool:
@@ -84,20 +93,28 @@ def _round8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def kernel_operands(x, w, pre_a=None, pre_b=None):
-    """The bf16 kernel's layout: x's channels (and pre_a, pre_b) zero-padded
-    to a multiple of 8, and w (kt, C, C_out) zero-padded to (kt, C8,
-    round8(C_out)).  The padded channels add nothing to the product: zero
-    weights, and a zero prologue affine gives silu(0) = 0."""
-    c, c_out = w.shape[1], w.shape[2]
-    pc, pco = _round8(c) - c, _round8(c_out) - c_out
+def _pad_channels(x, pre_a, pre_b, pc: int):
+    """x's channels (and pre_a, pre_b) zero-padded by pc.  The padded channels
+    add nothing to the product: zero weights, and a zero prologue affine
+    gives silu(0) = 0."""
     if pc:
         x = torch.nn.functional.pad(x, (0, pc))
         if pre_a is not None:
             pre_a, pre_b = (torch.nn.functional.pad(p, (0, pc)) for p in (pre_a, pre_b))
-    if pc or pco:
-        w = torch.nn.functional.pad(w, (0, pco, 0, pc))
-    return x, w, pre_a, pre_b
+    return x, pre_a, pre_b
+
+
+def kernel_operands(x, w, pre_a=None, pre_b=None):
+    """The bf16 kernel's layout: x's channels (and pre_a, pre_b) zero-padded to
+    a multiple of 8, and w (kt, C, C_out) repacked tap-major and K-major as
+    (kt, C_out, C8): output channel o's row of tap k is W[k, :, o], its
+    channels contiguous and zero past C (wgmma's B operand, one 16-byte copy
+    per 8 channels).  C_out is not padded: the kernel zero-fills the rows
+    past it."""
+    pc = _round8(w.shape[1]) - w.shape[1]
+    x, pre_a, pre_b = _pad_channels(x, pre_a, pre_b, pc)
+    wk = torch.nn.functional.pad(w, (0, 0, 0, pc)) if pc else w
+    return x, wk.transpose(1, 2).contiguous(), pre_a, pre_b
 
 
 def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -146,8 +163,10 @@ def _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b) -> torch.Tensor:
     """One K4 launch on checked operands."""
     bsz, t, s, c = x.shape
     kt, _, c_out = w.shape
+    cols = sms = 0
     if x.dtype == torch.bfloat16:
         x, w, pre_a, pre_b = kernel_operands(x, w, pre_a, pre_b)
+        cols, sms = conv_tile_cols(c_out), _native.sm_count(x.device)
         c = x.shape[3]
         x, w, res, pre_a, pre_b = map(_native.aligned, (x, w, res, pre_a, pre_b))
     out = torch.empty((bsz, t, s, c_out), dtype=x.dtype, device=x.device)
@@ -157,7 +176,8 @@ def _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b) -> torch.Tensor:
         None if pre_b is None else pre_b.data_ptr(),
         None if res is None else res.data_ptr(),
         None if res_w is None else res_w.data_ptr(),
-        out.data_ptr(), bsz, t, s, c, c_out, kt, _native.DTYPE_CODE[x.dtype], _native.stream_of(x))
+        out.data_ptr(), bsz, t, s, c, c_out, kt, _native.DTYPE_CODE[x.dtype], cols, sms,
+        _native.stream_of(x))
     _native.check(rc, "temporal_conv")
     temporal_conv.launches += 1
     return out

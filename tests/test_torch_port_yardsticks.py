@@ -253,8 +253,9 @@ def test_chip_smoke_needs_the_card():
 @pytest.mark.parametrize("res", [False, True])
 @pytest.mark.parametrize("c,co,kt", [(3, 3, 3), (12, 5, 3), (16, 24, 1), (3, 8, 5)])
 def test_temporal_conv_kernel_operands_keep_the_function(c, co, kt, pre, res):
-    """The zero padding of C (x, pre_a, pre_b, W's rows) and of W's C_out
-    columns changes nothing in the plain version's output."""
+    """The zero padding of C (x, pre_a, pre_b, W's rows) and W repacked
+    tap-major and K-major, (kt, C_out, C8), change nothing in the plain
+    version's output."""
     rng = np.random.RandomState(5)
     b, t_len, s = 2, 4, 9
     x = t(rng.randn(b, t_len, s, c))
@@ -265,12 +266,12 @@ def test_temporal_conv_kernel_operands_keep_the_function(c, co, kt, pre, res):
     pa = t(1.0 + 0.2 * rng.randn(b, c)) if pre else None
     pb = t(0.2 * rng.randn(b, c)) if pre else None
     xp, wp, pap, pbp = kernel_operands(x, w, pa, pb)
-    c8, co8 = -(-c // 8) * 8, -(-co // 8) * 8
-    assert xp.shape == (b, t_len, s, c8) and wp.shape == (kt, c8, co8)
+    c8 = -(-c // 8) * 8
+    assert xp.shape == (b, t_len, s, c8) and wp.shape == (kt, co, c8) and wp.is_contiguous()
     assert pre is False or (pap.shape == (b, c8) and pbp.shape == (b, c8))
-    assert float(wp[:, c:].abs().sum()) == 0.0 and float(wp[:, :, co:].abs().sum()) == 0.0
+    assert float(wp[:, :, c:].abs().sum()) == 0.0
     ref = temporal_conv_reference(x, w, bias, r, rw, pa, pb)
-    got = temporal_conv_reference(xp, wp[:, :, :co].contiguous(), bias, r, rw, pap, pbp)
+    got = temporal_conv_reference(xp, wp.transpose(1, 2).contiguous(), bias, r, rw, pap, pbp)
     assert_close(got, ref.numpy(), TOL, "padded K4 operands")
 
 
@@ -278,7 +279,8 @@ def test_temporal_conv_kernel_operands_leave_aligned_widths_alone():
     x, w = torch.zeros(1, 2, 3, 320), torch.zeros(3, 320, 640)
     pa = torch.zeros(1, 320)
     xp, wp, pap, pbp = kernel_operands(x, w, pa, pa)
-    assert xp is x and wp is w and pap is pa and pbp is pa
+    assert xp is x and pap is pa and pbp is pa
+    assert torch.equal(wp, w.transpose(1, 2))   # repacked (kt, C_out, C), not padded
 
 
 def test_temporal_conv_operands_off_16_bytes_are_copied():
