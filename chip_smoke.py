@@ -393,13 +393,26 @@ def _tol(dtype) -> float:
     return TOL["f32" if dtype == torch.float32 else "bf16"]
 
 
-def _f32_record(kernel, library, work: tuple) -> dict:
-    """An f32 instance (the first, synchronous bodies on the FMA units)
-    timed beside its one-call equivalent (TF32 off for the whole run), its
-    bound at the FP32 rate: ``f32_*`` keys of its kernel's record."""
-    rec = _yardstick(dict(ms=_time_ms(kernel), library_ms=_time_ms(library)), work,
+def _f32_record(kernel, library, work: tuple, prefix: str = "f32_", plain=None) -> dict:
+    """An f32 instance (FMA units, full f32) timed beside its one-call
+    equivalent (TF32 off for the whole run; none: null) and its plain
+    version where given, its bound at the FP32 rate: ``<prefix>*`` keys of
+    its kernel's record."""
+    rec = _yardstick(dict(ms=_time_ms(kernel),
+                          library_ms=None if library is None else _time_ms(library)), work,
                      PEAK_F32_FLOPS)
-    return {f"f32_{key}": value for key, value in rec.items()}
+    if plain is not None:
+        rec["plain_ms"] = _time_ms(plain, reps=3)
+    return {f"{prefix}{key}": value for key, value in rec.items()}
+
+
+def _f32_line(name: str, rec: dict, prefix: str, library: str) -> None:
+    lib, plain = rec[f"{prefix}library_ms"], rec.get(f"{prefix}plain_ms")
+    print(f"  {name}: kernel {rec[f'{prefix}ms']:.3f} ms, "
+          + (f"{library} {lib:.3f} ms, " if lib is not None else "no one-call yardstick, ")
+          + (f"plain {plain:.3f} ms, " if plain is not None else "")
+          + f"bound {rec[f'{prefix}bound_ms']:.3f} ms at the FP32 rate "
+          f"({rec[f'{prefix}bound_by']}), share {rec[f'{prefix}share']:.3f}", flush=True)
 
 
 def _sdpa_backend(qh, kh, vh) -> tuple:
@@ -440,10 +453,21 @@ def _d512_record(name: str, kernel, plain, views: tuple, ref, unview, work: tupl
     return rec
 
 
+# f32 K1 rows that are timed beside SDPA f32: (B*H, L, D) -> key prefix of
+# K1's record: the stage-1 VAE encoder's mid attention (once a video; the
+# row's ``f32_*`` keys), the temporal decoder's (one 8-frame chunk under the
+# f32 decode) and the f32 D=64 body
+K1_F32_PREFIX = {(1, 9216, 512): "f32_", (8, 9216, 512): "f32_b8_",
+                 (10, 9216, 64): "f32_d64_"}
+# (B*H, L) of the D=512 ones
+K1_F32_TIMED = tuple((bh, length) for bh, length, d in K1_F32_PREFIX if d == 512)
+
+
 def check_k1(randn) -> dict:
     """K1 at the stage-1 geometries, the ragged cases and a zero-padded head
-    dim; the D=512 instance (the VAE mid-block attention) gets a record of its own, the f32
-    instance ``f32_*`` keys in K1's."""
+    dim; the D=512 instance (the VAE mid-block attention) gets a record of its
+    own; the f32 instances (the stage-1 VAE's attention, the f32 D=64 body)
+    ``f32_*`` keys in K1's (``K1_F32_PREFIX``), each timed beside SDPA f32."""
     import torch
     import torch.nn.functional as F
 
@@ -459,6 +483,12 @@ def check_k1(randn) -> dict:
             (3, 1000, 512, bf16, "D=512 ragged L=1000"),
             (2, 40, 512, bf16, "D=512 L=40, one ragged tile"),
             (1, 9216, 512, f32, "vae encoder mid attn (f32)"),
+            (8, 9216, 512, f32, "vae decoder mid attn, f32 decode chunk"),
+            (2, 1000, 512, f32, "f32 D=512 ragged L=1000"),
+            (3, 40, 512, f32, "f32 D=512 L=40, one ragged tile"),
+            (1, 4111, 512, f32, "f32 D=512 ragged L=4111"),
+            (24, 1000, 512, f32, "f32 D=512 ragged L=1000, keys not split"),
+            (10, 9216, 64, f32, "f32 D=64, two frames of level-0 self-attn"),
             (6, 77, 64, bf16, "ragged L=77"),
             (4, 1000, 64, bf16, "ragged L=1000"),
             (5, 130, 32, bf16, "head dim 32, zero-padded")]:
@@ -470,17 +500,17 @@ def check_k1(randn) -> dict:
         errs.append(err)
         if d == 512 and dtype == bf16:
             errs512.append(err)
-        if dtype == f32:
+        if dtype == f32 and (bh, length, d) in K1_F32_PREFIX:
+            prefix = K1_F32_PREFIX[(bh, length, d)]
             library, backend = _sdpa_backend(q[:, None], k[:, None], v[:, None])
             _compare(f"K1 yardstick SDPA ({backend}) f32", library()[:rows, 0], ref, _tol(dtype))
-            f32_rec = _f32_record(lambda: fa.flash_attention(q, k, v), library,
-                                  work_flash(bh, 1, length, length, d, elem=4))
-            f32_rec.update(f32_shape=[bh, length, d], f32_sdpa_backend=backend)
-            print(f"  K1 time {(bh, length, d)} f32 (first body): kernel {f32_rec['f32_ms']:.3f} "
-                  f"ms, SDPA ({backend}) {f32_rec['f32_library_ms']:.3f} ms, bound "
-                  f"{f32_rec['f32_bound_ms']:.3f} ms at the FP32 rate "
-                  f"({f32_rec['f32_bound_by']}), share {f32_rec['f32_share']:.3f}", flush=True)
-        if (bh, length, d) == (8, 9216, 512):
+            r = _f32_record(lambda: fa.flash_attention(q, k, v), library,
+                            work_flash(bh, 1, length, length, d, elem=4), prefix,
+                            lambda: fa.flash_attention_reference(q, k, v))
+            r.update({f"{prefix}shape": [bh, length, d], f"{prefix}sdpa_backend": backend})
+            f32_rec.update(r)
+            _f32_line(f"K1 time {(bh, length, d)} f32", r, prefix, f"SDPA ({backend})")
+        if (bh, length, d) == (8, 9216, 512) and dtype == bf16:
             rec512 = _d512_record(
                 f"K1 {(bh, length, d)}", lambda: fa.flash_attention(q, k, v),
                 lambda: fa.flash_attention_reference(q, k, v), (q[:, None], k[:, None], v[:, None]),
@@ -614,7 +644,7 @@ def check_k3(randn) -> dict:
     from streamingt2v_torch.ops.fused_ff import chunk_size, geglu_ff, geglu_ff_reference
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs = {}, []
+    rec, errs, f32_rec = {}, [], {}
     for n, c, dtype, ln_res, label in [(460800, 320, bf16, True, "unet level0"),
                                        (115200, 640, bf16, True, "unet level1"),
                                        (28800, 1280, bf16, True, "unet level2"),
@@ -623,7 +653,8 @@ def check_k3(randn) -> dict:
                                        (7200, 48, bf16, False, "ragged, no LN/residual"),
                                        (115200, 640, bf16, False, "level1 no LN/residual"),
                                        (4096, 320, f32, True, "f32"),
-                                       (4096, 320, f32, False, "f32 no LN/residual")]:
+                                       (4096, 320, f32, False, "f32 no LN/residual"),
+                                       (460800, 320, f32, True, "f32 unet level0 width")]:
         inner = 4 * c
         x = randn(n, c, dtype=dtype)
         w1 = randn(2 * inner, c, dtype=dtype, std=c ** -0.5)
@@ -638,7 +669,13 @@ def check_k3(randn) -> dict:
         ref = geglu_ff_reference(*args, *((lns, lnb, True) if ln_res else ()))
         errs.append(_compare(f"K3 {label} x{(n, c)} inner {inner} {dtype}", out, ref,
                              _tol(dtype)))
-        if ln_res and (n, c) in K3_LEVELS:
+        if dtype == f32 and n == 460800:
+            f32_rec = _f32_record(lambda: geglu_ff(*args, **kw), None,
+                                  work_geglu(n, c, inner, elem=4),
+                                  plain=lambda: geglu_ff_reference(*args, lns, lnb, True))
+            f32_rec["f32_shape"] = [n, c, inner]
+            _f32_line(f"K3 time {(n, c, inner)} f32", f32_rec, "f32_", "")
+        elif ln_res and (n, c) in K3_LEVELS:
             level = K3_LEVELS.index((n, c))
             del out
             torch.cuda.synchronize()
@@ -661,7 +698,7 @@ def check_k3(randn) -> dict:
                 line += f", plain {r['plain_ms']:.3f} ms, no one-call yardstick"
             print(line, flush=True)
         del x, out, ref
-    rec["max_abs_err"] = max(errs)
+    rec.update(f32_rec, max_abs_err=max(errs))
     return rec
 
 
@@ -695,13 +732,20 @@ def _conv3d_view(x, w, bias):
 
 # K4's variants: (prologue, epilogue)
 K4_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
+# (B, T, S, C, C_out) of the stage-1 temporal VAE decoder's time convs on one
+# 8-frame chunk at 576x1024, its four levels (the f32 decode)
+K4_F32_DECODER = ((1, 8, 9216, 512, 512), (1, 8, 36864, 512, 512), (1, 8, 147456, 256, 256),
+                  (1, 8, 589824, 128, 128))
 
 
 def check_k4(randn, gen) -> dict:
     """K4 at the main paths' geometries, the ragged cases in each of the four variants (the VAE's 3 -> 128 and 128 -> 3, T =
     1 and 2, kt 1 and 5), timed at stage 1's and stage 2's level 0 (pre+res,
     as the UNets call it, and bare against ``F.conv3d``: ``t38_*`` the
-    latter) and in f32 at the VAE decoder's top level (bare, ``f32_*``)."""
+    latter); in f32 at the temporal VAE decoder's four widths (``K4_F32_DECODER``:
+    ``f32_s<S>_*`` keys, pre+res and bare, the bare one against ``F.conv3d``
+    f32; the top level's bare numbers also as ``f32_*``) and at ragged
+    shapes in each variant."""
     import torch
 
     from streamingt2v_torch.ops import temporal_conv as tc
@@ -718,7 +762,20 @@ def check_k4(randn, gen) -> dict:
              (1, 64, 3600, 640, 640, 3, True, True, bf16, "T=64"),
              (2, 25, 576, 64, 96, 3, False, True, f32, "f32 res only"),
              (1, 40, 1024, 48, 32, 3, True, False, f32, "f32 prologue only T=40"),
-             (1, 8, 589824, 128, 128, 3, False, False, f32, "f32 vae decoder top level")]
+             (1, 8, 589824, 3, 3, 3, False, False, f32, "f32 vae conv_out time mix C=3")]
+    cases += [(b, t, s, c, co, 3, True, True, f32, "f32 vae decoder")
+              for b, t, s, c, co in K4_F32_DECODER]
+    for (b, t, s, c, co, kt), label in [((1, 8, 1000, 128, 128, 3), "f32 S ragged"),
+                                        ((2, 5, 777, 68, 36, 3), "f32 S, C, C_out ragged"),
+                                        ((1, 3, 300, 130, 201, 3), "f32 C, C_out odd"),
+                                        ((1, 8, 9216, 3, 128, 3), "f32 vae 3->128"),
+                                        ((1, 8, 9216, 128, 3, 3), "f32 vae 128->3"),
+                                        ((1, 1, 4100, 64, 96, 3), "f32 T=1"),
+                                        ((1, 2, 5000, 256, 256, 3), "f32 T=2"),
+                                        ((2, 11, 777, 32, 64, 5), "f32 kt=5"),
+                                        ((1, 9, 1000, 64, 96, 1), "f32 kt=1")]:
+        cases += [(b, t, s, c, co, kt, pre, res, f32, f"{label} pre={pre} res={res}")
+                  for pre, res in K4_VARIANTS]
     for (b, t, s, c, co, kt), label in [((1, 8, 9216, 3, 128, 3), "vae 3->128"),
                                         ((1, 8, 9216, 128, 3, 3), "vae 128->3"),
                                         ((1, 1, 4100, 320, 320, 3), "T=1"),
@@ -755,18 +812,23 @@ def check_k4(randn, gen) -> dict:
                 rec = r
             else:
                 t38 = {f"t38_{key}": value for key, value in r.items()}
-        if dtype == f32 and s == 589824:
+        if dtype == f32 and (b, t, s, c, co) in K4_F32_DECODER and kt == 3:
             library, bias_lo = _conv3d_view(x, w, bias)
             _compare(f"K4 yardstick conv3d {(b, t, s, c, co)} f32", library(),
                      tc.temporal_conv_reference(x, w, bias_lo), _tol(dtype))
-            f32_rec = _f32_record(lambda: tc.temporal_conv(*args), library,
-                                  work_temporal_conv(b, t, s, c, co, res=False, pre=False,
-                                                     elem=4))
-            f32_rec["f32_shape"] = [b, t, s, c, co]
-            print(f"  K4 time {(b, t, s, c, co)} f32 bare (first body): kernel "
-                  f"{f32_rec['f32_ms']:.3f} ms, conv3d {f32_rec['f32_library_ms']:.3f} ms, "
-                  f"bound {f32_rec['f32_bound_ms']:.3f} ms at the FP32 rate "
-                  f"({f32_rec['f32_bound_by']}), share {f32_rec['f32_share']:.3f}", flush=True)
+            prefix = f"f32_s{s}_"
+            bare = _f32_record(lambda: tc.temporal_conv(x, w, bias), library,
+                               work_temporal_conv(b, t, s, c, co, res=False, pre=False, elem=4),
+                               prefix)
+            _f32_line(f"K4 time {(b, t, s, c, co)} f32 bare", bare, prefix, "conv3d")
+            full = _f32_record(lambda: tc.temporal_conv(*args), None,
+                               work_temporal_conv(b, t, s, c, co, elem=4), prefix + "pre_res_",
+                               lambda: tc.temporal_conv_reference(*args))
+            _f32_line(f"K4 time {(b, t, s, c, co)} f32 pre+res", full, prefix + "pre_res_", "")
+            f32_rec.update(bare, **{k: v for k, v in full.items() if "library" not in k})
+            if s == 589824:   # the row's f32 numbers: the top level, bare
+                f32_rec.update({"f32_" + k[len(prefix):]: v for k, v in bare.items()},
+                               f32_shape=[b, t, s, c, co])
         del args, x, w, bias, out, ref
     rec.update(t38, **f32_rec, max_abs_err=max(errs))
     return rec
@@ -782,13 +844,14 @@ def check_k5(randn) -> dict:
     from streamingt2v_torch.ops.norms import group_norm
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs = {}, []
+    rec, errs, f32_rec = {}, [], {}
     for n, l, c, act, eps, dtype, label in [
             (38, 14400, 320, "silu", 1e-5, bf16, "ResnetBlock2D level0"),
             (38, 3600, 640, "silu", 1e-5, bf16, "ResnetBlock2D level1"),
             (38, 14400, 320, None, 1e-6, bf16, "Transformer2D level0"),
             (2, 921600, 128, "silu", 1e-6, bf16, "sd-vae top level"),
-            (4, 4096, 256, "silu", 1e-6, f32, "f32")]:
+            (4, 4096, 256, "silu", 1e-6, f32, "f32"),
+            (38, 14400, 320, None, 1e-5, f32, "f32 ResnetBlock2D level0 width")]:
         x = randn(n, l, c, dtype=dtype, std=2.0, mean=0.5)
         scale = 1.0 + randn(c, dtype=f32, std=0.1)
         bias = randn(c, dtype=f32, std=0.1)
@@ -823,6 +886,17 @@ def check_k5(randn) -> dict:
                   f"({rec['bound_by']}), share {rec['share']:.3f}; act=None: kernel "
                   f"{rec['no_act_ms']:.3f} ms, F.group_norm {rec['library_ms']:.3f} ms",
                   flush=True)
+        if dtype == f32 and n == 38:
+            # act=None: the function F.group_norm computes, on the (N, C, L) view
+            xt = x.transpose(1, 2)
+            f32_rec = _f32_record(
+                lambda: fused_group_norm(x, scale, bias, **kw),
+                lambda: F.group_norm(xt, 32, scale, bias, eps), work_group_norm(n, l, c, elem=4),
+                plain=lambda: fused_group_norm_reference(x, scale, bias, **kw))
+            f32_rec["f32_shape"] = [n, l, c]
+            _compare("K5 yardstick F.group_norm f32 on (N, C, L)",
+                     F.group_norm(xt, 32, scale, bias, eps).transpose(1, 2), ref, _tol(dtype))
+            _f32_line(f"K5 time {(n, l, c)} f32 act=None", f32_rec, "f32_", "F.group_norm")
         if label == "sd-vae top level":
             r = _yardstick(dict(ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **kw))),
                            work_group_norm(n, l, c))
@@ -843,7 +917,7 @@ def check_k5(randn) -> dict:
           f"max_abs_err={err:.3e} tol=5e-2 {'ok' if err <= 5e-2 else 'FAIL'}", flush=True)
     if not err <= 5e-2:
         raise AssertionError(f"K5 loses the variance at a large offset ({err:.3e})")
-    rec.update(vae, max_abs_err=max(errs))
+    rec.update(vae, **f32_rec, max_abs_err=max(errs))
     return rec
 
 
@@ -893,12 +967,11 @@ def check_k6(randn) -> dict:
             _compare(f"K6 yardstick SDPA ({backend}) f32", library().permute(2, 0, 1, 3).reshape(
                 b * tq, s, heads * d), ref, _tol(dtype))
             f32_rec = _f32_record(lambda: fused_temporal_attention(q, k, v, **kw), library,
-                                  work_temporal_attention(b, tq, tkv, s, heads, d, elem=4))
+                                  work_temporal_attention(b, tq, tkv, s, heads, d, elem=4),
+                                  plain=lambda: temporal_attention_reference(q, k, v, **kw))
             f32_rec.update(f32_shape=[b * tq, s, heads * d], f32_sdpa_backend=backend)
-            print(f"  K6 time {(b * tq, s, heads * d)} T={tq} f32 (first body): kernel "
-                  f"{f32_rec['f32_ms']:.3f} ms, SDPA ({backend}) {f32_rec['f32_library_ms']:.3f} "
-                  f"ms, bound {f32_rec['f32_bound_ms']:.3f} ms at the FP32 rate "
-                  f"({f32_rec['f32_bound_by']}), share {f32_rec['f32_share']:.3f}", flush=True)
+            _f32_line(f"K6 time {(b * tq, s, heads * d)} T={tq} f32 (first body)", f32_rec,
+                      "f32_", f"SDPA ({backend})")
         if tq == tkv and d == 64 and dtype == bf16 and (b, tq, s, heads) in K6_TIMED:
             # strided views, no copy: (S, H, T, D) for one batch row, else
             # (B, S*H, T, D), each (pixel, head) pair a head of SDPA
@@ -995,18 +1068,22 @@ def _all_kernels():
 def _reset_launches() -> None:
     for fn in _all_kernels():
         fn.launches = 0
-        if hasattr(fn, "launches_d512"):
-            fn.launches_d512 = 0
+        for apart in ("launches_d512", "launches_f32"):
+            if hasattr(fn, apart):
+                setattr(fn, apart, 0)
 
 
-def _read_launches() -> dict:
+def _read_launches(f32: bool = False) -> dict:
     """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
-    (``<name>_d512``, also counted in ``<name>``)."""
+    (``<name>_d512``, also counted in ``<name>``); with ``f32``, also the f32
+    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4)."""
     out = {}
     for fn in _all_kernels():
         out[fn.__name__] = fn.launches
         if hasattr(fn, "launches_d512"):
             out[fn.__name__ + "_d512"] = fn.launches_d512
+        if f32 and hasattr(fn, "launches_f32"):
+            out[fn.__name__ + "_f32"] = fn.launches_f32
     return out
 
 
@@ -1333,8 +1410,17 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     print(f"  build_pipeline: {time.perf_counter() - t0:.1f} s, resident weights "
           f"{resident / 2**30:.2f} GiB", flush=True)
 
-    # per-phase seconds: the pipeline's stage methods with synchronised timers
+    # per-phase seconds: the pipeline's stage methods with synchronised timers;
+    # decode_video also keeps the latents it takes and the frames it gives
     phase_s = {"condition": 0.0, "first_chunk": 0.0, "stream_chunk": 0.0, "decode_video": 0.0}
+    decode, decodes = pipe.decode_video, []
+
+    def recording_decode(z):
+        frames = decode(z)
+        decodes.append((z.clone(), frames))
+        return frames
+
+    pipe.decode_video = recording_decode
     _timed_methods(pipe, phase_s, phase_s)
 
     image = _smooth_image(cfg.height, cfg.width).to(dev)
@@ -1344,7 +1430,7 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     video = pipe.image_to_video(image, num_frames=SLICE_FRAMES, seed=cfg.seed)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = _read_launches()
+    launches = _read_launches(f32=True)
     peak = torch.cuda.max_memory_allocated()
     print("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f", image_to_video total {total:.1f}", flush=True)
@@ -1358,12 +1444,112 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     lo, hi = video.min().item(), video.max().item()
     if lo < -1.0 or hi > 1.0:
         raise AssertionError(f"video outside [-1, 1]: [{lo}, {hi}]")
-    dead = [k for k in ("flash_attention", "flash_attention_d512", "geglu_ff", "temporal_conv")
-            if launches[k] <= 0]
-    if dead:
-        raise AssertionError(f"the slice never launched: {dead}")
     print(f"  video {want} finite in [{lo:.3f}, {hi:.3f}], std {video.std().item():.4f}",
           flush=True)
+    for name, n in _slice_f32_decode(pipe, decode, decodes).items():
+        launches[name] += n
+    dead = [k for k in ("flash_attention", "flash_attention_d512", "flash_attention_f32",
+                        "geglu_ff", "temporal_conv", "temporal_conv_f32") if launches[k] <= 0]
+    if dead:
+        raise AssertionError(f"the slice never launched: {dead}")
+    return launches
+
+
+# The f32 decode held against itself with K1 and K4 on their plain versions:
+# max |difference| on the [-1, 1] frames (0.13 of a uint8 level).  Both runs
+# are full f32 (TF32 off) and differ only in summation order: the kernels sum
+# each output over up to 3 x 512 products and 9216 keys in another order than
+# torch.matmul, about 1e-7 relative an output, which the decoder's GroupNorms
+# rescale but do not grow by more than a few hundred times over its ~40
+# layers (the small f32 references, whole pipelines, hold 5e-4 card against
+# CPU: REFERENCE_ATOL).
+DECODE_F32_ATOL = 1e-3
+
+
+def _plain_k1_k4():
+    """A context in which the models' K1, K2 and K4 calls take their plain
+    versions: the wrappers' names in the modules that call them, patched for
+    the measurement only (as ``_unpinned_conv_transpose`` is)."""
+    import contextlib
+    import importlib
+
+    from streamingt2v_torch.ops import flash_attention as fa, temporal_conv as tc
+
+    attention = importlib.import_module("streamingt2v_torch.ops.attention")
+    blocks = importlib.import_module("streamingt2v_torch.models.unet_blocks")
+    patches = [(attention, "flash_attention", fa.flash_attention_reference),
+               (attention, "flash_attention_packed",
+                lambda q, k, v, *, num_heads: fa.flash_attention_packed_reference(
+                    q, k, v, num_heads)),
+               (blocks, "temporal_conv", tc.temporal_conv_reference)]
+
+    @contextlib.contextmanager
+    def patched():
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+        try:
+            for mod, name, fn in patches:
+                setattr(mod, name, fn)
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return patched()
+
+
+def _slice_f32_decode(pipe, decode, decodes: list) -> dict:
+    """The slice's latents decoded again under the reference's precision
+    (``vae_decode_bf16=False``: f32 weights and activations, K4 and K1 in
+    f32): the seconds (``decode_video_f32``), the launches (returned, f32 apart),
+    the largest difference from the slice's bf16 decode, and the first 8-frame
+    chunk decoded once more with K1 and K4 on their plain versions, held
+    within ``DECODE_F32_ATOL``.  ``decode`` is the pipeline's own
+    ``decode_video``; ``decodes`` the (latents, bf16 frames) of its calls."""
+    import dataclasses
+
+    import torch
+
+    from streamingt2v_torch.ops.routing import use_routing
+
+    cfg = pipe.cfg
+    pipe.cfg = dataclasses.replace(
+        cfg, inference=dataclasses.replace(cfg.inference, vae_decode_bf16=False))
+    try:
+        with torch.inference_mode(), use_routing(cfg.routing):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f32 = [decode(z) for z, _ in decodes]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _read_launches(f32=True)
+            frames = sum(z.shape[1] for z, _ in decodes)
+            diff = max((a - b).abs().max().item() for a, (_, b) in zip(f32, decodes))
+            finite = all(bool(torch.isfinite(a).all()) for a in f32)
+            print(f"  decode_video_f32: {seconds:.1f} s for the slice's {frames} latent frames "
+                  f"({len(decodes)} calls); f32 launches: K4 {launches['temporal_conv_f32']}, "
+                  f"K1 {launches['flash_attention_f32']}; largest |bf16 - f32| decode "
+                  f"difference {diff:.4f} ({diff * 127.5:.2f} uint8 levels), finite {finite}",
+                  flush=True)
+            if not finite or launches["temporal_conv_f32"] <= 0 \
+                    or launches["flash_attention_f32"] <= 0:
+                raise AssertionError("the f32 decode is not finite or missed K4/K1 in f32")
+            cs = cfg.inference.decode_chunk_size
+            z = decodes[0][0][:, :cs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _plain_k1_k4():
+                plain = pipe.decode_chunk(z)
+            torch.cuda.synchronize()
+            err = (f32[0][:, :cs] - plain).abs().max().item()
+            print(f"  one {cs}-frame chunk in f32, kernels against K1 and K4 plain "
+                  f"({time.perf_counter() - t0:.1f} s): max_abs_err={err:.3e} "
+                  f"tol={DECODE_F32_ATOL:g}", flush=True)
+            if not err <= DECODE_F32_ATOL:
+                raise AssertionError(f"the f32 decode's kernels disagree with their plain "
+                                     f"versions ({err:.3e})")
+    finally:
+        pipe.cfg = cfg
     return launches
 
 
@@ -1444,7 +1630,7 @@ def run_apm(steps: int) -> dict:
     video = pipe.image_to_video(image, num_frames=SLICE_FRAMES, seed=cfg.seed)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = _read_launches()
+    launches = _read_launches(f32=True)
     handle.remove()
     peak = torch.cuda.max_memory_allocated()
     finite = {"stage1": bool(torch.isfinite(video).all())}
@@ -1519,7 +1705,7 @@ def run_samplers(steps: int) -> dict:
             z = pipe.first_chunk(c, uc, noise(0, "latent", shape), step_stream(noise, 0))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = _read_launches()
+            launches = _read_launches()   # the first chunk runs no f32 kernel
             finite = bool(torch.isfinite(z).all())
             per = {k: launches[k] / max(calls[0], 1) for k in kernels}
             print(f"  {label}: {calls[0]} network calls (rule {want}), "
@@ -2028,7 +2214,7 @@ def run_enhance(steps: int) -> dict:
     out = pipe.enhance_with_keyframe_prepass(video, image)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = _read_launches()
+    launches = _read_launches(f32=True)
     peak = torch.cuda.max_memory_allocated()
     fmt = lambda xs: "[" + ", ".join(f"{x:.1f}" for x in xs) + "]"  # noqa: E731
     print("  seconds: text " + fmt(spans["encode_prompts"])
@@ -2233,7 +2419,7 @@ def run_product(enhance_steps: int, frames: int) -> dict:
         out = pipe.run(image, path, seed=cfg.seed)
         total = time.perf_counter() - t0
         info = media.y4m_info(path)
-    launches = _read_launches()
+    launches = _read_launches(f32=True)
     peak = torch.cuda.max_memory_allocated()
     stages = {k: v["total_s"] for k, v in timing_report().items()}
     print(f"  seconds: {stages}; run total {total:.1f} (with the file)", flush=True)
@@ -2570,7 +2756,7 @@ def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int)
         os.makedirs(out_dir)
         path = os.path.join(out_dir, "input.y4m")
         pipe(png, path, seed=args.seed)
-        launches = _read_launches()
+        launches = _read_launches(f32=True)
         total = time.perf_counter() - t0
         info = media.y4m_info(path)
     run_cfg = pipe.cfg
@@ -3319,7 +3505,7 @@ def run_mesh(enhance_steps: int) -> dict:
             frames = pipe.run(png, path, seed=args.seed)
             digests[name] = dict(recorded)
             if use_mesh:
-                launches = _read_launches()
+                launches = _read_launches(f32=True)
             total = time.perf_counter() - t0
             stages = {k: round(v["total_s"], 3) for k, v in timing_report().items()}
             print(f"  CLI {'--mesh 1,1,1 (NCCL, world of 1)' if use_mesh else 'without --mesh'}: "
@@ -3378,12 +3564,18 @@ KERNEL_META = {
 }
 
 
+# the rows whose wrappers count their f32 launches apart (``launches_f32``)
+F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_conv_f32")
+
+
 def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  phase_launches: Optional[dict] = None) -> list:
     """The kernels JSON line's entries: one per KERNEL_META row, with the
     kernels and reference phases' records (absent keys null), the launches of every
     pipeline phase, the product's alone and, as ``<phase>_launches``, those
-    of each phase in ``phase_launches`` ({phase: {kernel: launches}})."""
+    of each phase in ``phase_launches`` ({phase: {kernel: launches}}); K1, K2
+    and K4 also their f32 launches over every pipeline phase (``launches_f32``,
+    from ``launches["<name>_f32"]``)."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -3394,6 +3586,8 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
                                   "cross_", "t38_", "f32_"))}
         if "stage1" in r:   # K6 at the stage-1 geometry
             extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
+        if name + "_f32" in F32_COUNTED:
+            extra["launches_f32"] = launches.get(name + "_f32", 0)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=r.get("max_abs_err"),
                             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
@@ -3502,7 +3696,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         counts = run()
         for name, n in counts.items():
-            launches[name] += n
+            launches[name] = launches.get(name, 0) + n
         if phase in phase_launches:
             phase_launches[phase] = counts
         print(f"phase {phase}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)

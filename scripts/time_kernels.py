@@ -25,12 +25,17 @@ this one (run parent, change, change, parent in one call).  Kernels
   d512  flash attention at D=512 (the VAE mid-block attention): K1 at
         (8, 9216, 512), K2 at (2, 14400, 1x512) and (4, 14400, 1x512);
   k5    fused GroupNorm at (38, 14400, 320) with SiLU and without, and at
-        the SD VAE's (2, 921600, 128) with SiLU.
+        the SD VAE's (2, 921600, 128) with SiLU;
+  f32   the f32 instances of the stage-1 VAE (full f32, TF32 off): K1 at
+        (1, 9216, 512) (the encoder's mid attention) and (8, 9216, 512) (the
+        temporal decoder's, one 8-frame chunk) beside SDPA f32, and K4 bare and
+        pre+res at the temporal decoder's four widths, the bare one beside
+        ``F.conv3d`` f32; bounds at the FP32 rate.
 
 Inputs from seed 0; ``chip_smoke``'s timer (CUDA events, median of
 ``--reps`` after one warm-up) and tolerances; each time beside its bound.
-The first call at each d64, k4, d512 and k5 shape is checked against the
-plain version; k5 also prints the device time of each of its two passes
+The first call at each d64, k4, d512, k5 and f32 shape is checked against
+the plain version; k5 also prints the device time of each of its two passes
 (``torch.profiler``).
 
 ``--budgets-mib`` times K3 instead for each G budget of its row chunk
@@ -93,7 +98,7 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5")
+KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "f32")
 
 
 def _timed(chip_smoke, name: str, call, library, work: tuple, reps: int) -> None:
@@ -197,6 +202,45 @@ def time_d512(chip_smoke, randn, reps: int) -> None:
         del q, k, v, ref
 
 
+def time_f32(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops import flash_attention as fa
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
+
+    f32, tol = torch.float32, chip_smoke.TOL["f32"]
+    peak = chip_smoke.PEAK_F32_FLOPS
+    for b, length in chip_smoke.K1_F32_TIMED:
+        q, k, v = (randn(b, length, 512, dtype=f32) for _ in range(3))
+        chip_smoke._compare(f"f32 K1 {(b, length, 512)}", fa.flash_attention(q, k, v)[:1],
+                            fa.flash_attention_reference(q[:1], k[:1], v[:1]), tol)
+        library, backend = chip_smoke._sdpa_backend(q[:, None], k[:, None], v[:, None])
+        ms = chip_smoke._time_ms(lambda: fa.flash_attention(q, k, v), reps=reps)
+        lib = chip_smoke._time_ms(library, reps=reps)
+        bd = chip_smoke.bound(chip_smoke.work_flash(b, 1, length, length, 512, elem=4), peak)
+        print(f"  f32 K1 {(b, length, 512)}: {ms:.3f} ms, SDPA ({backend}) {lib:.3f} ms, bound "
+              f"{bd['bound_ms']:.3f} ms, share {bd['bound_ms'] / ms:.3f}", flush=True)
+        del q, k, v
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in chip_smoke.K4_F32_DECODER:
+        args = chip_smoke._conv_args(randn, gen, *shape, 3, True, True, f32)
+        x, w, bias = args[:3]
+        chip_smoke._compare(f"f32 K4 {shape} pre+res", temporal_conv(*args),
+                            temporal_conv_reference(*args), tol)
+        ms = chip_smoke._time_ms(lambda: temporal_conv(*args), reps=reps)
+        bd = chip_smoke.bound(chip_smoke.work_temporal_conv(*shape, elem=4), peak)
+        print(f"  f32 K4 {shape} pre+res: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, share "
+              f"{bd['bound_ms'] / ms:.3f}", flush=True)
+        library, _ = chip_smoke._conv3d_view(x, w, bias)
+        ms, lib = (chip_smoke._time_ms(fn, reps=reps)
+                   for fn in (lambda: temporal_conv(x, w, bias), library))
+        bd = chip_smoke.bound(chip_smoke.work_temporal_conv(*shape, res=False, pre=False,
+                                                           elem=4), peak)
+        print(f"  f32 K4 {shape} bare: {ms:.3f} ms, conv3d {lib:.3f} ms, bound "
+              f"{bd['bound_ms']:.3f} ms, share {bd['bound_ms'] / ms:.3f}", flush=True)
+        del args, x, w, bias
+
+
 def device_times(fn, what: str) -> None:
     """Prints the device time of each kernel one call of ``fn`` launches
     (``torch.profiler``), after a warm-up call."""
@@ -254,6 +298,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 2
+    # f32 is full f32 for the kernels, the plain versions and the yardsticks
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, HERE)
     import chip_smoke   # the shapes, timer, bounds and work counts of this checkout
 
@@ -267,7 +314,8 @@ def main() -> int:
         sweep_budgets(chip_smoke, randn, chip_smoke.K3_LEVELS + ((547200, 320),),
                       [int(b) for b in args.budgets_mib.split(",")], args.reps)
         return 0
-    timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5)
+    timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5,
+                  f32=time_f32)
     for name in kernels:
         timers[name](chip_smoke, randn, args.reps)
         torch.cuda.empty_cache()

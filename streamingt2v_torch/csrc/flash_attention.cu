@@ -34,13 +34,21 @@
 // and each warp accumulates 64 of the 512 output columns on `mma.sync`.
 // Each K/V byte fetched feeds 64 query rows (the first body: 16).
 //
-// The f32 instances (FMA units, full f32) keep the first, synchronous body:
+// The f32 D=512 instance (the stage-1 VAE's mid-block attention under the
+// reference's f32, FMA units, no TF32) does the same 4*L^2*512 flops at the
+// FP32 rate, so it is bound by the FMA units.  Its body (`flash_kernel_f32_d512`,
+// below) blocks 64 query rows so that each K/V byte feeds 64 rows, feeds its
+// FMAs from register microtiles filled by 128-bit shared loads, splits S's
+// 512-long contraction over its eight warps, and can split the keys over
+// blocks with a merge so that the grid fills the SMs evenly.  It replaced
+// the first, synchronous body (16 query rows a block, one shared load an FMA;
+// PERF.md), which the f32 D=64 instance (the f32 references only) keeps:
 // S and P go through shared memory, with four block barriers per KV tile.
 #include "common.cuh"
 
 namespace st2v {
 
-// ---- f32 (D = 64 and 512): the synchronous body ----
+// ---- f32, D = 64: the first, synchronous body ----
 template <typename T, int D, int BQ, int BK>
 struct FlashShape {
   static constexpr int NW = 4;
@@ -183,6 +191,297 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       dst[1] = from_float<T>(acc[j][3] * inv);
     }
   }
+}
+
+// ---- f32, D = 512: row-blocked on the FMA units ----
+//
+// A block owns FF_BQ = 64 query rows of one (batch, head), Q resident in
+// shared memory, and walks KV tiles of FF_BK = 16 keys, so every K/V byte
+// fetched feeds 64 rows.  Shared memory delivers 128 bytes a clock to an SM
+// that does 128 FMAs a clock, so a register microtile of R x C outputs keeps
+// the FMA units fed only at 4 (R + C) / (R C) <= 1 byte loaded a FMA.  Per
+// tile:
+//   S = Q K^T: S's contraction (512) is split over the eight warps, warp w
+//     summing d in [64 w, 64 w + 64) into a 4 x 8 register microtile a lane
+//     (rows sy + 16 i, keys sx + 2 j; 1.5 bytes a FMA, against 2 for 4 x 4),
+//     read from Q and K row-major in 128-bit loads along d (the rows' stride
+//     FF_LDQ puts neighbouring rows in distinct banks).  The eight partial
+//     tiles meet in shared memory, in the K tile's place once every warp is
+//     done with K (one more barrier), so that Q, K, V and P fit.
+//   The online softmax: a thread one row and 4 of its keys, the row's max
+//     and sum over its quad; P is stored transposed, [key][row].
+//   O += P V: each thread owns 8 rows x 16 of the 512 output columns (128
+//     f32 accumulators; 0.75 bytes a FMA), reading 8 probabilities and 16 V
+//     values a key in six 128-bit loads; V is read row-major as it is in
+//     memory (keys are P V's contraction), no transpose.
+// V_j arrives by `cp.async` under S_j, K_{j+1} under P V_j.  At (1, 9216,
+// 512) the 144 row blocks are 1.09 waves of 132 SMs, so the wrapper may
+// split the keys (`splits` blocks a row block, `tiles_per_split` tiles each):
+// each split then writes its unnormalised O with its rows' max and sum, and
+// `flash_merge_f32_d512` combines them.
+constexpr int FF_D = 512;
+constexpr int FF_THREADS = 256;
+constexpr int FF_BQ = 64;                // query rows a block
+constexpr int FF_BK = 16;                // keys a KV tile
+constexpr int FF_SPLIT = 8;              // warps over S's contraction
+constexpr int FF_LDQ = FF_D + 4;         // Q and K rows (floats)
+constexpr int FF_LDV = FF_D;             // V rows: every lane of a load reads one row
+constexpr int FF_LDP = FF_BQ + 8;        // P, [key][row]: a quad's 4 keys in distinct banks
+constexpr size_t FF_SMEM =
+    sizeof(float) * (size_t(FF_BQ) * FF_LDQ + size_t(FF_BK) * FF_LDQ + size_t(FF_BK) * FF_LDV +
+                     size_t(FF_BK) * FF_LDP + 3 * FF_BQ);
+static_assert(FF_SMEM + 1024 <= 233472, "one block's shared memory per SM");
+static_assert(FF_SPLIT * FF_BQ * FF_BK <= FF_BK * FF_LDQ, "the partial scores fit K's tile");
+static_assert(FF_SPLIT * FF_BQ * FF_BK == 4 * 8 * FF_THREADS, "S: a 4 x 8 tile a thread");
+static_assert(FF_BQ * FF_D == 128 * FF_THREADS, "O: 128 accumulators a thread");
+
+// The partial score (row, key) of warp w in K's tile: [w][key][row], the row
+// index's bit 4 flipped for odd keys, so that the 32 lanes' stores (16 rows
+// x 2 keys) fall in distinct banks.
+__device__ __forceinline__ int ff_partial(int w, int row, int key) {
+  return (w * FF_BK + key) * FF_BQ + (row ^ ((key & 1) << 4));
+}
+
+// ROWS rows x 512 columns from rows [row0, row0 + ROWS) at stride ld into
+// rows of LD floats; rows at or past `rows` are zero-filled.
+template <int ROWS, int LD>
+__device__ __forceinline__ void ff_load(float* dst, const float* src, int row0, int rows,
+                                        int ld) {
+  const int c = (threadIdx.x & 127) * 4;
+#pragma unroll 4
+  for (int r = threadIdx.x >> 7; r < ROWS; r += FF_THREADS / 128) {
+    const bool ok = row0 + r < rows;
+    cp_async_16(dst + r * LD + c, ok ? src + size_t(row0 + r) * ld + c : src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(FF_THREADS, 1)
+flash_kernel_f32_d512(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ o_part, float* __restrict__ ml_part, int lq, int lk,
+                      int heads, int ld, float scale_log2, int tiles_per_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [FF_BQ][FF_LDQ]
+  float* Ks = Qs + FF_BQ * FF_LDQ;                 // [FF_BK][FF_LDQ]
+  float* Vs = Ks + FF_BK * FF_LDQ;                 // [FF_BK][FF_LDV]
+  float* Pt = Vs + FF_BK * FF_LDV;                 // [FF_BK][FF_LDP]
+  float* Sp = Ks;                                  // the partial scores, once K is read
+  float* alpha_s = Pt + FF_BK * FF_LDP;            // [FF_BQ]
+  float* m_s = alpha_s + FF_BQ;
+  float* l_s = m_s + FF_BQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * FF_BQ;
+  const size_t bh = blockIdx.z, bi = bh / heads, hi = bh % heads;
+  const float* qb = q + bi * lq * ld + hi * FF_D;
+  const float* kb = k + bi * lk * ld + hi * FF_D;
+  const float* vb = v + bi * lk * ld + hi * FF_D;
+  const int tiles = (lk + FF_BK - 1) / FF_BK;
+  const int j0 = blockIdx.y * tiles_per_split;
+  const int j1 = min(tiles, j0 + tiles_per_split);
+
+  // S: warp sg, rows sy + 16 i, keys sx + 2 j, d in [64 sg, 64 sg + 64)
+  const int sg = warp, sy = lane >> 1, sx = lane & 1;
+  // softmax: row mrow, keys mq + 4 j
+  const int mrow = tid >> 2, mq = tid & 3;
+  // O: rows 4 oy + i and 32 + 4 oy + i, columns 4 ox + 128 c + e
+  const int oy = (warp >> 2) * 4 + (lane >> 3), ox = (warp & 3) * 8 + (lane & 7);
+
+  ff_load<FF_BQ, FF_LDQ>(Qs, qb, q0, lq, ld);
+  ff_load<FF_BK, FF_LDQ>(Ks, kb, j0 * FF_BK, lk, ld);
+  cp_async_commit();
+
+  const float neg_inf = __int_as_float(0xff800000);
+  float m_run = neg_inf, l_run = 0.f;  // row mrow's running max (log2 units) and sum
+  float acc[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[i][c] = 0.f;
+
+  for (int j = j0; j < j1; ++j) {
+    cp_async_wait_all();  // K_j (and Q) landed
+    __syncthreads();      // for all; P V_{j-1} is done: V, P and alpha are free
+    ff_load<FF_BK, FF_LDV>(Vs, vb, j * FF_BK, lk, ld);
+    cp_async_commit();
+
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+    const float* qp = Qs + sy * FF_LDQ + 64 * sg;
+    const float* kp = Ks + sx * FF_LDQ + 64 * sg;
+#pragma unroll 4
+    for (int d = 0; d < 64; d += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qp + 16 * i * FF_LDQ + d);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 b = *reinterpret_cast<const float4*>(kp + 2 * c * FF_LDQ + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = fmaf(a[i].x, b.x, s[i][c]);
+          x = fmaf(a[i].y, b.y, x);
+          x = fmaf(a[i].z, b.z, x);
+          s[i][c] = fmaf(a[i].w, b.w, x);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with K_j: its tile takes the partial scores
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) Sp[ff_partial(sg, sy + 16 * i, sx + 2 * c)] = s[i][c];
+    __syncthreads();  // the partial scores for all
+
+    {
+      float sc[4], mx = neg_inf;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = mq + 4 * c;
+        float p[FF_SPLIT];
+#pragma unroll
+        for (int w = 0; w < FF_SPLIT; ++w) p[w] = Sp[ff_partial(w, mrow, key)];
+        float x = ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7]));
+        x = j * FF_BK + key < lk ? x * scale_log2 : neg_inf;
+        sc[c] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // every tile has a key in range, so mx is finite
+      const float m_new = fmaxf(m_run, mx);
+      const float alpha = exp2f(m_run - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pr = exp2f(sc[c] - m_new);
+        Pt[(mq + 4 * c) * FF_LDP + mrow] = pr;
+        sum += pr;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run = l_run * alpha + sum;
+      m_run = m_new;
+      if (mq == 0) alpha_s[mrow] = alpha;
+    }
+    cp_async_wait_all();  // V_j landed
+    __syncthreads();      // V_j, P and alpha for all; the partial scores are read: K's tile is free
+    if (j + 1 < j1) ff_load<FF_BK, FF_LDQ>(Ks, kb, (j + 1) * FF_BK, lk, ld);
+    cp_async_commit();
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float al = alpha_s[4 * oy + (i & 3) + 32 * (i >> 2)];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[i][c] *= al;
+    }
+#pragma unroll 4
+    for (int key = 0; key < FF_BK; ++key) {
+      const float4 p0 = *reinterpret_cast<const float4*>(Pt + key * FF_LDP + 4 * oy);
+      const float4 p1 = *reinterpret_cast<const float4*>(Pt + key * FF_LDP + 32 + 4 * oy);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float vv[16];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 x = *reinterpret_cast<const float4*>(Vs + key * FF_LDV + 4 * ox + 128 * c);
+        vv[4 * c] = x.x;
+        vv[4 * c + 1] = x.y;
+        vv[4 * c + 2] = x.z;
+        vv[4 * c + 3] = x.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+  if (mq == 0) {
+    m_s[mrow] = m_run;
+    l_s[mrow] = l_run;
+  }
+  __syncthreads();
+  const bool whole = gridDim.y == 1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = 4 * oy + (i & 3) + 32 * (i >> 2);
+    if (q0 + row >= lq) continue;
+    float* dst;
+    float scale = 1.f;
+    if (whole) {
+      dst = o + (bi * lq + q0 + row) * ld + hi * FF_D;
+      scale = 1.f / l_s[row];
+    } else {
+      const size_t part = (size_t(blockIdx.y) * gridDim.z + bh) * lq + q0 + row;
+      dst = o_part + part * FF_D;
+      if (ox == 0) {
+        ml_part[2 * part] = m_s[row];
+        ml_part[2 * part + 1] = l_s[row];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(dst + 4 * ox + 128 * c) =
+          make_float4(acc[i][4 * c] * scale, acc[i][4 * c + 1] * scale,
+                      acc[i][4 * c + 2] * scale, acc[i][4 * c + 3] * scale);
+  }
+  cp_async_wait_all();  // the last (empty) group
+}
+
+// O = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s over the splits' partial
+// rows (M their largest max); a thread one 4-column vector of a row.
+__global__ void __launch_bounds__(256)
+flash_merge_f32_d512(const float* __restrict__ o_part, const float* __restrict__ ml_part,
+                     float* __restrict__ o, int lq, int heads, int ld, int splits, int bh_total) {
+  const size_t rows = size_t(bh_total) * lq;
+  const size_t r = size_t(blockIdx.x) * 2 + (threadIdx.x >> 7);
+  if (r >= rows) return;
+  const int c = (threadIdx.x & 127) * 4;
+  float mx = __int_as_float(0xff800000);
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml_part[2 * (s * rows + r)]);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float w = exp2f(ml_part[2 * (s * rows + r)] - mx);
+    l = fmaf(w, ml_part[2 * (s * rows + r) + 1], l);
+    const float4 x = *reinterpret_cast<const float4*>(o_part + (s * rows + r) * FF_D + c);
+    acc.x = fmaf(w, x.x, acc.x);
+    acc.y = fmaf(w, x.y, acc.y);
+    acc.z = fmaf(w, x.z, acc.z);
+    acc.w = fmaf(w, x.w, acc.w);
+  }
+  const float inv = 1.f / l;
+  const size_t bh = r / lq, bi = bh / heads, hi = bh % heads;
+  *reinterpret_cast<float4*>(o + (bi * lq + r % lq) * ld + hi * FF_D + c) =
+      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+}
+
+static int launch_flash_f32_d512(const void* q, const void* k, const void* v, void* o,
+                                 int batch, int heads, int lq, int lk, float scale_log2,
+                                 int splits, int tiles_per_split, void* o_part, void* ml_part,
+                                 cudaStream_t stream) {
+  const int tiles = (lk + FF_BK - 1) / FF_BK;
+  if (splits <= 0 || splits > 65535 || tiles_per_split <= 0 ||
+      (splits - 1) * tiles_per_split >= tiles || splits * tiles_per_split < tiles ||
+      (splits > 1 && (o_part == nullptr || ml_part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem(flash_kernel_f32_d512, FF_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((lq + FF_BQ - 1) / FF_BQ, splits, batch * heads);
+  flash_kernel_f32_d512<<<grid, FF_THREADS, FF_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(o_part), static_cast<float*>(ml_part), lq, lk,
+      heads, heads * FF_D, scale_log2, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t rows = size_t(batch) * heads * lq;
+  flash_merge_f32_d512<<<static_cast<unsigned int>((rows + 1) / 2), 256, 0, stream>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+      static_cast<float*>(o), lq, heads, heads * FF_D, splits, batch * heads);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- bf16, D = 64 on wgmma: the FlashAttention-3 outline ----
@@ -647,34 +946,48 @@ static int launch_flash(const void* q, const void* k, const void* v, void* o, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// One dispatch over (dtype, d) for both layouts.
+// One dispatch over (dtype, d) for both layouts.  Only the f32 D=512 body
+// splits its keys; every other instance takes splits = 1.
 static int dispatch_flash(const void* q, const void* k, const void* v, void* o, int batch,
                           int heads, int lq, int lk, int d, int dtype, float scale_log2,
+                          int splits, int tiles_per_split, void* o_part, void* ml_part,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || heads <= 0 || batch * heads > 65535 || lq <= 0 || lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && d == 512)
+    return launch_flash_f32_d512(q, k, v, o, batch, heads, lq, lk, scale_log2, splits,
+                                 tiles_per_split, o_part, ml_part, s);
+  if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && d == 64) return launch_flash_bf16_d64_wgmma(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 1 && d == 512) return launch_flash_bf16_d512(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
-  if (dtype == 0 && d == 512) return launch_flash<float, 512, 16, 32>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace st2v
 
 // K1.  q/o (bh, lq, d), k/v (bh, lk, d).  dtype: 0 = float32, 1 = bfloat16.
-// d must be 64 or 512 (the wrapper pads other head dims with zeros).  Returns
-// a cudaError_t (0 = launched).
+// d must be 64 or 512 (the wrapper pads other head dims with zeros).  f32 at
+// d = 512 runs `splits` blocks a row block over `tiles_per_split` 16-key
+// tiles each, the partial rows in o_part (splits, bh, lq, 512) and ml_part
+// (splits, bh, lq, 2) f32 when splits > 1; every other case takes splits = 1
+// and null scratch.  Returns a cudaError_t (0 = launched).
 extern "C" int st2v_flash_attention(const void* q, const void* k, const void* v, void* o,
                                     int bh, int lq, int lk, int d, int dtype,
-                                    float scale_log2, void* stream) {
-  return st2v::dispatch_flash(q, k, v, o, bh, 1, lq, lk, d, dtype, scale_log2, stream);
+                                    float scale_log2, int splits, int tiles_per_split,
+                                    void* o_part, void* ml_part, void* stream) {
+  return st2v::dispatch_flash(q, k, v, o, bh, 1, lq, lk, d, dtype, scale_log2, splits,
+                              tiles_per_split, o_part, ml_part, stream);
 }
 
-// K2.  q/o (batch, lq, heads*d), k/v (batch, lk, heads*d); d is 64 or 512.
+// K2.  q/o (batch, lq, heads*d), k/v (batch, lk, heads*d); d is 64 or 512;
+// the split and scratch as K1's, over batch * heads.
 extern "C" int st2v_flash_attention_packed(const void* q, const void* k, const void* v,
                                            void* o, int batch, int heads, int lq, int lk,
-                                           int d, int dtype, float scale_log2, void* stream) {
-  return st2v::dispatch_flash(q, k, v, o, batch, heads, lq, lk, d, dtype, scale_log2, stream);
+                                           int d, int dtype, float scale_log2, int splits,
+                                           int tiles_per_split, void* o_part, void* ml_part,
+                                           void* stream) {
+  return st2v::dispatch_flash(q, k, v, o, batch, heads, lq, lk, d, dtype, scale_log2, splits,
+                              tiles_per_split, o_part, ml_part, stream);
 }

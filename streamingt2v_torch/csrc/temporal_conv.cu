@@ -46,10 +46,14 @@
 // for every frame, a rolling window of kt accumulators), which it beat at
 // both main-path shapes on the H100 (PERF.md).
 //
-// The f32 body (full f32 on the FMA units) is the first, simple design: a
-// block owns 16 positions and 32 output channels, reads its input element by
-// element in 32-channel chunks and re-reads the kt - 1 halo frames per group
-// of 32 output frames.
+// The f32 body (`temporal_conv_f32_kernel`: the stage-1 temporal VAE
+// decoder under the reference's f32 decode) runs full f32 on the FMA units,
+// no TF32, so it is bound by the FP32 rate at every width the decoder has
+// (2 * kt * C flops a row and output channel against 4 bytes).  It is the
+// same implicit GEMM on 128 x 128 tiles with 8 x 8 register microtiles fed by
+// 128-bit shared loads (four loads a 64 FMAs), below.  It replaced the
+// first f32 body (16 positions x 32 output channels a block, one shared load
+// an FMA, the prologue recomputed for every 32-column block; PERF.md).
 #include "common.cuh"
 
 namespace st2v {
@@ -327,140 +331,224 @@ static int launch_tc_wgmma(const ConvArgs& a, int sms, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- f32: the simple body ----
-constexpr int TC_THREADS = 256;
-constexpr int TC_WARPS = TC_THREADS / 32;
-constexpr int TC_BS = 16;    // spatial positions per block (one mma row tile)
-constexpr int TC_BCO = 32;   // output channels per block
-constexpr int TC_KC = 32;    // input-channel chunk
-constexpr int TC_TG = 32;    // output frames per group
-constexpr int TC_MAXT = TC_TG * (TC_BCO / 8) / TC_WARPS;  // accumulator tiles per warp
+// ---- f32: an implicit GEMM on the FMA units ----
+//
+// A tile is one output frame t of one batch row: TF_BM positions x TF_BN
+// output channels, 256 threads, each an 8 x 8 register microtile (rows
+// 4 ty .. 4 ty + 3 and 64 + 4 ty .., columns 4 tx .. and 64 + 4 tx .., so
+// that the eight column groups a warp reads lie in 128 consecutive bytes).
+// The contraction runs over the taps whose input frame exists and, within
+// each, over C in TF_BK-channel steps.  Both operands are stored with the
+// contraction axis as rows: A (x) as [channel][position], B (W) as
+// [channel][output channel], so a thread's 8 + 8 fragment values of a step
+// are four 128-bit shared loads feeding 64 FMAs.  W rows arrive by
+// `cp.async`; x goes through registers in 128-bit loads (four channels of
+// one position), the GroupNorm+SiLU prologue is applied there, once per
+// staged element, and the four values are stored transposed.  Two buffers:
+// the next step's W copies and x loads are in flight under this step's
+// FMAs, one barrier a step.  The epilogue (bias, then res + res_w * y)
+// stores 128-bit vectors where C_out % 4 == 0.  C must be a multiple of 4
+// (the wrapper zero-pads x's channels) and W is (kt, C, C_out4), zero past
+// C_out (C_out4 = C_out rounded up to 4).
+constexpr int TF_THREADS = 256;
+constexpr int TF_BM = 128;            // positions a tile
+constexpr int TF_BN = 128;            // output channels a tile
+constexpr int TF_BK = 16;             // input channels a contraction step
+constexpr int TF_LDA = TF_BM + 4;     // A rows: the transposed stores of 8 neighbouring
+                                      // positions x 4 channels fall 2-way at most
+constexpr int TF_LDB = TF_BN;         // B rows: every lane of a load reads one row
+constexpr int TF_BLOCKS = 2;          // blocks an SM: at most 128 registers a thread
+constexpr size_t TF_SMEM = sizeof(float) * 2 * (size_t(TF_BK) * TF_LDA + size_t(TF_BK) * TF_LDB);
+static_assert(TF_BLOCKS * (TF_SMEM + 1024) <= 233472, "two blocks' shared memory per SM");
 
-template <typename T>
-struct TCLayout {
-  static constexpr int LD = TC_KC + RowPad<T>::value;
-  static size_t smem_bytes(int frames_held, int kt) {
-    return sizeof(T) * (size_t(frames_held) * TC_BS + size_t(kt) * TC_BCO) * LD;
-  }
+struct ConvF32Args {
+  const float* x;       // (B, T, S, C), C % 4 == 0
+  const float* w;       // (kt, C, C_out4)
+  const float* bias;    // (C_out,)
+  const float* pre_a;   // (B, C) or null
+  const float* pre_b;
+  const float* res;     // (B, T, S, C_out) or null
+  const float* res_w;   // (B, T)
+  float* out;           // (B, T, S, C_out)
+  int batch, t_len, s_len, c, c_out, c_out4, kt;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(TC_THREADS)
-temporal_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const float* __restrict__ bias, const float* __restrict__ pre_a,
-                     const float* __restrict__ pre_b, const T* __restrict__ res,
-                     const float* __restrict__ res_w, T* __restrict__ out, int t_len,
-                     int s_len, int c, int c_out, int kt) {
-  typedef TCLayout<T> L;
+// y * sigmoid(y) in a few ulp: `ex2.approx` and an approximate divide (an
+// IEEE expf and divide would cost the FMA units a quarter of a step's issue
+// slots); for y below about -87 the divisor's 2^126 and up give 0
+__device__ __forceinline__ float silu_f32(float y) { return __fdividef(y, 1.f + __expf(-y)); }
+
+__global__ void __launch_bounds__(TF_THREADS, TF_BLOCKS)
+temporal_conv_f32_kernel(const ConvF32Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int held = min(t_len, TC_TG) + kt - 1;   // input frames per group
-  T* Xs = reinterpret_cast<T*>(smem_raw);        // [frame - f0][s][c chunk]
-  T* Ws = Xs + held * TC_BS * L::LD;             // [k][co][c chunk]
+  float* As = reinterpret_cast<float*>(smem_raw);  // [2][TF_BK][TF_LDA]
+  float* Bs = As + 2 * TF_BK * TF_LDA;             // [2][TF_BK][TF_LDB]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int co0 = blockIdx.x * TC_BCO;
-  const int s0 = blockIdx.y * TC_BS;
-  const int b = blockIdx.z;
-  const int lo = kt / 2;
+  const int tx = (warp & 1) * 8 + (lane & 7);   // column group, 0..15
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // row group, 0..15
+  // tiles: output-channel blocks fastest, then frames (the kt frames a
+  // tile reads are read by its neighbours at about the same time), then
+  // position blocks, then batch rows
+  const int n_co = (p.c_out + TF_BN - 1) / TF_BN;
+  const int n_s = (p.s_len + TF_BM - 1) / TF_BM;
+  unsigned int id = blockIdx.x;
+  const int cb = id % n_co;
+  id /= n_co;
+  const int t = id % p.t_len;
+  id /= p.t_len;
+  const int s0 = (id % n_s) * TF_BM;
+  const int b = id / n_s;
+  const int co0 = cb * TF_BN;
+  const int lo = p.kt / 2;
+  const int k_first = max(0, lo - t), k_last = min(p.kt - 1, p.t_len - 1 - t + lo);
+  const int n_c = (p.c + TF_BK - 1) / TF_BK;
+  const int steps = (k_last - k_first + 1) * n_c;
 
-  for (int tg0 = 0; tg0 < t_len; tg0 += TC_TG) {
-    const int tiles = min(TC_TG, t_len - tg0) * (TC_BCO / 8);
-    // input frames [f_lo, f_hi) feed this group; Xs row 0 is frame f0
-    const int f0 = tg0 - lo;
-    const int f_lo = max(0, f0);
-    const int f_hi = min(t_len, tg0 + TC_TG + kt - 1 - lo);
-    float acc[TC_MAXT][4];
+  // x staging: thread i's two float4 are positions (i + 256 r) / 4, channels
+  // 4 ((i + 256 r) % 4) of the step's 16
+  const int xc = (tid & 3) * 4;
+  const int xs = tid >> 2;  // and xs + 64
+  float4 xr[2];
+  auto load_x = [&](int step) {
+    const int ts = t + k_first + step / n_c - lo, ch = (step % n_c) * TF_BK + xc;
+    const float* src = p.x + ((size_t(b) * p.t_len + ts) * p.s_len) * p.c + ch;
 #pragma unroll
-    for (int j = 0; j < TC_MAXT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-    for (int kc = 0; kc < c; kc += TC_KC) {
-      __syncthreads();  // the previous chunk's (or group's) tiles are no longer read
-      for (int i = tid; i < (f_hi - f_lo) * TC_BS * TC_KC; i += TC_THREADS) {
-        const int tt = f_lo + i / (TC_BS * TC_KC);
-        const int rem = i % (TC_BS * TC_KC);
-        const int sl = rem / TC_KC, cc = rem % TC_KC;
-        const int s = s0 + sl, ch = kc + cc;
-        T val = from_float<T>(0.f);
-        if (s < s_len && ch < c) {
-          val = x[((size_t(b) * t_len + tt) * s_len + s) * c + ch];
-          if (pre_a != nullptr) {
-            float f = to_float(val) * pre_a[size_t(b) * c + ch] + pre_b[size_t(b) * c + ch];
-            f = f / (1.f + expf(-f));
-            val = from_float<T>(f);
-          }
-        }
-        Xs[((tt - f0) * TC_BS + sl) * L::LD + cc] = val;
-      }
-      for (int i = tid; i < kt * TC_KC * TC_BCO; i += TC_THREADS) {
-        const int k = i / (TC_KC * TC_BCO);
-        const int rem = i % (TC_KC * TC_BCO);
-        const int cc = rem / TC_BCO, co = rem % TC_BCO;
-        T val = from_float<T>(0.f);
-        if (kc + cc < c && co0 + co < c_out) val = w[(size_t(k) * c + kc + cc) * c_out + co0 + co];
-        Ws[(k * TC_BCO + co) * L::LD + cc] = val;
-      }
-      __syncthreads();
+    for (int r = 0; r < 2; ++r) {
+      const int s = s0 + xs + 64 * r;
+      xr[r] = (s < p.s_len && ch < p.c)
+                  ? __ldg(reinterpret_cast<const float4*>(src + size_t(s) * p.c))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_x = [&](int step, int buf) {
+    const int ch = (step % n_c) * TF_BK + xc;
+    if (p.pre_a != nullptr && ch < p.c) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p.pre_a + size_t(b) * p.c + ch));
+      const float4 c = __ldg(reinterpret_cast<const float4*>(p.pre_b + size_t(b) * p.c + ch));
 #pragma unroll
-      for (int j = 0; j < TC_MAXT; ++j) {
-        const int ti = warp + j * TC_WARPS;
-        if (ti < tiles) {
-          const int tt = tg0 + ti / (TC_BCO / 8), nt = ti % (TC_BCO / 8);
-          for (int k = 0; k < kt; ++k) {
-            const int ts = tt + k - lo;
-            if (ts >= 0 && ts < t_len)
-              mma_tile(acc[j], Xs + (ts - f0) * TC_BS * L::LD, L::LD,
-                       Ws + (k * TC_BCO + nt * 8) * L::LD, L::LD, TC_KC);
-          }
-        }
+      for (int r = 0; r < 2; ++r) {
+        if (s0 + xs + 64 * r >= p.s_len) continue;  // stays zero
+        xr[r].x = silu_f32(fmaf(xr[r].x, a.x, c.x));
+        xr[r].y = silu_f32(fmaf(xr[r].y, a.y, c.y));
+        xr[r].z = silu_f32(fmaf(xr[r].z, a.z, c.z));
+        xr[r].w = silu_f32(fmaf(xr[r].w, a.w, c.w));
       }
     }
+    float* d = As + buf * TF_BK * TF_LDA + xc * TF_LDA + xs;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      d[64 * r] = xr[r].x;
+      d[64 * r + TF_LDA] = xr[r].y;
+      d[64 * r + 2 * TF_LDA] = xr[r].z;
+      d[64 * r + 3 * TF_LDA] = xr[r].w;
+    }
+  };
+  // W staging: thread i copies rows (i + 256 r) / 32, columns 4 ((i + 256 r) % 32)
+  const int wrow = tid >> 5, wcol = (tid & 31) * 4;
+  auto load_w = [&](int step, int buf) {
+    const int k = k_first + step / n_c, c0 = (step % n_c) * TF_BK;
+    float* d = Bs + buf * TF_BK * TF_LDB + wrow * TF_LDB + wcol;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = c0 + wrow + 8 * r;
+      const bool ok = row < p.c && co0 + wcol < p.c_out4;
+      const float* src = p.w + (size_t(k) * p.c + row) * p.c_out4 + co0 + wcol;
+      cp_async_16(d + 8 * r * TF_LDB, ok ? src : p.w, ok);
+    }
+  };
 
+  float acc[8][8];
 #pragma unroll
-    for (int j = 0; j < TC_MAXT; ++j) {
-      const int ti = warp + j * TC_WARPS;
-      if (ti < tiles) {
-        const int tt = tg0 + ti / (TC_BCO / 8), nt = ti % (TC_BCO / 8);
-        const float rw = res != nullptr ? res_w[size_t(b) * t_len + tt] : 0.f;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int s = s0 + g + 8 * half;
-          if (s >= s_len) continue;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load_w(0, 0);
+  cp_async_commit();
+  load_x(0);
+  store_x(0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int step = 0; step < steps; ++step) {
+    const int buf = step & 1;
+    const bool more = step + 1 < steps;
+    if (more) {  // the other buffers were last read before the previous barrier
+      load_w(step + 1, buf ^ 1);
+      cp_async_commit();
+      load_x(step + 1);
+    }
+    const float* A = As + buf * TF_BK * TF_LDA + 4 * ty;
+    const float* B = Bs + buf * TF_BK * TF_LDB + 4 * tx;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int co = co0 + nt * 8 + 2 * t4 + e;
-            if (co >= c_out) continue;
-            const size_t idx = ((size_t(b) * t_len + tt) * s_len + s) * c_out + co;
-            float y = acc[j][2 * half + e] + bias[co];
-            if (res != nullptr) y = to_float(res[idx]) + rw * y;
-            out[idx] = from_float<T>(y);
-          }
+    for (int kk = 0; kk < TF_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + kk * TF_LDA);
+      const float4 a1 = *reinterpret_cast<const float4*>(A + kk * TF_LDA + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(B + kk * TF_LDB);
+      const float4 b1 = *reinterpret_cast<const float4*>(B + kk * TF_LDB + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) store_x(step + 1, buf ^ 1);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  const float rw = p.res != nullptr ? p.res_w[size_t(b) * p.t_len + t] : 0.f;
+  const size_t frame = (size_t(b) * p.t_len + t) * p.s_len;
+  const bool vec = (p.c_out & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = s0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+    if (s >= p.s_len) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + 4 * tx + 64 * h;
+      if (co >= p.c_out) continue;
+      const size_t idx = (frame + s) * p.c_out + co;
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = acc[i][4 * h + e] + (co + e < p.c_out ? __ldg(p.bias + co + e) : 0.f);
+      if (vec) {
+        if (p.res != nullptr) {
+          const float4 r = __ldg(reinterpret_cast<const float4*>(p.res + idx));
+          y[0] = fmaf(rw, y[0], r.x);
+          y[1] = fmaf(rw, y[1], r.y);
+          y[2] = fmaf(rw, y[2], r.z);
+          y[3] = fmaf(rw, y[3], r.w);
+        }
+        *reinterpret_cast<float4*>(p.out + idx) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (co + e >= p.c_out) break;
+          p.out[idx + e] = p.res != nullptr ? fmaf(rw, y[e], __ldg(p.res + idx + e)) : y[e];
         }
       }
     }
   }
 }
 
-template <typename T>
-static int launch_tc(const void* x, const void* w, const float* bias, const float* pre_a,
-                     const float* pre_b, const void* res, const float* res_w, void* out,
-                     int batch, int t_len, int s_len, int c, int c_out, int kt,
-                     cudaStream_t stream) {
-  const size_t smem = TCLayout<T>::smem_bytes((t_len < TC_TG ? t_len : TC_TG) + kt - 1, kt);
-  auto kernel = temporal_conv_kernel<T>;
-  cudaError_t err = set_smem(kernel, smem);
+static int launch_tc_f32(const ConvF32Args& a, cudaStream_t stream) {
+  cudaError_t err = set_smem(temporal_conv_f32_kernel, TF_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((c_out + TC_BCO - 1) / TC_BCO, (s_len + TC_BS - 1) / TC_BS, batch);
-  kernel<<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bias, pre_a, pre_b,
-      static_cast<const T*>(res), res_w, static_cast<T*>(out), t_len, s_len, c, c_out, kt);
+  const long long tiles = static_cast<long long>((a.c_out + TF_BN - 1) / TF_BN) *
+                          ((a.s_len + TF_BM - 1) / TF_BM) * a.t_len * a.batch;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  temporal_conv_f32_kernel<<<static_cast<unsigned int>(tiles), TF_THREADS, TF_SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace st2v
 
-// dtype: 0 = float32, 1 = bfloat16.  w is (kt, C, C_out) for f32 and
-// (kt, C_out, C) with C % 8 == 0 for bf16 (the wrapper pads and repacks);
+// dtype: 0 = float32, 1 = bfloat16.  w is (kt, C, C_out4) with C % 4 == 0
+// and C_out4 = C_out rounded up to 4 for f32, and (kt, C_out, C) with
+// C % 8 == 0 for bf16 (the wrapper pads and repacks);
 // pre_a/pre_b are (B, C) f32 or null; res (B, T, S, C_out) and res_w (B, T)
 // f32 or null.  bf16 takes `cols` output channels a tile (320, 128 or 64)
 // and a grid of at most `sms` blocks.  Requires odd kt <= 5; any T >= 1.
@@ -484,7 +572,9 @@ extern "C" int st2v_temporal_conv(const void* x, const void* w, const float* bia
     if (cols == 64) return launch_tc_wgmma<0, 64>(a, sms, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0 && (s_len + TC_BS - 1) / TC_BS <= 65535)
-    return launch_tc<float>(x, w, bias, pre_a, pre_b, res, res_w, out, batch, t_len, s_len, c, c_out, kt, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 || c % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ConvF32Args a{static_cast<const float*>(x), static_cast<const float*>(w), bias, pre_a,
+                      pre_b, static_cast<const float*>(res), res_w, static_cast<float*>(out),
+                      batch, t_len, s_len, c, c_out, (c_out + 3) & ~3, kt};
+  return launch_tc_f32(a, s);
 }

@@ -24,10 +24,15 @@ double-buffered by ``cp.async``, two blocks an SM.  The bf16 D=512
 instance (the VAE mid-block attention, one head) gives a 64-row q tile to
 two warpgroups: S = Q K^T once on wgmma, P through shared memory, and each
 warp 64 of the 512 output columns.  f32 runs on the FMA units in full f32
-(no TF32) in the first, synchronous body.  Head dims below 64 are
-zero-padded to 64 (``pad_head_dim``), with the scale of the true head dim.
-Each wrapper counts its launches (``launches``) and, apart, those of the
-bf16 D=512 instance (``launches_d512``).
+(no TF32).  At D=512 (the stage-1 VAE's attention in f32) its body blocks 64
+query rows, splits S's contraction over its eight warps and feeds its FMAs
+from register microtiles; where the row blocks would fill the SMs unevenly
+the wrapper splits the keys over blocks and the kernel merges them
+(``f32_d512_plan``).  f32 at D=64 (the f32 references) keeps the first,
+synchronous body.  Head dims below 64 are zero-padded to 64
+(``pad_head_dim``), with the scale of the true head dim.  Each wrapper
+counts its launches (``launches``) and, apart, those of the bf16 D=512
+instance (``launches_d512``) and those in f32 (``launches_f32``).
 
 Gradients: on the card each wrapper is a ``torch.autograd.Function`` whose
 forward launches the kernel and saves q, k and v, and whose backward is the
@@ -52,6 +57,12 @@ from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES
 _HEAD_DIMS = (64, 512)
 # the JAX package's cap on the packed lane width (PACKED_MAX_LANES)
 PACKED_MAX_LANES = 1280
+# the f32 D=512 body's query rows a block and keys a tile (``FF_BQ``,
+# ``FF_BK`` in csrc/flash_attention.cu), and the most key splits it is given
+F32_ROWS, F32_KEYS, F32_MAX_SPLITS = 64, 16, 16
+# a split's partial rows cost about this many KV tiles of a block's time
+# (written once and read once by the merge at HBM's rate)
+_SPLIT_COST_TILES = 2
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -128,19 +139,62 @@ def kernel_geometry(q_shape: tuple, k_shape: tuple, num_heads: int = 1) -> dict:
     return dict(batch=batch, heads=num_heads, lq=lq, lk=k_shape[1], d=d)
 
 
+def f32_d512_plan(batch_heads: int, lq: int, lk: int, sms: int) -> dict:
+    """How the f32 D=512 body covers (B*H, Lq, Lk) on ``sms`` SMs: its
+    ceil(Lq / 64) * B*H row blocks each split over ``splits`` ranges of
+    ``tiles_per_split`` 16-key tiles.  Chosen to least (waves * tiles a
+    block + the merge's cost), where waves = ceil(blocks * splits / sms): at
+    (1, 9216, 512) 144 row blocks are 1.09 waves of 132 SMs, split they fill
+    the waves evenly.  Ties go to fewer splits (no merge at one)."""
+    blocks = -(-lq // F32_ROWS) * batch_heads
+    tiles = -(-lk // F32_KEYS)
+    best = None
+    for n in range(1, min(F32_MAX_SPLITS, tiles) + 1):
+        per = -(-tiles // n)
+        splits = -(-tiles // per)   # ranges that hold a tile
+        waves = -(-blocks * splits // sms)
+        cost = waves * per + (_SPLIT_COST_TILES * blocks * splits / sms if splits > 1 else 0)
+        if best is None or cost < best["cost"]:
+            best = dict(splits=splits, tiles_per_split=per, waves=blocks * splits / sms,
+                        cost=cost)
+    return best
+
+
+def _split_scratch(q: torch.Tensor, geo: dict) -> tuple:
+    """(splits, tiles per split, partial rows, their max and sum) for one
+    launch: the f32 D=512 body's key split (``f32_d512_plan``) with its
+    scratch, one split and no scratch for every other instance."""
+    if q.dtype != torch.float32 or geo["d"] != 512:
+        return 1, 1, None, None
+    rows = geo["batch"] * geo["heads"]
+    plan = f32_d512_plan(rows, geo["lq"], geo["lk"], _native.sm_count(q.device))
+    n = plan["splits"]
+    if n == 1:
+        return 1, plan["tiles_per_split"], None, None
+    part = torch.empty((n, rows, geo["lq"], 512), dtype=torch.float32, device=q.device)
+    ml = torch.empty((n, rows, geo["lq"], 2), dtype=torch.float32, device=q.device)
+    return n, plan["tiles_per_split"], part, ml
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One K1 launch on checked inputs."""
     d = q.shape[-1]
     q, k, v = pad_head_dim(q, k, v)
     geo = kernel_geometry(q.shape, k.shape)
     out = torch.empty_like(q)
+    splits, per, part, ml = _split_scratch(q, geo)
     rc = _native.library().st2v_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo["batch"], geo["lq"],
         geo["lk"], geo["d"], _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
-        _native.stream_of(q))
+        splits, per, _ptr(part), _ptr(ml), _native.stream_of(q))
     _native.check(rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_d512 += int(geo["d"] == 512 and q.dtype == torch.bfloat16)
+    flash_attention.launches_f32 += int(q.dtype == torch.float32)
     return out[..., :d] if geo["d"] != d else out
 
 
@@ -183,6 +237,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 flash_attention.launches = 0
 flash_attention.launches_d512 = 0
+flash_attention.launches_f32 = 0
 flash_attention.bwd_chunks = 0
 
 
@@ -272,13 +327,15 @@ def _launch_flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     geo = kernel_geometry(q.shape, k.shape, num_heads)
     d = geo["d"]
     out = torch.empty_like(q)
+    splits, per, part, ml = _split_scratch(q, geo)
     rc = _native.library().st2v_flash_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo["batch"], geo["heads"],
         geo["lq"], geo["lk"], d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
-        _native.stream_of(q))
+        splits, per, _ptr(part), _ptr(ml), _native.stream_of(q))
     _native.check(rc, "flash_attention_packed")
     flash_attention_packed.launches += 1
     flash_attention_packed.launches_d512 += int(d == 512 and q.dtype == torch.bfloat16)
+    flash_attention_packed.launches_f32 += int(q.dtype == torch.float32)
     return out
 
 
@@ -301,4 +358,5 @@ class _FlashAttentionPacked(torch.autograd.Function):
 
 flash_attention_packed.launches = 0
 flash_attention_packed.launches_d512 = 0
+flash_attention_packed.launches_f32 = 0
 flash_attention_packed.bwd_chunks = 0

@@ -22,8 +22,14 @@ It reads W tap-major with each output channel's row K-major, (kt, C_out,
 C8) (``kernel_operands``), applies the GroupNorm+SiLU prologue in shared
 memory (the normalised activation never reaches device memory) and the
 bias and epilogue before each tile's one store, and takes C in multiples
-of 8: the wrapper zero-pads x's channels.  The f32 kernel keeps the first, simple design
-(16 positions by 32 output channels per block, FMA units).
+of 8: the wrapper zero-pads x's channels.  The f32 kernel (the stage-1
+temporal VAE decoder under the reference's f32 decode, bound by the FP32
+rate at every width) is the same implicit GEMM on the FMA units in full
+f32: tiles of 128 positions by 128 output
+channels, 8 x 8 register microtiles fed by 128-bit shared loads, x staged
+through registers with the prologue applied there, W by ``cp.async``, two
+buffers; it takes C in multiples of 4 and W as (kt, C4, C_out4)
+(``f32_operands``).
 
 Gradients: on the card ``temporal_conv`` is a ``torch.autograd.Function``
 whose forward launches K4 and saves the caller's operands (not the padded
@@ -43,9 +49,7 @@ import torch
 from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES, chunked_vjp
 
-# positions per block of the f32 kernel, which bounds S the most (the bf16
-# kernel's blocks take 128)
-_TILE_S = 16
+# CUDA's grid limit on the batch rows the C entry takes
 _MAX_GRID = 65535
 # the JAX package's VMEM budget in its gate (streamingt2v_tpu/ops/temporal_conv.py)
 _JAX_VMEM_BUDGET = 10 * 1024 * 1024
@@ -60,9 +64,10 @@ def conv_tile_cols(c_out: int) -> int:
 
 
 def _kernel_takes(kt: int, s: int, batch: int) -> bool:
-    """Centred odd taps up to 5 and a launch grid inside CUDA's y/z limits;
-    the kernel takes any T."""
-    return kt % 2 == 1 and kt <= 5 and -(-s // _TILE_S) <= _MAX_GRID and 0 < batch <= _MAX_GRID
+    """Centred odd taps up to 5, any S and T, and at most 65535 batch rows
+    (the C entry's bound); both bodies count their tiles in a 1-D grid or a
+    persistent loop."""
+    return kt % 2 == 1 and kt <= 5 and s > 0 and 0 < batch <= _MAX_GRID
 
 
 def fits_temporal_conv(t: int, c: int, c_out: int, kt: int, *, s: int = 1,
@@ -89,8 +94,8 @@ def temporal_conv_reference(x, w, b, res=None, res_w=None, pre_a=None, pre_b=Non
     return out.to(x.dtype)
 
 
-def _round8(n: int) -> int:
-    return -(-n // 8) * 8
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _pad_channels(x, pre_a, pre_b, pc: int):
@@ -111,10 +116,23 @@ def kernel_operands(x, w, pre_a=None, pre_b=None):
     channels contiguous and zero past C (wgmma's B operand, one 16-byte copy
     per 8 channels).  C_out is not padded: the kernel zero-fills the rows
     past it."""
-    pc = _round8(w.shape[1]) - w.shape[1]
+    pc = _round_up(w.shape[1], 8) - w.shape[1]
     x, pre_a, pre_b = _pad_channels(x, pre_a, pre_b, pc)
     wk = torch.nn.functional.pad(w, (0, 0, 0, pc)) if pc else w
     return x, wk.transpose(1, 2).contiguous(), pre_a, pre_b
+
+
+def f32_operands(x, w, pre_a=None, pre_b=None):
+    """The f32 kernel's layout: x's channels (and pre_a, pre_b) zero-padded to
+    a multiple of 4 (its 128-bit loads), and w (kt, C, C_out) zero-padded to
+    (kt, C4, C_out4), output channels contiguous (its B rows, copied 16
+    bytes at a time).  The kernel stores only the C_out true channels."""
+    kt, c, c_out = w.shape
+    pc, po = _round_up(c, 4) - c, _round_up(c_out, 4) - c_out
+    x, pre_a, pre_b = _pad_channels(x, pre_a, pre_b, pc)
+    if pc or po:
+        w = torch.nn.functional.pad(w, (0, po, 0, pc))
+    return x, w, pre_a, pre_b
 
 
 def temporal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -167,8 +185,10 @@ def _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         x, w, pre_a, pre_b = kernel_operands(x, w, pre_a, pre_b)
         cols, sms = conv_tile_cols(c_out), _native.sm_count(x.device)
-        c = x.shape[3]
-        x, w, res, pre_a, pre_b = map(_native.aligned, (x, w, res, pre_a, pre_b))
+    else:
+        x, w, pre_a, pre_b = f32_operands(x, w, pre_a, pre_b)
+    c = x.shape[3]
+    x, w, res, pre_a, pre_b = map(_native.aligned, (x, w, res, pre_a, pre_b))
     out = torch.empty((bsz, t, s, c_out), dtype=x.dtype, device=x.device)
     rc = _native.library().st2v_temporal_conv(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
@@ -180,6 +200,7 @@ def _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b) -> torch.Tensor:
         _native.stream_of(x))
     _native.check(rc, "temporal_conv")
     temporal_conv.launches += 1
+    temporal_conv.launches_f32 += int(x.dtype == torch.float32)
     return out
 
 
@@ -221,4 +242,5 @@ class _TemporalConv(torch.autograd.Function):
 
 
 temporal_conv.launches = 0
+temporal_conv.launches_f32 = 0
 temporal_conv.bwd_chunks = 0

@@ -203,7 +203,7 @@ def test_temporal_conv_gate():
     assert not fits_temporal_conv(190, 1280, 1280, 3)
     assert not fits_temporal_conv(25, 64, 64, 2)             # even taps
     assert not fits_temporal_conv(25, 64, 64, 7)
-    assert not fits_temporal_conv(8, 128, 128, 3, s=16 * 65536)   # grid y limit
+    assert fits_temporal_conv(8, 128, 128, 3, s=16 * 65536)   # no grid y limit: 1-D grids
     assert not fits_temporal_conv(8, 128, 128, 3, batch=65536)    # grid z limit
 
 
