@@ -173,9 +173,13 @@ level 0, K3 level 0 with LN and residual, K2 stage 2's level 1),
 ``bwd_chunks`` there and ``bwd_max_abs_err`` against autograd through the
 plain version; K5 and K6 have none (null).  ``train_launches`` are the
 train phase's.  K2 adds ``cross_*`` at stage 2's level-0 cross-attention (145 keys), K4 ``t38_*``
-at stage 2's level 0; K1, K4 and K6 add ``f32_*``, their f32 instance
-(the first bodies) against its one-call equivalent in f32 (SDPA, ``F.conv3d``;
-TF32 off) with its bound at the FP32 rate (67 TFLOP/s).
+at stage 2's level 0; K1, K2, K4 and K6 add ``f32_*``, their f32 instances
+against their one-call equivalent in f32 (SDPA, ``F.conv3d``; TF32 off) with
+their bounds at the FP32 rate (67 TFLOP/s): K1 at D=512 and at (10, 9216,
+64) (``f32_d64_*``), K2 at stage 2's level-0 self-attention cut to 2 rows,
+K6 at stage 2's and stage 1's level 0 (``f32_stage1_*``); K6 adds
+``bf16_d32_*``, its FMA body in bf16 at stage 2's level-0 width as 10 heads
+of 32, against SDPA in bf16.
 
 There is no CPU path: without CUDA the script exits non-zero before any
 result.  Every failed phase raises.
@@ -489,6 +493,8 @@ def check_k1(randn) -> dict:
             (1, 4111, 512, f32, "f32 D=512 ragged L=4111"),
             (24, 1000, 512, f32, "f32 D=512 ragged L=1000, keys not split"),
             (10, 9216, 64, f32, "f32 D=64, two frames of level-0 self-attn"),
+            (3, 1000, 64, f32, "f32 D=64 ragged L=1000"),
+            (5, 77, 32, f32, "f32 head dim 32, zero-padded, ragged L=77"),
             (6, 77, 64, bf16, "ragged L=77"),
             (4, 1000, 64, bf16, "ragged L=1000"),
             (5, 130, 32, bf16, "head dim 32, zero-padded")]:
@@ -555,7 +561,7 @@ def check_k2(randn) -> dict:
     from streamingt2v_torch.ops import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
-    rec, errs, rec512, errs512, cross = {}, [], {}, [], {}
+    rec, errs, rec512, errs512, cross, f32_rec = {}, [], {}, [], {}, {}
     for b, lq, lk, heads, d, dtype, label in [
             (38, 14400, 14400, 5, 64, bf16, "i2vgen level0 self-attn"),
             (38, 3600, 3600, 10, 64, bf16, "i2vgen level1 self-attn"),
@@ -565,7 +571,9 @@ def check_k2(randn) -> dict:
             (4, 14400, 14400, 1, 512, bf16, "sd-vae mid attn, encode chunk"),
             (2, 777, 130, 1, 512, bf16, "D=512 ragged q 777, kv 130"),
             (1, 500, 500, 2, 512, bf16, "D=512 two heads"),
-            (2, 2048, 2048, 2, 64, f32, "f32")]:
+            (2, 2048, 2048, 2, 64, f32, "f32"),
+            (2, 14400, 14400, 5, 64, f32, "f32 i2vgen level0 self-attn, 2 rows"),
+            (3, 1001, 145, 5, 64, f32, "f32 ragged q 1001, kv 145")]:
         q = randn(b, lq, heads * d, dtype=dtype)
         k, v = (randn(b, lk, heads * d, dtype=dtype) for _ in range(2))
         out = fa.flash_attention_packed(q, k, v, num_heads=heads)
@@ -575,10 +583,19 @@ def check_k2(randn) -> dict:
         errs.append(err)
         if d == 512 and dtype == bf16:
             errs512.append(err)
-        if dtype == f32:
-            print(f"  K2 time q{(b, lq, heads * d)} {heads} heads {dtype} (first body): kernel "
-                  f"{_time_ms(lambda: fa.flash_attention_packed(q, k, v, num_heads=heads)):.3f} "
-                  f"ms", flush=True)
+        if dtype == f32 and lq == 14400:
+            # against the first SDPA backend that takes f32 on the (B, H, L, D)
+            # strided view, its bound at the FP32 rate
+            views = tuple(z.view(b, -1, heads, d).transpose(1, 2) for z in (q, k, v))
+            library, backend = _sdpa_backend(*views)
+            _compare(f"K2 yardstick SDPA ({backend}) f32",
+                     library()[:1].transpose(1, 2).reshape(1, lq, heads * d), ref, _tol(dtype))
+            f32_rec = _f32_record(lambda: fa.flash_attention_packed(q, k, v, num_heads=heads),
+                                  library, work_flash(b, heads, lq, lk, d, elem=4),
+                                  plain=lambda: fa.flash_attention_packed_reference(q, k, v,
+                                                                                    heads))
+            f32_rec.update(f32_shape=[b, lq, heads * d], f32_sdpa_backend=backend)
+            _f32_line(f"K2 time {(b, lq, heads * d)} f32", f32_rec, "f32_", f"SDPA ({backend})")
         if d == 512 and lq == 14400:
             r = _d512_record(
                 f"K2 {(b, lq, heads * d)}",
@@ -627,7 +644,7 @@ def check_k2(randn) -> dict:
             print(line + f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}), share "
                   f"{r['share']:.3f}", flush=True)
         del q, k, v, out, ref
-    rec.update(cross, max_abs_err=max(errs))
+    rec.update(cross, **f32_rec, max_abs_err=max(errs))
     rec512["max_abs_err"] = max(errs512)
     return {"flash_attention_packed": rec, "flash_attention_packed_d512": rec512}
 
@@ -924,12 +941,30 @@ def check_k5(randn) -> dict:
 # K6's timed geometries, (batch, frames, pixels, heads) at head dim 64:
 # stage 2's level 0, then stage 1's
 K6_TIMED = ((1, 38, 14400, 5), (2, 25, 9216, 5))
+# the f32 instance at the same geometries -> key prefix of K6's record
+K6_F32_PREFIX = dict(zip(K6_TIMED, ("f32_", "f32_stage1_")))
+# the FMA body in bf16 (a head dim other than 64), timed at stage 2's level-0
+# width as 10 heads of 32 (B, Tq, Tkv, S, H, d): K6's ``bf16_d32_*`` keys
+K6_BF16_FMA_TIMED = (1, 38, 38, 14400, 10, 32)
+
+
+def _k6_views(q, k, v, b: int, s: int, heads: int, d: int) -> tuple:
+    """K6's operands as SDPA's (batch, heads, L, D) strided views, no copy:
+    (S, H, T, D) for one batch row, else (B, S*H, T, D), each (pixel, head)
+    pair a head of SDPA; with the view's name and the map of SDPA's output
+    back to (B*T, S, H*D)."""
+    if b == 1:
+        views = tuple(z.view(-1, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
+        return views, "(S, H, T, D)", lambda o: o.permute(2, 0, 1, 3).reshape(-1, s, heads * d)
+    views = tuple(z.view(b, -1, s * heads, d).transpose(1, 2) for z in (q, k, v))
+    return views, "(B, S*H, T, D)", lambda o: o.transpose(1, 2).reshape(-1, s, heads * d)
 
 
 def check_k6(randn) -> dict:
     """K6 at the stage-2 and stage-1 geometries and at its edges (T = 1 and
-    64, ragged pairs, Tq != Tkv), timed at stage 2's and stage 1's level 0
-    against SDPA and the transposes + grouped-attention plain version."""
+    64, ragged pairs, Tq != Tkv, head dims other than 64 in bf16 and f32),
+    timed at stage 2's and stage 1's level 0 against SDPA and the transposes
+    + grouped-attention plain version, in bf16 and in f32."""
     import torch
     import torch.nn.functional as F
 
@@ -949,9 +984,19 @@ def check_k6(randn) -> dict:
             (1, 1, 1, 4000, 5, 64, bf16, "T=1"),
             (1, 64, 64, 3600, 5, 64, bf16, "T=64"),
             (3, 20, 9, 1001, 3, 64, bf16, "ragged pairs 20x9"),
+            (1, 38, 38, 3600, 10, 32, bf16, "bf16 d=32"),
+            (1, 38, 38, 14400, 10, 32, bf16, "bf16 d=32 at level 0's width"),
+            (2, 25, 7, 1000, 4, 128, bf16, "bf16 d=128 25x7"),
+            (1, 64, 64, 333, 2, 96, bf16, "bf16 d=96 T=64"),
+            (1, 12, 12, 300, 2, 20, bf16, "bf16 d=20, 4-byte copies"),
+            (1, 9, 13, 300, 2, 17, bf16, "bf16 d=17, plain copies"),
             (2, 16, 16, 1000, 2, 128, f32, "f32 d=128"),
             (1, 64, 64, 333, 3, 32, f32, "f32 T=64 ragged"),
-            (1, 38, 38, 14400, 5, 64, f32, "f32 i2vgen level0")]:
+            (1, 1, 1, 4000, 5, 64, f32, "f32 T=1"),
+            (1, 64, 41, 500, 2, 96, f32, "f32 d=96 64x41"),
+            (1, 9, 13, 300, 3, 30, f32, "f32 d=30, 4-byte copies"),
+            (1, 38, 38, 14400, 5, 64, f32, "f32 i2vgen level0"),
+            (2, 25, 25, 9216, 5, 64, f32, "f32 stage-1 level0 T=25")]:
         q = randn(b * tq, s, heads * d, dtype=dtype)
         k, v = (randn(b * tkv, s, heads * d, dtype=dtype) for _ in range(2))
         kw = dict(batch=b, frames_q=tq, frames_kv=tkv, num_heads=heads)
@@ -959,36 +1004,49 @@ def check_k6(randn) -> dict:
         ref = temporal_attention_reference(q, k, v, **kw)
         errs.append(_compare(f"K6 {label} T {tq}x{tkv} S {s} {heads}x{d} {dtype}", out, ref,
                              _tol(dtype)))
-        if dtype == f32 and s == 14400:
-            # the first body against the first SDPA backend that takes f32 on
-            # the (S, H, T, D) strided view, its bound at the FP32 rate
-            views = tuple(z.view(-1, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
+        timed = tq == tkv and d == 64 and (b, tq, s, heads) in K6_TIMED
+        if dtype == f32 and timed:
+            # against the first SDPA backend that takes f32 on the strided
+            # view, its bound at the FP32 rate
+            prefix = K6_F32_PREFIX[(b, tq, s, heads)]
+            views, view, unview = _k6_views(q, k, v, b, s, heads, d)
             library, backend = _sdpa_backend(*views)
-            _compare(f"K6 yardstick SDPA ({backend}) f32", library().permute(2, 0, 1, 3).reshape(
-                b * tq, s, heads * d), ref, _tol(dtype))
-            f32_rec = _f32_record(lambda: fused_temporal_attention(q, k, v, **kw), library,
-                                  work_temporal_attention(b, tq, tkv, s, heads, d, elem=4),
-                                  plain=lambda: temporal_attention_reference(q, k, v, **kw))
-            f32_rec.update(f32_shape=[b * tq, s, heads * d], f32_sdpa_backend=backend)
-            _f32_line(f"K6 time {(b * tq, s, heads * d)} T={tq} f32 (first body)", f32_rec,
-                      "f32_", f"SDPA ({backend})")
-        if tq == tkv and d == 64 and dtype == bf16 and (b, tq, s, heads) in K6_TIMED:
-            # strided views, no copy: (S, H, T, D) for one batch row, else
-            # (B, S*H, T, D), each (pixel, head) pair a head of SDPA
-            if b == 1:
-                view = "(S, H, T, D)"
-                qh, kh, vh = (z.view(-1, s, heads, d).permute(1, 2, 0, 3) for z in (q, k, v))
-                unview = lambda o: o.permute(2, 0, 1, 3)  # noqa: E731
-            else:
-                view = "(B, S*H, T, D)"
-                qh, kh, vh = (z.view(b, -1, s * heads, d).transpose(1, 2) for z in (q, k, v))
-                unview = lambda o: o.transpose(1, 2)  # noqa: E731
+            _compare(f"K6 yardstick SDPA ({backend}) f32 on the {view} strided view",
+                     unview(library()), ref, _tol(dtype))
+            r = _f32_record(lambda: fused_temporal_attention(q, k, v, **kw), library,
+                            work_temporal_attention(b, tq, tkv, s, heads, d, elem=4), prefix,
+                            plain=lambda: temporal_attention_reference(q, k, v, **kw))
+            r.update({f"{prefix}shape": [b * tq, s, heads * d], f"{prefix}sdpa_backend": backend})
+            f32_rec.update(r)
+            _f32_line(f"K6 time {(b * tq, s, heads * d)} T={tq} f32", r, prefix,
+                      f"SDPA ({backend})")
+        if dtype == bf16 and (b, tq, tkv, s, heads, d) == K6_BF16_FMA_TIMED:
+            # the FMA body in bf16 (head dims other than 64) against SDPA on
+            # the strided view, its bound at HBM's rate
+            views, view, unview = _k6_views(q, k, v, b, s, heads, d)
+            library, backend = _sdpa_backend(*views)
+            _compare(f"K6 yardstick SDPA ({backend}) bf16 d={d} on the {view} strided view",
+                     unview(library()), ref, _tol(dtype))
+            r = _yardstick(
+                dict(ms=_time_ms(lambda: fused_temporal_attention(q, k, v, **kw)),
+                     plain_ms=_time_ms(lambda: temporal_attention_reference(q, k, v, **kw),
+                                       reps=3),
+                     library_ms=_time_ms(library), shape=[b * tq, s, heads * d],
+                     sdpa_backend=backend),
+                work_temporal_attention(b, tq, tkv, s, heads, d))
+            print(f"  K6 time {(b * tq, s, heads * d)} T={tq} bf16 d={d}: kernel {r['ms']:.3f} "
+                  f"ms, SDPA ({backend}) {r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}",
+                  flush=True)
+            f32_rec.update({f"bf16_d{d}_{key}": value for key, value in r.items()})
+        if dtype == bf16 and timed:
+            (qh, kh, vh), view, unview = _k6_views(q, k, v, b, s, heads, d)
 
             def library():
                 return F.scaled_dot_product_attention(qh, kh, vh)
 
             _compare(f"K6 yardstick SDPA on the {view} strided view, {label}",
-                     unview(library()).reshape(b * tq, s, heads * d), ref, _tol(dtype))
+                     unview(library()), ref, _tol(dtype))
             r = _yardstick(
                 dict(ms=_time_ms(lambda: fused_temporal_attention(q, k, v, **kw)),
                      plain_ms=_time_ms(lambda: temporal_attention_reference(q, k, v, **kw),
@@ -1076,7 +1134,7 @@ def _reset_launches() -> None:
 def _read_launches(f32: bool = False) -> dict:
     """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
     (``<name>_d512``, also counted in ``<name>``); with ``f32``, also the f32
-    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4)."""
+    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4, K6)."""
     out = {}
     for fn in _all_kernels():
         out[fn.__name__] = fn.launches
@@ -3565,7 +3623,8 @@ KERNEL_META = {
 
 
 # the rows whose wrappers count their f32 launches apart (``launches_f32``)
-F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_conv_f32")
+F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_conv_f32",
+               "fused_temporal_attention_f32")
 
 
 def kernel_lines(records: dict, launches: dict, product_launches: dict,
@@ -3573,9 +3632,9 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
     """The kernels JSON line's entries: one per KERNEL_META row, with the
     kernels and reference phases' records (absent keys null), the launches of every
     pipeline phase, the product's alone and, as ``<phase>_launches``, those
-    of each phase in ``phase_launches`` ({phase: {kernel: launches}}); K1, K2
-    and K4 also their f32 launches over every pipeline phase (``launches_f32``,
-    from ``launches["<name>_f32"]``)."""
+    of each phase in ``phase_launches`` ({phase: {kernel: launches}}); K1, K2,
+    K4 and K6 also their f32 launches over every pipeline phase
+    (``launches_f32``, from ``launches["<name>_f32"]``)."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -3583,7 +3642,7 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  if k in ("bare_ms", "bare_share", "sdpa_backend", "k1_ms")
                  or k in ("bwd_max_abs_err", "bwd_shape")
                  or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_",
-                                  "cross_", "t38_", "f32_"))}
+                                  "cross_", "t38_", "f32_", "bf16_d"))}
         if "stage1" in r:   # K6 at the stage-1 geometry
             extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
         if name + "_f32" in F32_COUNTED:

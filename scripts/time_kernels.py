@@ -6,6 +6,7 @@ wrappers only, on one NVIDIA GPU.
     python3 scripts/time_kernels.py --kernels d512,k5     # a selection
     python3 scripts/time_kernels.py --root DIR            # another checkout of the port
     python3 scripts/time_kernels.py --budgets-mib 48,96,192,384,0   # K3's row chunk
+    python3 scripts/time_kernels.py --root DIR --kernels fma --no-check   # an ablated copy
 
 It imports ``streamingt2v_torch`` from ``--root`` (default: this script's
 checkout) and calls nothing but the kernel wrappers in ``ops``, so the same
@@ -30,13 +31,21 @@ this one (run parent, change, change, parent in one call).  Kernels
         (1, 9216, 512) (the encoder's mid attention) and (8, 9216, 512) (the
         temporal decoder's, one 8-frame chunk) beside SDPA f32, and K4 bare and
         pre+res at the temporal decoder's four widths, the bare one beside
-        ``F.conv3d`` f32; bounds at the FP32 rate.
+        ``F.conv3d`` f32; bounds at the FP32 rate; then the fma shapes;
+  fma   the f32 D=64 flash body and K6's FMA body (full f32, TF32 off): K1
+        at (10, 9216, 64), K2 at stage 2's level-0 self-attention cut to 2
+        rows (2, 14400, 5x64), K6 at stage 2's (38, 14400, 5x64) and stage
+        1's (50, 9216, 5x64) level 0, each beside SDPA f32 (on the strided
+        views) and its bound at the FP32 rate; and K6's FMA body in bf16 at
+        (38, 14400, 10x32) beside SDPA and its bound at HBM's rate.
 
 Inputs from seed 0; ``chip_smoke``'s timer (CUDA events, median of
 ``--reps`` after one warm-up) and tolerances; each time beside its bound.
-The first call at each d64, k4, d512, k5 and f32 shape is checked against
+The first call at each d64, k4, d512, k5, f32 and fma shape is checked against
 the plain version; k5 also prints the device time of each of its two passes
-(``torch.profiler``).
+(``torch.profiler``).  ``--no-check`` skips the fma shapes' checks, for
+timing a copy of the port whose kernels were cut down on purpose (an
+ablation: a phase of a body removed).
 
 ``--budgets-mib`` times K3 instead for each G budget of its row chunk
 (``fused_ff.G_CHUNK_BYTES``, set for the run; 0 = all rows in one chunk),
@@ -98,7 +107,8 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "f32")
+KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "f32", "fma")
+CHECK = True   # --no-check clears it
 
 
 def _timed(chip_smoke, name: str, call, library, work: tuple, reps: int) -> None:
@@ -239,6 +249,65 @@ def time_f32(chip_smoke, randn, reps: int) -> None:
         print(f"  f32 K4 {shape} bare: {ms:.3f} ms, conv3d {lib:.3f} ms, bound "
               f"{bd['bound_ms']:.3f} ms, share {bd['bound_ms'] / ms:.3f}", flush=True)
         del args, x, w, bias
+    time_fma(chip_smoke, randn, reps)
+
+
+def _f32_timed(chip_smoke, name: str, call, ref, library, backend: str, work: tuple,
+               reps: int) -> None:
+    """An f32 call checked against its plain version (unless ``--no-check``),
+    then timed beside its SDPA f32 yardstick and its bound at the FP32 rate."""
+    if CHECK:
+        chip_smoke._compare(f"f32 {name}", call(), ref, chip_smoke.TOL["f32"])
+    ms, lib = (chip_smoke._time_ms(fn, reps=reps) for fn in (call, library))
+    bd = chip_smoke.bound(work, chip_smoke.PEAK_F32_FLOPS)
+    print(f"  f32 {name}: {ms:.3f} ms, SDPA ({backend}) {lib:.3f} ms, bound "
+          f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}), share {bd['bound_ms'] / ms:.3f}",
+          flush=True)
+
+
+def time_fma(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops import flash_attention as fa
+    from streamingt2v_torch.ops.temporal_attention import (
+        fused_temporal_attention, temporal_attention_reference)
+
+    f32 = torch.float32
+    q, k, v = (randn(10, 9216, 64, dtype=f32) for _ in range(3))
+    library, backend = chip_smoke._sdpa_backend(q[:, None], k[:, None], v[:, None])
+    _f32_timed(chip_smoke, "K1 (10, 9216, 64)", lambda: fa.flash_attention(q, k, v),
+               fa.flash_attention_reference(q, k, v), library, backend,
+               chip_smoke.work_flash(10, 1, 9216, 9216, 64, elem=4), reps)
+    del q, k, v
+    q, k, v = (randn(2, 14400, 320, dtype=f32) for _ in range(3))
+    views = tuple(z.view(2, -1, 5, 64).transpose(1, 2) for z in (q, k, v))
+    library, backend = chip_smoke._sdpa_backend(*views)
+    _f32_timed(chip_smoke, "K2 (2, 14400, 5x64)",
+               lambda: fa.flash_attention_packed(q, k, v, num_heads=5),
+               fa.flash_attention_packed_reference(q, k, v, 5), library, backend,
+               chip_smoke.work_flash(2, 5, 14400, 14400, 64, elem=4), reps)
+    del q, k, v, views
+    for batch, t, s, heads in chip_smoke.K6_TIMED:
+        q, k, v = (randn(batch * t, s, heads * 64, dtype=f32) for _ in range(3))
+        kw = dict(batch=batch, frames_q=t, frames_kv=t, num_heads=heads)
+        views, _, _ = chip_smoke._k6_views(q, k, v, batch, s, heads, 64)
+        library, backend = chip_smoke._sdpa_backend(*views)
+        _f32_timed(chip_smoke, f"K6 {(batch * t, s, heads * 64)} T={t}",
+                   lambda: fused_temporal_attention(q, k, v, **kw),
+                   temporal_attention_reference(q, k, v, **kw), library, backend,
+                   chip_smoke.work_temporal_attention(batch, t, t, s, heads, 64, elem=4), reps)
+        del q, k, v, views
+    b, t, s, heads, d = (chip_smoke.K6_BF16_FMA_TIMED[i] for i in (0, 1, 3, 4, 5))
+    q, k, v = (randn(b * t, s, heads * d) for _ in range(3))
+    kw = dict(batch=b, frames_q=t, frames_kv=t, num_heads=heads)
+    if CHECK:
+        chip_smoke._compare(f"bf16 K6 d={d}", fused_temporal_attention(q, k, v, **kw),
+                            temporal_attention_reference(q, k, v, **kw), chip_smoke.TOL["bf16"])
+    views, _, _ = chip_smoke._k6_views(q, k, v, b, s, heads, d)
+    library, _ = chip_smoke._sdpa_backend(*views)
+    _timed(chip_smoke, f"K6 {(b * t, s, heads * d)} T={t} d={d}",
+           lambda: fused_temporal_attention(q, k, v, **kw), library,
+           chip_smoke.work_temporal_attention(b, t, t, s, heads, d), reps)
 
 
 def device_times(fn, what: str) -> None:
@@ -287,10 +356,14 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--kernels", default=",".join(KERNELS),
                         help="comma-separated subset of " + ",".join(KERNELS))
+    parser.add_argument("--no-check", action="store_true",
+                        help="skip the fma shapes' checks against the plain versions")
     parser.add_argument("--budgets-mib", default="",
                         help="comma-separated K3 G budgets to sweep (this checkout's port)")
     args = parser.parse_args()
     kernels = args.kernels.split(",")
+    global CHECK
+    CHECK = not args.no_check
     if not set(kernels) <= set(KERNELS):
         parser.error(f"--kernels: choose from {','.join(KERNELS)}")
     import torch
@@ -315,7 +388,7 @@ def main() -> int:
                       [int(b) for b in args.budgets_mib.split(",")], args.reps)
         return 0
     timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5,
-                  f32=time_f32)
+                  f32=time_f32, fma=time_fma)
     for name in kernels:
         timers[name](chip_smoke, randn, args.reps)
         torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 // Shared device helpers for the hand-written Hopper kernels.
 //
-// The simple kernels compute their matrix products through `mma_tile`: a warp
-// multiplies a 16-row tile of A by an 8-column tile of B, both held in shared
-// memory, and accumulates into four f32 registers per lane laid out as the
-// accumulator of `mma.sync.m16n8k16`:
+// The last simple body (K3 in f32) computes its matrix products through
+// `mma_tile` (the other f32 bodies run their own register microtiles on the
+// FMA units): a warp multiplies a 16-row tile of A by an 8-column tile of B,
+// both held in shared memory, and accumulates into four f32 registers per
+// lane laid out as the accumulator of `mma.sync.m16n8k16`:
 //
 //   lane = 4*g + t holds C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]
 //
@@ -139,11 +140,6 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

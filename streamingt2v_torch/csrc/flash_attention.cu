@@ -32,7 +32,7 @@
 // S = Q K^T is computed once (each warpgroup half of the keys, on `wgmma`
 // with Q resident in shared memory), P goes through shared memory in bf16,
 // and each warp accumulates 64 of the 512 output columns on `mma.sync`.
-// Each K/V byte fetched feeds 64 query rows (the first body: 16).
+// Each K/V byte fetched feeds 64 query rows.
 //
 // The f32 D=512 instance (the stage-1 VAE's mid-block attention under the
 // reference's f32, FMA units, no TF32) does the same 4*L^2*512 flops at the
@@ -40,157 +40,217 @@
 // below) blocks 64 query rows so that each K/V byte feeds 64 rows, feeds its
 // FMAs from register microtiles filled by 128-bit shared loads, splits S's
 // 512-long contraction over its eight warps, and can split the keys over
-// blocks with a merge so that the grid fills the SMs evenly.  It replaced
-// the first, synchronous body (16 query rows a block, one shared load an FMA;
-// PERF.md), which the f32 D=64 instance (the f32 references only) keeps:
-// S and P go through shared memory, with four block barriers per KV tile.
+// blocks with a merge so that the grid fills the SMs evenly.  The f32 D=64
+// instance (the f32 references and the tiny configs; 4*L^2*64 flops on
+// 4*L*64*4 bytes a head, FMA-bound too) is `flash_kernel_f32_d64`, below:
+// 128 query rows a block, 8 x 8 register microtiles for S and P V alike,
+// two blocks an SM.
 #include "common.cuh"
 
 namespace st2v {
 
-// ---- f32, D = 64: the first, synchronous body ----
-template <typename T, int D, int BQ, int BK>
-struct FlashShape {
-  static constexpr int NW = 4;
-  static constexpr int P = RowPad<T>::value;
-  static constexpr int LDQ = D + P;   // Qs, Ks row stride (elements)
-  static constexpr int LDV = BK + P;  // Vt row stride: V transposed, rows = d
-  static constexpr int LDP = BK + P;  // probabilities
-  static constexpr int LDS = BK + 1;  // f32 scores
-  static constexpr int O_TILES = (BQ / 16) * (D / 8);
-  static constexpr int OT = O_TILES / NW;
-  static constexpr int S_TILES = (BQ / 16) * (BK / 8);
-  static_assert(O_TILES % NW == 0, "output tiles must split evenly over warps");
-  static constexpr size_t smem_bytes() {
-    return sizeof(T) * (size_t(BQ) * LDQ + size_t(BK) * LDQ + size_t(D) * LDV +
-                        size_t(BQ) * LDP) +
-           sizeof(float) * (size_t(BQ) * LDS + 3 * BQ);
-  }
-};
+// ---- f32, D = 64: row-blocked on the FMA units ----
+//
+// A block owns FS_BQ = 128 query rows of one (batch, head), Q resident in
+// shared memory, and walks KV tiles of FS_BK = 64 keys: every K/V byte
+// fetched feeds 128 rows.  A warp owns 32 rows; lane = 8 rg + kg owns rows
+// r_i = 32 warp + rg + 4 i (i < 8) of S and of O alike, so the softmax's row
+// max, alpha and sum stay in the lane's registers:
+//   S = Q K^T: keys kg + 8 j (j < 8), an 8 x 8 register microtile, read from
+//     Q and K row-major in 128-bit loads along d (dot-product order).  In one
+//     load the four rows rg (Q) or the eight keys kg (K) are consecutive rows
+//     16 bytes apart in the banks (row stride FS_LD = 68 floats); the lanes
+//     that share a row share its load.  16 loads a 256 FMAs.
+//   The online softmax in log2 units: a row's max over its eight kg lanes by
+//     three shuffles; its sum stays a per-lane share until the end.  P leaves
+//     transposed into the warp's own slice of shared memory, [key][rg, i], so
+//     that one 128-bit load gives a lane four of its rows for one key.
+//   O += P V: output columns 4 kg + c and 32 + 4 kg + c, an 8 x 8 microtile;
+//     per key two 128-bit loads of P and two of V (row-major, as in memory:
+//     keys are P V's contraction, no transpose).  16 loads a 256 FMAs.
+// V_j arrives by `cp.async` under S_j, K_{j+1} under P V_j, into one K and one
+// V buffer.  Two barriers a tile, which the second block on the SM (103 KB of
+// shared memory each) runs under.
+constexpr int FS_D = 64;
+constexpr int FS_THREADS = 128;
+constexpr int FS_BQ = 128;               // query rows a block: 32 a warp
+constexpr int FS_BK = 64;                // keys a KV tile
+constexpr int FS_BLOCKS = 2;             // blocks an SM
+constexpr int FS_LD = FS_D + 4;          // Q and K rows (floats)
+constexpr int FS_LDV = FS_D;             // V rows: every lane of a load reads one row
+constexpr int FS_LDP = 32 + 4;           // a warp's P, [key][8 rg + i]
+constexpr size_t FS_SMEM =
+    sizeof(float) * (size_t(FS_BQ) * FS_LD + size_t(FS_BK) * FS_LD + size_t(FS_BK) * FS_LDV +
+                     size_t(FS_THREADS / 32) * FS_BK * FS_LDP);
+static_assert(FS_BLOCKS * (FS_SMEM + 1024) <= 233472, "two blocks' shared memory per SM");
+static_assert(FS_BQ * FS_BK == 64 * FS_THREADS && FS_BQ * FS_D == 64 * FS_THREADS,
+              "S and O: an 8 x 8 tile a thread");
 
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(128)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int lq, int lk, int heads, int ld, float scale_log2) {
-  typedef FlashShape<T, D, BQ, BK> S;
-  constexpr int VEC = 16 / sizeof(T);
+// ROWS rows x 64 columns from rows [row0, row0 + ROWS) at stride ld into rows
+// of LD floats; rows at or past `rows` are zero-filled.
+template <int ROWS, int LD>
+__device__ __forceinline__ void fs_load(float* dst, const float* src, int row0, int rows,
+                                        int ld) {
+  const int c = (threadIdx.x & 15) * 4;
+#pragma unroll
+  for (int r = threadIdx.x >> 4; r < ROWS; r += FS_THREADS / 16) {
+    const bool ok = row0 + r < rows;
+    cp_async_16(dst + r * LD + c, ok ? src + size_t(row0 + r) * ld + c : src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(FS_THREADS, FS_BLOCKS)
+flash_kernel_f32_d64(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int lq, int lk,
+                     int heads, int ld, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BQ * S::LDQ;
-  T* Vt = Ks + BK * S::LDQ;
-  T* Ps = Vt + D * S::LDV;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * S::LDP);
-  float* m_s = Ss + BQ * S::LDS;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [FS_BQ][FS_LD]
+  float* Ks = Qs + FS_BQ * FS_LD;                  // [FS_BK][FS_LD]
+  float* Vs = Ks + FS_BK * FS_LD;                  // [FS_BK][FS_LDV]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  // blockIdx.y = batch * heads + head; rows of the head start at its column
+  const int rg = lane >> 3, kg = lane & 7;
+  float* Pw = Vs + FS_BK * FS_LDV + warp * FS_BK * FS_LDP;  // this warp's P, [key][8 rg + i]
+
+  const int q0 = blockIdx.x * FS_BQ;
   const size_t bi = blockIdx.y / heads, hi = blockIdx.y % heads;
-  const T* qb = q + bi * lq * ld + hi * D;
-  const T* kb = k + bi * lk * ld + hi * D;
-  const T* vb = v + bi * lk * ld + hi * D;
-  T* ob = o + bi * lq * ld + hi * D;
+  const float* qb = q + bi * lq * ld + hi * FS_D;
+  const float* kb = k + bi * lk * ld + hi * FS_D;
+  const float* vb = v + bi * lk * ld + hi * FS_D;
+  const int row0 = warp * 32 + rg;  // this lane's rows: row0 + 4 i
 
-  for (int i = tid; i < BQ * (D / VEC); i += 128) {
-    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < lq) val = *reinterpret_cast<const uint4*>(qb + size_t(q0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(Qs + r * S::LDQ + c) = val;
-  }
-  for (int i = tid; i < BQ; i += 128) {
-    m_s[i] = __int_as_float(0xff800000);  // -inf
-    l_s[i] = 0.f;
-  }
+  fs_load<FS_BQ, FS_LD>(Qs, qb, q0, lq, ld);
+  fs_load<FS_BK, FS_LD>(Ks, kb, 0, lk, ld);
+  cp_async_commit();
 
-  float acc[S::OT][4];
+  const float neg_inf = __int_as_float(0xff800000);
+  // per row: the running max (log2 units) and this lane's share of the sum
+  float mx[8], den[8], acc[8][8];
 #pragma unroll
-  for (int j = 0; j < S::OT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    mx[i] = neg_inf;
+    den[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
 
-  for (int kv0 = 0; kv0 < lk; kv0 += BK) {
-    __syncthreads();  // the previous tile's Ks/Vt/Ps are no longer read
-    for (int i = tid; i < BK * (D / VEC); i += 128) {
-      const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u), vval = make_uint4(0u, 0u, 0u, 0u);
-      if (kv0 + r < lk) {
-        kval = *reinterpret_cast<const uint4*>(kb + size_t(kv0 + r) * ld + c);
-        vval = *reinterpret_cast<const uint4*>(vb + size_t(kv0 + r) * ld + c);
+  const int tiles = (lk + FS_BK - 1) / FS_BK;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait_all();  // K_j (and Q) landed
+    __syncthreads();      // for all; P V_{j-1} is done everywhere: V is free
+    fs_load<FS_BK, FS_LDV>(Vs, vb, j * FS_BK, lk, ld);
+    cp_async_commit();
+
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+    const float* qp = Qs + row0 * FS_LD;
+    const float* kp = Ks + kg * FS_LD;
+#pragma unroll 2
+    for (int d = 0; d < FS_D; d += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(qp + 4 * i * FS_LD + d);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 b = *reinterpret_cast<const float4*>(kp + 8 * c * FS_LD + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float x = fmaf(a[i].x, b.x, s[i][c]);
+          x = fmaf(a[i].y, b.y, x);
+          x = fmaf(a[i].z, b.z, x);
+          s[i][c] = fmaf(a[i].w, b.w, x);
+        }
       }
-      *reinterpret_cast<uint4*>(Ks + r * S::LDQ + c) = kval;
-      const T* ve = reinterpret_cast<const T*>(&vval);
+    }
+    if ((j + 1) * FS_BK > lk) {  // the ragged last tile
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) Vt[(c + e) * S::LDV + r] = ve[e];
+      for (int c = 0; c < 8; ++c)
+        if (j * FS_BK + kg + 8 * c >= lk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s[i][c] = neg_inf;
     }
-    __syncthreads();
-
-    for (int ti = warp; ti < S::S_TILES; ti += S::NW) {
-      const int rt = ti / (BK / 8), nt = ti % (BK / 8);
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_tile(c, Qs + rt * 16 * S::LDQ, S::LDQ, Ks + nt * 8 * S::LDQ, S::LDQ, D);
-      float* srow = Ss + (rt * 16 + g) * S::LDS + nt * 8 + 2 * t;
-      srow[0] = c[0] * scale_log2;
-      srow[1] = c[1] * scale_log2;
-      srow[8 * S::LDS] = c[2] * scale_log2;
-      srow[8 * S::LDS + 1] = c[3] * scale_log2;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < BQ; r += S::NW) {
-      float mx = __int_as_float(0xff800000);  // -inf
-      for (int j = lane; j < BK; j += 32)
-        if (kv0 + j < lk) mx = fmaxf(mx, Ss[r * S::LDS + j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
+    // online softmax: a row's 64 scores sit in the eight kg lanes of its rg
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float r = s[i][0];
+#pragma unroll
+      for (int c = 1; c < 8; ++c) r = fmaxf(r, s[i][c]);
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 4));
+      // every tile has a key in range, so r is finite
+      const float mnew = fmaxf(mx[i], r * scale_log2);
+      const float alpha = ex2_ftz(mx[i] - mnew);
+      mx[i] = mnew;
       float sum = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = (kv0 + j < lk) ? exp2f(Ss[r * S::LDS + j] - m_new) : 0.f;
-        Ps[r * S::LDP + j] = from_float<T>(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
 #pragma unroll
-    for (int j = 0; j < S::OT; ++j) {
-      const int ti = warp + j * S::NW;
-      const int rt = ti / (D / 8), nt = ti % (D / 8);
-      const float al0 = a_s[rt * 16 + g], al1 = a_s[rt * 16 + g + 8];
-      acc[j][0] *= al0;
-      acc[j][1] *= al0;
-      acc[j][2] *= al1;
-      acc[j][3] *= al1;
-      mma_tile(acc[j], Ps + rt * 16 * S::LDP, S::LDP, Vt + nt * 8 * S::LDV, S::LDV, BK);
+      for (int c = 0; c < 8; ++c) {
+        s[i][c] = ex2_ftz(fmaf(s[i][c], scale_log2, -mnew));
+        sum += s[i][c];
+      }
+      den[i] = den[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float* dst = Pw + (kg + 8 * c) * FS_LDP + 8 * rg;
+      *reinterpret_cast<float4*>(dst) = make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+    }
+    cp_async_wait_all();  // V_j landed
+    __syncthreads();      // V_j and every warp's P for all; K_j is read everywhere
+    if (j + 1 < tiles) fs_load<FS_BK, FS_LD>(Ks, kb, (j + 1) * FS_BK, lk, ld);
+    cp_async_commit();
+
+    const float* pp = Pw + 8 * rg;
+    const float* vp = Vs + 4 * kg;
+#pragma unroll 4
+    for (int key = 0; key < FS_BK; ++key) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pp + key * FS_LDP);
+      const float4 p1 = *reinterpret_cast<const float4*>(pp + key * FS_LDP + 4);
+      const float4 v0 = *reinterpret_cast<const float4*>(vp + key * FS_LDV);
+      const float4 v1 = *reinterpret_cast<const float4*>(vp + key * FS_LDV + 32);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
 
+  float* ob = o + bi * lq * ld + hi * FS_D;
 #pragma unroll
-  for (int j = 0; j < S::OT; ++j) {
-    const int ti = warp + j * S::NW;
-    const int rt = ti / (D / 8), nt = ti % (D / 8);
-    const int r0 = rt * 16 + g, col = nt * 8 + 2 * t;
-    if (q0 + r0 < lq) {
-      const float inv = 1.f / l_s[r0];
-      T* dst = ob + size_t(q0 + r0) * ld + col;
-      dst[0] = from_float<T>(acc[j][0] * inv);
-      dst[1] = from_float<T>(acc[j][1] * inv);
-    }
-    if (q0 + r0 + 8 < lq) {
-      const float inv = 1.f / l_s[r0 + 8];
-      T* dst = ob + size_t(q0 + r0 + 8) * ld + col;
-      dst[0] = from_float<T>(acc[j][2] * inv);
-      dst[1] = from_float<T>(acc[j][3] * inv);
-    }
+  for (int i = 0; i < 8; ++i) {
+    float l = den[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int row = q0 + row0 + 4 * i;
+    if (row >= lq) continue;
+    const float inv = 1.f / l;
+    float* dst = ob + size_t(row) * ld + 4 * kg;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+    *reinterpret_cast<float4*>(dst + 32) =
+        make_float4(acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
   }
+  cp_async_wait_all();  // the last (empty) group
+}
+
+static int launch_flash_f32_d64(const void* q, const void* k, const void* v, void* o, int batch,
+                                int heads, int lq, int lk, float scale_log2,
+                                cudaStream_t stream) {
+  cudaError_t err = set_smem(flash_kernel_f32_d64, FS_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((lq + FS_BQ - 1) / FS_BQ, batch * heads);
+  flash_kernel_f32_d64<<<grid, FS_THREADS, FS_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lq, lk, heads, heads * FS_D, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- f32, D = 512: row-blocked on the FMA units ----
@@ -931,21 +991,6 @@ static int launch_flash_bf16_d512(const void* q, const void* k, const void* v, v
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int BQ, int BK>
-static int launch_flash(const void* q, const void* k, const void* v, void* o, int batch,
-                        int heads, int lq, int lk, float scale_log2, cudaStream_t stream) {
-  typedef FlashShape<T, D, BQ, BK> S;
-  const size_t smem = S::smem_bytes();
-  auto kernel = flash_kernel<T, D, BQ, BK>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((lq + BQ - 1) / BQ, batch * heads);
-  kernel<<<grid, 128, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), static_cast<T*>(o), lq, lk,
-                                      heads, heads * D, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // One dispatch over (dtype, d) for both layouts.  Only the f32 D=512 body
 // splits its keys; every other instance takes splits = 1.
 static int dispatch_flash(const void* q, const void* k, const void* v, void* o, int batch,
@@ -961,7 +1006,8 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
   if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && d == 64) return launch_flash_bf16_d64_wgmma(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 1 && d == 512) return launch_flash_bf16_d512(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
-  if (dtype == 0 && d == 64) return launch_flash<float, 64, 64, 64>(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 0 && d == 64)
+    return launch_flash_f32_d64(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

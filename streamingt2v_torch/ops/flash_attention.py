@@ -28,8 +28,11 @@ warp 64 of the 512 output columns.  f32 runs on the FMA units in full f32
 query rows, splits S's contraction over its eight warps and feeds its FMAs
 from register microtiles; where the row blocks would fill the SMs unevenly
 the wrapper splits the keys over blocks and the kernel merges them
-(``f32_d512_plan``).  f32 at D=64 (the f32 references) keeps the first,
-synchronous body.  Head dims below 64 are zero-padded to 64
+(``f32_d512_plan``).  At D=64 (the f32 references and the tiny configs) its
+body blocks 128 query rows, walks 64-key tiles with K and V copied by
+``cp.async`` under the products, and feeds its FMAs from 8 x 8 register
+microtiles (S and P V alike), two blocks an SM.  Head dims below 64 are
+zero-padded to 64
 (``pad_head_dim``), with the scale of the true head dim.  Each wrapper
 counts its launches (``launches``) and, apart, those of the bf16 D=512
 instance (``launches_d512``) and those in f32 (``launches_f32``).

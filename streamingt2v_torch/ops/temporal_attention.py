@@ -18,8 +18,11 @@ head-dim-64 body (every head of the main path) therefore keeps HBM busy: it
 copies groups of four pairs' frames as bf16 by 16-byte ``cp.async`` into one
 of two buffers while the other group's products run on the tensor cores
 (``mma.sync``; scores and probabilities in registers), and writes o in
-16-byte stores.  f32 and other head dims keep the first body, which stages
-keys and values as f32 and runs its products on the FMA units.
+16-byte stores.  f32 at every head dim and bf16 at the other head dims run
+the FMA body: one pair a group, copied by ``cp.async`` into one of two
+buffers while the other pair computes, its query rows split over four
+warps, S and P V in full f32 from register microtiles, the grid
+persistent.
 
 No gradient: the JAX package defines no VJP for its kernel (``jax.grad``
 through it fails to linearise the pallas_call), so on the card an input
@@ -38,10 +41,6 @@ from streamingt2v_torch.ops.attention import attention
 
 MAX_FRAMES = 64
 MAX_HEAD_DIM = 128
-# the first body: shared memory for the staged key and value rows of one block
-_SMEM_BUDGET = 96 * 1024
-_MAX_PAIRS = 8
-_WARPS = 8
 
 
 def fits_temporal_attention(frames_q: int, frames_kv: int, head_dim: int) -> bool:
@@ -62,12 +61,6 @@ def temporal_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     o = attention(to_time_major(q, frames_q), to_time_major(k, frames_kv),
                   to_time_major(v, frames_kv), num_heads=num_heads)
     return o.reshape(batch, s, frames_q, -1).transpose(1, 2).reshape(bt, s, hd)
-
-
-def _pairs_per_block(frames_kv: int, d: int) -> int:
-    per_pair = 4 * frames_kv * (2 * d + 1)
-    free = _SMEM_BUDGET - 4 * _WARPS * (d + MAX_FRAMES)
-    return max(1, min(_MAX_PAIRS, free // per_pair))
 
 
 def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -106,14 +99,16 @@ def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     out = torch.empty_like(q)
     rc = _native.library().st2v_temporal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, frames_q, frames_kv,
-        s * num_heads, d, _pairs_per_block(frames_kv, d), _native.DTYPE_CODE[q.dtype],
-        d ** -0.5 * math.log2(math.e), _native.stream_of(q))
+        s * num_heads, d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
+        _native.stream_of(q))
     _native.check(rc, "temporal_attention")
     fused_temporal_attention.launches += 1
+    fused_temporal_attention.launches_f32 += int(q.dtype == torch.float32)
     return out
 
 
 fused_temporal_attention.launches = 0
+fused_temporal_attention.launches_f32 = 0
 
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int,

@@ -319,22 +319,25 @@ def test_chip_smoke_f32_work_counts_at_the_decoder_widths(s, c):
 
 
 def test_chip_smoke_counts_f32_launches_apart():
-    """K1, K2 and K4 count their f32 launches apart: the launch reader adds
-    them (``<name>_f32``) only when asked, the reset zeroes them, and the
-    kernels line carries them as ``launches_f32`` on those three rows only."""
+    """K1, K2, K4 and K6 count their f32 launches apart: the launch reader
+    adds them (``<name>_f32``) only when asked, the reset zeroes them, and the
+    kernels line carries them as ``launches_f32`` on those four rows only."""
     from streamingt2v_torch.ops.flash_attention import flash_attention, flash_attention_packed
+    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
 
     flash_attention.launches_f32, flash_attention_packed.launches_f32 = 3, 5
     tc.temporal_conv.launches_f32 = 7
+    fused_temporal_attention.launches_f32 = 9
     got = chip_smoke._read_launches(f32=True)
     assert {k: got[k] for k in chip_smoke.F32_COUNTED} == {
-        "flash_attention_f32": 3, "flash_attention_packed_f32": 5, "temporal_conv_f32": 7}
+        "flash_attention_f32": 3, "flash_attention_packed_f32": 5, "temporal_conv_f32": 7,
+        "fused_temporal_attention_f32": 9}
     assert set(chip_smoke._read_launches()) == set(chip_smoke.KERNEL_META)
     lines = {line["name"]: line for line in chip_smoke.kernel_lines(
         {}, {**dict.fromkeys(chip_smoke.KERNEL_META, 1), **got},
         dict.fromkeys(chip_smoke.KERNEL_META, 0))}
     assert [n for n, line in lines.items() if "launches_f32" in line] == [
-        "flash_attention", "flash_attention_packed", "temporal_conv"]
+        "flash_attention", "flash_attention_packed", "temporal_conv", "fused_temporal_attention"]
     assert lines["temporal_conv"]["launches_f32"] == 7
     chip_smoke._reset_launches()
     assert not any(chip_smoke._read_launches(f32=True).values())

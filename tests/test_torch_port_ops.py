@@ -79,6 +79,7 @@ def test_flash_head_dims():
     (1, 200, 200, 2, 128),   # D=128 lane slices
     (2, 130, 7, 2, 64),
     (2, 77, 130, 1, 512),    # the SD VAE's one D=512 head, ragged q and kv lengths
+    (2, 129, 65, 3, 64),     # one row past the f32 D=64 body's 128-row block, one key past a tile
 ])
 def test_flash_attention_packed_plain_matches_pallas(b, lq, lk, h, d):
     rng = np.random.RandomState(8)
@@ -307,6 +308,12 @@ def test_group_norm_fused_route_matches_plain(shape, groups, act):
     (2, 1, 1, 30, 5, 64),      # one frame
     (1, 64, 64, 20, 3, 64),    # the gate's 64 frames
     (3, 20, 9, 37, 3, 64),     # frames_kv not a multiple of 16, pairs not of 4
+    (1, 64, 64, 9, 2, 32),     # the FMA body's head dims: 32 at the gate's 64 frames,
+    (2, 25, 11, 7, 3, 32),     # ... with a ragged frames_kv,
+    (1, 64, 41, 6, 2, 96),     # 96 (three column groups of 32),
+    (2, 17, 5, 5, 1, 96),
+    (1, 64, 64, 4, 1, 128),    # and 128, the gate's corner
+    (2, 38, 23, 5, 2, 128),
 ])
 def test_temporal_attention_plain_matches_pallas(b, tq, tkv, s, h, d):
     rng = np.random.RandomState(13)
