@@ -158,7 +158,11 @@ apm, samplers, train, enhance, product, loader and mesh phases
 ``train_launches`` and ``mesh_launches`` those phases' alone).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
-memory one call adds beyond its output (its G and LN(x) scratch); K6's adds
+memory one call adds beyond its output (its G and LN(x) scratch), and its
+f32 body at the FP32 rate: ``f32_*`` at level 0, ``f32_ms_level0/1/2``,
+``f32_share_level0/1/2``, ``f32_plain_ms_level0/1/2`` (and
+``f32_bound_ms_level*``) at the three widths, ``f32_stage2_ms``,
+``f32_stage2_share``, ``f32_stage2_plain_ms`` at stage 2's level 0; K6's adds
 ``stage1_ms``, ``stage1_library_ms`` and ``stage1_share`` at the stage-1
 level-0 geometry.  The flash D=512 instances (the VAE mid-block attention)
 have records of their own, ``flash_attention_d512`` at (8, 9216, 512) and
@@ -650,49 +654,71 @@ def check_k2(randn) -> dict:
 
 
 K3_LEVELS = ((460800, 320), (115200, 640), (28800, 1280))   # the stage-1 UNet widths
+K3_STAGE2 = (547200, 320)                                    # stage 2's level 0
+
+
+def _k3_operands(randn, n: int, c: int, dtype, ln: bool, res: bool) -> tuple:
+    """K3's operands at x (n, c), inner 4c, C_out = c: (args, kw, plain),
+    ``plain`` the plain version's call on them."""
+    import torch
+
+    from streamingt2v_torch.ops.fused_ff import geglu_ff_reference
+
+    f32, inner = torch.float32, 4 * c
+    x = randn(n, c, dtype=dtype)
+    w1 = randn(2 * inner, c, dtype=dtype, std=c ** -0.5)
+    b1 = randn(2 * inner, dtype=f32, std=0.1)
+    w2 = randn(c, inner, dtype=dtype, std=inner ** -0.5)
+    b2 = randn(c, dtype=f32, std=0.1)
+    lns = 1.0 + randn(c, dtype=f32, std=0.1) if ln else None
+    lnb = randn(c, dtype=f32, std=0.1) if ln else None
+    args = (x, w1, b1, w2, b2)
+    return (args, dict(ln_scale=lns, ln_bias=lnb, residual=res),
+            lambda: geglu_ff_reference(*args, lns, lnb, res))
 
 
 def check_k3(randn) -> dict:
     """K3 at the UNet widths (each timed beside its bound, with the peak
-    memory a call adds beyond its output: G and LN(x) of one chunk), at a
-    ragged shape and without LN or residual."""
+    memory a call adds beyond its output: G and LN(x) of one chunk), at
+    ragged shapes and without LN or residual; in f32 at the three stage-1
+    widths and stage 2's level 0, each timed beside its bound at the FP32
+    rate and its plain version, at ragged shapes, without LN or residual
+    and at a C_out above 1280."""
     import torch
 
-    from streamingt2v_torch.ops.fused_ff import chunk_size, geglu_ff, geglu_ff_reference
+    from streamingt2v_torch.ops.fused_ff import chunk_size, geglu_ff
 
     bf16, f32 = torch.bfloat16, torch.float32
     rec, errs, f32_rec = {}, [], {}
-    for n, c, dtype, ln_res, label in [(460800, 320, bf16, True, "unet level0"),
-                                       (115200, 640, bf16, True, "unet level1"),
-                                       (28800, 1280, bf16, True, "unet level2"),
-                                       (547200, 320, bf16, True, "i2vgen level0"),
-                                       (7200, 48, bf16, True, "ragged rows and width"),
-                                       (7200, 48, bf16, False, "ragged, no LN/residual"),
-                                       (115200, 640, bf16, False, "level1 no LN/residual"),
-                                       (4096, 320, f32, True, "f32"),
-                                       (4096, 320, f32, False, "f32 no LN/residual"),
-                                       (460800, 320, f32, True, "f32 unet level0 width")]:
+    for n, c, dtype, ln, res, label in [
+            (460800, 320, bf16, True, True, "unet level0"),
+            (115200, 640, bf16, True, True, "unet level1"),
+            (28800, 1280, bf16, True, True, "unet level2"),
+            (547200, 320, bf16, True, True, "i2vgen level0"),
+            (7200, 48, bf16, True, True, "ragged rows and width"),
+            (7200, 48, bf16, False, False, "ragged, no LN/residual"),
+            (115200, 640, bf16, False, False, "level1 no LN/residual"),
+            (4096, 320, f32, True, True, "f32"),
+            (4096, 320, f32, False, False, "f32 no LN/residual"),
+            (4099, 48, f32, True, True, "f32 ragged rows and width"),
+            (4099, 48, f32, False, True, "f32 ragged, residual without LN"),
+            (2050, 1536, f32, True, False, "f32 C_out 1536, LN without residual"),
+            *((n, c, f32, True, True, "f32 timed") for n, c in K3_LEVELS + (K3_STAGE2,))]:
         inner = 4 * c
-        x = randn(n, c, dtype=dtype)
-        w1 = randn(2 * inner, c, dtype=dtype, std=c ** -0.5)
-        b1 = randn(2 * inner, dtype=f32, std=0.1)
-        w2 = randn(c, inner, dtype=dtype, std=inner ** -0.5)
-        b2 = randn(c, dtype=f32, std=0.1)
-        lns = 1.0 + randn(c, dtype=f32, std=0.1)
-        lnb = randn(c, dtype=f32, std=0.1)
-        args = (x, w1, b1, w2, b2)
-        kw = dict(ln_scale=lns, ln_bias=lnb, residual=True) if ln_res else {}
+        args, kw, plain = _k3_operands(randn, n, c, dtype, ln, res)
         out = geglu_ff(*args, **kw)
-        ref = geglu_ff_reference(*args, *((lns, lnb, True) if ln_res else ()))
-        errs.append(_compare(f"K3 {label} x{(n, c)} inner {inner} {dtype}", out, ref,
+        errs.append(_compare(f"K3 {label} x{(n, c)} inner {inner} {dtype}", out, plain(),
                              _tol(dtype)))
-        if dtype == f32 and n == 460800:
-            f32_rec = _f32_record(lambda: geglu_ff(*args, **kw), None,
-                                  work_geglu(n, c, inner, elem=4),
-                                  plain=lambda: geglu_ff_reference(*args, lns, lnb, True))
-            f32_rec["f32_shape"] = [n, c, inner]
-            _f32_line(f"K3 time {(n, c, inner)} f32", f32_rec, "f32_", "")
-        elif ln_res and (n, c) in K3_LEVELS:
+        if label == "f32 timed":
+            r = _f32_record(lambda: geglu_ff(*args, **kw), None, work_geglu(n, c, inner, elem=4),
+                            prefix="", plain=plain)
+            key = "stage2" if (n, c) == K3_STAGE2 else f"level{K3_LEVELS.index((n, c))}"
+            for k in ("ms", "share", "plain_ms", "bound_ms"):
+                f32_rec["f32_stage2_" + k if key == "stage2" else f"f32_{k}_{key}"] = r[k]
+            if key == "level0":   # the f32 row's own keys
+                f32_rec.update({f"f32_{k}": v for k, v in r.items()}, f32_shape=[n, c, inner])
+            _f32_line(f"K3 time {(n, c, inner)} f32 ({key})", r, "", "")
+        elif ln and (n, c) in K3_LEVELS:
             level = K3_LEVELS.index((n, c))
             del out
             torch.cuda.synchronize()
@@ -709,12 +735,11 @@ def check_k3(randn) -> dict:
                     f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}; "
                     f"chunk {chunk_size(n, inner, c)} rows, scratch {extra / 2**20:.1f} MiB")
             if level == 0:
-                r["plain_ms"] = _time_ms(lambda: geglu_ff_reference(*args, lns, lnb, True),
-                                         reps=3)
+                r["plain_ms"] = _time_ms(plain, reps=3)
                 rec.update(r, library_ms=None, shape=[n, c, inner])
                 line += f", plain {r['plain_ms']:.3f} ms, no one-call yardstick"
             print(line, flush=True)
-        del x, out, ref
+        del args, kw, plain, out
     rec.update(f32_rec, max_abs_err=max(errs))
     return rec
 

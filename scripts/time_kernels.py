@@ -22,6 +22,9 @@ this one (run parent, change, change, parent in one call).  Kernels
         the bare one beside ``F.conv3d``;
   k3    GEGLU FF, x (n, C), inner 4C, LN and residual on, at ``chip_smoke``'s
         three stage-1 UNet widths and stage 2's level 0;
+  k3f32 the same in f32 (full f32, TF32 off), each beside its bound at the
+        FP32 rate and its plain version, then the device time of each kernel
+        of one call (``torch.profiler``: the LN statistics, up, down);
   k6    temporal attention at ``chip_smoke``'s timed geometries;
   d512  flash attention at D=512 (the VAE mid-block attention): K1 at
         (8, 9216, 512), K2 at (2, 14400, 1x512) and (4, 14400, 1x512);
@@ -41,11 +44,11 @@ this one (run parent, change, change, parent in one call).  Kernels
 
 Inputs from seed 0; ``chip_smoke``'s timer (CUDA events, median of
 ``--reps`` after one warm-up) and tolerances; each time beside its bound.
-The first call at each d64, k4, d512, k5, f32 and fma shape is checked against
-the plain version; k5 also prints the device time of each of its two passes
-(``torch.profiler``).  ``--no-check`` skips the fma shapes' checks, for
-timing a copy of the port whose kernels were cut down on purpose (an
-ablation: a phase of a body removed).
+The first call at each d64, k4, d512, k5, f32, fma and k3f32 shape is checked
+against the plain version; k5 also prints the device time of each of its two
+passes (``torch.profiler``).  ``--no-check`` skips the fma and k3f32 shapes'
+checks, for timing a copy of the port whose kernels were cut down on purpose
+(an ablation: a phase of a body removed).
 
 ``--budgets-mib`` times K3 instead for each G budget of its row chunk
 (``fused_ff.G_CHUNK_BYTES``, set for the run; 0 = all rows in one chunk),
@@ -64,17 +67,6 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def k3_operands(randn, n: int, c: int) -> tuple:
-    import torch
-
-    inner, f32 = 4 * c, torch.float32
-    x = randn(n, c)
-    w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, dtype=f32, std=0.1)
-    w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, dtype=f32, std=0.1)
-    lns, lnb = 1.0 + randn(c, dtype=f32, std=0.1), randn(c, dtype=f32, std=0.1)
-    return (x, w1, b1, w2, b2), dict(ln_scale=lns, ln_bias=lnb, residual=True)
-
-
 def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
     import torch
 
@@ -82,9 +74,9 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
 
     shipped = fused_ff.G_CHUNK_BYTES
     for n, c in shapes:
-        args, kw = k3_operands(randn, n, c)
+        args, kw, plain = chip_smoke._k3_operands(randn, n, c, torch.bfloat16, True, True)
         inner = 4 * c
-        ref = fused_ff.geglu_ff_reference(*args, kw["ln_scale"], kw["ln_bias"], True)
+        ref = plain()
         b = chip_smoke.bound(chip_smoke.work_geglu(n, c, inner))
         for mib in budgets:
             fused_ff.G_CHUNK_BYTES = (mib << 20) if mib else 2 * n * inner
@@ -103,11 +95,11 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
                   f"{extra / 2**20:.1f} MiB", flush=True)
         fused_ff.G_CHUNK_BYTES = shipped
         device_times(lambda: fused_ff.geglu_ff(*args, **kw), "shipped budget")
-        del args, ref
+        del args, kw, plain, ref
         torch.cuda.empty_cache()
 
 
-KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "f32", "fma")
+KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "f32", "fma", "k3f32")
 CHECK = True   # --no-check clears it
 
 
@@ -168,15 +160,36 @@ def time_k4(chip_smoke, randn, reps: int) -> None:
 
 
 def time_k3(chip_smoke, randn, reps: int) -> None:
+    import torch
+
     from streamingt2v_torch.ops.fused_ff import geglu_ff
 
-    for n, c in chip_smoke.K3_LEVELS + ((547200, 320),):   # + stage 2's level 0
-        operands, kw = k3_operands(randn, n, c)
+    for n, c in chip_smoke.K3_LEVELS + (chip_smoke.K3_STAGE2,):
+        operands, kw, _ = chip_smoke._k3_operands(randn, n, c, torch.bfloat16, True, True)
         ms = chip_smoke._time_ms(lambda: geglu_ff(*operands, **kw), reps=reps)
         b = chip_smoke.bound(chip_smoke.work_geglu(n, c, 4 * c))
         print(f"  K3 x{(n, c)} inner {4 * c} bf16: {ms:.3f} ms, bound {b['bound_ms']:.3f} ms, "
               f"share {b['bound_ms'] / ms:.3f}", flush=True)
-        del operands
+        del operands, kw
+
+
+def time_k3f32(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+
+    for n, c in chip_smoke.K3_LEVELS + (chip_smoke.K3_STAGE2,):
+        operands, kw, plain = chip_smoke._k3_operands(randn, n, c, torch.float32, True, True)
+        call = lambda: geglu_ff(*operands, **kw)  # noqa: E731
+        if CHECK:
+            chip_smoke._compare(f"f32 K3 {(n, c)}", call(), plain(), chip_smoke.TOL["f32"])
+        ms, plain_ms = chip_smoke._time_ms(call, reps=reps), chip_smoke._time_ms(plain, reps=3)
+        b = chip_smoke.bound(chip_smoke.work_geglu(n, c, 4 * c, elem=4), chip_smoke.PEAK_F32_FLOPS)
+        print(f"  f32 K3 x{(n, c)} inner {4 * c}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']}), share {b['bound_ms'] / ms:.3f}",
+              flush=True)
+        device_times(call, f"f32 K3 x{(n, c)}")
+        del operands, kw, plain
 
 
 def time_k6(chip_smoke, randn, reps: int) -> None:
@@ -357,7 +370,8 @@ def main() -> int:
     parser.add_argument("--kernels", default=",".join(KERNELS),
                         help="comma-separated subset of " + ",".join(KERNELS))
     parser.add_argument("--no-check", action="store_true",
-                        help="skip the fma shapes' checks against the plain versions")
+                        help="skip the fma and k3f32 shapes' checks against the plain "
+                             "versions")
     parser.add_argument("--budgets-mib", default="",
                         help="comma-separated K3 G budgets to sweep (this checkout's port)")
     args = parser.parse_args()
@@ -388,7 +402,7 @@ def main() -> int:
                       [int(b) for b in args.budgets_mib.split(",")], args.reps)
         return 0
     timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5,
-                  f32=time_f32, fma=time_fma)
+                  f32=time_f32, fma=time_fma, k3f32=time_k3f32)
     for name in kernels:
         timers[name](chip_smoke, randn, args.reps)
         torch.cuda.empty_cache()

@@ -1,24 +1,11 @@
 // Shared device helpers for the hand-written Hopper kernels.
 //
-// The last simple body (K3 in f32) computes its matrix products through
-// `mma_tile` (the other f32 bodies run their own register microtiles on the
-// FMA units): a warp multiplies a 16-row tile of A by an 8-column tile of B,
-// both held in shared memory, and accumulates into four f32 registers per
-// lane laid out as the accumulator of `mma.sync.m16n8k16`:
-//
-//   lane = 4*g + t holds C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]
-//
-// A is row-major with row stride `lda`; B is given transposed (Bt, one row per
-// output column, the contraction axis contiguous) with row stride `ldb`.
-// bf16 operands go to the tensor cores (mma.sync, f32 accumulation); f32
-// operands run the same tile on the FMA units in full f32 (no TF32), so a
-// kernel body is written once for both types.
-//
-// The pipelined kernels (the bf16 bodies of K1/K2 at D=64 and D=512, K3, K4
-// and K6 at D=64) hold their fragments in registers instead: `ldmatrix`
-// fills A and B fragments from shared memory (`.trans` for a B stored with
-// the contraction axis as rows), `mma_bf16` multiplies them, and
-// `cp_async_16` stages tiles into shared memory ahead of use.
+// The pipelined bf16 bodies (K1/K2 at D=64 and D=512, K3, K4, K6 at D=64)
+// hold their fragments in registers: `ldmatrix` fills A and B fragments from
+// shared memory (`.trans` for a B stored with the contraction axis as rows),
+// `mma_bf16` multiplies them, `wgmma` (below) multiplies tiles read from
+// shared memory, and `cp_async_16` stages tiles into shared memory ahead of
+// use.  The f32 bodies run their own register microtiles on the FMA units.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,15 +15,6 @@
 namespace st2v {
 
 typedef __nv_bfloat16 bf16;
-
-// Shared-memory rows are padded by 16 bytes so that the 8 row groups of a
-// fragment load fall into distinct banks.
-template <typename T> struct RowPad;
-template <> struct RowPad<float> { static constexpr int value = 4; };
-template <> struct RowPad<bf16> { static constexpr int value = 8; };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -99,40 +77,6 @@ __device__ __forceinline__ void cp_async_wait_group() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_tile(float c[4], const bf16* A, int lda,
-                                         const bf16* Bt, int ldb, int K) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* a_lo = A + g * lda + 2 * t;
-  const bf16* a_hi = a_lo + 8 * lda;
-  const bf16* b = Bt + g * ldb + 2 * t;
-  for (int k = 0; k < K; k += 16) {
-    const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(a_lo + k),
-                           *reinterpret_cast<const uint32_t*>(a_hi + k),
-                           *reinterpret_cast<const uint32_t*>(a_lo + k + 8),
-                           *reinterpret_cast<const uint32_t*>(a_hi + k + 8)};
-    mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(b + k),
-             *reinterpret_cast<const uint32_t*>(b + k + 8));
-  }
-}
-
-__device__ __forceinline__ void mma_tile(float c[4], const float* A, int lda,
-                                         const float* Bt, int ldb, int K) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* a_lo = A + g * lda;
-  const float* a_hi = a_lo + 8 * lda;
-  const float* b_lo = Bt + (2 * t) * ldb;
-  const float* b_hi = b_lo + ldb;
-  for (int k = 0; k < K; ++k) {
-    const float x0 = a_lo[k], x1 = a_hi[k], y0 = b_lo[k], y1 = b_hi[k];
-    c[0] = fmaf(x0, y0, c[0]);
-    c[1] = fmaf(x0, y1, c[1]);
-    c[2] = fmaf(x1, y0, c[2]);
-    c[3] = fmaf(x1, y1, c[3]);
-  }
 }
 
 // 2^x on the SFU, subnormal results flushed to zero

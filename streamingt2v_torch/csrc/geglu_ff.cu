@@ -10,8 +10,9 @@
 // "transposed B" for a row-major product.
 //
 // What bounds it on the H100: the two products, 2*N*C*2*inner +
-// 2*N*inner*C_out flops on the tensor cores (1.13 TFLOP at every UNet level
-// of stage 1, 1.145 ms at the bf16 peak).
+// 2*N*inner*C_out flops (1.13 TFLOP at every UNet level of stage 1), on the
+// tensor cores in bf16 (1.145 ms at the bf16 peak) and on the FMA units in
+// f32 (16.9 ms at the FP32 rate).
 //
 // The bf16 body: three kernels over a chunk of rows, two of them one tiled
 // GEMM core.  A fused design has to hold a (rows x C_out) f32 accumulator on
@@ -47,9 +48,11 @@
 // wrapper allocates for one chunk of rows, whole waves of the down pass; the
 // wrapper (ops/fused_ff.py) makes the chunk plan and picks the down tile.
 //
-// The f32 instance keeps the first, fused body: one block owns BN rows,
-// normalises them once into shared memory, walks the inner axis in tiles and
-// accumulates the output in f32 registers (FMA units, full f32).
+// The f32 body has the same shape on the FMA units (below): the LN
+// statistics, then two passes of one tiled FMA GEMM core.  It replaced the
+// first, fused body (a block of 64, 32 or 16 rows holding its whole output
+// row in registers, 2 x 2 microtiles fed by scalar shared loads, W1 and W2
+// streamed from L2 once per block; PERF.md).
 #include "common.cuh"
 
 namespace st2v {
@@ -378,199 +381,298 @@ static int geglu_bf16_chunk(const bf16* x, const bf16* w1, const float* b1, cons
                           : launch_gemm<false, 0, 64>(down, sms, s);
 }
 
-// ---- f32: the first, fused body ----
-constexpr int FF_THREADS = 256;
-constexpr int FF_WARPS = FF_THREADS / 32;
-constexpr int FF_KC = 64;     // C chunk of the first product
-constexpr int FF_MAXT = 20;   // output tiles per warp (80 accumulator registers)
+// ---- f32: LN statistics, then two passes of one tiled FMA GEMM core ----
+//
+// Full f32 on the FMA units (no TF32), so bound by the FP32 rate: 24 n C^2
+// flops at inner = 4C against 4 bytes an element.  A tile is GT_BM rows x
+// GT_BN columns, 256 threads, each an 8 x 8 register microtile (rows 4 ty ..
+// 4 ty + 3 and 64 + 4 ty .., columns 4 tx .. and 64 + 4 tx .., so that the
+// eight column groups a warp reads lie in 128 consecutive bytes).  Both
+// operands are stored with the contraction axis as rows, A as [k][row] and B
+// as [k][column], so a thread's 8 + 8 fragment values of a k are four 128-bit
+// shared loads feeding 64 FMAs: 1 byte loaded a FMA, what shared memory
+// feeds at the FMA rate.  B arrives by `cp.async` from the wrapper's k-major
+// repack; A is row-major in HBM (x or G), so it goes through registers in
+// 128-bit loads (four k of one row) and is stored transposed.  Two buffers:
+// the next step's B copies and A loads are in flight under this step's FMAs,
+// one barrier a step; two blocks an SM (at most 128 registers a thread).
+// Larger lane tiles (8 x 16 and 16 x 8, 0.75 bytes a FMA, one block an SM)
+// ran only 1-2% faster on the H100 and were not kept (PERF.md).
+//   - `geglu_stats_kernel` (with LN): one warp a row, the mean and rstd in
+//     one sweep (8 bytes a row); the up pass normalises A while it stages it
+//     through registers, once per staged element (C / 16 times per element
+//     of x at inner = 4C: 3 instructions against every 128 FMAs), which
+//     saves the round trip of an f32 LN(x) scratch (1.18 GB at stage 1's
+//     level 0);
+//   - pass "up" (`geglu_f32_gemm_kernel<true>`): A = x (LN applied), B = W1
+//     repacked as (C, 2 * inner64), each 128 columns 64 of W1's a slab then
+//     the matching 64 of its b slab (zero past inner), so a lane's columns
+//     j < 4 are a and j >= 4 b of the same four G columns; the epilogue adds
+//     b1, computes a * gelu_erf(b) in f32 (`erff`) and stores G in f32, 128
+//     bits at a time;
+//   - pass "down" (`geglu_f32_gemm_kernel<false>`): A = G, B = W2^T (inner,
+//     C_out); the epilogue adds b2 (and x) and stores 128 bits at a time.
+//     The column tile is 128 and the ragged last tile is computed whole, its
+//     absent columns zero-filled and not stored: at C_out = 320 the third
+//     tile is half empty (the down pass does 1/3 of the flops, so 6.7% more
+//     FMAs in all); 640 and 1280 divide.
+// G is f32 scratch of one chunk of rows (whole waves of the down pass, at most
+// `G_CHUNK_BYTES`), as in bf16.  Zero fill covers the ragged rows, the K tail
+// and the absent columns.
+constexpr int GT_THREADS = 256;
+constexpr int GT_BM = 128;            // tile rows
+constexpr int GT_BN = 128;            // tile columns (up: 64 a + 64 b, i.e. 64 G columns)
+constexpr int GT_BK = 16;             // contraction a step
+constexpr int GT_LDA = GT_BM + 4;     // A rows: the transposed stores of 8 neighbouring
+                                      // rows x 4 k fall 2-way at most
+constexpr int GT_LDB = GT_BN;         // B rows: every lane of a load reads one row
+constexpr int GT_BLOCKS = 2;          // blocks an SM: at most 128 registers a thread
+constexpr size_t GT_SMEM = sizeof(float) * 2 * (size_t(GT_BK) * GT_LDA + size_t(GT_BK) * GT_LDB);
+static_assert(GT_BLOCKS * (GT_SMEM + 1024) <= 233472, "two blocks' shared memory per SM");
+static_assert(GT_BM == GW_BM, "the chunk plan counts one tile height (ROW_TILE)");
 
-template <typename T, int BI>
-struct FFLayout {
-  static constexpr int P = RowPad<T>::value;
-  static constexpr int LDW1 = FF_KC + P;
-  static constexpr int LDH = 2 * BI + 4;
-  static constexpr int LDG = BI + P;
-  static constexpr int LDW2 = BI + P;
-  static size_t smem_bytes(int bn, int c, int c_out) {
-    return sizeof(T) * (size_t(bn) * (c + P) + size_t(2 * BI) * LDW1 + size_t(bn) * LDG +
-                        size_t(c_out) * LDW2) +
-           sizeof(float) * size_t(bn) * LDH;
-  }
+struct GemmF32Args {
+  const float* a;          // up: x chunk (rows, k = C); down: G (rows, k = inner)
+  const float2* stats;     // up with LN: (mean, rstd) a row; else null
+  const float* ln_scale;   // up with LN: (C,)
+  const float* ln_bias;
+  const float* b;          // up: W1 repacked (C, ldb = 2 * inner64); down: W2^T (inner, ldb = C_out)
+  const float* bias;       // up: b1 (2 * inner); down: b2 (C_out)
+  const float* res;        // down: x chunk for the residual, or null
+  float* out;              // up: G (rows, inner); down: out chunk (rows, C_out)
+  int rows, k, ldb, n, inner;  // n: valid output columns (up: inner; down: C_out)
 };
 
-template <typename T, int BN, int BI>
-__global__ void __launch_bounds__(FF_THREADS)
-geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __restrict__ b1,
-             const T* __restrict__ w2, const float* __restrict__ b2,
-             const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-             T* __restrict__ out, int n, int c, int inner, int c_out, int residual) {
-  typedef FFLayout<T, BI> L;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int H_TILES = (BN / 16) * (2 * BI / 8);
-  constexpr int H_PER = (H_TILES + FF_WARPS - 1) / FF_WARPS;
-  const int ldx = c + L::P;
+// One warp a row: mean and rstd of x in one sweep (one-pass statistics
+// clamped at 0, eps 1e-5).
+__global__ void __launch_bounds__(GF_THREADS)
+geglu_stats_kernel(const float* __restrict__ x, float2* __restrict__ stats, int n, int c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (GF_THREADS / 32) + warp;
+  if (row >= n) return;
+  const float* xr = x + size_t(row) * c;
+  float s1 = 0.f, s2 = 0.f;
+  for (int col = lane * 4; col < c; col += 128) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(xr + col));
+    s1 += (v.x + v.y) + (v.z + v.w);
+    s2 = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, s2))));
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  const float mean = s1 / c;
+  if (lane == 0)
+    stats[row] = make_float2(mean, rsqrtf(fmaxf(s2 / c - mean * mean, 0.f) + 1e-5f));
+}
+
+// A block is one tile (column blocks fastest, so the blocks at work share
+// their rows of A in L2).
+template <bool UP>
+__global__ void __launch_bounds__(GT_THREADS, GT_BLOCKS)
+geglu_f32_gemm_kernel(const GemmF32Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Xs = reinterpret_cast<T*>(smem_raw);
-  T* W1s = Xs + BN * ldx;
-  T* Gs = W1s + 2 * BI * L::LDW1;
-  T* W2s = Gs + BN * L::LDG;
-  float* Hs = reinterpret_cast<float*>(W2s + c_out * L::LDW2);
+  float* As = reinterpret_cast<float*>(smem_raw);  // [2][GT_BK][GT_LDA]
+  float* Bs = As + 2 * GT_BK * GT_LDA;             // [2][GT_BK][GT_LDB]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BN;
+  const int tx = (warp & 1) * 8 + (lane & 7);   // column group, 0..15
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // row group, 0..15
+  const int col_blocks = (p.ldb + GT_BN - 1) / GT_BN;
+  const int row0 = (blockIdx.x / col_blocks) * GT_BM;
+  const int col0 = (blockIdx.x % col_blocks) * GT_BN;  // B's first column
+  const int steps = (p.k + GT_BK - 1) / GT_BK;
 
-  for (int i = tid; i < BN * (c / VEC); i += FF_THREADS) {
-    const int r = i / (c / VEC), cc = (i % (c / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(x + size_t(row0 + r) * c + cc);
-    *reinterpret_cast<uint4*>(Xs + r * ldx + cc) = val;
+  // A staging: thread i's two float4 are rows i / 4 and 64 + i / 4, k
+  // 4 (i % 4) .. of the step's 16
+  const int xc = (tid & 3) * 4, xs = tid >> 2;
+  const bool rin0 = row0 + xs < p.rows, rin1 = row0 + xs + 64 < p.rows;
+  const float* a_src = p.a + size_t(row0 + xs) * p.k + xc;
+  const size_t a_half = size_t(64) * p.k;  // rows xs + 64
+  const bool ln = UP && p.stats != nullptr;
+  float2 st0 = make_float2(0.f, 0.f), st1 = st0;
+  if (ln) {
+    if (rin0) st0 = p.stats[row0 + xs];
+    if (rin1) st1 = p.stats[row0 + xs + 64];
   }
+  float4 xr0, xr1;
+  auto load_a = [&](int step) {
+    const bool kin = step * GT_BK + xc < p.k;
+    const float* src = a_src + step * GT_BK;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    xr0 = rin0 && kin ? __ldg(reinterpret_cast<const float4*>(src)) : zero;
+    xr1 = rin1 && kin ? __ldg(reinterpret_cast<const float4*>(src + a_half)) : zero;
+  };
+  auto store_a = [&](int step, int buf) {
+    const int kc = step * GT_BK + xc;
+    if (ln && kc < p.k) {  // rows past the chunk stay zero
+      const float4 s = __ldg(reinterpret_cast<const float4*>(p.ln_scale + kc));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(p.ln_bias + kc));
+      if (rin0) {
+        xr0.x = fmaf((xr0.x - st0.x) * st0.y, s.x, b.x);
+        xr0.y = fmaf((xr0.y - st0.x) * st0.y, s.y, b.y);
+        xr0.z = fmaf((xr0.z - st0.x) * st0.y, s.z, b.z);
+        xr0.w = fmaf((xr0.w - st0.x) * st0.y, s.w, b.w);
+      }
+      if (rin1) {
+        xr1.x = fmaf((xr1.x - st1.x) * st1.y, s.x, b.x);
+        xr1.y = fmaf((xr1.y - st1.x) * st1.y, s.y, b.y);
+        xr1.z = fmaf((xr1.z - st1.x) * st1.y, s.z, b.z);
+        xr1.w = fmaf((xr1.w - st1.x) * st1.y, s.w, b.w);
+      }
+    }
+    float* d = As + buf * GT_BK * GT_LDA + xc * GT_LDA + xs;
+    d[0] = xr0.x;
+    d[GT_LDA] = xr0.y;
+    d[2 * GT_LDA] = xr0.z;
+    d[3 * GT_LDA] = xr0.w;
+    d[64] = xr1.x;
+    d[64 + GT_LDA] = xr1.y;
+    d[64 + 2 * GT_LDA] = xr1.z;
+    d[64 + 3 * GT_LDA] = xr1.w;
+  };
+  // B staging: thread i copies k rows i / 32 and 8 + i / 32, columns 4 (i % 32) ..
+  const int wrow = tid >> 5, wcol = (tid & 31) * 4;
+  const bool cin = col0 + wcol < p.ldb;  // ldb % 4 == 0: a group is whole or absent
+  const float* b_src = p.b + size_t(wrow) * p.ldb + col0 + wcol;
+  auto load_b = [&](int step, int buf) {
+    float* d = Bs + buf * GT_BK * GT_LDB + wrow * GT_LDB + wcol;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = step * GT_BK + wrow + 8 * r;
+      const bool ok = cin && kr < p.k;
+      cp_async_16(d + 8 * r * GT_LDB, ok ? b_src + size_t(step * GT_BK + 8 * r) * p.ldb : p.b,
+                  ok);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load_b(0, 0);
+  cp_async_commit();
+  load_a(0);
+  store_a(0, 0);
+  cp_async_wait_all();
   __syncthreads();
-  if (ln_scale != nullptr) {
-    for (int r = warp; r < BN; r += FF_WARPS) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int j = lane; j < c; j += 32) {
-        const float xv = to_float(Xs[r * ldx + j]);
-        s1 += xv;
-        s2 += xv * xv;
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      const float mean = s1 / c;
-      const float var = fmaxf(s2 / c - mean * mean, 0.f);
-      const float inv = rsqrtf(var + 1e-5f);
-      for (int j = lane; j < c; j += 32) {
-        const float xv = to_float(Xs[r * ldx + j]);
-        Xs[r * ldx + j] = from_float<T>((xv - mean) * inv * ln_scale[j] + ln_bias[j]);
-      }
+  for (int step = 0; step < steps; ++step) {
+    const int buf = step & 1;
+    const bool more = step + 1 < steps;
+    if (more) {  // the other buffers were last read before the previous barrier
+      load_b(step + 1, buf ^ 1);
+      cp_async_commit();
+      load_a(step + 1);
     }
+    const float* A = As + buf * GT_BK * GT_LDA + 4 * ty;
+    const float* B = Bs + buf * GT_BK * GT_LDB + 4 * tx;
+#pragma unroll
+    for (int kk = 0; kk < GT_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + kk * GT_LDA);
+      const float4 a1 = *reinterpret_cast<const float4*>(A + kk * GT_LDA + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(B + kk * GT_LDB);
+      const float4 b1 = *reinterpret_cast<const float4*>(B + kk * GT_LDB + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) store_a(step + 1, buf ^ 1);
+    cp_async_wait_all();
+    __syncthreads();
   }
 
-  const int acc_tiles = (BN / 16) * (c_out / 8);
-  float acc[FF_MAXT][4];
+  // row i of the microtile: 4 ty + (i & 3) + 64 (i >> 2)
+  if constexpr (UP) {
+    // columns j < 4 are a and j >= 4 b of G columns gc .. gc + 3
+    const int gc = col0 / 2 + 4 * tx;
+    if (gc >= p.n) return;  // inner % 4 == 0: a group is whole or absent
+    const float4 ba = __ldg(reinterpret_cast<const float4*>(p.bias + gc));
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(p.bias + p.inner + gc));
 #pragma unroll
-  for (int j = 0; j < FF_MAXT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int i0 = 0; i0 < inner; i0 += BI) {
-    float h[H_PER][4];
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+      if (row >= p.rows) continue;
+      *reinterpret_cast<float4*>(p.out + size_t(row) * p.n + gc) =
+          make_float4(geglu(acc[i][0] + ba.x, acc[i][4] + bb.x),
+                      geglu(acc[i][1] + ba.y, acc[i][5] + bb.y),
+                      geglu(acc[i][2] + ba.z, acc[i][6] + bb.z),
+                      geglu(acc[i][3] + ba.w, acc[i][7] + bb.w));
+    }
+  } else {
 #pragma unroll
-    for (int j = 0; j < H_PER; ++j) h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
-    for (int kc = 0; kc < c; kc += FF_KC) {
-      const int kw = min(FF_KC, c - kc);
-      __syncthreads();  // W1s (and, on the first chunk, Xs/Gs/W2s) are free
-      for (int i = tid; i < 2 * BI * (kw / VEC); i += FF_THREADS) {
-        const int r = i / (kw / VEC), cc = (i % (kw / VEC)) * VEC;
-        const int src = r < BI ? i0 + r : inner + i0 + (r - BI);
-        *reinterpret_cast<uint4*>(W1s + r * L::LDW1 + cc) =
-            *reinterpret_cast<const uint4*>(w1 + size_t(src) * c + kc + cc);
-      }
-      __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      const int co = col0 + 4 * tx + 64 * h;
+      if (co >= p.n) continue;  // C_out % 4 == 0: a group is whole or absent
+      const float4 bv = __ldg(reinterpret_cast<const float4*>(p.bias + co));
 #pragma unroll
-      for (int j = 0; j < H_PER; ++j) {
-        const int ti = warp + j * FF_WARPS;
-        if (ti < H_TILES) {
-          const int rt = ti / (2 * BI / 8), nt = ti % (2 * BI / 8);
-          mma_tile(h[j], Xs + rt * 16 * ldx + kc, ldx, W1s + nt * 8 * L::LDW1, L::LDW1, kw);
+      for (int i = 0; i < 8; ++i) {
+        const int row = row0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+        if (row >= p.rows) continue;
+        const size_t idx = size_t(row) * p.n + co;
+        float4 y = make_float4(acc[i][4 * h] + bv.x, acc[i][4 * h + 1] + bv.y,
+                               acc[i][4 * h + 2] + bv.z, acc[i][4 * h + 3] + bv.w);
+        if (p.res != nullptr) {
+          const float4 r = __ldg(reinterpret_cast<const float4*>(p.res + idx));
+          y.x += r.x;
+          y.y += r.y;
+          y.z += r.z;
+          y.w += r.w;
         }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < H_PER; ++j) {
-      const int ti = warp + j * FF_WARPS;
-      if (ti < H_TILES) {
-        const int rt = ti / (2 * BI / 8), nt = ti % (2 * BI / 8);
-        float* hrow = Hs + (rt * 16 + g) * L::LDH + nt * 8 + 2 * t;
-        hrow[0] = h[j][0];
-        hrow[1] = h[j][1];
-        hrow[8 * L::LDH] = h[j][2];
-        hrow[8 * L::LDH + 1] = h[j][3];
-      }
-    }
-    for (int i = tid; i < c_out * (BI / VEC); i += FF_THREADS) {
-      const int r = i / (BI / VEC), cc = (i % (BI / VEC)) * VEC;
-      *reinterpret_cast<uint4*>(W2s + r * L::LDW2 + cc) =
-          *reinterpret_cast<const uint4*>(w2 + size_t(r) * inner + i0 + cc);
-    }
-    __syncthreads();
-    for (int i = tid; i < BN * BI; i += FF_THREADS) {
-      const int r = i / BI, j = i % BI;
-      const float a = Hs[r * L::LDH + j] + b1[i0 + j];
-      const float b = Hs[r * L::LDH + BI + j] + b1[inner + i0 + j];
-      Gs[r * L::LDG + j] = from_float<T>(geglu(a, b));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < FF_MAXT; ++j) {
-      const int ti = warp + j * FF_WARPS;
-      if (ti < acc_tiles) {
-        const int rt = ti / (c_out / 8), nt = ti % (c_out / 8);
-        mma_tile(acc[j], Gs + rt * 16 * L::LDG, L::LDG, W2s + nt * 8 * L::LDW2, L::LDW2, BI);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < FF_MAXT; ++j) {
-    const int ti = warp + j * FF_WARPS;
-    if (ti < acc_tiles) {
-      const int rt = ti / (c_out / 8), nt = ti % (c_out / 8);
-      const int col = nt * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + rt * 16 + g + 8 * half;
-        if (row < n) {
-          float v0 = acc[j][2 * half] + b2[col];
-          float v1 = acc[j][2 * half + 1] + b2[col + 1];
-          if (residual) {
-            v0 += to_float(x[size_t(row) * c + col]);
-            v1 += to_float(x[size_t(row) * c + col + 1]);
-          }
-          out[size_t(row) * c_out + col] = from_float<T>(v0);
-          out[size_t(row) * c_out + col + 1] = from_float<T>(v1);
-        }
+        *reinterpret_cast<float4*>(p.out + idx) = y;
       }
     }
   }
 }
 
-template <int BN>
-static int launch_geglu_f32(const void* x, const void* w1, const float* b1, const void* w2,
-                            const float* b2, const float* lns, const float* lnb, void* out,
-                            int n, int c, int inner, int c_out, int residual,
-                            cudaStream_t stream) {
-  constexpr int BI = 16;
-  const size_t smem = FFLayout<float, BI>::smem_bytes(BN, c, c_out);
-  auto kernel = geglu_kernel<float, BN, BI>;
-  cudaError_t err = set_smem(kernel, smem);
+template <bool UP>
+static int launch_gemm_f32(const GemmF32Args& p, cudaStream_t stream) {
+  auto kernel = geglu_f32_gemm_kernel<UP>;
+  cudaError_t err = set_smem(kernel, GT_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(n + BN - 1) / BN, FF_THREADS, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1), b1,
-      static_cast<const float*>(w2), b2, lns, lnb, static_cast<float*>(out), n, c, inner, c_out,
-      residual);
+  const long long tiles = static_cast<long long>((p.ldb + GT_BN - 1) / GT_BN) *
+                          ((p.rows + GT_BM - 1) / GT_BM);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(tiles), GT_THREADS, GT_SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows per block for a given output width: the largest of 64/32/16 whose
-// accumulator tiles fit FF_MAXT per warp; 0 when none does.
-static int block_rows(int c_out) {
-  const int bns[3] = {64, 32, 16};
-  for (int i = 0; i < 3; ++i) {
-    const int tiles = (bns[i] / 16) * (c_out / 8);
-    if ((tiles + FF_WARPS - 1) / FF_WARPS <= FF_MAXT) return bns[i];
+// One chunk of rows: the LN statistics (with ln_scale), up, down.  w1p is W1
+// repacked (C, 2 * inner64) and w2t W2^T (inner, C_out), both by the wrapper.
+static int geglu_f32_chunk(const float* x, const float* w1p, const float* b1, const float* w2t,
+                           const float* b2, const float* lns, const float* lnb, float* out,
+                           float* g_buf, float2* stats, int rows, int c, int inner, int c_out,
+                           int residual, cudaStream_t s) {
+  if (lns != nullptr) {
+    geglu_stats_kernel<<<(rows + GF_THREADS / 32 - 1) / (GF_THREADS / 32), GF_THREADS, 0, s>>>(
+        x, stats, rows, c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  const int ldb1 = 2 * ((inner + 63) / 64 * 64);
+  GemmF32Args up{x, lns != nullptr ? stats : nullptr, lns, lnb, w1p, b1, nullptr, g_buf,
+                 rows, c, ldb1, inner, inner};
+  const int rc = launch_gemm_f32<true>(up, s);
+  if (rc != 0) return rc;
+  GemmF32Args down{g_buf, nullptr, nullptr, nullptr, w2t, b2, residual ? x : nullptr, out,
+                   rows, inner, c_out, c_out, inner};
+  return launch_gemm_f32<false>(down, s);
 }
 
 }  // namespace st2v
 
 // One chunk of n rows: x (n, C), out (n, C_out).  dtype: 0 = float32, 1 =
-// bfloat16.  Requires C % 16 == 0, C_out % 8 == 0 and inner % 32 == 0, and
-// for f32 C_out <= 1280; ln_scale/ln_bias may be null (no LayerNorm).  bf16
-// only: g_scratch holds (n, inner) and ln_scratch (n, C) bf16 (LN only),
-// both 16-byte aligned like x, the weights, b1 and out; down_cols (320 or
-// 64) is the down pass's output columns per block and sms the up pass's grid
-// cap (both unused in f32).  Returns a cudaError_t (0 = launched).
+// bfloat16.  Requires C % 16 == 0, C_out % 8 == 0 and inner % 32 == 0;
+// ln_scale/ln_bias may be null (no LayerNorm).  g_scratch holds G (n, inner)
+// in x's dtype; all pointers 16-byte aligned.  bf16: w1 (2*inner, C) and w2
+// (C_out, inner) as torch's Linear holds them, ln_scratch (n, C) bf16 for
+// LN(x) (LN only), down_cols (320 or 64) the down pass's output columns per
+// block and sms the up pass's grid cap.  f32: w1 repacked (C, 2*inner64)
+// and w2 as W2^T (inner, C_out) (`fused_ff.f32_operands`), ln_scratch (n, 2)
+// f32 for each row's mean and rstd (LN only); down_cols and sms unused.
+// Returns a cudaError_t (0 = launched).
 extern "C" int st2v_geglu_ff(const void* x, const void* w1, const float* b1, const void* w2,
                              const float* b2, const float* ln_scale, const float* ln_bias,
                              void* out, void* g_scratch, void* ln_scratch, int n, int c,
@@ -578,21 +680,18 @@ extern "C" int st2v_geglu_ff(const void* x, const void* w1, const float* b1, con
                              int sms, void* stream) {
   using namespace st2v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || c % 16 || c_out % 8 || inner % 32 || c <= 0 || c_out <= 0 || inner <= 0)
+  if (n <= 0 || c % 16 || c_out % 8 || inner % 32 || c <= 0 || c_out <= 0 || inner <= 0 ||
+      g_scratch == nullptr || (ln_scale != nullptr && (ln_bias == nullptr || ln_scratch == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    if (g_scratch == nullptr || (ln_scale != nullptr && ln_scratch == nullptr))
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1)
     return geglu_bf16_chunk(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
                             static_cast<const bf16*>(w2), b2, ln_scale, ln_bias,
                             static_cast<bf16*>(out), static_cast<bf16*>(g_scratch),
                             static_cast<bf16*>(ln_scratch), n, c, inner, c_out, residual,
                             down_cols, sms, s);
-  }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bn = block_rows(c_out);
-  if (bn == 64) return launch_geglu_f32<64>(x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
-  if (bn == 32) return launch_geglu_f32<32>(x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
-  if (bn == 16) return launch_geglu_f32<16>(x, w1, b1, w2, b2, ln_scale, ln_bias, out, n, c, inner, c_out, residual, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return geglu_f32_chunk(static_cast<const float*>(x), static_cast<const float*>(w1), b1,
+                         static_cast<const float*>(w2), b2, ln_scale, ln_bias,
+                         static_cast<float*>(out), static_cast<float*>(g_scratch),
+                         static_cast<float2*>(ln_scratch), n, c, inner, c_out, residual, s);
 }

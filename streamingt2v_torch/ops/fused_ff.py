@@ -6,20 +6,26 @@ fused_ff.py:65``, launched from ``_geglu_pallas:247``) with the
 hand-written CUDA kernels in ``csrc/geglu_ff.cu``.
 
 What bounds it on the H100: the two products (2*N*C*2*inner +
-2*N*inner*C_out flops) on the tensor cores.  A fused kernel that keeps the
-(rows, C_out) output accumulator on chip fits only 16 rows per block at
-C_out = 1280, and then streams all of W1 and W2 from L2 once per 16 rows.
-The bf16 path therefore runs, over chunks of rows (``chunk_plan``), LN(x)
-in bf16 (one kernel, once per element) and two passes of one tiled ``wgmma``
-GEMM core: pass "up" writes G = a * gelu(b) (GEGLU in the epilogue, G
-rounded to bf16 as the Pallas kernel rounds g to the input dtype), pass
-"down" computes G W2 + b2 (+ x).  G and LN(x) live in scratch buffers of
-one chunk (``G_CHUNK_BYTES``), sized in whole waves of the down pass so that
-no pass ends on a part-filled card.  This module makes the plan (rows per
-chunk, the down pass's tile width ``down_cols``, the SM count that caps the
-persistent up pass) and hands it to the C entry, which launches as told.
-The f32 path keeps the first, fused kernel (output widths up to
-``MAX_C_OUT_F32``).
+2*N*inner*C_out flops), on the tensor cores in bf16 and on the FMA units in
+f32.  A fused kernel that keeps the (rows, C_out) output accumulator on
+chip fits only 16 rows per block at C_out = 1280, and then streams all of
+W1 and W2 from L2 once per 16 rows.  Both dtypes therefore run, over chunks
+of rows (``chunk_plan``), an LN step and two passes of one tiled GEMM core:
+pass "up" writes G = a * gelu(b) (GEGLU in the epilogue), pass "down"
+computes G W2 + b2 (+ x).  G lives in a scratch buffer of one chunk
+(``G_CHUNK_BYTES``), sized in whole waves of the down pass so that no pass
+ends on a part-filled card.
+
+- bf16: LN(x) in bf16 (one kernel, once per element, into a scratch of one
+  chunk), the core on ``wgmma``; G rounded to bf16 as the Pallas kernel
+  rounds g to the input dtype.  This module makes the plan (rows per chunk,
+  the down pass's tile width ``down_cols``, the SM count that caps the
+  persistent up pass) and hands it to the C entry, which launches as told.
+- f32 (full f32, TF32 off): each row's LN mean and rstd (8 bytes a row),
+  applied by the up pass as it stages x; the core on the FMA units, 128 x
+  128 tiles of 8 x 8 register microtiles, the weights repacked k-major
+  once a call (``f32_operands``); G in f32.  It takes every width bf16
+  takes.
 
 Weights come in the PyTorch Linear layout: ``w1`` (2*inner, C) holding
 [a | b] and ``w2`` (C_out, inner).
@@ -42,16 +48,17 @@ import torch.nn.functional as F
 from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES, chunked_vjp
 
-# widest output the f32 kernel's register accumulator takes (16 rows x 1280)
-MAX_C_OUT_F32 = 1280
-# G (rows x inner bf16) of one chunk of rows stays within this budget, or
+# G (rows x inner, in x's dtype) of one chunk of rows stays within this budget, or
 # holds one wave of the down pass where that is more (``chunk_size``).  Not
 # sized for L2: on the H100 each chunk's launches and their tails cost more
 # than reading G back from HBM (PERF.md, ``scripts/time_kernels.py
 # --budgets-mib``).
 G_CHUNK_BYTES = 192 << 20
-# rows of a tile of the GEMM core (``GW_BM`` in geglu_ff.cu)
+# rows of a tile of the GEMM cores (``GW_BM`` and ``GT_BM`` in geglu_ff.cu)
 ROW_TILE = 128
+# the f32 core's tile columns and blocks an SM (``GT_BN``, ``GT_BLOCKS``)
+F32_COLS = 128
+F32_BLOCKS = 2
 
 
 def _layer_norm(x: torch.Tensor, ln_scale, ln_bias) -> torch.Tensor:
@@ -95,12 +102,29 @@ def down_cols(c_out: int) -> int:
     return 320 if c_out % 320 == 0 else 64
 
 
-def chunk_size(n: int, inner: int, c_out: int, sms: int = 132) -> int:
+def chunk_size(n: int, inner: int, c_out: int, sms: int = 132, elem: int = 2) -> int:
     """Rows per chunk: whole waves of the down pass (as many ``ROW_TILE``-row
-    tiles as fill ``sms`` SMs at one block each) whose bf16 G fits
-    ``G_CHUNK_BYTES``, at least one wave, and no more than n."""
-    wave = max(1, sms // -(-c_out // down_cols(c_out))) * ROW_TILE
-    return min(n, max(1, G_CHUNK_BYTES // (2 * inner * wave)) * wave)
+    tiles as fill ``sms`` SMs: bf16 one block an SM over ``down_cols``
+    columns, f32 ``F32_BLOCKS`` over ``F32_COLS``) whose G of ``elem``-byte
+    elements fits ``G_CHUNK_BYTES``, at least one wave, and no more than n."""
+    if elem == 2:
+        blocks, cols = sms, down_cols(c_out)
+    else:
+        blocks, cols = F32_BLOCKS * sms, F32_COLS
+    wave = max(1, blocks // -(-c_out // cols)) * ROW_TILE
+    return min(n, max(1, G_CHUNK_BYTES // (elem * inner * wave)) * wave)
+
+
+def f32_operands(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
+    """The f32 core's B operands, contiguous and k-major: W1 (2*inner, C) as
+    (C, 2*inner64), each 128 columns 64 rows of W1's a slab then the
+    matching 64 of its b slab (zero rows past inner: inner64 is inner
+    rounded up to 64), so a lane's four a and four b columns are those of
+    the same G elements; and W2^T (inner, C_out)."""
+    inner, c = w1.shape[0] // 2, w1.shape[1]
+    pad = -inner % 64
+    a, b = (F.pad(h, (0, 0, 0, pad)).view(-1, 64, c) for h in (w1[:inner], w1[inner:]))
+    return torch.stack((a, b), dim=1).reshape(-1, c).t().contiguous(), w2.t().contiguous()
 
 
 def chunk_plan(n: int, rows: int) -> list:
@@ -118,6 +142,14 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
         return geglu_ff_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
     if not x.is_cuda:
         raise ValueError(f"geglu_ff: expected a CUDA tensor, got {x.device}")
+    check_operands(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
+    return _GegluFF.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
+
+
+def check_operands(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool) -> None:
+    """Raises on operands the kernels do not take: f32 or bf16 x/w1/w2,
+    C % 16 == 0, C_out % 8 == 0, inner % 32 == 0 (any width, in both
+    dtypes), contiguous and on x's device, f32 biases and LN parameters."""
     if x.dtype not in _native.DTYPE_CODE or w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise TypeError(f"geglu_ff: x/w1/w2 must be one of f32/bf16, got "
                         f"{x.dtype}/{w1.dtype}/{w2.dtype}")
@@ -126,11 +158,9 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     if w1.shape != (2 * inner, c) or b1.shape != (2 * inner,) or b2.shape != (c_out,):
         raise ValueError(f"geglu_ff: bad weight shapes w1{tuple(w1.shape)} b1{tuple(b1.shape)} "
                          f"w2{tuple(w2.shape)} b2{tuple(b2.shape)} for C={c}")
-    f32 = x.dtype == torch.float32
-    if c % 16 or c_out % 8 or inner % 32 or (f32 and c_out > MAX_C_OUT_F32):
-        raise ValueError(f"geglu_ff: needs C % 16 == 0, C_out % 8 == 0, inner % 32 == 0 "
-                         f"(and C_out <= {MAX_C_OUT_F32} in f32); got C={c} C_out={c_out} "
-                         f"inner={inner}")
+    if c % 16 or c_out % 8 or inner % 32:
+        raise ValueError(f"geglu_ff: needs C % 16 == 0, C_out % 8 == 0, inner % 32 == 0; got "
+                         f"C={c} C_out={c_out} inner={inner}")
     if residual and c_out != c:
         raise ValueError("geglu_ff: residual needs C_out == C")
     vecs = [b1, b2] + ([] if ln_scale is None else [ln_scale, ln_bias])
@@ -142,7 +172,6 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     for t in (x, w1, w2):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("geglu_ff: x, w1 and w2 must be contiguous on one device")
-    return _GegluFF.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, residual)
 
 
 def _launch_geglu(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool) -> torch.Tensor:
@@ -152,24 +181,27 @@ def _launch_geglu(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool) -> torch
     n = x.numel() // c
     out = torch.empty(x.shape[:-1] + (c_out,), dtype=x.dtype, device=x.device)
     lib, stream, code = _native.library(), _native.stream_of(x), _native.DTYPE_CODE[x.dtype]
+    x, b1, b2, ln_scale, ln_bias = map(_native.aligned, (x, b1, b2, ln_scale, ln_bias))
+    sms, elem = _native.sm_count(x.device), x.element_size()
+    rows = chunk_size(n, inner, c_out, sms, elem)
+    plan = chunk_plan(n, rows)
+    g = torch.empty((rows, inner), dtype=x.dtype, device=x.device)
     if x.dtype == torch.float32:
-        plan, g, xn, cols, sms = [(0, n)], None, None, 0, 0
+        # the repack is fresh, so 16-byte aligned; the LN scratch is each
+        # row's (mean, rstd)
+        w1, w2 = f32_operands(w1, w2)
+        cols, ln_shape = 0, (rows, 2)
     else:
-        x, w1, b1, w2, ln_scale, ln_bias = map(_native.aligned,
-                                                (x, w1, b1, w2, ln_scale, ln_bias))
-        cols, sms = down_cols(c_out), _native.sm_count(x.device)
-        rows = chunk_size(n, inner, c_out, sms)
-        plan = chunk_plan(n, rows)
-        g = torch.empty((rows, inner), dtype=x.dtype, device=x.device)
-        xn = None if ln_scale is None else torch.empty((rows, c), dtype=x.dtype, device=x.device)
-    elem = x.element_size()
+        w1, w2 = map(_native.aligned, (w1, w2))
+        cols, ln_shape = down_cols(c_out), (rows, c)
+    ln_buf = None if ln_scale is None else torch.empty(ln_shape, dtype=x.dtype, device=x.device)
     for start, count in plan:
         rc = lib.st2v_geglu_ff(
             x.data_ptr() + start * c * elem, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), None if ln_scale is None else ln_scale.data_ptr(),
             None if ln_scale is None else ln_bias.data_ptr(),
-            out.data_ptr() + start * c_out * elem, None if g is None else g.data_ptr(),
-            None if xn is None else xn.data_ptr(), count, c, inner, c_out, int(residual),
+            out.data_ptr() + start * c_out * elem, g.data_ptr(),
+            None if ln_buf is None else ln_buf.data_ptr(), count, c, inner, c_out, int(residual),
             code, cols, sms, stream)
         _native.check(rc, "geglu_ff")
     geglu_ff.launches += 1

@@ -34,6 +34,7 @@ from streamingt2v_torch.ops import norms as port_norms
 from streamingt2v_torch.ops.embedding import timestep_embedding
 from streamingt2v_torch.ops.flash_attention import (
     _kernel_head_dim, flash_attention, flash_attention_packed, packed_applicable)
+from streamingt2v_torch.ops import fused_ff
 from streamingt2v_torch.ops.fused_ff import (
     G_CHUNK_BYTES, ROW_TILE, chunk_plan, chunk_size, down_cols, geglu_ff, geglu_ff_reference)
 from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
@@ -102,7 +103,8 @@ def test_packed_gate_narrows_the_jax_gate_to_kernel_head_dims(heads, d):
 
 @pytest.mark.parametrize("ln", [False, True])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,c,inner", [(70, 48, 128), (300, 32, 160)])
+@pytest.mark.parametrize("n,c,inner", [(70, 48, 128), (300, 32, 160),
+                                       (24, 1536, 64)])   # C_out above 1280
 def test_geglu_ff_plain_matches_pallas(n, c, inner, ln, residual):
     rng = np.random.RandomState(1)
     x = rng.randn(n, c).astype(np.float32)
@@ -147,6 +149,29 @@ def test_geglu_ff_split_passes_match_pallas(ln, residual):
     assert_close(geglu_ff_reference(*args), ref, KERNEL_TOL, "geglu_ff split")
     rounded = geglu_ff_reference(*args, g_dtype=torch.bfloat16)
     assert_close(rounded, ref, 2e-2, "geglu_ff split, bf16 G")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,inner,c_out,residual", [(1536, 6144, 1536, True),
+                                                   (320, 1280, 2048, False),
+                                                   (16, 32, 8, False)])
+def test_geglu_gate_takes_every_width_in_both_dtypes(dtype, c, inner, c_out, residual):
+    """The kernels take any C % 16, C_out % 8, inner % 32 in f32 as in bf16
+    (the f32 down pass tiles its output columns, as the JAX kernel's blocks
+    do), and refuse what breaks those."""
+    def operands(c, inner, c_out):
+        return (torch.empty(8, c, dtype=dtype, device="meta"),
+                torch.empty(2 * inner, c, dtype=dtype, device="meta"),
+                torch.empty(2 * inner, device="meta"),
+                torch.empty(c_out, inner, dtype=dtype, device="meta"),
+                torch.empty(c_out, device="meta"),
+                torch.empty(c, device="meta"), torch.empty(c, device="meta"))
+
+    fused_ff.check_operands(*operands(c, inner, c_out), residual)
+    for bad in ((c + 8, inner, c_out), (c, inner + 16, c_out), (c, inner, c_out + 4)):
+        with pytest.raises(ValueError):
+            fused_ff.check_operands(*operands(*bad), residual)
+    assert not hasattr(fused_ff, "MAX_C_OUT_F32")
 
 
 @pytest.mark.parametrize("n,c", [(460800, 320), (115200, 640), (28800, 1280),   # the UNet widths
