@@ -45,19 +45,28 @@ Phases, one line each:
      with random bf16 weights on the card, then ``image_to_video`` for 43
      frames (first chunk plus one autoregressive chunk), with per-phase
      seconds, peak memory and the launch counts of its kernels;
-  6. apm: the same with ``unet.use_apm`` and ``apm_anchor_frames`` (0, 16)
+  6. bench: the port's bench (``streamingt2v_torch/bench.py``) in its
+     functions' production configs, not recorded: ``bench_denoise`` (config
+     #2: three chained guided denoise steps of the ControlNet-mode VideoUNet
+     and the ControlNet at 2 x 25 frames of 72x128 latents, bf16, a warm-up
+     call and 5 timed calls) and ``bench_vae`` (config #1: the f32 temporal
+     VAE's round trip of a 16-frame 576x1024 chunk, 8-frame encode and
+     4-frame decode pieces, a warm-up call and 5 timed calls), each record
+     checked: a finite value above 0, ``peak_hbm_gb`` above 0, and launches
+     of K1, K3 and K4 (denoise) and of K1 and K4 in f32 (vae);
+  7. apm: the same with ``unet.use_apm`` and ``apm_anchor_frames`` (0, 16)
      (a 17-token context: the SVD token and 16 anchor frames' CLIP tokens),
      every ``apm_alpha`` drawn non-zero, samplers cut to 5 + 5 steps: phase
      seconds with the APM CLIP encode on its own, resident and peak memory,
      ``stage_finite`` and the launches (K1, K3, K4 and the D=512 body must
      launch);
-  7. samplers: one full-width first chunk (the SVD-XT UNet, 25 frames, 4
+  8. samplers: one full-width first chunk (the SVD-XT UNet, 25 frames, 4
      steps) under each of Heun, Euler ancestral, DPM++ 2S, DPM++ 2M, LMS,
      EulerEDM with churn, and EulerEDM under the identity and the
      triangle-prediction guiders: seconds per guided denoise, finite latents,
      the network calls against the sampler's rule (n; 2n - 1 for Heun and
      DPM++ 2S) and K1/K3/K4 launches in proportion to them;
-  8. train: the earlier models freed, the full-width SVD-XT UNet alone
+  9. train: the earlier models freed, the full-width SVD-XT UNet alone
      (``use_checkpoint`` on, bf16, random weights from seed 0) through
      ``openai_wrapper`` and ``DiffusionEngine`` (AdamW 1e-4, weight decay
      1e-4, EMA 0.9999), 4 steps on one 25-frame 576x1024 clip of latents
@@ -70,12 +79,12 @@ Phases, one line each:
      step (the forward's plus the remat recompute's: twice a no-grad
      forward's when every call sits in a remat'd block), the backward's
      chunks and the share of parameters each update changed;
-  9. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
+  10. enhance: the stage-1 models freed, ``build_enhance`` at full I2VGen-XL
      width (random bf16 weights), then ``enhance_with_keyframe_prepass`` on
      a synthetic 64-frame 720p video (a 2-frame pre-pass, then 2 blended
      38-frame chunks) with ``--enhance-steps`` DDIM steps, with per-phase
      seconds, resident and peak memory and the launch counts of its kernels;
-  10. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
+  11. interpolate: ``build_interpolate`` at full EMA-VFI width (f32, flip-TTA)
      on a synthetic 720p video whose content moves 3 pixels a frame: seconds
      per pair and peak memory at pair batches 1, 2, 4 and 8 over 16 pairs,
      then the 64-frame video to 127 frames at the pipeline's pair batch,
@@ -83,7 +92,7 @@ Phases, one line each:
      against the known motion (the half-shift warps of both neighbours land
      closer to the true midpoint than either neighbour; a wrong sign would
      land farther);
-  11. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
+  12. product: ``build_product`` at full width (stage 1 bf16 but its f32 VAE,
      stage 2 bf16, stage 3 f32), then ``StreamingT2VPipeline.run`` on a
      synthetic 576x1024 uint8 image held in memory, for ``--product-frames``
      (85: 43 stage-1 frames, full sampler steps; stage 2 at
@@ -91,7 +100,7 @@ Phases, one line each:
      per-stage seconds, resident and peak memory, ``stage_finite``, the
      launch counts of every kernel row, and the file checked (header, frame
      count, 1280x720) and written by the native feeder;
-  12. loader: ``build_product`` at full width again (every constant tensor
+  13. loader: ``build_product`` at full width again (every constant tensor
      given a small draw of its own), written as a checkpoint tree in the
      reference's names and layouts (``write_reference_tree``: the
      StreamingSVD safetensors, the SVD-XT UNet, the i2vgen-xl folders with
@@ -104,7 +113,7 @@ Phases, one line each:
      a y4m file, with its stage seconds, ``stage_finite``, the launches of
      every kernel row and the file checked (header, frame count, 1280x720)
      and written by the native feeder;
-  13. mesh: the multi-device layer on the one card.  The CLI's product at
+  14. mesh: the multi-device layer on the one card.  The CLI's product at
      the loader phase's cut with random weights (``--random_weights``) under
      ``--mesh 1,1,1`` (a world of one NCCL rank: its launches are the
      phase's ``mesh_launches``, every kernel row must launch) and without
@@ -153,9 +162,10 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-apm, samplers, train, enhance, product, loader and mesh phases
-(``product_launches``, ``apm_launches``, ``samplers_launches``,
-``train_launches`` and ``mesh_launches`` those phases' alone).
+bench, apm, samplers, train, enhance, product, loader and mesh phases
+(``product_launches``, ``bench_launches``, ``apm_launches``,
+``samplers_launches``, ``train_launches`` and ``mesh_launches`` those
+phases' alone; the bench's in its timed calls).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch), and its
@@ -202,8 +212,8 @@ import sys
 import time
 from typing import Optional
 
-ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "apm", "samplers", "train",
-              "enhance", "interpolate", "product", "loader", "mesh")
+ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "bench", "apm", "samplers",
+              "train", "enhance", "interpolate", "product", "loader", "mesh")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -1137,37 +1147,19 @@ def _smooth_video(frames: int, height: int, width: int, seed: int = 0, device="c
     return torch.stack(chans, dim=-1)
 
 
-def _all_kernels():
-    from streamingt2v_torch.ops.flash_attention import flash_attention, flash_attention_packed
-    from streamingt2v_torch.ops.fused_ff import geglu_ff
-    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
-    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
-    from streamingt2v_torch.ops.temporal_conv import temporal_conv
-
-    return (flash_attention, flash_attention_packed, geglu_ff, temporal_conv, fused_group_norm,
-            fused_temporal_attention)
-
-
 def _reset_launches() -> None:
-    for fn in _all_kernels():
-        fn.launches = 0
-        for apart in ("launches_d512", "launches_f32"):
-            if hasattr(fn, apart):
-                setattr(fn, apart, 0)
+    from streamingt2v_torch.utils.profiling import reset_launches
+
+    reset_launches()
 
 
 def _read_launches(f32: bool = False) -> dict:
-    """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
-    (``<name>_d512``, also counted in ``<name>``); with ``f32``, also the f32
-    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4, K6)."""
-    out = {}
-    for fn in _all_kernels():
-        out[fn.__name__] = fn.launches
-        if hasattr(fn, "launches_d512"):
-            out[fn.__name__ + "_d512"] = fn.launches_d512
-        if f32 and hasattr(fn, "launches_f32"):
-            out[fn.__name__ + "_f32"] = fn.launches_f32
-    return out
+    """``utils/profiling.read_launches``: launches per wrapper, the flash
+    wrappers' bf16 D=512 launches apart (``<name>_d512``) and, with ``f32``,
+    the f32 launches of K1, K2, K4 and K6 (``<name>_f32``)."""
+    from streamingt2v_torch.utils.profiling import read_launches
+
+    return read_launches(f32)
 
 
 def _small_enhance_configs():
@@ -1653,6 +1645,41 @@ def _timed_methods(obj, names, seconds: dict) -> None:
 
     for name in names:
         setattr(obj, name, timed(name, getattr(obj, name)))
+
+
+# The kernels each bench mode must launch (the wrappers' counters).
+BENCH_KERNELS = {"denoise": ("flash_attention", "geglu_ff", "temporal_conv"),
+                 "vae": ("flash_attention_f32", "temporal_conv_f32")}
+
+
+def run_bench() -> dict:
+    """Phase: the port's bench (``streamingt2v_torch/bench.py``), configs #2
+    (denoise) and #1 (vae) at production width through its functions, not
+    recorded; each record checked (a finite value above 0, the peak memory,
+    launches of the mode's kernels in its timed calls).  Their metric lines
+    go to stderr, so that this script's stdout keeps its own lines."""
+    import contextlib
+
+    from streamingt2v_torch import bench
+
+    launches = {}
+    for mode, fn in (("denoise", bench.bench_denoise), ("vae", bench.bench_vae)):
+        _release_earlier_phases()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rec = fn(records=None)
+        value, peak, counts = rec["value"], rec.get("peak_hbm_gb", 0.0), rec["launches"]
+        print(f"  {mode}: {rec['metric']} {value} {rec['unit']} (median {rec['median_s']} s, "
+              f"spread {rec['spread']:.2%}, calls {rec['seconds']}), peak {peak} GiB, "
+              f"{time.perf_counter() - t0:.1f} s with the build; launches {counts}", flush=True)
+        if not (math.isfinite(value) and value > 0) or not peak > 0:
+            raise AssertionError(f"bench {mode}: value {value}, peak_hbm_gb {peak}")
+        dead = [k for k in BENCH_KERNELS[mode] if counts.get(k, 0) <= 0]
+        if dead:
+            raise AssertionError(f"bench {mode} never launched: {dead}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
 
 
 def run_apm(steps: int) -> dict:
@@ -3763,8 +3790,9 @@ def main(argv=None) -> int:
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict.fromkeys(KERNEL_META, 0)
     phase_launches = {p: dict.fromkeys(KERNEL_META, 0)
-                      for p in ("product", "apm", "samplers", "train", "mesh")}
+                      for p in ("product", "bench", "apm", "samplers", "train", "mesh")}
     runs = [("slice", lambda: run_slice(args.first_steps, args.ar_steps)),
+            ("bench", run_bench),
             ("apm", lambda: run_apm(APM_STEPS)),
             ("samplers", lambda: run_samplers(SAMPLER_STEPS)),
             ("train", lambda: run_train(TRAIN_STEPS)),

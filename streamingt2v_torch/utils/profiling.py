@@ -61,3 +61,38 @@ def timing_report() -> Dict[str, Dict[str, float]]:
 
 def reset_timers() -> None:
     _STAGE_TIMES.clear()
+
+
+def kernel_wrappers() -> tuple:
+    """The wrappers of the six hand-written kernels (K1-K6), each with its
+    launch counter ``launches``."""
+    from streamingt2v_torch.ops.flash_attention import flash_attention, flash_attention_packed
+    from streamingt2v_torch.ops.fused_ff import geglu_ff
+    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
+    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
+    from streamingt2v_torch.ops.temporal_conv import temporal_conv
+
+    return (flash_attention, flash_attention_packed, geglu_ff, temporal_conv, fused_group_norm,
+            fused_temporal_attention)
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers():
+        fn.launches = 0
+        for apart in ("launches_d512", "launches_f32"):
+            if hasattr(fn, apart):
+                setattr(fn, apart, 0)
+
+
+def read_launches(f32: bool = False) -> Dict[str, int]:
+    """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
+    (``<name>_d512``, also counted in ``<name>``); with ``f32``, also the f32
+    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4, K6)."""
+    out = {}
+    for fn in kernel_wrappers():
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_d512"):
+            out[fn.__name__ + "_d512"] = fn.launches_d512
+        if f32 and hasattr(fn, "launches_f32"):
+            out[fn.__name__ + "_f32"] = fn.launches_f32
+    return out

@@ -251,3 +251,55 @@ def enhance_pair(enh: dict):
     for name in jm:
         load_jax_params(getattr(pmodels, name), flats[name])
     return jpipe, penh.EnhancePipeline(pcfg.EnhanceConfig(**enh), pmodels)
+
+
+# the tiny product's stage 2: the tiny enhance with randomized blending
+TINY_ENHANCE = dict(num_steps=3, height=32, width=32, chunk_size=4, overlap_size=2,
+                    use_randomized_blending=True, vae_bf16=False)
+
+
+def tiny_product_cfg(config_cls, vfi_cls, enhance_cls):
+    """``PipelineConfig.tiny()`` of either package with ``TINY_ENHANCE``,
+    randomized blending, the f32 stage-1 decode and the tiny VFI with
+    flip-TTA."""
+    import dataclasses
+
+    cfg = config_cls.tiny()
+    return dataclasses.replace(
+        cfg, use_randomized_blending=True, enhance=enhance_cls(**TINY_ENHANCE),
+        inference=dataclasses.replace(cfg.inference, vae_decode_bf16=False),
+        vfi=dataclasses.replace(vfi_cls.tiny(), tta=True))
+
+
+def tiny_product_pair():
+    """(JAX product, port product, (JAX VFI module, its variables)) on
+    identical weights: the tiny stage 1, the tiny enhance of
+    test_torch_port_enhance.py with randomized blending, and the tiny VFI
+    with flip-TTA."""
+    import jax
+    import jax.numpy as jnp
+
+    from streamingt2v_tpu.config import EnhanceConfig as JaxEnhanceConfig
+    from streamingt2v_tpu.config import PipelineConfig as JaxPipelineConfig
+    from streamingt2v_tpu.config import VFIConfig as JaxVFIConfig
+    from streamingt2v_tpu.models import vfi as jvfi
+    from streamingt2v_tpu.pipeline.full import StreamingT2VPipeline as JaxProduct
+    from streamingt2v_tpu.pipeline.interpolate import InterpolatePipeline as JaxInterpolate
+    from streamingt2v_torch.config import EnhanceConfig, PipelineConfig, VFIConfig
+    from streamingt2v_torch.models.vfi import MultiScaleFlow
+    from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
+    from streamingt2v_torch.pipeline.interpolate import InterpolatePipeline
+
+    jcfg = tiny_product_cfg(JaxPipelineConfig, JaxVFIConfig, JaxEnhanceConfig)
+    cfg = tiny_product_cfg(PipelineConfig, VFIConfig, EnhanceConfig)
+    jstage1, stage1 = stage1_pair(jcfg, cfg, seed=10)
+    jenhance, enhance = enhance_pair(TINY_ENHANCE)
+    jvfi_mod = jvfi.MultiScaleFlow(jcfg.vfi)
+    img = jnp.zeros((1, 32, 32, 3))
+    flat = random_flat(jax.eval_shape(lambda: jvfi_mod.init(jax.random.PRNGKey(0), img, img))
+                       ["params"], 20)
+    jinterp = JaxInterpolate(jvfi_mod, jax_variables(flat), tta=True)
+    interp = InterpolatePipeline(port_module(MultiScaleFlow(cfg.vfi), flat), tta=True)
+    jpipe = JaxProduct(jcfg, jstage1, jenhance, jinterp, offload_between_stages=False)
+    return (jpipe, StreamingT2VPipeline(cfg, stage1, enhance, interp),
+            (jvfi_mod, jax_variables(flat)))

@@ -480,7 +480,8 @@ def test_flash_gate_matches_jax_on_an_accelerator(bh, lq, lk, monkeypatch):
 # ------------------------------------------------------- import boundary ---
 
 def test_port_imports_without_jax():
-    """Every module of the port, and each of its examples
+    """Every module of the port (the bench, ``streamingt2v_torch/bench.py``,
+    among them), and each of its examples
     (``examples/torch/``), imports in a process where JAX cannot, nor
     OpenCV, Pillow or safetensors (the product's path needs none of them;
     the card's machine has no safetensors)."""
@@ -496,12 +497,12 @@ def test_port_imports_without_jax():
             "for path in examples:\n"
             "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-            "print(len(names), len(examples))\n")
+            "print(len(names), len(examples), int('streamingt2v_torch.bench' in names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    modules, examples = (int(v) for v in proc.stdout.split())
-    assert modules >= 52 and examples == 3, proc.stdout
+    modules, examples, bench = (int(v) for v in proc.stdout.split())
+    assert modules >= 52 and examples == 3 and bench == 1, proc.stdout
 
 
 def test_port_sources_name_no_jax():

@@ -16,10 +16,8 @@ Tolerances:
   - MAWE within 1e-4 of the JAX value, relative.
 """
 
-import dataclasses
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,27 +26,15 @@ import torch
 from _torch_port_helpers import (
     JaxEnhanceDraws,
     Stage1Draws,
-    enhance_pair,
     jax_stage1_draws,
-    jax_variables,
-    port_module,
-    random_flat,
-    stage1_pair,
     t,
+    tiny_product_pair,
 )
 from streamingt2v_tpu import native
-from streamingt2v_tpu.config import PipelineConfig as JaxPipelineConfig
-from streamingt2v_tpu.config import VFIConfig as JaxVFIConfig
-from streamingt2v_tpu.models import vfi as jvfi
-from streamingt2v_tpu.pipeline.full import StreamingT2VPipeline as JaxProduct
-from streamingt2v_tpu.pipeline.interpolate import InterpolatePipeline as JaxInterpolatePipeline
 from streamingt2v_tpu.utils import media as jmedia
 from streamingt2v_tpu.utils import metrics as jmetrics
-from streamingt2v_torch.config import PipelineConfig, VFIConfig
-from streamingt2v_torch.models.vfi import MultiScaleFlow
 from streamingt2v_torch.pipeline import cli
 from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
-from streamingt2v_torch.pipeline.interpolate import InterpolatePipeline
 from streamingt2v_torch.utils import media, metrics
 
 LEVELS = 2
@@ -131,44 +117,16 @@ def test_resize_to_stage1_and_geometry_match_jax():
 
 # --------------------------------------------------------------- product ---
 
-ENH = dict(num_steps=3, height=32, width=32, chunk_size=4, overlap_size=2,
-           use_randomized_blending=True, vae_bf16=False)
-
-
-def _tiny_product_cfg(config_cls, vfi_cls, enhance_cls):
-    cfg = config_cls.tiny()
-    return dataclasses.replace(
-        cfg, use_randomized_blending=True, enhance=enhance_cls(**ENH),
-        inference=dataclasses.replace(cfg.inference, vae_decode_bf16=False),
-        vfi=dataclasses.replace(vfi_cls.tiny(), tta=True))
-
-
 @pytest.fixture(scope="module")
 def product_pair():
-    """(JAX product, port product, JAX stage outputs) on identical weights:
-    the tiny stage 1, the tiny enhance of test_torch_port_enhance.py with
-    randomized blending, and the tiny VFI with flip-TTA."""
-    from streamingt2v_tpu.config import EnhanceConfig as JaxEnhanceConfig
-    from streamingt2v_torch.config import EnhanceConfig
-
-    jcfg = _tiny_product_cfg(JaxPipelineConfig, JaxVFIConfig, JaxEnhanceConfig)
-    cfg = _tiny_product_cfg(PipelineConfig, VFIConfig, EnhanceConfig)
-    jstage1, stage1 = stage1_pair(jcfg, cfg, seed=10)
-    jenhance, enhance = enhance_pair(ENH)
-    jvfi_mod = jvfi.MultiScaleFlow(jcfg.vfi)
-    img = jnp.zeros((1, 32, 32, 3))
-    flat = random_flat(jax.eval_shape(lambda: jvfi_mod.init(jax.random.PRNGKey(0), img, img))
-                       ["params"], 20)
-    jinterp = JaxInterpolatePipeline(jvfi_mod, jax_variables(flat), tta=True)
-    interp = InterpolatePipeline(port_module(MultiScaleFlow(cfg.vfi), flat), tta=True)
-    jpipe = JaxProduct(jcfg, jstage1, jenhance, jinterp, offload_between_stages=False)
-    pipe = StreamingT2VPipeline(cfg, stage1, enhance, interp)
-
+    """(JAX product, port product, JAX stage outputs) on identical weights
+    (``tiny_product_pair``)."""
+    jpipe, pipe, jvfi = tiny_product_pair()
     image = (np.random.RandomState(0).rand(48, 48, 3) * 255).astype(np.uint8)
     ref = {"stage1": jpipe.image_to_video(image, seed=SEED)}
     ref["enhance"] = jpipe.enhance_video(ref["stage1"], image, seed=SEED)
     ref["vfi"] = jpipe.interpolate_video(ref["enhance"])
-    return jpipe, pipe, image, ref, (jvfi_mod, jax_variables(flat))
+    return jpipe, pipe, image, ref, jvfi
 
 
 def _levels(got, ref, what):
