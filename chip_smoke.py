@@ -1323,11 +1323,8 @@ def _reference_run(what: str, got, ref, launches: dict) -> float:
 
 
 def _stage1_launches() -> dict:
-    from streamingt2v_torch.ops.flash_attention import flash_attention
-    from streamingt2v_torch.ops.fused_ff import geglu_ff
-    from streamingt2v_torch.ops.temporal_conv import temporal_conv
-
-    return {fn.__name__: fn.launches for fn in (flash_attention, geglu_ff, temporal_conv)}
+    return {k: v for k, v in _read_launches().items()
+            if k in ("flash_attention", "geglu_ff", "temporal_conv")}
 
 
 def check_reference() -> float:
@@ -2498,7 +2495,7 @@ def run_product(enhance_steps: int, frames: int) -> dict:
     from streamingt2v_torch.config import PipelineConfig
     from streamingt2v_torch.pipeline.build import build_product
     from streamingt2v_torch.utils import media
-    from streamingt2v_torch.utils.profiling import reset_timers, timing_report
+    from streamingt2v_torch.utils.profiling import reset_timers, stage_seconds
 
     dev = torch.device("cuda")
     _release_earlier_phases()
@@ -2531,7 +2528,7 @@ def run_product(enhance_steps: int, frames: int) -> dict:
         info = media.y4m_info(path)
     launches = _read_launches(f32=True)
     peak = torch.cuda.max_memory_allocated()
-    stages = {k: v["total_s"] for k, v in timing_report().items()}
+    stages = stage_seconds()
     print(f"  seconds: {stages}; run total {total:.1f} (with the file)", flush=True)
     print(f"  resident {resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; stage_finite "
           f"{pipe.stage_finite}; launches {launches}", flush=True)
@@ -2778,7 +2775,7 @@ def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int)
     from streamingt2v_torch.pipeline.build import build_product
     from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
     from streamingt2v_torch.utils import loader, media
-    from streamingt2v_torch.utils.profiling import reset_timers, timing_report
+    from streamingt2v_torch.utils.profiling import reset_timers, stage_seconds, timing_report
 
     dev = torch.device("cuda")
     _release_earlier_phases()
@@ -2870,7 +2867,7 @@ def run_loader(enhance_steps: int, frames: int, first_steps: int, ar_steps: int)
         total = time.perf_counter() - t0
         info = media.y4m_info(path)
     run_cfg = pipe.cfg
-    stages = {k: v["total_s"] for k, v in timing_report().items()}
+    stages = stage_seconds()
     print(f"  seconds: {stages}; CLI total {total:.1f} (loads, run and file)", flush=True)
     print(f"  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stage_finite "
           f"{pipe.stage_finite}; launches {launches}; file: {info}", flush=True)
@@ -3203,7 +3200,6 @@ def _mesh_splits() -> dict:
     from streamingt2v_torch.models.unet_blocks import FeedForward
     from streamingt2v_torch.ops.attention import _flash_rows
     from streamingt2v_torch.ops.flash_attention import flash_attention
-    from streamingt2v_torch.ops.fused_ff import geglu_ff
     from streamingt2v_torch.parallel.ring_attention import ring_finish, ring_fold, ring_start
     from streamingt2v_torch.parallel.sharding import shard_params
 
@@ -3226,9 +3222,9 @@ def _mesh_splits() -> dict:
                                       _sim_rank(m, r))["ff"] for r in range(m)]
                 if any(p.tp is None for p in parts):
                     raise AssertionError(f"K3 level {level}: the FF did not split over {m}")
-                before = geglu_ff.launches
+                before = _read_launches()["geglu_ff"]
                 total = sum(p(x, ln=ln, residual=True).float() for p in parts)
-                launched = geglu_ff.launches - before
+                launched = _read_launches()["geglu_ff"] - before
                 counts["geglu_ff"] += launched
                 if launched != m:
                     raise AssertionError(f"K3 split {m} at level {level}: {launched} launches")
@@ -3241,9 +3237,9 @@ def _mesh_splits() -> dict:
         q, k, v = (randn(250, 9216, 64, dtype=bf16) for _ in range(3))
         whole = flash_attention(q, k, v)
         for m in MESH_FLASH_SPLITS:
-            before = flash_attention.launches
+            before = _read_launches()["flash_attention"]
             rows = [_flash_rows(q, k, v, m, i) for i in range(m)]
-            counts["flash_attention"] += flash_attention.launches - before
+            counts["flash_attention"] += _read_launches()["flash_attention"] - before
             ms = _time_ms(lambda: _flash_rows(q, k, v, m, 0), reps=3)
             errs.append(_compare(f"K1 over {m} ranks, {rows[0].shape[0]} of 250 rows a rank "
                                  f"({ms:.3f} ms a rank), gathered",
@@ -3588,7 +3584,7 @@ def run_mesh(enhance_steps: int) -> dict:
 
     from streamingt2v_torch.config import PipelineConfig
     from streamingt2v_torch.utils import media
-    from streamingt2v_torch.utils.profiling import reset_timers, timing_report
+    from streamingt2v_torch.utils.profiling import reset_timers, stage_seconds
 
     _release_earlier_phases()
     cfg = PipelineConfig()
@@ -3617,7 +3613,7 @@ def run_mesh(enhance_steps: int) -> dict:
             if use_mesh:
                 launches = _read_launches(f32=True)
             total = time.perf_counter() - t0
-            stages = {k: round(v["total_s"], 3) for k, v in timing_report().items()}
+            stages = {k: round(v, 3) for k, v in stage_seconds().items()}
             print(f"  CLI {'--mesh 1,1,1 (NCCL, world of 1)' if use_mesh else 'without --mesh'}: "
                   f"{LOADER_FRAMES} frames, sampler steps {LOADER_SAMPLER_STEPS} + "
                   f"{LOADER_SAMPLER_STEPS}, {enhance_steps} DDIM steps; {total:.1f} s with the "

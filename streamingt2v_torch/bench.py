@@ -83,7 +83,7 @@ from streamingt2v_torch.utils.profiling import (
     read_launches,
     reset_launches,
     reset_timers,
-    timing_report,
+    stage_seconds,
 )
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -488,7 +488,7 @@ def bench_full(device="cuda", cfg: PipelineConfig = FULL_CFG, *, pipe=None,
         frames = pipe.run(img, paths[k], seed=seed)
         seconds = time.perf_counter() - t0
         finite.append(dict(pipe.stage_finite))
-        stages = {name: v["last_s"] for name, v in timing_report().items()}
+        stages = stage_seconds("last_s")
         log(f"full: pass {k + 1} ({what}) {seconds:.1f} s, stages {json.dumps(stages)}; "
             f"{paths[k]}; finite {finite[-1]}")
         return frames, seconds
@@ -498,7 +498,7 @@ def bench_full(device="cuda", cfg: PipelineConfig = FULL_CFG, *, pipe=None,
     reset_timers()
     reset_launches()
     frames2, pass2 = run(1, SEEDS[0], "seed 33 again")
-    rep = timing_report()
+    rep = stage_seconds("last_s")
     launches = _launches("full (pass 2)")
     bitwise = bool(np.array_equal(frames1, frames2))
     frames3, pass3 = run(2, SEEDS[1], "seed 34")
@@ -515,7 +515,7 @@ def bench_full(device="cuda", cfg: PipelineConfig = FULL_CFG, *, pipe=None,
     mawe = mawe_chunked(frames1.astype(np.float32) / 255.0, vfi_flow_fn(pipe.interpolate.model),
                         device=device)
     log(f"full: MAWE (random weights) {mawe:.6g}")
-    s1 = rep["stage1_i2v"]["last_s"]
+    s1 = rep["stage1_i2v"]
     out = [emit("stage1_autoregressive_frames_per_sec_per_chip", cfg.stage1_frames / s1,
                 "frames/s", BASELINES["stage1"], device, records, seconds=[s1],
                 source="full, pass 2")]
@@ -536,7 +536,7 @@ def bench_full(device="cuda", cfg: PipelineConfig = FULL_CFG, *, pipe=None,
         f"steady state ({pass1:.1f} s with the kernel build)")
     out.append(emit("full_pipeline_frames_per_sec_per_chip", n_out / min(steady), "frames/s",
                     BASELINES["full"], device, records, **timing,
-                    stages={k: v["last_s"] for k, v in rep.items()}, launches=launches))
+                    stages=rep, launches=launches))
     return out
 
 

@@ -16,7 +16,7 @@ x *= sqrt(1 + sigma_0^2).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -24,10 +24,20 @@ import torch
 from streamingt2v_torch.config import SamplerConfig
 from streamingt2v_torch.diffusion.discretization import get_sigmas
 from streamingt2v_torch.diffusion.guiders import Guider, make_guider
+from streamingt2v_torch.utils.profiling import count, span
 from streamingt2v_torch.utils.rng import StepNoiseFn, default_step_noise
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, Any]], torch.Tensor]
 f32 = np.float32
+
+
+def _steps(sigmas) -> Iterator[int]:
+    """The step indices of a sigma grid; each step's loop body runs inside
+    the span ``st2v.step`` and counts in ``steps``."""
+    for i in range(len(sigmas) - 1):
+        with span("st2v.step"):
+            count("steps")
+            yield i
 
 
 def _guided(denoise_fn: DenoiseFn, guider: Guider, x, sigma: float, cond, uc):
@@ -48,7 +58,7 @@ def _euler_edm(cfg, guider, denoise_fn, x, cond, uc, step_noise, sigmas, heun: b
     steps inside [s_tmin, s_tmax], by fresh noise of the matching scale."""
     n = len(sigmas) - 1
     churn_gamma = min(cfg.s_churn / max(n, 1), 2**0.5 - 1) if cfg.s_churn > 0 else 0.0
-    for i in range(n):
+    for i in _steps(sigmas):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_hat = sigma
         if churn_gamma > 0.0 and cfg.s_tmin <= sigma <= cfg.s_tmax:
@@ -88,7 +98,7 @@ def _add_ancestral_noise(cfg, x, i, next_sigma, sigma_up, step_noise):
 
 
 def _euler_ancestral(cfg, guider, denoise_fn, x, cond, uc, step_noise, sigmas):
-    for i in range(len(sigmas) - 1):
+    for i in _steps(sigmas):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_down, sigma_up = _ancestral_sigmas(sigma, next_sigma)
         denoised = _guided(denoise_fn, guider, x, float(sigma), cond, uc)
@@ -104,7 +114,7 @@ def _neg_log(sigma):
 def _dpmpp2s(cfg, guider, denoise_fn, x, cond, uc, step_noise, sigmas):
     """DPM++ 2S ancestral: a midpoint denoise in log-sigma; the step whose
     sigma_down is 0 (the last) takes the Euler step."""
-    for i in range(len(sigmas) - 1):
+    for i in _steps(sigmas):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_down, sigma_up = _ancestral_sigmas(sigma, next_sigma)
         denoised = _guided(denoise_fn, guider, x, float(sigma), cond, uc)
@@ -124,7 +134,7 @@ def _dpmpp2s(cfg, guider, denoise_fn, x, cond, uc, step_noise, sigmas):
 def _dpmpp2m(cfg, guider, denoise_fn, x, cond, uc, step_noise, sigmas):
     """DPM++ 2M: the first and the last step take the first-order update."""
     old_denoised = None
-    for i in range(len(sigmas) - 1):
+    for i in _steps(sigmas):
         prev_sigma, sigma, next_sigma = sigmas[max(i - 1, 0)], sigmas[i], sigmas[i + 1]
         denoised = _guided(denoise_fn, guider, x, float(sigma), cond, uc)
         t, t_next = _neg_log(sigma), _neg_log(next_sigma)
@@ -163,7 +173,7 @@ def _lms_coeff_matrix(sigmas: np.ndarray, order: int) -> np.ndarray:
 def _lms(cfg, guider, denoise_fn, x, cond, uc, step_noise, sigmas, order: int = 4):
     coeffs = _lms_coeff_matrix(sigmas, order)
     ds = []  # newest first
-    for i in range(len(sigmas) - 1):
+    for i in _steps(sigmas):
         denoised = _guided(denoise_fn, guider, x, float(sigmas[i]), cond, uc)
         ds = [_to_d(x, sigmas[i], denoised)] + ds[:order - 1]
         x = x + sum(float(coeffs[i, j]) * dj for j, dj in enumerate(ds))

@@ -24,6 +24,7 @@ from streamingt2v_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from streamingt2v_torch.parallel.sharding import (
     copy_to_model, gather_dim, get_active_mesh, reduce_from_model, seq_partial, shard_dim,
     split_over)
+from streamingt2v_torch.utils.profiling import span
 
 
 class CAMConditionalModel(nn.Module):
@@ -51,6 +52,7 @@ class CAMConditionalModel(nn.Module):
         return [p for n in ("to_q", "to_k", "to_v", "to_out", "proj_out")
                 for p in getattr(self, n).parameters()]
 
+    @span("st2v.cam")
     def forward(self, sample: torch.Tensor, conditioning: torch.Tensor) -> torch.Tensor:
         b, f, h, w, c = sample.shape
         f_cond = conditioning.shape[1]

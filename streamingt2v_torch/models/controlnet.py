@@ -17,6 +17,7 @@ from streamingt2v_torch.models.layers import Conv, norm_pair, norm_params, per_f
 from streamingt2v_torch.models.video_unet import (
     add_embedding_params, add_encoder, embed, run_encoder)
 from streamingt2v_torch.ops import layer_norm
+from streamingt2v_torch.utils.profiling import count, span
 
 
 class ControlNetConditioningEmbedding(nn.Module):
@@ -45,6 +46,7 @@ class ControlNetConditioningEmbedding(nn.Module):
                 k += 2
         self.conv_out = Conv(block_out_channels[-1], embed_channels, 3, zero_init=True, **fk)
 
+    @span("st2v.embed")
     def forward(self, x):
         h = F.silu(self.conv_in(x))
         k = 0
@@ -74,12 +76,14 @@ class ControlNet(nn.Module):
         self.in_conv = Conv(unet_cfg.in_channels, mc, 3, **fk)
         add_encoder(self, unet_cfg, mc * 4, use_apm=False, fk=fk)
 
+    @span("st2v.controlnet")
     def forward(self, x: torch.Tensor, t_cont: torch.Tensor, context: Optional[torch.Tensor],
                 y: Optional[torch.Tensor], controlnet_cond: torch.Tensor,
                 image_only_indicator: Optional[torch.Tensor] = None):
         """x (B, F_cond, h, w, C_in); controlnet_cond (B', F_cond, H, W, 3)
         pixel frames, where B' may be 1 when the CFG halves share them (the
         embedding is then repeated up to B)."""
+        count("controlnet_calls")
         ucfg = self.unet_cfg
         b, t = x.shape[:2]
         dtype = ucfg.dtypes.compute_dtype

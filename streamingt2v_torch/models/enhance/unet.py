@@ -29,6 +29,7 @@ from streamingt2v_torch.models.layers import (
 from streamingt2v_torch.models.unet_blocks import BasicTransformerBlock, _time_conv
 from streamingt2v_torch.ops import attention, group_norm, layer_norm, timestep_embedding
 from streamingt2v_torch.ops.routing import current_routing
+from streamingt2v_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,7 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (Conv(in_channels, out_channels, 1, **fk)
                               if in_channels != out_channels else None)
 
+    @span("st2v.resblock")
     def forward(self, x, temb):
         h = group_norm(x, *norm_pair(self, "norm1"), num_groups=self.groups, eps=1e-5,
                        act="silu")
@@ -103,6 +105,7 @@ class TemporalConvLayer(nn.Module):
             self.add_module(name, TimeConv(c_in, c_out, (3, 1, 1), zero_init=name == "conv4",
                                            **fk))
 
+    @span("st2v.resblock")
     def forward(self, x):
         h = x
         for i, name in enumerate(("conv1", "conv2", "conv3", "conv4")):
@@ -130,6 +133,7 @@ class Transformer2D(nn.Module):
                                                                 context_dim, **fk))
         self.proj_out = Conv(inner, channels, 1, **fk)
 
+    @span("st2v.transformer")
     def forward(self, x, context):
         n, hh, ww, _ = x.shape
         h = group_norm(x, *norm_pair(self, "norm"), num_groups=self.groups, eps=1e-6)
@@ -161,6 +165,7 @@ class TransformerTemporal(nn.Module):
             self.add_module(f"block_{d}", BasicTransformerBlock(inner, heads, dim_head, **fk))
         self.proj_out = Dense(inner, channels, **fk)
 
+    @span("st2v.transformer")
     def forward(self, x):
         b, t, hh, ww, c = x.shape
         s, hd, dh = hh * ww, self.heads, self.dim_head
@@ -200,6 +205,7 @@ class TemporalEncoder(nn.Module):
         self.ff_fc = Dense(channels, ff_inner, **fk)
         self.ff_out = Dense(ff_inner, channels, **fk)
 
+    @span("st2v.transformer")
     def forward(self, x):
         h = layer_norm(x, *norm_pair(self, "norm1"))
         o = attention(self.to_q(h), self.to_k(h), self.to_v(h), num_heads=self.heads)
@@ -313,40 +319,19 @@ class I2VGenXLUNet(nn.Module):
             h = getattr(self, f"{prefix}_tattn_{j}")(h)
         return h
 
+    @span("st2v.unet")
     def forward(self, sample, timestep, fps, image_latents, image_embeddings,
                 encoder_hidden_states) -> torch.Tensor:
         """sample, image_latents (B, T, h, w, 4); timestep, fps (B,);
         image_embeddings (B, D_img); encoder_hidden_states (B, L, D) ->
         f32 noise prediction (B, T, h, w, 4)."""
+        count("unet_calls")
         cfg = self.cfg
-        b, t, hh, ww, _ = sample.shape
         dtype = cfg.dtypes.compute_dtype
         sample, image_latents, image_embeddings, encoder_hidden_states = (
             z.to(dtype) for z in (sample, image_latents, image_embeddings, encoder_hidden_states))
-        ch0, cin = cfg.block_out_channels[0], cfg.in_channels
-
-        # 1-3. time + fps embeddings
-        emb = self.time_embedding_2(F.silu(self.time_embedding_1(
-            timestep_embedding(timestep.float(), ch0).to(dtype))))
-        fe = self.fps_embedding_2(F.silu(self.fps_embedding_1(
-            timestep_embedding(fps.float(), ch0).to(dtype))))
-        emb_bt = (emb + fe).repeat_interleave(t, dim=0)  # (B*T, emb_dim)
-
-        # 4. context: text tokens, first-frame latent context, CLIP image
-        h_ctx = adaptive_avg_pool_2d(F.silu(self.ilce_conv1(image_latents[:, 0])), (32, 32))
-        h_ctx = self.ilce_conv3(F.silu(self.ilce_conv2(h_ctx)))
-        img_ctx = self.context_embedding_2(F.silu(self.context_embedding_1(image_embeddings)))
-        context = torch.cat([encoder_hidden_states,
-                             h_ctx.reshape(b, -1, cfg.cross_attention_dim),
-                             img_ctx.reshape(b, cin, cfg.cross_attention_dim)], dim=1)
-        context_bt = context.repeat_interleave(t, dim=0)
-
-        # image-latent channel stream: 3-conv projection + per-pixel temporal encoder
-        il = self.ilp_conv1(image_latents)
-        il = self.ilp_conv3(F.silu(self.ilp_conv2(F.silu(il))))
-        il_t = il.permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, cin)
-        il_t = self.image_latents_temporal_encoder(il_t)
-        il = il_t.reshape(b, hh, ww, t, cin).permute(0, 3, 1, 2, 4)
+        emb_bt, context_bt, il = self._embed(timestep, fps, image_latents, image_embeddings,
+                                             encoder_hidden_states)
 
         # 5. pre-process
         h = self.conv_in(torch.cat([sample, il], dim=-1))
@@ -386,3 +371,38 @@ class I2VGenXLUNet(nn.Module):
                                               num_groups=cfg.norm_num_groups, eps=1e-5,
                                               act="silu"))
         return self.conv_out(h).float()
+
+    @span("st2v.embed")
+    def _embed(self, timestep, fps, image_latents, image_embeddings,
+               encoder_hidden_states) -> tuple:
+        """The conditioning, in the compute dtype: the time + fps embedding
+        per frame (B*T, emb_dim), the context per frame (B*T, L', D) and the
+        image-latent channel stream (B, T, h, w, 4)."""
+        cfg = self.cfg
+        b, t, hh, ww, _ = image_latents.shape
+        dtype = cfg.dtypes.compute_dtype
+        ch0, cin = cfg.block_out_channels[0], cfg.in_channels
+
+        # 1-3. time + fps embeddings
+        emb = self.time_embedding_2(F.silu(self.time_embedding_1(
+            timestep_embedding(timestep.float(), ch0).to(dtype))))
+        fe = self.fps_embedding_2(F.silu(self.fps_embedding_1(
+            timestep_embedding(fps.float(), ch0).to(dtype))))
+        emb_bt = (emb + fe).repeat_interleave(t, dim=0)  # (B*T, emb_dim)
+
+        # 4. context: text tokens, first-frame latent context, CLIP image
+        h_ctx = adaptive_avg_pool_2d(F.silu(self.ilce_conv1(image_latents[:, 0])), (32, 32))
+        h_ctx = self.ilce_conv3(F.silu(self.ilce_conv2(h_ctx)))
+        img_ctx = self.context_embedding_2(F.silu(self.context_embedding_1(image_embeddings)))
+        context = torch.cat([encoder_hidden_states,
+                             h_ctx.reshape(b, -1, cfg.cross_attention_dim),
+                             img_ctx.reshape(b, cin, cfg.cross_attention_dim)], dim=1)
+        context_bt = context.repeat_interleave(t, dim=0)
+
+        # image-latent channel stream: 3-conv projection + per-pixel temporal encoder
+        il = self.ilp_conv1(image_latents)
+        il = self.ilp_conv3(F.silu(self.ilp_conv2(F.silu(il))))
+        il_t = il.permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, cin)
+        il_t = self.image_latents_temporal_encoder(il_t)
+        il = il_t.reshape(b, hh, ww, t, cin).permute(0, 3, 1, 2, 4)
+        return emb_bt, context_bt, il

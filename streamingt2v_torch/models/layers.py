@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from streamingt2v_torch.utils.profiling import span
+
 
 def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
@@ -111,6 +113,7 @@ class Conv(nn.Module):
     def fan_in(self) -> int:
         return self.kernel[0].numel()
 
+    @span("st2v.conv")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
         dt = _common(x, self.kernel)
@@ -138,6 +141,7 @@ class Conv1D(nn.Module):
     def fan_in(self) -> int:
         return self.kernel[0].numel()
 
+    @span("st2v.conv")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _common(x, self.kernel)
         return F.conv1d(x.to(dt), self.kernel.to(dt), self.bias.to(dt),
@@ -168,6 +172,7 @@ class ConvTranspose(nn.Module):
     def fan_in(self) -> int:
         return self.kernel.shape[0] * self.kernel.shape[2] * self.kernel.shape[3]
 
+    @span("st2v.conv")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _common(x, self.kernel)
         y = conv_transpose_subpixel(x.to(dt).permute(0, 3, 1, 2), self.kernel.to(dt),
@@ -237,6 +242,7 @@ class TimeConv(nn.Module):
     def fan_in(self) -> int:
         return self.kernel.shape[0] * self.kernel.shape[1]
 
+    @span("st2v.conv")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Plain conv3d (cuDNN on the card)."""
         dt = _common(x, self.kernel)

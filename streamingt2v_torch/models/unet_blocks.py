@@ -57,6 +57,7 @@ from streamingt2v_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from streamingt2v_torch.parallel.sharding import (
     copy_to, copy_to_model, gather_dim, get_active_mesh, reduce_from_model, seq_partial,
     shard_dim, split_over)
+from streamingt2v_torch.utils.profiling import span
 
 
 class FeedForward(nn.Module):
@@ -80,6 +81,7 @@ class FeedForward(nn.Module):
     def tp_divides(self, m: int) -> bool:
         return self.out.kernel.shape[1] % m == 0
 
+    @span("st2v.ff")
     def forward(self, x: torch.Tensor, ln=None, residual: bool = False) -> torch.Tensor:
         if self.tp is None:
             return self._ff(x, ln, residual, self.out.bias, 1)
@@ -151,6 +153,7 @@ class CrossAttention(nn.Module):
         y = reduce_from_model(self.to_out.apply_bias(o, None), self.tp)
         return y + self.to_out.bias.to(y.dtype)
 
+    @span("st2v.attention")
     def forward(self, x, context=None, pre=None, post=None, pre_split: bool = False,
                 frames: Optional[Tuple[int, int]] = None):
         if self.tp is not None:
@@ -226,6 +229,7 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, **fk)
         self.ff = FeedForward(dim, dim, **fk)
 
+    @span("st2v.transformer")
     def forward(self, x, context=None, *, pre=None, post=None, pre_split=False, frames=None):
         """``pre``/``post``/``pre_split``/``frames`` go to both attentions:
         valid only when both are self-attentions over the same axis (the
@@ -263,6 +267,7 @@ class VideoTransformerBlock(nn.Module):
         norm_params(self, "norm3", dim, **fk)
         self.ff = FeedForward(dim, dim, **fk)
 
+    @span("st2v.transformer")
     def forward(self, x, context=None, *, batch: int, frames: int):
         b, t, s = batch, frames, x.shape[1]
         dh = self.dim_head
@@ -349,6 +354,7 @@ class SpatialVideoTransformer(nn.Module):
         return [p for n in names for p in getattr(self, n).parameters()] + [
             self.time_mixer_mix_factor]
 
+    @span("st2v.transformer")
     def forward(self, x, context, image_only_indicator):
         return _remat(self, self._forward, x, context, image_only_indicator)
 
@@ -417,6 +423,7 @@ class UNetResBlock(nn.Module):
         self.out_conv = Conv(out_channels, out_channels, 3, zero_init=True, **fk)
         self.skip = Conv(in_channels, out_channels, 1, **fk) if in_channels != out_channels else None
 
+    @span("st2v.resblock")
     def forward(self, x, emb):
         h = group_norm(x, *norm_pair(self, "in_norm"), eps=1e-5, act="silu")
         h = self.in_conv(h)
@@ -428,6 +435,7 @@ class UNetResBlock(nn.Module):
         return x + h
 
 
+@span("st2v.conv")
 def _time_conv(h: torch.Tensor, conv: TimeConv, *, res=None, res_w=None, gn=None):
     """(kt,1,1) temporal conv of (B, T, H, W, C), optionally with the
     GroupNorm(eps 1e-5)+SiLU prologue ``gn=(scale, bias[, groups])`` (32
@@ -472,6 +480,7 @@ class TemporalUNetResBlock(nn.Module):
         self.skip = Conv(in_channels, out_channels, 1, **fk) if in_channels != out_channels else None
         self.out_conv = TimeConv(out_channels, out_channels, kernel, zero_init=True, **fk)
 
+    @span("st2v.resblock")
     def forward(self, x, emb, blend_weight=None):
         """With ``blend_weight`` ((B, T) f32) returns
         x + blend_weight * out_conv(...), fused into K4's epilogue."""
@@ -501,6 +510,7 @@ class UNetVideoResBlock(nn.Module):
         self.time_stack = TemporalUNetResBlock(out_channels, out_channels, emb_dim,
                                                video_kernel_size, **fk)
 
+    @span("st2v.resblock")
     def forward(self, x, emb, image_only_indicator):
         return _remat(self, self._forward, x, emb, image_only_indicator)
 

@@ -22,6 +22,7 @@ from streamingt2v_torch.models.layers import (
     Conv, TimeConv, _param, norm_pair, norm_params, per_frame)
 from streamingt2v_torch.models.unet_blocks import _time_conv
 from streamingt2v_torch.ops import attention, group_norm
+from streamingt2v_torch.utils.profiling import span
 
 
 class ResnetBlock(nn.Module):
@@ -37,6 +38,7 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = (Conv(in_channels, out_channels, 1, **fk)
                              if in_channels != out_channels else None)
 
+    @span("st2v.resblock")
     def forward(self, x):
         h = self.conv1(group_norm(x, *norm_pair(self, "norm1"), eps=1e-6, act="silu"))
         h = self.conv2(group_norm(h, *norm_pair(self, "norm2"), eps=1e-6, act="silu"))
@@ -58,6 +60,7 @@ class AttnBlock(nn.Module):
         self.v = Conv(channels, channels, 1, **fk)
         self.proj_out = Conv(channels, channels, 1, **fk)
 
+    @span("st2v.attention")
     def forward(self, x):
         n, h, w, c = x.shape
         hn = group_norm(x, *norm_pair(self, "norm"), eps=1e-6)
@@ -137,6 +140,7 @@ class TemporalResStack(nn.Module):
         norm_params(self, "out_norm", channels, **fk)
         self.out_conv = TimeConv(channels, channels, kernel, zero_init=True, **fk)
 
+    @span("st2v.resblock")
     def forward(self, x, blend_weight=None):
         """Returns x + blend_weight * out_conv(...) (blend_weight (B, T) f32)."""
         h = _time_conv(x, self.in_conv, gn=norm_pair(self, "in_norm"))
@@ -157,6 +161,7 @@ class VideoResBlock(nn.Module):
         self.mix_factor = _param((1,), device, dtype)
         self.time_stack = TemporalResStack(out_channels, video_kernel_size, **fk)
 
+    @span("st2v.resblock")
     def forward(self, x):
         h = per_frame(x, self.spatial)
         alpha = torch.sigmoid(self.mix_factor.float())

@@ -25,6 +25,7 @@ from streamingt2v_torch.models.layers import Conv, Dense, norm_pair, norm_params
 from streamingt2v_torch.models.unet_blocks import (
     Downsample, SpatialVideoTransformer, UNetVideoResBlock, Upsample)
 from streamingt2v_torch.ops import group_norm, timestep_embedding
+from streamingt2v_torch.utils.profiling import count, span
 
 
 def make_transformer(cfg: VideoUNetConfig, ch: int, *, use_apm: bool, apm_tokens: int,
@@ -37,6 +38,7 @@ def make_transformer(cfg: VideoUNetConfig, ch: int, *, use_apm: bool, apm_tokens
         max_time_embed_period=cfg.max_period, use_checkpoint=cfg.use_checkpoint, **fk)
 
 
+@span("st2v.embed")
 def embed(m: nn.Module, cfg: VideoUNetConfig, t_cont, y, b: int, t: int, dtype) -> torch.Tensor:
     """emb (B, T, 4*mc) from the module's time/label MLP parameters."""
     t_emb = timestep_embedding(t_cont, cfg.model_channels, max_period=cfg.max_period)
@@ -146,10 +148,12 @@ class VideoUNet(nn.Module):
         norm_params(self, "out_norm", ch, **fk)
         self.out_conv = Conv(ch, cfg.out_channels, 3, zero_init=True, **fk)
 
+    @span("st2v.unet")
     def forward(self, x: torch.Tensor, t_cont: torch.Tensor, context: Optional[torch.Tensor],
                 y: Optional[torch.Tensor], image_only_indicator: Optional[torch.Tensor] = None,
                 hs_control: Optional[Sequence[torch.Tensor]] = None,
                 h_control_mid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        count("unet_calls")
         cfg = self.cfg
         b, t = x.shape[:2]
         dtype = cfg.dtypes.compute_dtype

@@ -24,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from streamingt2v_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attention.cu", "geglu_ff.cu", "temporal_conv.cu", "fused_group_norm.cu",
@@ -110,8 +112,13 @@ def build() -> tuple:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    path, _, _ = build()
+    """The loaded kernel library (built on first call).  A build that
+    compiles counts in ``kernel_builds``, and its seconds in
+    ``kernel_build_s`` (``utils/profiling``)."""
+    with span("st2v.kernel_build"):
+        path, seconds, _ = build()
+    count("kernel_builds", int(seconds > 0))
+    count("kernel_build_s", seconds)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

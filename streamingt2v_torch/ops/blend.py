@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from streamingt2v_torch.utils.profiling import span
+
 
 def blend_weight(mix_factor: torch.Tensor, *, strategy: str,
                  image_indicator: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -31,6 +33,7 @@ def blend_weight(mix_factor: torch.Tensor, *, strategy: str,
     raise ValueError(strategy)
 
 
+@span("st2v.blend")
 def alpha_blend(spatial: torch.Tensor, temporal: torch.Tensor, mix_factor: torch.Tensor, *,
                 strategy: str = "learned_with_images",
                 image_indicator: Optional[torch.Tensor] = None) -> torch.Tensor:

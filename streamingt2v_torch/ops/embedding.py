@@ -8,7 +8,10 @@ import math
 
 import torch
 
+from streamingt2v_torch.utils.profiling import span
 
+
+@span("st2v.embed")
 def timestep_embedding(timesteps: torch.Tensor, dim: int, *,
                        max_period: float = 10000.0) -> torch.Tensor:
     """timesteps: (N,) -> f32 (N, dim)."""

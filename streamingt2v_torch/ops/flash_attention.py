@@ -34,8 +34,9 @@ body blocks 128 query rows, walks 64-key tiles with K and V copied by
 microtiles (S and P V alike), two blocks an SM.  Head dims below 64 are
 zero-padded to 64
 (``pad_head_dim``), with the scale of the true head dim.  Each wrapper
-counts its launches (``launches``) and, apart, those of the bf16 D=512
-instance (``launches_d512``) and those in f32 (``launches_f32``).
+counts its launches (``utils/profiling.read_launches``) and, apart, those
+of the bf16 D=512 instance (``<name>_d512``) and those in f32
+(``<name>_f32``).
 
 Gradients: on the card each wrapper is a ``torch.autograd.Function`` whose
 forward launches the kernel and saves q, k and v, and whose backward is the
@@ -56,6 +57,7 @@ import torch
 
 from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES
+from streamingt2v_torch.utils.profiling import count_launch
 
 _HEAD_DIMS = (64, 512)
 # the JAX package's cap on the packed lane width (PACKED_MAX_LANES)
@@ -195,9 +197,8 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         geo["lk"], geo["d"], _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
         splits, per, _ptr(part), _ptr(ml), _native.stream_of(q))
     _native.check(rc, "flash_attention")
-    flash_attention.launches += 1
-    flash_attention.launches_d512 += int(geo["d"] == 512 and q.dtype == torch.bfloat16)
-    flash_attention.launches_f32 += int(q.dtype == torch.float32)
+    count_launch("flash_attention", d512=geo["d"] == 512 and q.dtype == torch.bfloat16,
+                 f32=q.dtype == torch.float32)
     return out[..., :d] if geo["d"] != d else out
 
 
@@ -238,9 +239,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _FlashAttention.apply(q, k, v)
 
 
-flash_attention.launches = 0
-flash_attention.launches_d512 = 0
-flash_attention.launches_f32 = 0
 flash_attention.bwd_chunks = 0
 
 
@@ -336,9 +334,8 @@ def _launch_flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         geo["lq"], geo["lk"], d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
         splits, per, _ptr(part), _ptr(ml), _native.stream_of(q))
     _native.check(rc, "flash_attention_packed")
-    flash_attention_packed.launches += 1
-    flash_attention_packed.launches_d512 += int(d == 512 and q.dtype == torch.bfloat16)
-    flash_attention_packed.launches_f32 += int(q.dtype == torch.float32)
+    count_launch("flash_attention_packed", d512=d == 512 and q.dtype == torch.bfloat16,
+                 f32=q.dtype == torch.float32)
     return out
 
 
@@ -359,7 +356,4 @@ class _FlashAttentionPacked(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-flash_attention_packed.launches = 0
-flash_attention_packed.launches_d512 = 0
-flash_attention_packed.launches_f32 = 0
 flash_attention_packed.bwd_chunks = 0

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES, chunked_vjp
+from streamingt2v_torch.utils.profiling import count_launch
 
 # G (rows x inner, in x's dtype) of one chunk of rows stays within this budget, or
 # holds one wave of the down pass where that is more (``chunk_size``).  Not
@@ -204,7 +205,7 @@ def _launch_geglu(x, w1, b1, w2, b2, ln_scale, ln_bias, residual: bool) -> torch
             None if ln_buf is None else ln_buf.data_ptr(), count, c, inner, c_out, int(residual),
             code, cols, sms, stream)
         _native.check(rc, "geglu_ff")
-    geglu_ff.launches += 1
+    count_launch("geglu_ff")
     return out
 
 
@@ -251,5 +252,4 @@ class _GegluFF(torch.autograd.Function):
         return grads + (None,)
 
 
-geglu_ff.launches = 0
 geglu_ff.bwd_chunks = 0

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from streamingt2v_torch.ops import _native
+from streamingt2v_torch.utils.profiling import count_launch
 
 MAX_CHANNELS = 4096   # the JAX package's fits_fused cap
 MAX_GROUPS = 256
@@ -126,8 +127,6 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *
         n, l, c, num_groups, plan.rows_per_chunk, plan.slots, eps, int(act == "silu"),
         _native.DTYPE_CODE[x.dtype], _native.stream_of(x))
     _native.check(rc, "fused_group_norm")
-    fused_group_norm.launches += 1
+    count_launch("fused_group_norm")
     return out
 
-
-fused_group_norm.launches = 0

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from streamingt2v_torch.ops.fused_group_norm import fits_fused, fused_group_norm
 from streamingt2v_torch.ops.routing import current_routing
+from streamingt2v_torch.utils.profiling import span
 
 
 def _grouped(x: torch.Tensor, num_groups: int) -> tuple:
@@ -38,6 +39,7 @@ def _group_stats(xg: torch.Tensor, eps: float) -> tuple:
     return mean, torch.rsqrt(var + eps)
 
 
+@span("st2v.norm")
 def group_norm(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -67,6 +69,7 @@ def group_norm(
     return out.to(x.dtype)
 
 
+@span("st2v.norm")
 def group_norm_affine(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -88,6 +91,7 @@ def group_norm_affine(
     return a, b
 
 
+@span("st2v.norm")
 def layer_norm(
     x: torch.Tensor,
     scale: Optional[torch.Tensor] = None,

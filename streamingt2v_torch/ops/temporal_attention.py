@@ -38,6 +38,7 @@ import torch
 
 from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops.attention import attention
+from streamingt2v_torch.utils.profiling import count_launch
 
 MAX_FRAMES = 64
 MAX_HEAD_DIM = 128
@@ -102,13 +103,9 @@ def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         s * num_heads, d, _native.DTYPE_CODE[q.dtype], d ** -0.5 * math.log2(math.e),
         _native.stream_of(q))
     _native.check(rc, "temporal_attention")
-    fused_temporal_attention.launches += 1
-    fused_temporal_attention.launches_f32 += int(q.dtype == torch.float32)
+    count_launch("fused_temporal_attention", f32=q.dtype == torch.float32)
     return out
 
-
-fused_temporal_attention.launches = 0
-fused_temporal_attention.launches_f32 = 0
 
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int,

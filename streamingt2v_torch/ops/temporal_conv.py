@@ -48,6 +48,7 @@ import torch
 
 from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES, chunked_vjp
+from streamingt2v_torch.utils.profiling import count_launch
 
 # CUDA's grid limit on the batch rows the C entry takes
 _MAX_GRID = 65535
@@ -199,8 +200,7 @@ def _launch_temporal_conv(x, w, b, res, res_w, pre_a, pre_b) -> torch.Tensor:
         out.data_ptr(), bsz, t, s, c, c_out, kt, _native.DTYPE_CODE[x.dtype], cols, sms,
         _native.stream_of(x))
     _native.check(rc, "temporal_conv")
-    temporal_conv.launches += 1
-    temporal_conv.launches_f32 += int(x.dtype == torch.float32)
+    count_launch("temporal_conv", f32=x.dtype == torch.float32)
     return out
 
 
@@ -241,6 +241,4 @@ class _TemporalConv(torch.autograd.Function):
         return grads
 
 
-temporal_conv.launches = 0
-temporal_conv.launches_f32 = 0
 temporal_conv.bwd_chunks = 0

@@ -42,6 +42,7 @@ from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet
 from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.ops.routing import use_routing
 from streamingt2v_torch.parallel.sharding import batch_rows, data_parallel, gather
+from streamingt2v_torch.utils.profiling import count, span
 from streamingt2v_torch.utils.rng import EnhanceNoise, GeneratorEnhanceNoise
 
 
@@ -110,6 +111,7 @@ class EnhancePipeline:
         f = self.vae.cfg.downsample_factor
         return h // f, w // f
 
+    @span("st2v.condition")
     def _key_image_cond(self, image: torch.Tensor, noise: torch.Tensor, num_frames: int):
         """Key frame (H, W, 3) -> CLIP embeddings (2, D) (zeros, then the
         image's) and image latents (2, T, h, w, 4): its sampled VAE latent
@@ -142,10 +144,12 @@ class EnhancePipeline:
         eps = eps_u + self.cfg.guidance_scale * (eps_c - eps_u)
         return m.scheduler.step(eps, t, latents_chunk, self.cfg.num_steps)
 
+    @span("st2v.step")
     def _denoise_step(self, latents, si: int, t: int, prompt_embeds, clip_embs, image_latents,
                       noise: EnhanceNoise, *, chunk_size: int, stride: int, overlap_size: int):
         """One DDIM step over all chunks, one chunk's two UNet calls after
         another, written back by ``_write_back``."""
+        count("steps")
         denoised = torch.cat([
             self._denoise_chunk(latents[:, ci * stride:ci * stride + chunk_size], t,
                                 prompt_embeds, clip_embs[ci], image_latents[ci])
@@ -169,6 +173,7 @@ class EnhancePipeline:
             new[:, start:start + chunk_size] = chunk
         return new
 
+    @span("st2v.step")
     def _denoise_step_dp(self, latents, si: int, t: int, prompt_embeds, clip_embs, image_latents,
                          noise: EnhanceNoise, *, chunk_size: int, stride: int, overlap_size: int):
         """``_denoise_step`` with all 2 * n_chunks UNet calls as one batch,
@@ -177,6 +182,7 @@ class EnhancePipeline:
         ``streamingt2v_tpu/pipeline/enhance.py:306-360``).  The guided
         results are then written back as the sequential step writes them
         (``_write_back``), so the two steps agree to rounding."""
+        count("steps")
         m = self.m
         n = clip_embs.shape[0]
         chunks = torch.cat([latents[:, ci * stride:ci * stride + chunk_size] for ci in range(n)])
@@ -226,6 +232,7 @@ class EnhancePipeline:
             zs.append(self.vae.encode(chunk, eps).float()[:n])
         return torch.cat(zs, dim=0)[None]
 
+    @span("st2v.decode")
     def _decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """(1, F, h, w, 4) -> frames (F, H, W, 3) in [-1, 1], f32."""
         z = latents[0]
@@ -234,7 +241,10 @@ class EnhancePipeline:
         outs = []
         for start in range(0, z.shape[0], step):
             zc = z[start:start + step].to(self._vae_dtype)
-            outs.append(self.vae.decode(zc).float())
+            with span("st2v.vae_decoder"):
+                count("vae_decoder_calls")
+                out = self.vae.decode(zc)
+            outs.append(out.float())
         return torch.cat(outs, dim=0).clamp(-1.0, 1.0)
 
     # ---------- public API ----------
@@ -285,9 +295,10 @@ class EnhancePipeline:
                                       timesteps[0])
         step = (self._denoise_step_dp if self.mesh is not None and self.mesh.size > 1
                 else self._denoise_step)
-        for si, t in enumerate(timesteps):
-            latents = step(latents, si, t, prompt_embeds, clip_embs, image_latents, noise,
-                           chunk_size=chunk_size, stride=stride, overlap_size=overlap_size)
+        with span("st2v.chunk"):
+            for si, t in enumerate(timesteps):
+                latents = step(latents, si, t, prompt_embeds, clip_embs, image_latents, noise,
+                               chunk_size=chunk_size, stride=stride, overlap_size=overlap_size)
         return self._decode_latents(latents)
 
     @_routed

@@ -44,6 +44,7 @@ from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.video_unet import VideoUNet
 from streamingt2v_torch.models.wrappers import openai_wrapper, streaming_wrapper
 from streamingt2v_torch.ops.routing import use_routing
+from streamingt2v_torch.utils.profiling import count, span
 from streamingt2v_torch.utils.rng import GeneratorNoise, NoiseFn, StepNoiseFn, step_stream
 
 Cond = Dict[str, torch.Tensor]
@@ -77,6 +78,7 @@ class Stage1Pipeline:
 
     # ---------- the stages ----------
 
+    @span("st2v.condition")
     def condition(self, anchor_frame: torch.Tensor, aug_noise: torch.Tensor,
                   apm_tokens: Optional[torch.Tensor] = None) -> tuple:
         """anchor (1, H, W, 3) + uniform noise of its shape -> (c, uc), each
@@ -123,6 +125,7 @@ class Stage1Pipeline:
         return sampler(lambda x, sigma, cond: denoise(network_fn, x, sigma, cond), noise, c, uc,
                        step_noise)
 
+    @span("st2v.chunk")
     def first_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor,
                     step_noise: Optional[StepNoiseFn] = None) -> torch.Tensor:
         """(c, uc) + initial noise -> latents (1, T, h, w, 4); ``step_noise``:
@@ -130,6 +133,7 @@ class Stage1Pipeline:
         return self._sample(openai_wrapper(self.models.svd_unet, mesh=self.mesh), noise, c, uc,
                             self.cfg.first_chunk_sampler, step_noise)
 
+    @span("st2v.chunk")
     def stream_chunk(self, c: Cond, uc: Cond, noise: torch.Tensor,
                      step_noise: Optional[StepNoiseFn] = None) -> torch.Tensor:
         """(c, uc) with ctrl_frames + initial noise -> latents (1, T, h, w, 4)."""
@@ -141,16 +145,20 @@ class Stage1Pipeline:
     def decode_chunk(self, z: torch.Tensor) -> torch.Tensor:
         """z (1, <=cs, h, w, 4) -> frames in [-1, 1], f32.  With
         ``vae_decode_bf16`` the decoder runs on a bf16 cast of its weights."""
+        count("decode_pieces")
         vae = self.models.vae
         z = z / vae.cfg.scale_factor
+        params = None
         if self.cfg.inference.vae_decode_bf16:
             params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                       for n, p in vae.decoder.named_parameters()}
-            out = functional_call(vae.decoder, params, (z.to(torch.bfloat16),))
-        else:
-            out = vae.decoder(z)
+            z = z.to(torch.bfloat16)
+        with span("st2v.vae_decoder"):
+            count("vae_decoder_calls")
+            out = vae.decoder(z) if params is None else functional_call(vae.decoder, params, (z,))
         return out.float().clamp(-1.0, 1.0)
 
+    @span("st2v.decode")
     def decode_video(self, z: torch.Tensor) -> torch.Tensor:
         cs = self.cfg.inference.decode_chunk_size
         return torch.cat([self.decode_chunk(z[:, s:s + cs]) for s in range(0, z.shape[1], cs)],

@@ -322,12 +322,12 @@ def test_chip_smoke_counts_f32_launches_apart():
     """K1, K2, K4 and K6 count their f32 launches apart: the launch reader
     adds them (``<name>_f32``) only when asked, the reset zeroes them, and the
     kernels line carries them as ``launches_f32`` on those four rows only."""
-    from streamingt2v_torch.ops.flash_attention import flash_attention, flash_attention_packed
-    from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
+    from streamingt2v_torch.utils.profiling import LAUNCHES, count
 
-    flash_attention.launches_f32, flash_attention_packed.launches_f32 = 3, 5
-    tc.temporal_conv.launches_f32 = 7
-    fused_temporal_attention.launches_f32 = 9
+    chip_smoke._reset_launches()
+    for name, n in (("flash_attention", 3), ("flash_attention_packed", 5),
+                    ("temporal_conv", 7), ("fused_temporal_attention", 9)):
+        count(LAUNCHES + name + "_f32", n)
     got = chip_smoke._read_launches(f32=True)
     assert {k: got[k] for k in chip_smoke.F32_COUNTED} == {
         "flash_attention_f32": 3, "flash_attention_packed_f32": 5, "temporal_conv_f32": 7,

@@ -42,6 +42,7 @@ from streamingt2v_torch.ops.routing import current_routing, use_routing
 from streamingt2v_torch.ops.temporal_attention import (
     fused_temporal_attention, temporal_attention)
 from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
+from streamingt2v_torch.utils.profiling import read_launches
 
 # the ops packages re-export the function ``attention``; take the modules
 jax_attention_mod = importlib.import_module("streamingt2v_tpu.ops.attention")
@@ -258,11 +259,10 @@ def test_temporal_conv_gate_admits_what_jax_admits(c, kt):
 def test_wrappers_take_plain_version_only_on_cpu(fn, args):
     """A tensor that is neither on the CPU nor on CUDA is refused, not
     quietly computed by the plain version."""
-    wrapper = getattr(fn, "func", fn)
-    before = wrapper.launches
+    before = read_launches(f32=True)
     with pytest.raises(ValueError):
         fn(*args())
-    assert wrapper.launches == before
+    assert read_launches(f32=True) == before
 
 
 # ---------------------------------------------------------------- K5 -----
@@ -354,9 +354,9 @@ def test_temporal_attention_plain_matches_pallas(b, tq, tkv, s, h, d):
 def test_temporal_attention_outside_the_gate_takes_the_plain_version():
     rng = np.random.RandomState(14)
     q = t(rng.randn(70, 4, 16).astype(np.float32))   # 70 frames > 64
-    before = fused_temporal_attention.launches
+    before = read_launches(f32=True)
     out = temporal_attention(q, q, q, batch=1, frames_q=70, frames_kv=70, num_heads=2)
-    assert out.shape == q.shape and fused_temporal_attention.launches == before
+    assert out.shape == q.shape and read_launches(f32=True) == before
 
 
 # ------------------------------------------------------------- routing ---

@@ -230,10 +230,11 @@ def test_chip_smoke_kernel_lines_carry_every_field():
 def test_chip_smoke_counts_d512_launches_apart():
     """The flash wrappers count their D=512 launches apart; the launch
     reader reports them under ``<name>_d512`` and the reset zeroes them."""
-    from streamingt2v_torch.ops.flash_attention import flash_attention_packed
+    from streamingt2v_torch.utils.profiling import LAUNCHES, count
 
-    flash_attention.launches_d512 = 3
-    flash_attention_packed.launches_d512 = 5
+    chip_smoke._reset_launches()
+    count(LAUNCHES + "flash_attention_d512", 3)
+    count(LAUNCHES + "flash_attention_packed_d512", 5)
     got = chip_smoke._read_launches()
     assert got["flash_attention_d512"] == 3 and got["flash_attention_packed_d512"] == 5
     assert set(got) == set(chip_smoke.KERNEL_META)
