@@ -23,7 +23,8 @@ Phases, one line each:
      (CUDA events, median of a few runs, each call queued behind a device
      sleep so that the host's work before it is not timed) at one timed
      main-path shape each;
-     there also its bound and its library yardstick (below).  The build
+     there also its bound and its library yardstick (below); K5 also at
+     every geometry stage 1 sends it (``stage1_k5_geometries``).  The build
      phase fails if ptxas serialized any kernel's ``wgmma``;
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32), the same with APM (a 3+1-token context, ``apm_alpha``
@@ -886,8 +887,40 @@ def check_k4(randn, gen) -> dict:
     return rec
 
 
+def stage1_k5_geometries(bf16, f32) -> list:
+    """Every geometry that stage 1's routing sends K5, as (N, L, C, act, eps,
+    dtype, label); each gives K5 a launch plan of its own (``launch_plan``).
+    The VideoUNet runs 2 x 25 frames and the ControlNet 2 x 7: their
+    ResBlocks SiLU at eps 1e-5, their transformers' input norms act=None at
+    1e-6.  The VAE decoder runs pieces of 8 frames and a last one of 1, the
+    conditioning's f32 encoder one frame: SiLU at 1e-6, the mid attention's
+    norm act=None."""
+    unet = ((9216, 320), (9216, 640), (9216, 960), (2304, 320), (2304, 640), (2304, 960),
+            (2304, 1280), (2304, 1920), (576, 640), (576, 1280), (576, 1920), (576, 2560),
+            (144, 1280), (144, 2560))
+    controlnet = ((9216, 320), (2304, 320), (2304, 640), (576, 640), (576, 1280), (144, 1280))
+    transformers = ((9216, 320), (2304, 640), (576, 1280), (144, 1280))
+    decoder = ((589824, 128), (589824, 256), (147456, 256), (147456, 512), (36864, 512),
+               (9216, 512))
+    encoder = ((589824, 128), (147456, 128), (147456, 256), (36864, 256), (36864, 512),
+               (9216, 512))
+    rows = []
+    for n, name, resblocks in ((50, "VideoUNet", unet), (14, "ControlNet", controlnet)):
+        rows += [(n, l, c, "silu", 1e-5, bf16, f"stage-1 {name} ResBlock") for l, c in resblocks]
+        rows += [(n, l, c, None, 1e-6, bf16, f"stage-1 {name} transformer")
+                 for l, c in transformers]
+    for n in (8, 1):
+        rows += [(n, l, c, "silu", 1e-6, bf16, "stage-1 VAE decoder") for l, c in decoder]
+        rows.append((n, 9216, 512, None, 1e-6, bf16, "stage-1 VAE decoder mid attention"))
+    rows += [(1, l, c, "silu", 1e-6, f32, "stage-1 f32 conditioning encoder")
+             for l, c in encoder]
+    rows.append((1, 9216, 512, None, 1e-6, f32, "stage-1 f32 conditioning encoder mid attention"))
+    return rows
+
+
 def check_k5(randn) -> dict:
-    """K5 at the stage-2 geometries, timed against the plain group_norm."""
+    """K5 at the stage-2 geometries, timed against the plain group_norm, and
+    against its plain version at every geometry stage 1 sends it."""
     import torch
     import torch.nn.functional as F
 
@@ -903,7 +936,8 @@ def check_k5(randn) -> dict:
             (38, 14400, 320, None, 1e-6, bf16, "Transformer2D level0"),
             (2, 921600, 128, "silu", 1e-6, bf16, "sd-vae top level"),
             (4, 4096, 256, "silu", 1e-6, f32, "f32"),
-            (38, 14400, 320, None, 1e-5, f32, "f32 ResnetBlock2D level0 width")]:
+            (38, 14400, 320, None, 1e-5, f32, "f32 ResnetBlock2D level0 width"),
+            *stage1_k5_geometries(bf16, f32)]:
         x = randn(n, l, c, dtype=dtype, std=2.0, mean=0.5)
         scale = 1.0 + randn(c, dtype=f32, std=0.1)
         bias = randn(c, dtype=f32, std=0.1)
@@ -1527,7 +1561,7 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
     return launches
 
 
-# The f32 decode held against itself with K1 and K4 on their plain versions:
+# The f32 decode held against itself with K1, K4 and K5 on their plain versions:
 # max |difference| on the [-1, 1] frames (0.13 of a uint8 level).  Both runs
 # are full f32 (TF32 off) and differ only in summation order: the kernels sum
 # each output over up to 3 x 512 products and 9216 keys in another order than
@@ -1538,14 +1572,15 @@ def run_slice(first_steps: int, ar_steps: int) -> dict:
 DECODE_F32_ATOL = 1e-3
 
 
-def _plain_k1_k4():
-    """A context in which the models' K1, K2 and K4 calls take their plain
+def _plain_kernels():
+    """A context in which the models' K1, K2, K4 and K5 calls take their plain
     versions: the wrappers' names in the modules that call them, patched for
     the measurement only (as ``_unpinned_conv_transpose`` is)."""
     import contextlib
     import importlib
 
-    from streamingt2v_torch.ops import flash_attention as fa, temporal_conv as tc
+    from streamingt2v_torch.ops import flash_attention as fa, fused_group_norm as gn, norms
+    from streamingt2v_torch.ops import temporal_conv as tc
 
     attention = importlib.import_module("streamingt2v_torch.ops.attention")
     blocks = importlib.import_module("streamingt2v_torch.models.unet_blocks")
@@ -1553,7 +1588,8 @@ def _plain_k1_k4():
                (attention, "flash_attention_packed",
                 lambda q, k, v, *, num_heads: fa.flash_attention_packed_reference(
                     q, k, v, num_heads)),
-               (blocks, "temporal_conv", tc.temporal_conv_reference)]
+               (blocks, "temporal_conv", tc.temporal_conv_reference),
+               (norms, "fused_group_norm", gn.fused_group_norm_reference)]
 
     @contextlib.contextmanager
     def patched():
@@ -1574,7 +1610,7 @@ def _slice_f32_decode(pipe, decode, decodes: list) -> dict:
     (``vae_decode_bf16=False``: f32 weights and activations, K4 and K1 in
     f32): the seconds (``decode_video_f32``), the launches (returned, f32 apart),
     the largest difference from the slice's bf16 decode, and the first 8-frame
-    chunk decoded once more with K1 and K4 on their plain versions, held
+    chunk decoded once more with K1, K4 and K5 on their plain versions, held
     within ``DECODE_F32_ATOL``.  ``decode`` is the pipeline's own
     ``decode_video``; ``decodes`` the (latents, bf16 frames) of its calls."""
     import dataclasses
@@ -1610,11 +1646,11 @@ def _slice_f32_decode(pipe, decode, decodes: list) -> dict:
             z = decodes[0][0][:, :cs]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with _plain_k1_k4():
+            with _plain_kernels():
                 plain = pipe.decode_chunk(z)
             torch.cuda.synchronize()
             err = (f32[0][:, :cs] - plain).abs().max().item()
-            print(f"  one {cs}-frame chunk in f32, kernels against K1 and K4 plain "
+            print(f"  one {cs}-frame chunk in f32, kernels against K1, K4 and K5 plain "
                   f"({time.perf_counter() - t0:.1f} s): max_abs_err={err:.3e} "
                   f"tol={DECODE_F32_ATOL:g}", flush=True)
             if not err <= DECODE_F32_ATOL:

@@ -7,15 +7,16 @@ one NVIDIA GPU.
 
     python3 scripts/profile_torch_steps.py            # stages 1 and 2
     python3 scripts/profile_torch_steps.py --stages 2,vae,vfi
-    python3 scripts/profile_torch_steps.py --stages 1 --stage1-routing off,on
+    python3 scripts/profile_torch_steps.py --stages 1 --stage1-routing shipped,on
     python3 scripts/profile_torch_steps.py --stages vae --root DIR   # another checkout
     python3 scripts/profile_torch_steps.py --stages train    # one training step
 
 Stage 1 runs ``image_to_video`` for 43 frames (the first chunk with one
 sampler step, then one AR chunk with two) and profiles the AR chunk's last
-guided denoiser call, once per ``--stage1-routing`` entry: "off" is the
-shipped ``PipelineConfig.routing`` (the JAX package's switches, all off),
-"on" is ``KernelRouting.all_on()`` (K2, K5 and K6 where their gates allow).
+guided denoiser call, once per ``--stage1-routing`` entry: "shipped" is
+``PipelineConfig.routing`` (K5 under the per-frame GroupNorms, K2 and K6
+off), "on" is ``KernelRouting.all_on()`` (K2, K5 and K6 where their gates
+allow).
 Stage 2 runs ``enhance_with_keyframe_prepass`` on a
 synthetic 64-frame 720p video with 3 DDIM steps (2 run) and profiles the
 last 38-frame chunk step.  "vae" builds stage 2 and profiles one call of
@@ -116,7 +117,7 @@ def report(title: str, by_name: dict, wall: float) -> None:
         print(f"    {OTHER}: {ms:.1f} ms {name[:100]}", flush=True)
 
 
-ROUTINGS = ("off", "on")
+ROUTINGS = ("shipped", "on")
 
 
 def profile_stage1(routing: str) -> None:
@@ -386,7 +387,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--stages", default="1,2",
                         help="comma-separated subset of " + ",".join(STAGES))
-    parser.add_argument("--stage1-routing", default="off",
+    parser.add_argument("--stage1-routing", default="shipped",
                         help="comma-separated subset of " + ",".join(ROUTINGS))
     parser.add_argument("--root", default=HERE, help="checkout whose port is profiled")
     args = parser.parse_args()

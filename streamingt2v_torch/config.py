@@ -54,7 +54,10 @@ class KernelRouting:
     (``streamingt2v_tpu/ops/attention.py:262-265``, ``ops/norms.py:19-26``,
     ``ops/temporal_attention.py:158-170``).  In the port each pipeline
     carries one of these and applies it around its public calls
-    (``ops/routing.py``); off means the JAX default path.
+    (``ops/routing.py``); off means the JAX default path, which is also
+    what runs outside any pipeline call (training among it).  Stage 1 takes
+    ``fused_group_norm`` (``PipelineConfig.routing``), stage 2 all four
+    (``EnhanceConfig.routing``).
 
       flash_packed:       multi-head attention on the flash geometries runs
                           K2 on the packed (B, L, H*D) layout instead of K1
@@ -356,9 +359,11 @@ class PipelineConfig:
     enhance: EnhanceConfig = field(default_factory=EnhanceConfig)
     vfi: VFIConfig = field(default_factory=VFIConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    # stage 1 keeps the JAX package's default routes (K1, plain GroupNorm,
-    # transposed temporal attention)
-    routing: KernelRouting = field(default_factory=KernelRouting)
+    # stage 1 runs its per-frame GroupNorms on K5 and keeps the JAX package's
+    # other default routes (K1 on head-folded copies, transposed temporal
+    # attention)
+    routing: KernelRouting = field(
+        default_factory=lambda: KernelRouting(fused_group_norm=True))
 
     def n_autoregressions(self, stage1_frames: int) -> int:
         """ceil((F_target - 25) / (25 - 7)) — reference inference_i2v.py:179-184."""

@@ -365,7 +365,7 @@ def test_routing_defaults_to_the_jax_switches_and_resets():
     from streamingt2v_torch.config import EnhanceConfig, PipelineConfig
 
     assert current_routing() == KernelRouting()
-    assert PipelineConfig().routing == KernelRouting()
+    assert PipelineConfig().routing == KernelRouting(fused_group_norm=True)
     assert EnhanceConfig().routing == KernelRouting(True, True, True)
     with use_routing(KernelRouting(flash_packed=True)):
         assert current_routing().flash_packed
