@@ -7,6 +7,8 @@ size on the CPU, with each cell's own limits:
   run (the look for a card skipped): a step that returns its state
   unchanged, half of the batch left out, an answer altered where it is
   produced.  One chip holds no exchange between chips to leave out.
+
+A cell added later brings its planted faults in a test file of its own.
 """
 
 from __future__ import annotations

@@ -4,13 +4,17 @@ of its layers' closed forms."""
 
 from __future__ import annotations
 
+import os
+
 import pytest
 import torch
 
-from benchmark import flops
-from benchmark.entries import stage1_decode_video, stage1_stream_chunk, stage2_denoise_step
+from benchmark import flops, run
 from benchmark.reference import layers
 from benchmark.tests import tiny
+
+MANIFEST = run.load_json(os.path.join(run.ROOT, "BENCHMARK.json"))
+CELLS = [w["name"] for w in MANIFEST["workloads"]]
 
 
 @pytest.mark.parametrize("m,c", [(256, 64), (1000, 320)])
@@ -63,21 +67,13 @@ def layer_flops(mod, args, out) -> int:
     return 2 * (x.numel() // cin) * kt * cin * cout
 
 
-@pytest.mark.parametrize("entry,name", [(stage1_stream_chunk, "streamingsvd.ar_chunk"),
-                                        (stage2_denoise_step, "i2vgen_xl.enhance_chunk"),
-                                        (stage1_decode_video, "streamingsvd.vae_decode")])
-def test_counted_total_is_the_sum_of_the_parts(entry, name):
+@pytest.mark.parametrize("name", CELLS)
+def test_counted_total_is_the_sum_of_the_parts(name):
     """FlopCounterMode's total of one unit of the tiny reference equals the
     sum of its layers' closed forms and its attentions' 4 B H Lq Lk D."""
+    spec = run.resolve(MANIFEST, name)
     cfg, traffic = tiny.cell(name)
-    cell = entry.Cell.__new__(entry.Cell)       # the unit alone: nothing is built
-    cell.cfg, cell.traffic, cell.seed = cfg, traffic, 0
-    cell.steps = cfg.get("sampler", {}).get("num_steps")
-    if entry is stage2_denoise_step:
-        cell.geo = stage2_denoise_step.geometry(cfg, traffic)
-    if entry is stage1_decode_video:
-        frames, cs = cfg["inference"]["chunk_frames"], cfg["inference"]["decode_chunk_size"]
-        cell.pieces = [(s, min(s + cs, frames)) for s in range(0, frames, cs)]
+    cell = spec["entry"].Cell(cfg, traffic, 0, "cpu")
     parts = []
 
     def hook(mod, args, out):

@@ -122,14 +122,14 @@ def test_readers_return_none(name, case):
 
 
 def test_new_metrics_in_the_manifest():
-    """The five readers' entries: ``program_span``, each in the cells whose
-    end-to-end metric it moves."""
+    """The five readers' entries: ``program_span``, each moving the
+    end-to-end metric of its cells and listing at least the cells it was
+    given (a later cell may be added to them)."""
     entries = {m["name"]: m for m in MANIFEST["per_layer"]}
     for name in NEW:
         m = entries[name]
         assert m["source"] == "program_span"
         step = name.endswith(".step")
         assert m["moves"] == ("step_ms" if step else "frames_per_s")
-        assert m["workloads"] == (["streamingsvd.ar_chunk", "i2vgen_xl.enhance_chunk"] if step
-                                  else ["streamingsvd.vae_decode"])
-    assert [m["name"] for m in MANIFEST["per_layer"]][-len(NEW):] == list(NEW)
+        assert set(m["workloads"]) >= ({"streamingsvd.ar_chunk", "i2vgen_xl.enhance_chunk"}
+                                       if step else {"streamingsvd.vae_decode"})
