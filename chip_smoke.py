@@ -3,8 +3,8 @@
 (streaming image-to-video, also with APM and under every other sampler and
 guider), training of the full-width SVD-XT UNet, stage 2 (I2VGen-XL
 enhancement), stage 3 (EMA-VFI 2x interpolation), the three-stage product
-that joins them, and the checkpoint loader that fills it from the published
-weights' names.
+that joins them, the checkpoint loader that fills it from the published
+weights' names, and a guided step of CogVideoX-5B text-to-video.
 
     python3 chip_smoke.py                  # every phase (the check)
     python3 chip_smoke.py --phases card,build,kernels   # skip the pipelines
@@ -145,7 +145,14 @@ Phases, one line each:
      census losses, the KL, the vector quantizer) on the card against the
      CPU at a small size, and LPIPS and the discriminator timed on 25 frames
      at 576x1024 and the VFI losses on 720p pairs; last the two
-     single-process examples of ``examples/torch/`` at their tiny widths.
+     single-process examples of ``examples/torch/`` at their tiny widths;
+  15. cogvideox: ``build_cogvideox`` at the published CogVideoX-5B widths
+     (random bf16 weights), then one guided DDIM step
+     (``CogVideoXPipeline.denoise_step`` under the configuration's routing)
+     of 49 frames at 480x720 from latent noise and prompt embeddings drawn
+     from seed 0: its seconds (the first step, cold), resident and peak
+     memory, finite latents that moved, and its launches: K1 once a block
+     at (96, 17776, 64) (42) and no other kernel (``cogvideox_launches``).
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -163,10 +170,11 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-bench, apm, samplers, train, enhance, product, loader and mesh phases
-(``product_launches``, ``bench_launches``, ``apm_launches``,
-``samplers_launches``, ``train_launches`` and ``mesh_launches`` those
-phases' alone; the bench's in its timed calls).
+bench, apm, samplers, train, enhance, product, loader, mesh and cogvideox
+phases (``product_launches``, ``bench_launches``, ``apm_launches``,
+``samplers_launches``, ``train_launches``, ``mesh_launches`` and
+``cogvideox_launches`` those phases' alone; the bench's in its timed
+calls).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch), and its
@@ -214,7 +222,7 @@ import time
 from typing import Optional
 
 ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "bench", "apm", "samplers",
-              "train", "enhance", "interpolate", "product", "loader", "mesh")
+              "train", "enhance", "interpolate", "product", "loader", "mesh", "cogvideox")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -498,6 +506,7 @@ def check_k1(randn) -> dict:
             (250, 9216, 64, bf16, "unet level0 self-attn"),
             (500, 2304, 64, bf16, "unet level1 self-attn"),
             (70, 9216, 64, bf16, "controlnet level0 self-attn"),
+            (96, 17776, 64, bf16, "cogvideox joint self-attn, ragged last tile"),
             (8, 9216, 512, bf16, "vae decoder mid attn"),
             (3, 1000, 512, bf16, "D=512 ragged L=1000"),
             (2, 40, 512, bf16, "D=512 L=40, one ragged tile"),
@@ -3711,6 +3720,53 @@ F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_co
                "fused_temporal_attention_f32")
 
 
+def run_cogvideox() -> dict:
+    """Phase 15: one guided step of CogVideoX-5B at the published widths."""
+    import torch
+
+    from streamingt2v_torch.config import CogVideoXConfig
+    from streamingt2v_torch.ops.routing import use_routing
+    from streamingt2v_torch.pipeline.build import build_cogvideox
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = CogVideoXConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = build_cogvideox(cfg, seed=0, device=dev, bf16=True)
+    torch.cuda.synchronize()
+    print(f"  build_cogvideox: {time.perf_counter() - t0:.1f} s, resident weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    g = torch.Generator(dev).manual_seed(0)
+    text = (1, cfg.max_text_seq_length, cfg.text_embed_dim)
+    noise = torch.randn(cfg.latent_shape(1), generator=g, device=dev)
+    prompt, negative = (torch.randn(text, generator=g, device=dev) for _ in range(2))
+    t = pipe.timesteps()[0]
+    _reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), use_routing(cfg.routing):
+        out = pipe.denoise_step(noise, 0, t, prompt, negative)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _read_launches(f32=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  one guided step at t={t} (cold): {step_s:.2f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if tuple(out.shape) != cfg.latent_shape(1) or out.dtype != torch.float32:
+        raise AssertionError(f"latents {tuple(out.shape)} {out.dtype}")
+    if not torch.isfinite(out).all():
+        raise AssertionError("CogVideoX's step left non-finite latents")
+    moved = ((out - noise).norm() / noise.norm()).item()
+    if not moved > 0:
+        raise AssertionError("CogVideoX's step left the latents as they were")
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want K1 once a block and nothing else")
+    print(f"  latents {tuple(out.shape)} finite, moved {moved:.4f} of the noise", flush=True)
+    return launches
+
+
 def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  phase_launches: Optional[dict] = None) -> list:
     """The kernels JSON line's entries: one per KERNEL_META row, with the
@@ -3822,7 +3878,8 @@ def main(argv=None) -> int:
         print(f"phase reference: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict.fromkeys(KERNEL_META, 0)
     phase_launches = {p: dict.fromkeys(KERNEL_META, 0)
-                      for p in ("product", "bench", "apm", "samplers", "train", "mesh")}
+                      for p in ("product", "bench", "apm", "samplers", "train", "mesh",
+                                "cogvideox")}
     runs = [("slice", lambda: run_slice(args.first_steps, args.ar_steps)),
             ("bench", run_bench),
             ("apm", lambda: run_apm(APM_STEPS)),
@@ -3833,7 +3890,8 @@ def main(argv=None) -> int:
             ("product", lambda: run_product(args.enhance_steps, args.product_frames)),
             ("loader", lambda: run_loader(args.enhance_steps, LOADER_FRAMES,
                                           LOADER_SAMPLER_STEPS, LOADER_SAMPLER_STEPS)),
-            ("mesh", lambda: run_mesh(args.enhance_steps))]
+            ("mesh", lambda: run_mesh(args.enhance_steps)),
+            ("cogvideox", run_cogvideox)]
     for phase, run in runs:
         if phase not in phases:
             continue

@@ -21,6 +21,8 @@ from typing import Any, Tuple
 
 import torch
 
+from streamingt2v_torch.diffusion.ddim import DDIMConfig
+
 
 def _replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
@@ -278,6 +280,66 @@ class EnhanceConfig:
     )
     # stage 2 takes every optional kernel route (K2, K5, K6)
     routing: KernelRouting = field(default_factory=KernelRouting.all_on)
+
+
+@dataclass(frozen=True)
+class CogVideoXConfig:
+    """CogVideoX-5B text-to-video: the transformer (THUDM/CogVideoX-5b
+    ``transformer/config.json``, diffusers ``CogVideoXTransformer3DModel``),
+    its DDIM scheduler (``scheduler/scheduler_config.json``,
+    ``CogVideoXDDIMScheduler``) and ``CogVideoXPipeline``'s defaults: 49
+    frames at 480x720, 50 steps, guidance 6.0 with both CFG halves in one
+    batch-2 call.  The pipeline takes T5 prompt embeddings and returns
+    latents (no text encoder, no VAE).  The scheduler's published
+    ``snr_shift_scale`` is 1.0, the identity, and is not carried."""
+
+    num_layers: int = 42
+    num_attention_heads: int = 48
+    attention_head_dim: int = 64
+    in_channels: int = 16
+    out_channels: int = 16
+    patch_size: int = 2
+    text_embed_dim: int = 4096
+    max_text_seq_length: int = 226
+    time_embed_dim: int = 512
+    norm_eps: float = 1e-5
+    frames: int = 49
+    height: int = 480
+    width: int = 720
+    vae_scale_factor_spatial: int = 8
+    vae_scale_factor_temporal: int = 4
+    num_steps: int = 50
+    guidance_scale: float = 6.0
+    scheduler: DDIMConfig = field(default_factory=lambda: DDIMConfig(
+        beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear", steps_offset=0,
+        timestep_spacing="trailing", prediction_type="v_prediction", set_alpha_to_one=True,
+        rescale_betas_zero_snr=True))
+    # K2's packed gate refuses 48 x 64 lanes, so attention takes K1 on
+    # head-folded copies whatever the routing says
+    routing: KernelRouting = field(default_factory=KernelRouting)
+    dtypes: DTypePolicy = field(default_factory=DTypePolicy)
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def latent_frames(self) -> int:
+        return (self.frames - 1) // self.vae_scale_factor_temporal + 1
+
+    def latent_shape(self, batch: int = 1) -> Tuple[int, ...]:
+        """(B, F, C, H, W) of the latents, as the diffusers pipeline lays
+        them out."""
+        s = self.vae_scale_factor_spatial
+        return (batch, self.latent_frames, self.in_channels, self.height // s, self.width // s)
+
+    @classmethod
+    def tiny(cls) -> "CogVideoXConfig":
+        """2 blocks of 128 (2 heads of 64), text 32 wide x 8 tokens, time 32;
+        latents of 3 frames, 4 x 6, 16 channels; 3 steps; f32."""
+        return cls(num_layers=2, num_attention_heads=2, text_embed_dim=32,
+                   max_text_seq_length=8, time_embed_dim=32, frames=9, height=32, width=48,
+                   num_steps=3, dtypes=DTypePolicy.fp32())
 
 
 @dataclass(frozen=True)

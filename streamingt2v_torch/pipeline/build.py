@@ -23,10 +23,11 @@ import dataclasses
 
 import torch
 
-from streamingt2v_torch.config import EnhanceConfig, PipelineConfig, VAEConfig
+from streamingt2v_torch.config import CogVideoXConfig, EnhanceConfig, PipelineConfig, VAEConfig
 from streamingt2v_torch.diffusion.ddim import DDIMScheduler
 from streamingt2v_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from streamingt2v_torch.models.clip_text import CLIPTextConfig, CLIPTextTower, CLIPTokenizer
+from streamingt2v_torch.models.cogvideox import CogVideoXTransformer3D
 from streamingt2v_torch.models.conditioner import Conditioner
 from streamingt2v_torch.models.controlnet import ControlNet
 from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet, I2VGenXLUNetConfig
@@ -35,6 +36,7 @@ from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.vfi import MultiScaleFlow
 from streamingt2v_torch.models.video_unet import VideoUNet
 from streamingt2v_torch.parallel.sharding import shard_params
+from streamingt2v_torch.pipeline.cogvideox import CogVideoXPipeline
 from streamingt2v_torch.pipeline.enhance import EnhanceModels, EnhancePipeline
 from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
 from streamingt2v_torch.pipeline.interpolate import InterpolatePipeline
@@ -143,3 +145,15 @@ def build_product(cfg: PipelineConfig, seed: int = 0, *, device="cuda") -> Strea
     return StreamingT2VPipeline(cfg, build_pipeline(cfg, seed, device=device, bf16=True),
                                 build_enhance(cfg.enhance, seed, device=device),
                                 build_interpolate(cfg, seed, device=device))
+
+
+def build_cogvideox(cfg: CogVideoXConfig = CogVideoXConfig(), seed: int = 0, *, device="cuda",
+                    bf16: bool = True) -> CogVideoXPipeline:
+    """``CogVideoXPipeline`` over the transformer of ``cfg`` on ``device``
+    (bfloat16 when ``bf16``, else the config's parameter dtype), its
+    weights random from ``seed``."""
+    device = _device(device)
+    dtype = torch.bfloat16 if bf16 else cfg.dtypes.param_dtype
+    transformer = CogVideoXTransformer3D(cfg, device=device, dtype=dtype).eval()
+    init_random_(transformer, torch.Generator(device).manual_seed(seed * 1000 + 300))
+    return CogVideoXPipeline(cfg, transformer)

@@ -18,17 +18,21 @@ returns a shared no-op.  Every span of the program is named ``st2v.*``:
 - call: ``st2v.chunk`` (a sampler run over one chunk's latents; stage 2's
   SDEdit loop), ``st2v.condition``, ``st2v.decode``;
 - step: ``st2v.step``, one sampler or DDIM step;
-- network: ``st2v.unet``, ``st2v.controlnet``, ``st2v.vae_decoder``;
+- network: ``st2v.unet``, ``st2v.controlnet``, ``st2v.vae_decoder``,
+  ``st2v.dit`` (the CogVideoX transformer);
 - block: ``st2v.norm``, ``st2v.attention``, ``st2v.ff``, ``st2v.conv``,
   ``st2v.blend``, ``st2v.embed``, ``st2v.cam``, ``st2v.resblock``,
-  ``st2v.transformer``;
+  ``st2v.transformer``, ``st2v.rope`` (applying the rotary embedding),
+  ``st2v.modulate`` (AdaLN's shift, scale and gate arithmetic and the
+  gated residual adds);
 - set-up: ``st2v.kernel_build``, the CUDA kernels' build or load.
 
 Counters (``count``, ``read_counters``, ``reset_counters``) count what
 the program did whether or not a profiler runs: ``steps``, ``unet_calls``,
-``controlnet_calls``, ``vae_decoder_calls``, ``decode_pieces``,
-``kernel_builds`` and ``kernel_build_s``, and the six kernels' launches
-(``launches.<wrapper>``, read by ``read_launches``).
+``controlnet_calls``, ``vae_decoder_calls``, ``dit_calls``, ``decode_pieces``,
+``rope_tables`` (rotary tables built), ``kernel_builds`` and
+``kernel_build_s``, and the six kernels' launches (``launches.<wrapper>``,
+read by ``read_launches``).
 """
 
 from __future__ import annotations
