@@ -24,7 +24,9 @@ Phases, one line each:
      sleep so that the host's work before it is not timed) at one timed
      main-path shape each;
      there also its bound and its library yardstick (below); K5 also at
-     every geometry stage 1 sends it (``stage1_k5_geometries``).  The build
+     every geometry stage 1 sends it (``stage1_k5_geometries``), and its
+     affine entry (the statistics of K4's prologue) at every geometry the
+     UNets and the VAE decoder send it (``k4_prologue_geometries``).  The build
      phase fails if ptxas serialized any kernel's ``wgmma``;
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32), the same with APM (a 3+1-token context, ``apm_alpha``
@@ -211,6 +213,7 @@ result.  Every failed phase raises.
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import json
 import math
@@ -326,6 +329,11 @@ def work_temporal_conv(b: int, t: int, s: int, c: int, co: int, kt: int = 3, *,
 def work_group_norm(n: int, l: int, c: int, elem: int = 2) -> tuple:
     """K5: reads x once and writes the output once (no matrix products)."""
     return 0, 2 * elem * n * l * c + 4 * 2 * c
+
+
+def work_group_norm_affine(n: int, l: int, c: int, elem: int = 2) -> tuple:
+    """K5's affine entry: reads x once, writes the f32 affine (a, b)."""
+    return 0, elem * n * l * c + 4 * (2 * c + 2 * n * c)
 
 
 def work_temporal_attention(b: int, tq: int, tkv: int, s: int, heads: int, d: int,
@@ -1016,6 +1024,107 @@ def check_k5(randn) -> dict:
     return rec
 
 
+def k4_prologue_geometries() -> list:
+    """Every geometry at which ``_time_conv`` sends the statistics of K4's
+    GroupNorm+SiLU prologue to ``fused_group_norm_affine`` on the card (32
+    groups, eps 1e-5), as (N, L, C, network, launches a network call): stage
+    1's VideoUNet (the first chunk's and the AR one's) on 2 x 25 frames and
+    its ControlNet on 2 x 7, two norms in each TemporalUNetResBlock; the
+    temporal VAE decoder's TemporalResStacks on pieces of 8 frames and a last
+    one of 1, two norms each; stage 2's UNet on one 38-frame chunk of one CFG
+    half, four norms in each TemporalConvLayer."""
+    unet = ((9216, 320, 10), (2304, 640, 10), (576, 1280, 10), (144, 1280, 14))
+    controlnet = ((9216, 320, 4), (2304, 640, 4), (576, 1280, 4), (144, 1280, 8))
+    decoder = ((589824, 128, 6), (147456, 256, 6), (36864, 512, 6), (9216, 512, 10))
+    stage2 = ((14400, 320, 20), (3600, 640, 20), (920, 1280, 20), (240, 1280, 28))
+    rows = [(2, 25 * s, c, "stage-1 VideoUNet", k) for s, c, k in unet]
+    rows += [(2, 7 * s, c, "stage-1 ControlNet", k) for s, c, k in controlnet]
+    rows += [(1, t * s, c, f"stage-1 VAE decoder {t}-frame piece", k)
+             for t in (8, 1) for s, c, k in decoder]
+    rows += [(1, 38 * s, c, "stage-2 UNet", k) for s, c, k in stage2]
+    return rows
+
+
+def k4_prologue_launches() -> dict:
+    """``fused_group_norm_affine`` launches a unit, from
+    ``k4_prologue_geometries``: an AR step (one VideoUNet and one ControlNet
+    call), a stage-2 step as ``step_ms`` counts it (one chunk's 2 CFG halves;
+    a DDIM step over 3 chunks is 3 of them) and a 25-frame decode call
+    (pieces of 8, 8, 8, 1)."""
+    per_call = collections.Counter()
+    for *_, network, k in k4_prologue_geometries():
+        per_call[network] += k
+    return {"ar_step": per_call["stage-1 VideoUNet"] + per_call["stage-1 ControlNet"],
+            "stage2_step": 2 * per_call["stage-2 UNet"],
+            "decode_call": 3 * per_call["stage-1 VAE decoder 8-frame piece"]
+            + per_call["stage-1 VAE decoder 1-frame piece"]}
+
+
+# the affine entry's timed cases, (N, L, C), dtype and record-key prefix:
+# the decode's level-0 piece (also in f32, the f32 decode's) and stage 2's
+K5_AFFINE_TIMED = (((1, 8 * 589824, 128), "bfloat16", ""),
+                   ((1, 38 * 14400, 320), "bfloat16", "stage2_"),
+                   ((1, 8 * 589824, 128), "float32", "f32_"))
+
+
+def check_k5_affine(randn) -> dict:
+    """K5's affine entry (``fused_group_norm_affine``: pass 1 and the merge)
+    against the plain chain (``norms.group_norm_affine`` outside any routing)
+    at every geometry of ``k4_prologue_geometries`` in bf16 and f32, within
+    TOL["f32"] of max |a| and of max |b| (only the f32 summation order
+    differs), and at a large common offset against f64 statistics; timed at
+    ``K5_AFFINE_TIMED`` beside the plain chain, against its bound (x read
+    once)."""
+    import torch
+
+    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm_affine
+    from streamingt2v_torch.ops.norms import group_norm_affine
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    timed = {(shape, getattr(torch, dtype)): key for shape, dtype, key in K5_AFFINE_TIMED}
+    rec, errs = {}, []
+    for n, l, c, network, _ in k4_prologue_geometries():
+        for dtype in (bf16, f32):
+            x = randn(n, l, c, dtype=dtype, std=2.0, mean=0.5)
+            scale = 1.0 + randn(c, dtype=f32, std=0.1)
+            bias = randn(c, dtype=f32, std=0.1)
+            kw = dict(num_groups=32, eps=1e-5)
+            a, b = fused_group_norm_affine(x, scale, bias, **kw)
+            ra, rb = group_norm_affine(x, scale, bias, **kw)
+            for name, got, ref in (("a", a, ra), ("b", b, rb)):
+                errs.append(_compare(f"K5 affine {network} {(n, l, c)} {dtype} {name}", got, ref,
+                                     TOL["f32"]))
+            key = timed.get(((n, l, c), dtype))
+            if key is not None:
+                r = _yardstick(
+                    dict(ms=_time_ms(lambda: fused_group_norm_affine(x, scale, bias, **kw)),
+                         plain_ms=_time_ms(lambda: group_norm_affine(x, scale, bias, **kw),
+                                           reps=3)),
+                    work_group_norm_affine(n, l, c, x.element_size()))
+                rec.update({f"{key}{k}": v for k, v in r.items()}, **{f"{key}shape": [n, l, c]})
+                print(f"  K5 affine time {(n, l, c)} {dtype}: kernel {r['ms']:.3f} ms, plain "
+                      f"chain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                      f"({r['bound_by']}), share {r['share']:.3f}", flush=True)
+            del x, a, b, ra, rb
+    # a large common offset with a small spread: against f64 statistics
+    x = randn(2, 4096, 128, dtype=f32, std=1e-3, mean=100.0)
+    ones, zeros = torch.ones(128, device=x.device), torch.zeros(128, device=x.device)
+    a, b = fused_group_norm_affine(x, ones, zeros, num_groups=32, eps=1e-6)
+    xg = x.double().reshape(2, 4096, 32, 4)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
+    ref = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(x.shape)
+    err = (x.double() * a.double()[:, None] + b.double()[:, None] - ref).abs().max().item()
+    print(f"  K5 affine offset 100, std 1e-3 (2, 4096, 128) f32 vs f64 statistics: "
+          f"max_abs_err={err:.3e} tol=5e-2 {'ok' if err <= 5e-2 else 'FAIL'}", flush=True)
+    if not err <= 5e-2:
+        raise AssertionError(f"K5's affine entry loses the variance at a large offset ({err:.3e})")
+    print(f"  K5 affine launches predicted from the geometries: {k4_prologue_launches()}",
+          flush=True)
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
 # K6's timed geometries, (batch, frames, pixels, heads) at head dim 64:
 # stage 2's level 0, then stage 1's
 K6_TIMED = ((1, 38, 14400, 5), (2, 25, 9216, 5))
@@ -1153,7 +1262,8 @@ def check_kernels() -> dict:
            "geglu_ff": check_k3(randn),
            "temporal_conv": check_k4(randn, gen),
            "fused_group_norm": check_k5(randn),
-           "fused_temporal_attention": check_k6(randn)}
+           "fused_temporal_attention": check_k6(randn),
+           "fused_group_norm_affine": check_k5_affine(randn)}
     torch.cuda.empty_cache()
     return rec
 
@@ -1199,7 +1309,7 @@ def _reset_launches() -> None:
 def _read_launches(f32: bool = False) -> dict:
     """``utils/profiling.read_launches``: launches per wrapper, the flash
     wrappers' bf16 D=512 launches apart (``<name>_d512``) and, with ``f32``,
-    the f32 launches of K1, K2, K4 and K6 (``<name>_f32``)."""
+    the f32 launches of K1, K2, K4, K6 and K5's affine entry (``<name>_f32``)."""
     from streamingt2v_torch.utils.profiling import read_launches
 
     return read_launches(f32)
@@ -1582,9 +1692,10 @@ DECODE_F32_ATOL = 1e-3
 
 
 def _plain_kernels():
-    """A context in which the models' K1, K2, K4 and K5 calls take their plain
-    versions: the wrappers' names in the modules that call them, patched for
-    the measurement only (as ``_unpinned_conv_transpose`` is)."""
+    """A context in which the models' K1, K2, K4 and K5 calls (K5's affine
+    entry too) take their plain versions: the wrappers' names in the modules
+    that call them, patched for the measurement only (as
+    ``_unpinned_conv_transpose`` is)."""
     import contextlib
     import importlib
 
@@ -1598,7 +1709,8 @@ def _plain_kernels():
                 lambda q, k, v, *, num_heads: fa.flash_attention_packed_reference(
                     q, k, v, num_heads)),
                (blocks, "temporal_conv", tc.temporal_conv_reference),
-               (norms, "fused_group_norm", gn.fused_group_norm_reference)]
+               (norms, "fused_group_norm", gn.fused_group_norm_reference),
+               (norms, "fused_group_norm_affine", gn.group_norm_affine_reference)]
 
     @contextlib.contextmanager
     def patched():
@@ -1956,7 +2068,7 @@ def check_backward() -> dict:
         flash_attention, flash_attention_packed, flash_attention_packed_reference,
         flash_attention_reference)
     from streamingt2v_torch.ops.fused_ff import geglu_ff, geglu_ff_reference
-    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
+    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm, fused_group_norm_affine
     from streamingt2v_torch.ops.temporal_attention import fused_temporal_attention
     from streamingt2v_torch.ops.temporal_conv import temporal_conv, temporal_conv_reference
 
@@ -2029,6 +2141,8 @@ def check_backward() -> dict:
     scale, bias = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
     qkv = [leaf(2 * 8, 64, 128) for _ in range(3)]
     for name, call in (("K5", lambda: fused_group_norm(x, scale, bias, num_groups=32)),
+                       ("K5 affine", lambda: torch.cat(fused_group_norm_affine(
+                           x, scale, bias, num_groups=32))),
                        ("K6", lambda: fused_temporal_attention(*qkv, batch=2, frames_q=8,
                                                                frames_kv=8, num_heads=2))):
         try:
@@ -2386,7 +2500,8 @@ def run_enhance(steps: int) -> dict:
     if lo < -1.0 or hi > 1.0:
         raise AssertionError(f"enhanced video outside [-1, 1]: [{lo}, {hi}]")
     dead = [k for k in ("flash_attention_packed", "flash_attention_packed_d512", "geglu_ff",
-                        "temporal_conv", "fused_group_norm", "fused_temporal_attention")
+                        "temporal_conv", "fused_group_norm", "fused_temporal_attention",
+                        "fused_group_norm_affine")
             if launches[k] <= 0]
     if dead:
         raise AssertionError(f"the enhance phase never launched: {dead}")
@@ -3712,12 +3827,16 @@ KERNEL_META = {
                          "streamingt2v_tpu/ops/fused_group_norm.py:30"),
     "fused_temporal_attention": ("streamingt2v_torch/csrc/temporal_attention.cu",
                                  "streamingt2v_tpu/ops/temporal_attention.py:43"),
+    # K5's statistics alone, for K4's prologue: the JAX package computes them
+    # in XLA (``group_norm_affine`` through ``_group_stats_bf16``), no Pallas
+    "fused_group_norm_affine": ("streamingt2v_torch/csrc/fused_group_norm.cu",
+                                "streamingt2v_tpu/ops/norms.py:29"),
 }
 
 
 # the rows whose wrappers count their f32 launches apart (``launches_f32``)
 F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_conv_f32",
-               "fused_temporal_attention_f32")
+               "fused_temporal_attention_f32", "fused_group_norm_affine_f32")
 
 
 def run_cogvideox() -> dict:
@@ -3773,8 +3892,8 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
     kernels and reference phases' records (absent keys null), the launches of every
     pipeline phase, the product's alone and, as ``<phase>_launches``, those
     of each phase in ``phase_launches`` ({phase: {kernel: launches}}); K1, K2,
-    K4 and K6 also their f32 launches over every pipeline phase
-    (``launches_f32``, from ``launches["<name>_f32"]``)."""
+    K4, K6 and K5's affine entry also their f32 launches over every pipeline
+    phase (``launches_f32``, from ``launches["<name>_f32"]``)."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -3782,7 +3901,7 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  if k in ("bare_ms", "bare_share", "sdpa_backend", "k1_ms")
                  or k in ("bwd_max_abs_err", "bwd_shape")
                  or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_",
-                                  "cross_", "t38_", "f32_", "bf16_d"))}
+                                  "stage2_", "cross_", "t38_", "f32_", "bf16_d"))}
         if "stage1" in r:   # K6 at the stage-1 geometry
             extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
         if name + "_f32" in F32_COUNTED:

@@ -30,6 +30,10 @@ this one (run parent, change, change, parent in one call).  Kernels
         (8, 9216, 512), K2 at (2, 14400, 1x512) and (4, 14400, 1x512);
   k5    fused GroupNorm at (38, 14400, 320) with SiLU and without, and at
         the SD VAE's (2, 921600, 128) with SiLU;
+  k5a   K5's affine entry (the statistics of K4's prologue) at the stage-1
+        decode's level-0 piece (1, 8x589824, 128) and stage 2's level 0
+        (1, 38x14400, 320) in bf16, the decode's also in f32, beside the
+        plain chain;
   f32   the f32 instances of the stage-1 VAE (full f32, TF32 off): K1 at
         (1, 9216, 512) (the encoder's mid attention) and (8, 9216, 512) (the
         temporal decoder's, one 8-frame chunk) beside SDPA f32, and K4 bare and
@@ -99,7 +103,7 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "f32", "fma", "k3f32")
+KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "k5a", "f32", "fma", "k3f32")
 CHECK = True   # --no-check clears it
 
 
@@ -363,6 +367,34 @@ def time_k5(chip_smoke, randn, reps: int) -> None:
         del x
 
 
+def time_k5a(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    from streamingt2v_torch.ops import fused_group_norm as gn
+    from streamingt2v_torch.ops.norms import group_norm_affine
+
+    f32 = torch.float32
+    for (n, l, c), dtype, _ in chip_smoke.K5_AFFINE_TIMED:
+        dtype = getattr(torch, dtype)
+        x = randn(n, l, c, dtype=dtype, std=2.0, mean=0.5)
+        scale, bias = 1.0 + randn(c, dtype=f32, std=0.1), randn(c, dtype=f32, std=0.1)
+        kw = dict(num_groups=32, eps=1e-5)
+        bd = chip_smoke.bound(chip_smoke.work_group_norm_affine(n, l, c, x.element_size()))
+        plain_ms = chip_smoke._time_ms(lambda: group_norm_affine(x, scale, bias, **kw), reps=3)
+        ref = group_norm_affine(x, scale, bias, **kw)
+        plan = gn.affine_launch_plan(n, l, c, x.element_size())
+        call = lambda: gn.fused_group_norm_affine(x, scale, bias, **kw)  # noqa: E731
+        for name, got, want in zip("ab", call(), ref):
+            chip_smoke._compare(f"K5 affine {(n, l, c)} {dtype} {name}", got, want,
+                                chip_smoke.TOL["f32"])
+        ms = chip_smoke._time_ms(call, reps=reps)
+        print(f"  K5 affine {(n, l, c)} {dtype} chunks {plan.chunks}, {plan.threads} threads: "
+              f"{ms:.3f} ms, plain chain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
+              f"share {bd['bound_ms'] / ms:.3f}", flush=True)
+        device_times(call, "K5's affine entry")
+        del x, ref
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=HERE, help="checkout whose port is timed")
@@ -402,7 +434,7 @@ def main() -> int:
                       [int(b) for b in args.budgets_mib.split(",")], args.reps)
         return 0
     timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5,
-                  f32=time_f32, fma=time_fma, k3f32=time_k3f32)
+                  k5a=time_k5a, f32=time_f32, fma=time_fma, k3f32=time_k3f32)
     for name in kernels:
         timers[name](chip_smoke, randn, args.reps)
         torch.cuda.empty_cache()

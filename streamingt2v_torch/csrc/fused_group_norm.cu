@@ -33,6 +33,13 @@
 // y / (1 + __expf(-y)) with the fast reciprocal (within the f32 tolerance
 // of 1e-4).  Pass 2 walks the blocks in reverse order, so its first blocks
 // read the rows pass 1 touched last, the ones most likely still in L2.
+//
+// A second entry, st2v_group_norm_affine, gives the statistics alone, for a
+// consumer that applies the normalisation as it reads x (K4's GroupNorm+SiLU
+// prologue): pass 1 as above, then gn_affine_kernel, one block per (group,
+// row), merges the group's partials and writes the per-channel f32 affine
+// (a, b) of (N, C).  It reads x once, so its bound is N * L * C * itemsize
+// bytes.
 #include "common.cuh"
 
 namespace st2v {
@@ -95,6 +102,16 @@ __device__ __forceinline__ uint4 gn_affine(const uint4& raw, const float (&a)[VE
   return pack(f);
 }
 
+// Merges the warp's 32 (count, mean, M2) triples into every lane's.
+__device__ __forceinline__ void warp_merge(float& cnt, float& mean, float& m2) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float cn = __shfl_xor_sync(0xffffffffu, cnt, o);
+    const float mn = __shfl_xor_sync(0xffffffffu, mean, o);
+    const float mm = __shfl_xor_sync(0xffffffffu, m2, o);
+    chan_merge(cnt, mean, m2, cn, mn, mm);
+  }
+}
+
 // Merges, per group g, `per` (count, mean, M2) triples of `src`, entry e at
 // src + 3 * ((e / k) * stride + g * k + e % k), one warp per group over the
 // block's whole warps; lane 0 writes the group's triple to res + 3 * g.
@@ -108,12 +125,7 @@ __device__ __forceinline__ void merge_groups(const float* src, int groups, int p
       const float* t = src + 3 * ((e / k) * stride + g * k + e % k);
       chan_merge(cnt, mean, m2, t[0], t[1], t[2]);
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float cn = __shfl_xor_sync(0xffffffffu, cnt, o);
-      const float mn = __shfl_xor_sync(0xffffffffu, mean, o);
-      const float mm = __shfl_xor_sync(0xffffffffu, m2, o);
-      chan_merge(cnt, mean, m2, cn, mn, mm);
-    }
+    warp_merge(cnt, mean, m2);
     if (lane == 0) {
       res[3 * g] = cnt;
       res[3 * g + 1] = mean;
@@ -242,26 +254,97 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ part,
   }
 }
 
+// Block (g, n) merges group g's partials of row n over its threads (a few
+// chunks each, then the warps, then the block's warps) and writes the
+// group's channels ch of a[n, ch] = rstd_g * scale[ch] and
+// b[n, ch] = bias[ch] - mean_g * a[n, ch].  (A warp a group, as in
+// merge_groups, chains chunks / 32 dependent merges a lane; here a thread
+// chains chunks / 256.)
+constexpr int GN_AFFINE_THREADS = 256;
+
+__global__ void __launch_bounds__(GN_AFFINE_THREADS)
+gn_affine_kernel(const float* __restrict__ part, const float* __restrict__ scale,
+                 const float* __restrict__ bias, float* __restrict__ a, float* __restrict__ b,
+                 int c, int groups, int chunks, float eps) {
+  __shared__ float red[3 * (GN_AFFINE_THREADS / 32)];  // (count, mean, M2) per warp
+  const int g = blockIdx.x, n = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // chunk e's triple of group g: part[n, e, g]
+  const float* src = part + (size_t(n) * chunks * groups + g) * 3;
+  float cnt = 0.f, mean = 0.f, m2 = 0.f;
+  for (int e = threadIdx.x; e < chunks; e += GN_AFFINE_THREADS) {
+    const float* t = src + size_t(3) * e * groups;
+    chan_merge(cnt, mean, m2, t[0], t[1], t[2]);
+  }
+  warp_merge(cnt, mean, m2);
+  if (lane == 0) {
+    red[3 * warp] = cnt;
+    red[3 * warp + 1] = mean;
+    red[3 * warp + 2] = m2;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool mine = lane < GN_AFFINE_THREADS / 32;
+    cnt = mine ? red[3 * lane] : 0.f;
+    mean = mine ? red[3 * lane + 1] : 0.f;
+    m2 = mine ? red[3 * lane + 2] : 0.f;
+    warp_merge(cnt, mean, m2);
+    if (lane == 0) {
+      red[0] = cnt;
+      red[1] = mean;
+      red[2] = m2;
+    }
+  }
+  __syncthreads();
+  const float rstd = rsqrtf(fmaxf(red[2] / red[0], 0.f) + eps);
+  const int cpg = c / groups;
+  for (int j = threadIdx.x; j < cpg; j += GN_AFFINE_THREADS) {
+    const int ch = g * cpg + j;
+    const float av = rstd * scale[ch];
+    a[size_t(n) * c + ch] = av;
+    b[size_t(n) * c + ch] = bias[ch] - red[1] * av;
+  }
+}
+
+// Pass 1 over grid (chunks, n) into `part`; returns the cudaError_t.
+template <typename T>
+static cudaError_t launch_stats(const void* x, float* part, int n, int l, int c, int groups,
+                                int rows_per_chunk, int slots, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int threads = c / VEC * slots;
+  if (threads > GN_MAX_C / VEC || threads < 32) return cudaErrorInvalidValue;
+  auto stats = gn_stats_kernel<T>;
+  const size_t stats_smem = sizeof(float) * 3 * size_t(slots) * c;
+  cudaError_t err = set_smem(stats, stats_smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((l + rows_per_chunk - 1) / rows_per_chunk, n);
+  stats<<<grid, threads, stats_smem, stream>>>(static_cast<const T*>(x), part, l, c, groups,
+                                                rows_per_chunk, slots);
+  return cudaGetLastError();
+}
+
 template <typename T>
 static int launch_gn(const void* x, const float* scale, const float* bias, void* y,
                      float* part, int n, int l, int c, int groups, int rows_per_chunk,
                      int slots, float eps, int silu, cudaStream_t stream) {
+  cudaError_t err = launch_stats<T>(x, part, n, l, c, groups, rows_per_chunk, slots, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int VEC = 16 / sizeof(T);
-  const int threads = c / VEC * slots;
-  if (threads > GN_MAX_C / VEC || threads < 32) return static_cast<int>(cudaErrorInvalidValue);
-  auto stats = gn_stats_kernel<T>;
-  auto apply = gn_apply_kernel<T>;
-  const size_t stats_smem = sizeof(float) * 3 * size_t(slots) * c;
-  cudaError_t err = set_smem(stats, stats_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((l + rows_per_chunk - 1) / rows_per_chunk, n);
-  stats<<<grid, threads, stats_smem, stream>>>(static_cast<const T*>(x), part, l, c, groups,
-                                                rows_per_chunk, slots);
-  err = cudaGetLastError();
+  gn_apply_kernel<T><<<grid, c / VEC * slots, 0, stream>>>(
+      static_cast<const T*>(x), part, scale, bias, static_cast<T*>(y), l, c, groups,
+      rows_per_chunk, slots, eps, silu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_affine(const void* x, const float* scale, const float* bias, float* a,
+                         float* b, float* part, int n, int l, int c, int groups,
+                         int rows_per_chunk, int slots, float eps, cudaStream_t stream) {
+  cudaError_t err = launch_stats<T>(x, part, n, l, c, groups, rows_per_chunk, slots, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  apply<<<grid, threads, 0, stream>>>(static_cast<const T*>(x), part, scale, bias,
-                                      static_cast<T*>(y), l, c, groups, rows_per_chunk, slots,
-                                      eps, silu);
+  gn_affine_kernel<<<dim3(groups, n), GN_AFFINE_THREADS, 0, stream>>>(
+      part, scale, bias, a, b, c, groups, (l + rows_per_chunk - 1) / rows_per_chunk, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,5 +365,22 @@ extern "C" int st2v_fused_group_norm(const void* x, const float* scale, const fl
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) return launch_gn<bf16>(x, scale, bias, y, part, n, l, c, groups, rows_per_chunk, slots, eps, silu, s);
   if (dtype == 0) return launch_gn<float>(x, scale, bias, y, part, n, l, c, groups, rows_per_chunk, slots, eps, silu, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The statistics alone: pass 1 over x (n, l, c) in dtype, then the merge into
+// the f32 affine a, b (n, c) of GroupNorm(x) = x * a + b; scale, bias: (c,) f32;
+// part, rows_per_chunk, slots and the limits as st2v_fused_group_norm's.
+extern "C" int st2v_group_norm_affine(const void* x, const float* scale, const float* bias,
+                                      float* a, float* b, float* part, int n, int l, int c,
+                                      int groups, int rows_per_chunk, int slots, float eps,
+                                      int dtype, void* stream) {
+  using namespace st2v;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || n > 65535 || l <= 0 || c <= 0 || c % 8 != 0 || c > GN_MAX_C || groups <= 0 ||
+      groups > GN_MAX_GROUPS || c % groups != 0 || rows_per_chunk <= 0 || slots <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return launch_affine<bf16>(x, scale, bias, a, b, part, n, l, c, groups, rows_per_chunk, slots, eps, s);
+  if (dtype == 0) return launch_affine<float>(x, scale, bias, a, b, part, n, l, c, groups, rows_per_chunk, slots, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

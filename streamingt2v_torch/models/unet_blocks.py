@@ -435,19 +435,26 @@ class UNetResBlock(nn.Module):
         return x + h
 
 
+def _k4_geometry(h: torch.Tensor, conv: TimeConv) -> bool:
+    """Whether ``_time_conv`` sends (B, T, H, W, C) to K4 on a CUDA device:
+    the geometries the JAX package sends to its Pallas kernel (H*W >= 64 and
+    its ``fits_temporal_conv``)."""
+    b, t, hh, ww, c = h.shape
+    kt, _, c_out = conv.kernel.shape
+    return hh * ww >= 64 and fits_temporal_conv(t, c, c_out, kt, s=hh * ww, batch=b)
+
+
 @span("st2v.conv")
 def _time_conv(h: torch.Tensor, conv: TimeConv, *, res=None, res_w=None, gn=None):
     """(kt,1,1) temporal conv of (B, T, H, W, C), optionally with the
     GroupNorm(eps 1e-5)+SiLU prologue ``gn=(scale, bias[, groups])`` (32
     groups unless given) and the ``res + res_w[b, t] * conv`` epilogue.  On a
-    CUDA device the geometries the JAX package sends to its Pallas kernel
-    (H*W >= 64 and its ``fits_temporal_conv``) launch K4 with the GroupNorm
+    CUDA device ``_k4_geometry``'s geometries launch K4 with the GroupNorm
     folded into a per-(row, channel) affine."""
     b, t, hh, ww, c = h.shape
-    kt, _, c_out = conv.kernel.shape
+    c_out = conv.kernel.shape[2]
     groups = gn[2] if gn is not None and len(gn) > 2 else 32
-    if h.is_cuda and hh * ww >= 64 and fits_temporal_conv(t, c, c_out, kt, s=hh * ww,
-                                                          batch=b):
+    if h.is_cuda and _k4_geometry(h, conv):
         pa = pb = None
         if gn is not None:
             pa, pb = group_norm_affine(h, gn[0], gn[1], num_groups=groups, eps=1e-5)

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "st2v_flash_attention_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,
                                      _P], _I),
     "st2v_fused_group_norm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    "st2v_group_norm_affine": ([_P] * 6 + [_I] * 6 + [_F, _I, _P], _I),
     "st2v_temporal_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "st2v_geglu_ff": ([_P] * 10 + [_I] * 8 + [_P], _I),
     "st2v_temporal_conv": ([_P] * 8 + [_I] * 9 + [_P], _I),

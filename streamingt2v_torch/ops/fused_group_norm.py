@@ -18,6 +18,14 @@ version materialises both.  Every thread of both passes owns one 16-byte
 vector of channels and a row slot (``launch_plan``), so the statistics stay
 in registers and the affine is computed once per thread.
 
+``fused_group_norm_affine`` launches pass 1 alone and a small merge
+(``gn_affine_kernel``, one block per (group, row)) that turns the partials into the
+per-(row, channel) f32 affine ``(a, b)`` of GroupNorm(x) = x * a + b: the
+statistics of K4's GroupNorm+SiLU prologue, which applies them as it reads
+x.  It reads x once, so it has a launch plan of its own
+(``affine_launch_plan``): about one wave of resident pass-1 blocks, whatever
+N is, where K5's plan caps a row at 256 L-chunks (half a wave at N = 1).
+
 No gradient: the JAX package defines no VJP for its kernel (``jax.grad``
 through it fails in pallas_call's JVP rule), so on the card an input that
 requires grad under grad mode raises rather than return an output that
@@ -40,6 +48,10 @@ MAX_GROUPS = 256
 # 256 L-chunks per row so that each pass-2 block merges few partials
 _TARGET_BLOCKS = 1024
 _MAX_CHUNKS = 256
+# the affine entry's pass 1: about one wave of resident blocks whatever N is
+# (4 blocks of 256 threads at 52 registers an SM, 132 SMs); its merge reads
+# N * chunks * G partials
+_AFFINE_BLOCKS = 512
 # threads a block aims at: C/VEC channel vectors times as many row slots as fit
 BLOCK_THREADS = 256
 # shared memory one block may take on the H100
@@ -67,6 +79,21 @@ def fused_group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch
     return out.to(x.dtype)
 
 
+def group_norm_affine_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                                num_groups: int, eps: float = 1e-6) -> tuple:
+    """Plain version in f32: the two-pass statistics per (row, group) as the
+    affine (a, b), each (N, C), with GroupNorm(x) = x * a + b.  Also the
+    plain path of ``norms.group_norm_affine``, which autograd goes through."""
+    n, l, c = x.shape
+    xg = x.float().reshape(n, l, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3))
+    rep = c // num_groups
+    a = torch.rsqrt(var + eps).repeat_interleave(rep, dim=1) * scale.float()
+    b = bias.float() - mean.reshape(n, num_groups).repeat_interleave(rep, dim=1) * a
+    return a, b
+
+
 class LaunchPlan(NamedTuple):
     """Both passes' grid (chunks, N) and block (``vectors`` x ``slots``
     threads): thread (slot s, vector v) takes channels [v*VEC, v*VEC + VEC)
@@ -80,13 +107,51 @@ class LaunchPlan(NamedTuple):
 
 
 def launch_plan(n: int, l: int, c: int, itemsize: int) -> LaunchPlan:
+    return _plan(n, l, c, itemsize, _TARGET_BLOCKS, _MAX_CHUNKS)
+
+
+def affine_launch_plan(n: int, l: int, c: int, itemsize: int) -> LaunchPlan:
+    """The affine entry's pass 1 (its merge takes one block per group and row)."""
+    return _plan(n, l, c, itemsize, _AFFINE_BLOCKS, _AFFINE_BLOCKS)
+
+
+def _plan(n: int, l: int, c: int, itemsize: int, target_blocks: int,
+          max_chunks: int) -> LaunchPlan:
     vectors = c // (16 // itemsize)
     slots = max(1, BLOCK_THREADS // vectors)
-    chunks = max(1, min(_MAX_CHUNKS, -(-_TARGET_BLOCKS // n), -(-l // slots)))
+    chunks = max(1, min(max_chunks, -(-target_blocks // n), -(-l // slots)))
     # whole row slots per chunk, so that every slot walks as many rows
     rows = -(-(-(-l // chunks)) // slots) * slots
     return LaunchPlan(rows, -(-l // rows), vectors, slots, vectors * slots,
                       12 * slots * c)
+
+
+def _refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: K5 has no backward (the JAX package defines no VJP for "
+                           f"it); train with the fused_group_norm routing off")
+
+
+def _check_card_inputs(what: str, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       num_groups: int) -> tuple:
+    """What both entries need of a CUDA call; returns (N, L, C)."""
+    if not x.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    _refuse_grad(what, x, scale, bias)
+    if x.dtype not in _native.DTYPE_CODE:
+        raise TypeError(f"{what}: f32 or bf16, got {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"{what}: expected (N, L, C), got {tuple(x.shape)}")
+    n, l, c = x.shape
+    if not fits_fused(l, c, num_groups) or not 0 < n <= 65535:
+        raise ValueError(f"{what}: N={n} L={l} C={c} groups={num_groups} not supported")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,) or t.device != x.device \
+                or not t.is_contiguous():
+            raise TypeError(f"{what}: {name} must be contiguous f32 ({c},) on x's device")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
+    return n, l, c
 
 
 def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -99,26 +164,7 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *
     if x.device.type == "cpu":
         return fused_group_norm_reference(x, scale, bias, num_groups=num_groups, eps=eps,
                                           act=act)
-    if not x.is_cuda:
-        raise ValueError(f"fused_group_norm: expected a CUDA tensor, got {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        raise RuntimeError("fused_group_norm: K5 has no backward (the JAX package defines no "
-                           "VJP for it); train with the fused_group_norm routing off")
-    if x.dtype not in _native.DTYPE_CODE:
-        raise TypeError(f"fused_group_norm: f32 or bf16, got {x.dtype}")
-    if x.ndim != 3:
-        raise ValueError(f"fused_group_norm: expected (N, L, C), got {tuple(x.shape)}")
-    n, l, c = x.shape
-    if not fits_fused(l, c, num_groups) or not 0 < n <= 65535:
-        raise ValueError(f"fused_group_norm: N={n} L={l} C={c} groups={num_groups} not "
-                         f"supported")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (c,) or t.device != x.device \
-                or not t.is_contiguous():
-            raise TypeError(f"fused_group_norm: {name} must be contiguous f32 ({c},) on "
-                            f"x's device")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("fused_group_norm: x must be contiguous and 16-byte aligned")
+    n, l, c = _check_card_inputs("fused_group_norm", x, scale, bias, num_groups)
     plan = launch_plan(n, l, c, x.element_size())
     part = torch.empty((n, plan.chunks, num_groups, 3), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
@@ -130,3 +176,26 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *
     count_launch("fused_group_norm")
     return out
 
+
+def fused_group_norm_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                            num_groups: int, eps: float = 1e-6) -> tuple:
+    """x: (N, L, C); scale, bias: (C,) -> f32 (a, b), each (N, C), with
+    GroupNorm(x) = x * a + b.  CPU tensors take the plain version; CUDA
+    tensors launch K5's pass 1 and the merge (or raise).  Raises on either
+    device under grad for an input that requires grad, as the card's K5
+    does: the plain version is the path that differentiates."""
+    _refuse_grad("fused_group_norm_affine", x, scale, bias)
+    if x.device.type == "cpu":
+        return group_norm_affine_reference(x, scale, bias, num_groups=num_groups, eps=eps)
+    n, l, c = _check_card_inputs("fused_group_norm_affine", x, scale, bias, num_groups)
+    plan = affine_launch_plan(n, l, c, x.element_size())
+    part = torch.empty((n, plan.chunks, num_groups, 3), dtype=torch.float32, device=x.device)
+    a = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    b = torch.empty_like(a)
+    rc = _native.library().st2v_group_norm_affine(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), a.data_ptr(), b.data_ptr(),
+        part.data_ptr(), n, l, c, num_groups, plan.rows_per_chunk, plan.slots, eps,
+        _native.DTYPE_CODE[x.dtype], _native.stream_of(x))
+    _native.check(rc, "fused_group_norm_affine")
+    count_launch("fused_group_norm_affine", f32=x.dtype == torch.float32)
+    return a, b

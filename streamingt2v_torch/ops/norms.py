@@ -9,16 +9,22 @@ one-pass clamped form for LayerNorm, as the JAX package computes it.
 Per-frame (4-D) GroupNorm(+SiLU) runs the fused kernel K5
 (``ops/fused_group_norm.py``) when the routing in force has
 ``fused_group_norm``: the JAX package's ``STREAMINGT2V_FUSED_GN`` route.
+Under the same routing the statistics of K4's prologue
+(``group_norm_affine``, any rank) take K5's statistics pass
+(``fused_group_norm_affine``, which raises under grad as K5 does); outside
+it they take the same plain version, the path autograd goes through.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from streamingt2v_torch.ops.fused_group_norm import fits_fused, fused_group_norm
+from streamingt2v_torch.ops.fused_group_norm import (
+    fits_fused, fused_group_norm, fused_group_norm_affine, group_norm_affine_reference)
 from streamingt2v_torch.ops.routing import current_routing
 from streamingt2v_torch.utils.profiling import span
 
@@ -81,14 +87,16 @@ def group_norm_affine(
     """GroupNorm as a per-(batch row, channel) affine: f32 (a, b), each
     (N, C), with group_norm(x, scale, bias) == x * a + b.  The temporal-conv
     kernel applies it (plus SiLU) as it reads its input."""
-    xg, g = _grouped(x, num_groups)
-    mean, inv = _group_stats(xg, eps)
-    rep = x.shape[-1] // g
-    mean = mean.reshape(x.shape[0], g).repeat_interleave(rep, dim=1)
-    inv = inv.reshape(x.shape[0], g).repeat_interleave(rep, dim=1)
-    a = inv * scale.float()[None, :]
-    b = bias.float()[None, :] - mean * a
-    return a, b
+    n, c = x.shape[0], x.shape[-1]
+    # clamp for the tiny test configs; production widths are >= 128
+    g = min(num_groups, c)
+    if c % g:
+        raise ValueError(f"channels {c} not divisible by {g} groups")
+    if current_routing().fused_group_norm and fits_fused(math.prod(x.shape[1:-1]), c, g):
+        return fused_group_norm_affine(x.reshape(n, -1, c).contiguous(),
+                                       scale.float().contiguous(), bias.float().contiguous(),
+                                       num_groups=g, eps=eps)
+    return group_norm_affine_reference(x.reshape(n, -1, c), scale, bias, num_groups=g, eps=eps)
 
 
 @span("st2v.norm")

@@ -49,11 +49,13 @@ import torch
 _STAGE_TIMES: Dict[str, List[float]] = defaultdict(list)
 _COUNTERS: Dict[str, float] = defaultdict(int)
 
-# the six kernels' wrappers (K1-K6), with whether each counts its bf16 D=512
+# the six kernels' wrappers (K1-K6; K5's statistics alone, for K4's prologue,
+# as ``fused_group_norm_affine``), with whether each counts its bf16 D=512
 # launches (``<name>_d512``) and its f32 launches (``<name>_f32``) apart
 KERNELS = (("flash_attention", True, True), ("flash_attention_packed", True, True),
            ("geglu_ff", False, False), ("temporal_conv", False, True),
-           ("fused_group_norm", False, False), ("fused_temporal_attention", False, True))
+           ("fused_group_norm", False, False), ("fused_temporal_attention", False, True),
+           ("fused_group_norm_affine", False, True))
 LAUNCHES = "launches."
 
 
@@ -193,7 +195,8 @@ def reset_launches() -> None:
 def read_launches(f32: bool = False) -> Dict[str, int]:
     """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
     (``<name>_d512``, also counted in ``<name>``); with ``f32``, also the f32
-    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4, K6)."""
+    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4, K6
+    and K5's affine entry)."""
     out = {}
     for name, d512, counts_f32 in KERNELS:
         keys = [name] + [name + "_d512"] * d512 + [name + "_f32"] * (f32 and counts_f32)

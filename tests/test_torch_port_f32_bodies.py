@@ -319,25 +319,28 @@ def test_chip_smoke_f32_work_counts_at_the_decoder_widths(s, c):
 
 
 def test_chip_smoke_counts_f32_launches_apart():
-    """K1, K2, K4 and K6 count their f32 launches apart: the launch reader
-    adds them (``<name>_f32``) only when asked, the reset zeroes them, and the
-    kernels line carries them as ``launches_f32`` on those four rows only."""
+    """K1, K2, K4, K6 and K5's affine entry count their f32 launches apart:
+    the launch reader adds them (``<name>_f32``) only when asked, the reset
+    zeroes them, and the kernels line carries them as ``launches_f32`` on
+    those five rows only."""
     from streamingt2v_torch.utils.profiling import LAUNCHES, count
 
     chip_smoke._reset_launches()
     for name, n in (("flash_attention", 3), ("flash_attention_packed", 5),
-                    ("temporal_conv", 7), ("fused_temporal_attention", 9)):
+                    ("temporal_conv", 7), ("fused_temporal_attention", 9),
+                    ("fused_group_norm_affine", 11)):
         count(LAUNCHES + name + "_f32", n)
     got = chip_smoke._read_launches(f32=True)
     assert {k: got[k] for k in chip_smoke.F32_COUNTED} == {
         "flash_attention_f32": 3, "flash_attention_packed_f32": 5, "temporal_conv_f32": 7,
-        "fused_temporal_attention_f32": 9}
+        "fused_temporal_attention_f32": 9, "fused_group_norm_affine_f32": 11}
     assert set(chip_smoke._read_launches()) == set(chip_smoke.KERNEL_META)
     lines = {line["name"]: line for line in chip_smoke.kernel_lines(
         {}, {**dict.fromkeys(chip_smoke.KERNEL_META, 1), **got},
         dict.fromkeys(chip_smoke.KERNEL_META, 0))}
     assert [n for n, line in lines.items() if "launches_f32" in line] == [
-        "flash_attention", "flash_attention_packed", "temporal_conv", "fused_temporal_attention"]
+        "flash_attention", "flash_attention_packed", "temporal_conv", "fused_temporal_attention",
+        "fused_group_norm_affine"]
     assert lines["temporal_conv"]["launches_f32"] == 7
     chip_smoke._reset_launches()
     assert not any(chip_smoke._read_launches(f32=True).values())

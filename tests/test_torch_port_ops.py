@@ -37,7 +37,7 @@ from streamingt2v_torch.ops.flash_attention import (
 from streamingt2v_torch.ops import fused_ff
 from streamingt2v_torch.ops.fused_ff import (
     G_CHUNK_BYTES, ROW_TILE, chunk_plan, chunk_size, down_cols, geglu_ff, geglu_ff_reference)
-from streamingt2v_torch.ops.fused_group_norm import fused_group_norm
+from streamingt2v_torch.ops.fused_group_norm import fused_group_norm, fused_group_norm_affine
 from streamingt2v_torch.ops.routing import current_routing, use_routing
 from streamingt2v_torch.ops.temporal_attention import (
     fused_temporal_attention, temporal_attention)
@@ -255,6 +255,8 @@ def test_temporal_conv_gate_admits_what_jax_admits(c, kt):
      lambda: [torch.empty(2, 16, 64, device="meta"), torch.empty(64), torch.empty(64)]),
     (functools.partial(fused_temporal_attention, batch=1, frames_q=4, frames_kv=4, num_heads=2),
      lambda: [torch.empty(4, 16, 128, device="meta")] * 3),
+    (functools.partial(fused_group_norm_affine, num_groups=8),
+     lambda: [torch.empty(2, 16, 64, device="meta"), torch.empty(64), torch.empty(64)]),
 ])
 def test_wrappers_take_plain_version_only_on_cpu(fn, args):
     """A tensor that is neither on the CPU nor on CUDA is refused, not
@@ -305,6 +307,53 @@ def test_fused_group_norm_plain_keeps_a_large_offset():
            / np.sqrt(xr.var(axis=(1, 3), keepdims=True) + 1e-6)).reshape(x.shape)
     np.testing.assert_allclose(got, ref, atol=5e-2, rtol=0)
     np.testing.assert_allclose(got, plain, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,l,c,groups", [
+    (3, 48, 64, 8),       # tests/test_ops.py's geometry
+    (2, 4100, 64, 32),
+    (1, 30, 320, 32),     # 10 channels per group
+    (2, 300, 128, 32),    # 4 channels per group
+])
+def test_fused_group_norm_affine_plain_matches_norms_and_jax(n, l, c, groups):
+    """K5's affine entry on the CPU and ``norms.group_norm_affine`` outside
+    any routing (one plain version, shared) give the same (a, b), the JAX
+    package's ``group_norm_affine`` to 1e-4 (one-pass statistics there);
+    x * a + b is the port's GroupNorm."""
+    rng = np.random.RandomState(13)
+    x = (rng.randn(n, l, c) * 2 + 0.5).astype(np.float32)
+    s = (1 + 0.1 * rng.randn(c)).astype(np.float32)
+    b = (0.1 * rng.randn(c)).astype(np.float32)
+    ga, gb = fused_group_norm_affine(t(x), t(s), t(b), num_groups=groups, eps=1e-5)
+    assert ga.dtype == gb.dtype == torch.float32 and ga.shape == gb.shape == (n, c)
+    pa, pb = port_norms.group_norm_affine(t(x), t(s), t(b), num_groups=groups, eps=1e-5)
+    assert_close(ga, pa.numpy(), KERNEL_TOL, "affine a against the plain chain")
+    assert_close(gb, pb.numpy(), KERNEL_TOL, "affine b against the plain chain")
+    ja, jb = jax_norms.group_norm_affine(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
+                                         num_groups=groups, eps=1e-5)
+    assert_close(ga, ja, 1e-4, "affine a against JAX")
+    assert_close(gb, jb, 1e-4, "affine b against JAX")
+    gn = port_norms.group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5)
+    assert_close(t(x) * ga[:, None] + gb[:, None], gn.numpy(), KERNEL_TOL, "affine form")
+
+
+def test_fused_group_norm_affine_plain_keeps_a_large_offset():
+    """A group at offset 100 with spread 1e-3: the affine's x * a + b
+    against f64 statistics (the absolute 5e-2 of
+    ``test_fused_group_norm_plain_keeps_a_large_offset``) and against the
+    plain chain."""
+    rng = np.random.RandomState(14)
+    x = (100.0 + rng.randn(2, 16, 32) * 1e-3).astype(np.float32)
+    ones, zeros = np.ones(32, np.float32), np.zeros(32, np.float32)
+    a, b = fused_group_norm_affine(t(x), t(ones), t(zeros), num_groups=4)
+    pa, pb = port_norms.group_norm_affine(t(x), t(ones), t(zeros), num_groups=4)
+    got = (t(x).double() * a.double()[:, None] + b.double()[:, None]).numpy()
+    xr = x.astype(np.float64).reshape(2, 16, 4, 8)
+    ref = ((xr - xr.mean(axis=(1, 3), keepdims=True))
+           / np.sqrt(xr.var(axis=(1, 3), keepdims=True) + 1e-6)).reshape(x.shape)
+    np.testing.assert_allclose(got, ref, atol=5e-2, rtol=0)
+    np.testing.assert_allclose(a.numpy(), pa.numpy(), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(b.numpy(), pb.numpy(), rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.parametrize("shape,groups,act", [

@@ -171,19 +171,20 @@ def test_span_without_a_profiler_is_the_shared_no_op():
 
 def test_read_launches_keys_and_values():
     """``read_launches`` keeps its keys and order: each wrapper, the flash
-    wrappers' D=512 launches apart, the f32 launches of K1, K2, K4 and K6
-    only when asked; ``count_launch`` adds to each, ``reset_launches``
-    zeroes them and leaves the other counters."""
+    wrappers' D=512 launches apart, the f32 launches of K1, K2, K4, K6 and
+    K5's affine entry only when asked; ``count_launch`` adds to each,
+    ``reset_launches`` zeroes them and leaves the other counters."""
     profiling.reset_counters()
     base = ["flash_attention", "flash_attention_d512", "flash_attention_packed",
             "flash_attention_packed_d512", "geglu_ff", "temporal_conv", "fused_group_norm",
-            "fused_temporal_attention"]
+            "fused_temporal_attention", "fused_group_norm_affine"]
     assert list(profiling.read_launches()) == base
     assert list(profiling.read_launches(f32=True)) == [
         "flash_attention", "flash_attention_d512", "flash_attention_f32",
         "flash_attention_packed", "flash_attention_packed_d512", "flash_attention_packed_f32",
         "geglu_ff", "temporal_conv", "temporal_conv_f32", "fused_group_norm",
-        "fused_temporal_attention", "fused_temporal_attention_f32"]
+        "fused_temporal_attention", "fused_temporal_attention_f32", "fused_group_norm_affine",
+        "fused_group_norm_affine_f32"]
     profiling.count_launch("flash_attention", d512=True)
     profiling.count_launch("flash_attention", f32=True)
     profiling.count_launch("temporal_conv", f32=True)

@@ -25,6 +25,7 @@ from streamingt2v_torch.models.enhance.unet import I2VGenXLUNetConfig
 from streamingt2v_torch.ops import fused_ff
 from streamingt2v_torch.ops._native import CSRC, aligned
 from streamingt2v_torch.ops.flash_attention import flash_attention, pad_head_dim
+from streamingt2v_torch.ops import fused_group_norm as gn
 from streamingt2v_torch.ops.fused_group_norm import MAX_CHANNELS, SMEM_LIMIT, launch_plan
 from streamingt2v_torch.ops.temporal_conv import kernel_operands, temporal_conv_reference
 from streamingt2v_torch.pipeline import build
@@ -347,7 +348,10 @@ def test_group_norm_plan_covers_every_row_and_channel_once(n, l, c, itemsize):
     [v*VEC, v*VEC + VEC) of rows chunk*rows_per_chunk + s, + 2s, ... of its
     chunk: every (row, channel vector) once; the block stays within the
     kernel's thread cap and the card's shared memory."""
-    plan = launch_plan(n, l, c, itemsize)
+    _check_plan(launch_plan(n, l, c, itemsize), l, c, itemsize)
+
+
+def _check_plan(plan, l: int, c: int, itemsize: int) -> None:
     vec = 16 // itemsize
     assert plan.vectors * vec == c and plan.threads == plan.vectors * plan.slots
     assert 32 <= plan.threads <= MAX_CHANNELS // vec
@@ -360,6 +364,24 @@ def test_group_norm_plan_covers_every_row_and_channel_once(n, l, c, itemsize):
         for slot in range(plan.slots):
             seen[r0 + slot:r1:plan.slots] += 1   # all of the slot's vectors
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n,l,c,itemsize", [
+    *((n, l, c, size) for n, l, c, *_ in chip_smoke.k4_prologue_geometries() for size in (2, 4)),
+    (1, 1, 4096, 2), (1, 7, 4096, 4), (3, 48, 64, 4), (2, 16, 32, 4), (5, 1000, 8, 2)])
+def test_group_norm_affine_plan_covers_every_row_and_channel_once(n, l, c, itemsize):
+    """The affine entry's pass 1 walks its rows as K5's pass 1 does, every
+    (row, channel vector) once, in about one wave of blocks (``_AFFINE_BLOCKS``)
+    where the rows are long enough, whatever N is; K5's own plan is the one
+    it was."""
+    plan = gn.affine_launch_plan(n, l, c, itemsize)
+    _check_plan(plan, l, c, itemsize)
+    k5 = launch_plan(n, l, c, itemsize)
+    assert (plan.slots, plan.threads) == (k5.slots, k5.threads)
+    assert plan.chunks <= gn._AFFINE_BLOCKS
+    if l >= plan.slots * gn._AFFINE_BLOCKS:   # rows enough for a wave of blocks
+        assert 0.9 * gn._AFFINE_BLOCKS <= n * plan.chunks <= gn._AFFINE_BLOCKS + n
+    assert k5 == gn._plan(n, l, c, itemsize, 1024, 256)
 
 
 def test_group_norm_thread_cap_is_the_kernels():
