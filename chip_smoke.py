@@ -905,7 +905,7 @@ def check_k4(randn, gen) -> dict:
 
 
 def stage1_k5_geometries(bf16, f32) -> list:
-    """Every geometry that stage 1's routing sends K5, as (N, L, C, act, eps,
+    """Every geometry at which stage 1 sends K5, as (N, L, C, act, eps,
     dtype, label); each gives K5 a launch plan of its own (``launch_plan``).
     The VideoUNet runs 2 x 25 frames and the ControlNet 2 x 7: their
     ResBlocks SiLU at eps 1e-5, their transformers' input norms act=None at
@@ -936,14 +936,14 @@ def stage1_k5_geometries(bf16, f32) -> list:
 
 
 def check_k5(randn) -> dict:
-    """K5 at the stage-2 geometries, timed against the plain group_norm, and
-    against its plain version at every geometry stage 1 sends it."""
+    """K5 at the stage-2 geometries, timed against its plain version
+    (``fused_group_norm_reference``, the plain path of ``norms.group_norm``),
+    and against that plain version at every geometry stage 1 sends it."""
     import torch
     import torch.nn.functional as F
 
     from streamingt2v_torch.ops.fused_group_norm import (
         fused_group_norm, fused_group_norm_reference)
-    from streamingt2v_torch.ops.norms import group_norm
 
     bf16, f32 = torch.bfloat16, torch.float32
     rec, errs, f32_rec = {}, [], {}
@@ -964,7 +964,6 @@ def check_k5(randn) -> dict:
         errs.append(_compare(f"K5 {label} {(n, l, c)} act={act} {dtype}", out, ref,
                              _tol(dtype)))
         if label == "ResnetBlock2D level0":
-            x4 = x.reshape(n, 120, 120, c)  # any (H, W) with H*W = L: the same statistics
             # the yardstick F.group_norm computes the act=None function, on the
             # (N, C, L) view, with the affine in x's dtype
             scale_lo, bias_lo = scale.to(dtype), bias.to(dtype)
@@ -980,12 +979,13 @@ def check_k5(randn) -> dict:
                      _tol(dtype))
             rec = _yardstick(
                 dict(ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **kw)),
-                     plain_ms=_time_ms(lambda: group_norm(x4, scale, bias, **kw), reps=3),
+                     plain_ms=_time_ms(lambda: fused_group_norm_reference(x, scale, bias, **kw),
+                                       reps=3),
                      no_act_ms=_time_ms(lambda: fused_group_norm(x, scale, bias, **bare)),
                      library_ms=_time_ms(library), shape=[n, l, c]),
                 work_group_norm(n, l, c))
             print(f"  K5 time {(n, l, c)} bf16 silu: kernel {rec['ms']:.3f} ms, plain "
-                  f"group_norm {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"version {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
                   f"({rec['bound_by']}), share {rec['share']:.3f}; act=None: kernel "
                   f"{rec['no_act_ms']:.3f} ms, F.group_norm {rec['library_ms']:.3f} ms",
                   flush=True)
@@ -1069,7 +1069,8 @@ K5_AFFINE_TIMED = (((1, 8 * 589824, 128), "bfloat16", ""),
 
 def check_k5_affine(randn) -> dict:
     """K5's affine entry (``fused_group_norm_affine``: pass 1 and the merge)
-    against the plain chain (``norms.group_norm_affine`` outside any routing)
+    against the plain chain (``group_norm_affine_reference``, the plain path
+    of ``norms.group_norm_affine``)
     at every geometry of ``k4_prologue_geometries`` in bf16 and f32, within
     TOL["f32"] of max |a| and of max |b| (only the f32 summation order
     differs), and at a large common offset against f64 statistics; timed at
@@ -1077,8 +1078,8 @@ def check_k5_affine(randn) -> dict:
     once)."""
     import torch
 
-    from streamingt2v_torch.ops.fused_group_norm import fused_group_norm_affine
-    from streamingt2v_torch.ops.norms import group_norm_affine
+    from streamingt2v_torch.ops.fused_group_norm import (
+        fused_group_norm_affine, group_norm_affine_reference)
 
     bf16, f32 = torch.bfloat16, torch.float32
     timed = {(shape, getattr(torch, dtype)): key for shape, dtype, key in K5_AFFINE_TIMED}
@@ -1090,7 +1091,7 @@ def check_k5_affine(randn) -> dict:
             bias = randn(c, dtype=f32, std=0.1)
             kw = dict(num_groups=32, eps=1e-5)
             a, b = fused_group_norm_affine(x, scale, bias, **kw)
-            ra, rb = group_norm_affine(x, scale, bias, **kw)
+            ra, rb = group_norm_affine_reference(x, scale, bias, **kw)
             for name, got, ref in (("a", a, ra), ("b", b, rb)):
                 errs.append(_compare(f"K5 affine {network} {(n, l, c)} {dtype} {name}", got, ref,
                                      TOL["f32"]))
@@ -1098,8 +1099,8 @@ def check_k5_affine(randn) -> dict:
             if key is not None:
                 r = _yardstick(
                     dict(ms=_time_ms(lambda: fused_group_norm_affine(x, scale, bias, **kw)),
-                         plain_ms=_time_ms(lambda: group_norm_affine(x, scale, bias, **kw),
-                                           reps=3)),
+                         plain_ms=_time_ms(
+                             lambda: group_norm_affine_reference(x, scale, bias, **kw), reps=3)),
                     work_group_norm_affine(n, l, c, x.element_size()))
                 rec.update({f"{key}{k}": v for k, v in r.items()}, **{f"{key}shape": [n, l, c]})
                 print(f"  K5 affine time {(n, l, c)} {dtype}: kernel {r['ms']:.3f} ms, plain "

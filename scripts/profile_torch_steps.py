@@ -14,9 +14,9 @@ one NVIDIA GPU.
 Stage 1 runs ``image_to_video`` for 43 frames (the first chunk with one
 sampler step, then one AR chunk with two) and profiles the AR chunk's last
 guided denoiser call, once per ``--stage1-routing`` entry: "shipped" is
-``PipelineConfig.routing`` (K5 under the per-frame GroupNorms, K2 and K6
-off), "on" is ``KernelRouting.all_on()`` (K2, K5 and K6 where their gates
-allow).
+``PipelineConfig.routing`` (K2 and K6 off), "on" is
+``KernelRouting.all_on()`` (K2 and K6 where their gates allow); under
+either the per-frame GroupNorms take K5, as everywhere without grad.
 Stage 2 runs ``enhance_with_keyframe_prepass`` on a
 synthetic 64-frame 720p video with 3 DDIM steps (2 run) and profiles the
 last 38-frame chunk step.  "vae" builds stage 2 and profiles one call of

@@ -51,21 +51,21 @@ class DTypePolicy:
 class KernelRouting:
     """Which of the optional kernel routes a pipeline takes on a CUDA device.
 
-    The JAX package keeps these three behind environment switches that are
-    off by default, on the strength of TPU v5e timings
-    (``streamingt2v_tpu/ops/attention.py:262-265``, ``ops/norms.py:19-26``,
+    The JAX package keeps these behind environment switches that are off by
+    default, on the strength of TPU v5e timings
+    (``streamingt2v_tpu/ops/attention.py:262-265``,
     ``ops/temporal_attention.py:158-170``).  In the port each pipeline
     carries one of these and applies it around its public calls
     (``ops/routing.py``); off means the JAX default path, which is also
-    what runs outside any pipeline call (training among it).  Stage 1 takes
-    ``fused_group_norm`` (``PipelineConfig.routing``), stage 2 all four
-    (``EnhanceConfig.routing``).
+    what runs outside any pipeline call (training among it).  Stage 1 keeps
+    the defaults (``PipelineConfig.routing``), stage 2 takes all three
+    (``EnhanceConfig.routing``).  K5 is no route: ``ops/norms.py`` takes it
+    wherever autograd records no graph.
 
       flash_packed:       multi-head attention on the flash geometries runs
                           K2 on the packed (B, L, H*D) layout instead of K1
                           on head-folded copies;
-      fused_group_norm:   per-frame (4-D) GroupNorm(+SiLU) runs K5;
-      temporal_attention: the temporal transformers give their spatial-major
+      temporal_attention: ``ops.temporal_attention`` gives the spatial-major
                           q/k/v to K6 instead of transposing them;
       ring_attention:     under a mesh with a seq axis, the token-split spatial
                           self-attention rotates k/v around the seq ranks
@@ -74,13 +74,12 @@ class KernelRouting:
     """
 
     flash_packed: bool = False
-    fused_group_norm: bool = False
     temporal_attention: bool = False
     ring_attention: bool = True
 
     @classmethod
     def all_on(cls) -> "KernelRouting":
-        return cls(flash_packed=True, fused_group_norm=True, temporal_attention=True)
+        return cls(flash_packed=True, temporal_attention=True)
 
 
 @dataclass(frozen=True)
@@ -278,7 +277,7 @@ class EnhanceConfig:
         "motionless, static, disfigured, disconnected limbs, Ugly faces, "
         "incomplete arms"
     )
-    # stage 2 takes every optional kernel route (K2, K5, K6)
+    # stage 2 takes every optional kernel route (K2, K6)
     routing: KernelRouting = field(default_factory=KernelRouting.all_on)
 
 
@@ -421,11 +420,9 @@ class PipelineConfig:
     enhance: EnhanceConfig = field(default_factory=EnhanceConfig)
     vfi: VFIConfig = field(default_factory=VFIConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    # stage 1 runs its per-frame GroupNorms on K5 and keeps the JAX package's
-    # other default routes (K1 on head-folded copies, transposed temporal
-    # attention)
-    routing: KernelRouting = field(
-        default_factory=lambda: KernelRouting(fused_group_norm=True))
+    # stage 1 keeps the JAX package's default routes (K1 on head-folded
+    # copies, transposed temporal attention)
+    routing: KernelRouting = field(default_factory=KernelRouting)
 
     def n_autoregressions(self, stage1_frames: int) -> int:
         """ceil((F_target - 25) / (25 - 7)) — reference inference_i2v.py:179-184."""

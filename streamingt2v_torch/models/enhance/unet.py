@@ -10,8 +10,8 @@ Layout: (B, T, H, W, C) channel-last; spatial modules fold T into the batch,
 temporal modules keep the spatial-major (B*T, H*W, C) layout.  Kernels on
 the card: K5 in every per-frame GroupNorm, K4 in every TemporalConvLayer, K3
 in every transformer feed-forward, K2 (or K1) in the spatial self- and
-cross-attentions and K6 in the temporal self-attentions, as the routing in
-force says (``ops/routing.py``).
+cross-attentions and K6 in the temporal self-attentions, as the pipeline's
+``KernelRouting`` says.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from streamingt2v_torch.models.layers import (
     Conv, Dense, TimeConv, norm_pair, norm_params, per_frame, silu_f32)
 from streamingt2v_torch.models.unet_blocks import BasicTransformerBlock, _time_conv
 from streamingt2v_torch.ops import attention, group_norm, layer_norm, timestep_embedding
-from streamingt2v_torch.ops.routing import current_routing
 from streamingt2v_torch.utils.profiling import count, span
 
 
@@ -150,15 +149,14 @@ class TransformerTemporal(nn.Module):
     BasicTransformerBlock (two self-attentions over frames) -> linear out,
     residual.  Input (B, T, H, W, C).  The block runs in the spatial-major
     (B*T, H*W, C) layout; only its attentions see the frame axis, through
-    head-folding transposes of q/k/v/o, or, under the ``temporal_attention``
-    routing, straight from that layout through ``ops.temporal_attention``."""
+    ``ops.temporal_attention`` on that layout."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, groups: int = 32,
                  depth: int = 1, *, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         inner = heads * dim_head
-        self.heads, self.dim_head, self.groups, self.depth = heads, dim_head, groups, depth
+        self.groups, self.depth = groups, depth
         norm_params(self, "norm", channels, **fk)
         self.proj_in = Dense(channels, inner, **fk)
         for d in range(depth):
@@ -168,22 +166,10 @@ class TransformerTemporal(nn.Module):
     @span("st2v.transformer")
     def forward(self, x):
         b, t, hh, ww, c = x.shape
-        s, hd, dh = hh * ww, self.heads, self.dim_head
         h = group_norm(x, *norm_pair(self, "norm"), num_groups=self.groups, eps=1e-6)
-        h = self.proj_in(h.reshape(b * t, s, c))
-
-        def to_time(z):  # (b t) s (h d) -> (b s h) t d
-            return z.reshape(b, t, s, hd, dh).permute(0, 2, 3, 1, 4).reshape(b * s * hd, t, dh)
-
-        def from_time(z):
-            return z.reshape(b, s, hd, t, dh).permute(0, 3, 1, 2, 4).reshape(b * t, s, hd * dh)
-
-        if current_routing().temporal_attention:
-            layout = dict(frames=(b, t))
-        else:
-            layout = dict(pre=to_time, post=from_time, pre_split=True)
+        h = self.proj_in(h.reshape(b * t, hh * ww, c))
         for d in range(self.depth):
-            h = getattr(self, f"block_{d}")(h, None, **layout)
+            h = getattr(self, f"block_{d}")(h, None, frames=(b, t))
         return x + self.proj_out(h).reshape(b, t, hh, ww, c)
 
 

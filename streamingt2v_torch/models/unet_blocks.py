@@ -10,11 +10,11 @@
 
 Layouts: 5-D activations (B, T, H, W, C); spatial modules fold T into the
 batch, the temporal transformer keeps the spatial-major (B*T, S, C) layout
-and folds only q/k/v/o to (B*S*H, T, D) around its attention.  The
-kernels enter here: the GEGLU FF (K3) from ``FeedForward``, the temporal
+and hands its attention q/k/v in that layout to ``ops.temporal_attention``.
+The kernels enter here: the GEGLU FF (K3) from ``FeedForward``, the temporal
 conv (K4) from ``_time_conv``, flash attention (K1, or K2 under the
-``flash_packed`` routing) through the attention dispatcher, and, under the
-``temporal_attention`` routing, K6 from the temporal self-attentions, each
+``flash_packed`` routing) through the attention dispatcher, and K6 (under
+the ``temporal_attention`` routing) from the temporal self-attentions, each
 only for tensors on a CUDA device and inside its gate.
 
 Under a mesh (``parallel/sharding.py``): ``shard_params`` splits the
@@ -47,10 +47,8 @@ from streamingt2v_torch.models.layers import (
     Conv, Conv1D, Dense, TimeConv, _param, norm_pair, norm_params, silu_f32)
 from streamingt2v_torch.ops import (
     alpha_blend, attention, group_norm, layer_norm, timestep_embedding)
-from streamingt2v_torch.ops.attention import attention_pre_split
 from streamingt2v_torch.ops.fused_ff import geglu_ff
 from streamingt2v_torch.ops.norms import group_norm_affine
-from streamingt2v_torch.ops.routing import current_routing
 from streamingt2v_torch.ops.temporal_attention import temporal_attention
 from streamingt2v_torch.ops.temporal_conv import fits_temporal_conv, temporal_conv
 from streamingt2v_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
@@ -121,11 +119,9 @@ class FeedForward(nn.Module):
 
 class CrossAttention(nn.Module):
     """q/k/v projections (no bias) + output projection; self-attention when
-    context is None.  ``pre``/``post`` adapt the layout around the attention
-    core; ``pre_split`` means ``pre`` already folded heads into the batch.
-    ``frames=(batch, T)`` makes it a self-attention over the frame axis of a
-    spatial-major (B*T, S, C) input, computed on that layout by
-    ``ops.temporal_attention`` (K6 on the card): no transposes.
+    context is None.  ``frames=(batch, T)`` makes it a self-attention over
+    the frame axis of a spatial-major (B*T, S, C) input, computed on that
+    layout by ``ops.temporal_attention``.
 
     Split by ``shard_params`` (``tp``, whole heads only), each model rank
     projects its heads' q/k/v, attends over them, and sums its part of the
@@ -154,37 +150,31 @@ class CrossAttention(nn.Module):
         return y + self.to_out.bias.to(y.dtype)
 
     @span("st2v.attention")
-    def forward(self, x, context=None, pre=None, post=None, pre_split: bool = False,
-                frames: Optional[Tuple[int, int]] = None):
+    def forward(self, x, context=None, frames: Optional[Tuple[int, int]] = None):
         if self.tp is not None:
             x, context = copy_to_model(x, self.tp), copy_to_model(context, self.tp)
             with split_over(AXIS_MODEL):
-                return self._attend(x, context, pre, post, pre_split, frames)
-        return self._attend(x, context, pre, post, pre_split, frames)
+                return self._attend(x, context, frames)
+        return self._attend(x, context, frames)
 
-    def _attend(self, x, context, pre, post, pre_split, frames):
+    def _attend(self, x, context, frames):
         heads = self.to_q.kernel.shape[0] // self.dim_head      # this rank's heads
         if frames is not None:
-            q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
             b, t = frames
-            return self._project_out(temporal_attention(q, k, v, batch=b, frames_q=t,
-                                                        frames_kv=t, num_heads=heads))
-        if context is not None and context.shape[1] == 1 and pre is None and post is None:
+            # the projections go as temporaries, so that the op's plain
+            # version frees them once it has folded them
+            return self._project_out(temporal_attention(
+                self.to_q(x), self.to_k(x), self.to_v(x), batch=b, frames_q=t, frames_kv=t,
+                num_heads=heads))
+        if context is not None and context.shape[1] == 1:
             # one key: the softmax is exactly 1, so the output is v for
             # every query (the SVD pooled-CLIP context)
             out = self._project_out(self.to_v(context))
             return out.expand(x.shape[0], x.shape[1], out.shape[-1])
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        if pre is not None:
-            q, k, v = pre(q), pre(k), pre(v)
-        if pre_split:
-            o = attention_pre_split(q, k, v)
-        else:
-            o = attention(q, k, v, num_heads=heads, over_tokens=context is None and pre is None)
-        if post is not None:
-            o = post(o)
-        return self._project_out(o)
+        return self._project_out(attention(q, k, v, num_heads=heads,
+                                           over_tokens=context is None))
 
 
 class APMContextMixer(nn.Module):
@@ -230,30 +220,28 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, dim, **fk)
 
     @span("st2v.transformer")
-    def forward(self, x, context=None, *, pre=None, post=None, pre_split=False, frames=None):
-        """``pre``/``post``/``pre_split``/``frames`` go to both attentions:
-        valid only when both are self-attentions over the same axis (the
-        temporal use, ``TransformerTemporal``)."""
+    def forward(self, x, context=None, *, frames=None):
+        """``frames`` goes to both attentions: valid only when both are
+        self-attentions over the frame axis (the temporal use,
+        ``TransformerTemporal``)."""
         if self.apm is not None and context is not None:
             context = self.apm(context)
-        kw = dict(pre=pre, post=post, pre_split=pre_split, frames=frames)
         x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")),
-                           context if self.disable_self_attn else None, **kw)
-        x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context, **kw)
+                           context if self.disable_self_attn else None, frames)
+        x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context, frames)
         return self.ff(x, ln=norm_pair(self, "norm3"), residual=True)
 
 
 class VideoTransformerBlock(nn.Module):
     """Temporal transformer block: ff_in -> temporal self-attn -> cross-attn
     to the time context -> FF, residuals throughout.  Input is spatial-major
-    (B*T, S, C); only q/k/v/o are folded to (B*S*H, T, D)."""
+    (B*T, S, C); its self-attention attends over T in that layout."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  ff_in: bool = True, disable_temporal_crossattention: bool = False, *,
                  device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        self.dim_head = dim_head
         self.has_ff_in = ff_in
         self.disable_temporal_crossattention = disable_temporal_crossattention
         if ff_in:
@@ -269,24 +257,9 @@ class VideoTransformerBlock(nn.Module):
 
     @span("st2v.transformer")
     def forward(self, x, context=None, *, batch: int, frames: int):
-        b, t, s = batch, frames, x.shape[1]
-        dh = self.dim_head
-
-        def to_time_split(z):  # (b t) s (h d) -> (b s h) t d; h: this rank's heads
-            h = z.shape[-1] // dh
-            return z.reshape(b, t, s, h, dh).permute(0, 2, 3, 1, 4).reshape(b * s * h, t, dh)
-
-        def from_time_split(z):
-            h = z.shape[0] // (b * s)
-            return z.reshape(b, s, h, t, dh).permute(0, 3, 1, 2, 4).reshape(b * t, s, h * dh)
-
-        if current_routing().temporal_attention:
-            layout = dict(frames=(b, t))
-        else:
-            layout = dict(pre=to_time_split, post=from_time_split, pre_split=True)
         if self.has_ff_in:
             x = self.ff_in(x, ln=norm_pair(self, "norm_in"), residual=True)
-        x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")), **layout)
+        x = x + self.attn1(layer_norm(x, *norm_pair(self, "norm1")), frames=(batch, frames))
         if not self.disable_temporal_crossattention:
             x = x + self.attn2(layer_norm(x, *norm_pair(self, "norm2")), context)
         return self.ff(x, ln=norm_pair(self, "norm3"), residual=True)

@@ -28,8 +28,9 @@ N is, where K5's plan caps a row at 256 L-chunks (half a wave at N = 1).
 
 No gradient: the JAX package defines no VJP for its kernel (``jax.grad``
 through it fails in pallas_call's JVP rule), so on the card an input that
-requires grad under grad mode raises rather than return an output that
-autograd cannot see through.
+requires grad under grad mode (``needs_grad``) raises rather than return
+an output that autograd cannot see through; ``ops/norms.py`` sends such
+inputs to the plain version.
 """
 
 from __future__ import annotations
@@ -65,15 +66,29 @@ def fits_fused(l: int, c: int, num_groups: int) -> bool:
         and c % num_groups == 0
 
 
-def fused_group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-                               num_groups: int, eps: float = 1e-6,
-                               act: Optional[str] = None) -> torch.Tensor:
-    """Plain version in f32: two-pass statistics per (row, group)."""
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a graph through an op on ``tensors``: the
+    condition under which K5 refuses and the norms take the plain version."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _mean_rstd(x: torch.Tensor, num_groups: int, eps: float) -> tuple:
+    """(N, L, C) -> its f32 view (N, L, G, C/G) and the two-pass statistics
+    per (row, group), mean and 1/sqrt(var + eps), each (N, 1, G, 1)."""
     n, l, c = x.shape
     xg = x.float().reshape(n, l, num_groups, c // num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
-    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(n, l, c) * scale.float() + bias.float()
+    return xg, mean, torch.rsqrt(var + eps)
+
+
+def fused_group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                               num_groups: int, eps: float = 1e-6,
+                               act: Optional[str] = None) -> torch.Tensor:
+    """Plain version in f32: two-pass statistics per (row, group).  Also
+    the plain path of ``norms.group_norm``, which autograd goes through."""
+    xg, mean, rstd = _mean_rstd(x, num_groups, eps)
+    out = ((xg - mean) * rstd).reshape(x.shape) * scale.float() + bias.float()
     if act == "silu":
         out = F.silu(out)
     return out.to(x.dtype)
@@ -84,12 +99,10 @@ def group_norm_affine_reference(x: torch.Tensor, scale: torch.Tensor, bias: torc
     """Plain version in f32: the two-pass statistics per (row, group) as the
     affine (a, b), each (N, C), with GroupNorm(x) = x * a + b.  Also the
     plain path of ``norms.group_norm_affine``, which autograd goes through."""
-    n, l, c = x.shape
-    xg = x.float().reshape(n, l, num_groups, c // num_groups)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg - mean).square().mean(dim=(1, 3))
+    n, _, c = x.shape
+    _, mean, rstd = _mean_rstd(x, num_groups, eps)
     rep = c // num_groups
-    a = torch.rsqrt(var + eps).repeat_interleave(rep, dim=1) * scale.float()
+    a = rstd.reshape(n, num_groups).repeat_interleave(rep, dim=1) * scale.float()
     b = bias.float() - mean.reshape(n, num_groups).repeat_interleave(rep, dim=1) * a
     return a, b
 
@@ -127,9 +140,9 @@ def _plan(n: int, l: int, c: int, itemsize: int, target_blocks: int,
 
 
 def _refuse_grad(what: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError(f"{what}: K5 has no backward (the JAX package defines no VJP for "
-                           f"it); train with the fused_group_norm routing off")
+                           f"it); ops.norms takes the plain version under grad")
 
 
 def _check_card_inputs(what: str, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -7,42 +7,33 @@ fallback is a TPU bandwidth trade the port does not need) and the
 one-pass clamped form for LayerNorm, as the JAX package computes it.
 
 Per-frame (4-D) GroupNorm(+SiLU) runs the fused kernel K5
-(``ops/fused_group_norm.py``) when the routing in force has
-``fused_group_norm``: the JAX package's ``STREAMINGT2V_FUSED_GN`` route.
-Under the same routing the statistics of K4's prologue
-(``group_norm_affine``, any rank) take K5's statistics pass
-(``fused_group_norm_affine``, which raises under grad as K5 does); outside
-it they take the same plain version, the path autograd goes through.
+(``ops/fused_group_norm.py``, the JAX package's ``STREAMINGT2V_FUSED_GN``
+route) and the statistics of K4's prologue (``group_norm_affine``, any rank)
+K5's statistics pass, wherever the kernel's gate holds and autograd records
+no graph (``needs_grad``: K5 has no backward).  Everything else takes the
+one plain version of these statistics, the path autograd goes through.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from streamingt2v_torch.ops.fused_group_norm import (
-    fits_fused, fused_group_norm, fused_group_norm_affine, group_norm_affine_reference)
-from streamingt2v_torch.ops.routing import current_routing
+    fits_fused, fused_group_norm, fused_group_norm_affine, fused_group_norm_reference,
+    group_norm_affine_reference, needs_grad)
 from streamingt2v_torch.utils.profiling import span
 
 
-def _grouped(x: torch.Tensor, num_groups: int) -> tuple:
-    """(N, ..., C) -> f32 view (N, L, G, C/G) and the clamped group count."""
+def _rows(x: torch.Tensor, num_groups: int) -> tuple:
+    """(N, ..., C) -> its (N, L, C) view and the group count."""
     c = x.shape[-1]
     # clamp for the tiny test configs; production widths are >= 128
     g = min(num_groups, c)
     if c % g:
         raise ValueError(f"channels {c} not divisible by {g} groups")
-    return x.float().reshape(x.shape[0], -1, g, c // g), g
-
-
-def _group_stats(xg: torch.Tensor, eps: float) -> tuple:
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
-    return mean, torch.rsqrt(var + eps)
+    return x.reshape(x.shape[0], -1, c), g
 
 
 @span("st2v.norm")
@@ -60,19 +51,13 @@ def group_norm(
     optionally fused with SiLU (``act='silu'``)."""
     if act not in (None, "silu"):
         raise ValueError(act)
-    if x.ndim == 4 and current_routing().fused_group_norm:
-        n, hh, ww, c = x.shape
-        g = min(num_groups, c)
-        if fits_fused(hh * ww, c, g):
-            return fused_group_norm(x.reshape(n, hh * ww, c).contiguous(),
-                                    scale.float().contiguous(), bias.float().contiguous(),
-                                    num_groups=g, eps=eps, act=act).reshape(x.shape)
-    xg, _ = _grouped(x, num_groups)
-    mean, inv = _group_stats(xg, eps)
-    out = ((xg - mean) * inv).reshape(x.shape) * scale.float() + bias.float()
-    if act == "silu":
-        out = F.silu(out)
-    return out.to(x.dtype)
+    rows, g = _rows(x, num_groups)
+    if x.ndim == 4 and fits_fused(*rows.shape[1:], g) and not needs_grad(x, scale, bias):
+        out = fused_group_norm(rows.contiguous(), scale.float().contiguous(),
+                               bias.float().contiguous(), num_groups=g, eps=eps, act=act)
+    else:
+        out = fused_group_norm_reference(rows, scale, bias, num_groups=g, eps=eps, act=act)
+    return out.reshape(x.shape)
 
 
 @span("st2v.norm")
@@ -87,16 +72,11 @@ def group_norm_affine(
     """GroupNorm as a per-(batch row, channel) affine: f32 (a, b), each
     (N, C), with group_norm(x, scale, bias) == x * a + b.  The temporal-conv
     kernel applies it (plus SiLU) as it reads its input."""
-    n, c = x.shape[0], x.shape[-1]
-    # clamp for the tiny test configs; production widths are >= 128
-    g = min(num_groups, c)
-    if c % g:
-        raise ValueError(f"channels {c} not divisible by {g} groups")
-    if current_routing().fused_group_norm and fits_fused(math.prod(x.shape[1:-1]), c, g):
-        return fused_group_norm_affine(x.reshape(n, -1, c).contiguous(),
-                                       scale.float().contiguous(), bias.float().contiguous(),
-                                       num_groups=g, eps=eps)
-    return group_norm_affine_reference(x.reshape(n, -1, c), scale, bias, num_groups=g, eps=eps)
+    rows, g = _rows(x, num_groups)
+    if fits_fused(*rows.shape[1:], g) and not needs_grad(x, scale, bias):
+        return fused_group_norm_affine(rows.contiguous(), scale.float().contiguous(),
+                                       bias.float().contiguous(), num_groups=g, eps=eps)
+    return group_norm_affine_reference(rows, scale, bias, num_groups=g, eps=eps)
 
 
 @span("st2v.norm")

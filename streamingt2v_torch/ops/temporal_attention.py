@@ -6,8 +6,8 @@ with the hand-written CUDA kernel in ``csrc/temporal_attention.cu``.
 
 The temporal transformers keep their activations spatial-major, (B*T, S, H*D);
 attention over frames needs, per (pixel, head), the T rows that sit S*H*D
-apart.  The plain version (the JAX package's fallback) transposes q, k, v to
-(B*S, T, H*D), attends, and transposes o back: four full copies.  The kernel
+apart.  The plain version (the JAX package's fallback) folds q, k, v to
+(B*S*H, T, D), attends, and folds o back: four full copies.  The kernel
 reads each (pixel, head)'s frames where they lie, keeps the T x T scores on
 chip and writes o in place.
 
@@ -37,7 +37,8 @@ import math
 import torch
 
 from streamingt2v_torch.ops import _native
-from streamingt2v_torch.ops.attention import attention
+from streamingt2v_torch.ops.attention import attention_pre_split
+from streamingt2v_torch.ops.routing import current_routing
 from streamingt2v_torch.utils.profiling import count_launch
 
 MAX_FRAMES = 64
@@ -49,19 +50,30 @@ def fits_temporal_attention(frames_q: int, frames_kv: int, head_dim: int) -> boo
     return 0 < max(frames_q, frames_kv) <= MAX_FRAMES and 0 < head_dim <= MAX_HEAD_DIM
 
 
+def _time_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int,
+                frames_q: int, frames_kv: int, num_heads: int) -> tuple:
+    """(B*T, S, H*D) q, k, v -> (B*S*H, T, D), one copy each."""
+    s, d = q.shape[1], q.shape[2] // num_heads
+    return tuple(z.reshape(batch, t, s, num_heads, d).permute(0, 2, 3, 1, 4).reshape(-1, t, d)
+                 for z, t in ((q, frames_q), (k, frames_kv), (v, frames_kv)))
+
+
+def _spatial_major(o: torch.Tensor, batch: int, num_heads: int) -> torch.Tensor:
+    """(B*S*H, T, D) -> (B*T, S, H*D), one copy."""
+    bsh, t, d = o.shape
+    s = bsh // (batch * num_heads)
+    return o.reshape(batch, s, num_heads, t, d).permute(0, 3, 1, 2, 4).reshape(
+        batch * t, s, num_heads * d)
+
+
 def temporal_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  batch: int, frames_q: int, frames_kv: int,
                                  num_heads: int) -> torch.Tensor:
-    """Plain version (the JAX package's fallback): rearrange to time-major,
-    run the attention dispatcher, rearrange back."""
-    bt, s, hd = q.shape
-
-    def to_time_major(z, t):
-        return z.reshape(batch, t, s, -1).transpose(1, 2).reshape(batch * s, t, -1)
-
-    o = attention(to_time_major(q, frames_q), to_time_major(k, frames_kv),
-                  to_time_major(v, frames_kv), num_heads=num_heads)
-    return o.reshape(batch, s, frames_q, -1).transpose(1, 2).reshape(bt, s, hd)
+    """Plain version (the JAX package's fallback): fold each operand to
+    (B*S*H, T, D) in one copy, attend (``attention_pre_split``), fold the
+    output back in one copy."""
+    q, k, v = _time_major(q, k, v, batch, frames_q, frames_kv, num_heads)
+    return _spatial_major(attention_pre_split(q, k, v), batch, num_heads)
 
 
 def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -107,16 +119,21 @@ def fused_temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return out
 
 
-
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int,
                        frames_q: int, frames_kv: int, num_heads: int) -> torch.Tensor:
     """Per-pixel attention over the frame axis, spatial-major layout
     (``streamingt2v_tpu/ops/temporal_attention.py:135``): equivalent to
     rearranging (b t) s c -> (b s) t c, attending, and rearranging back.
-    Geometries inside the kernel's gate go to K6; the rest to the plain
-    version."""
+    Under the ``temporal_attention`` routing, geometries inside the kernel's
+    gate go to K6; the rest to the plain version."""
     kw = dict(batch=batch, frames_q=frames_q, frames_kv=frames_kv, num_heads=num_heads)
     d = q.shape[-1] // num_heads
-    if num_heads * d == q.shape[-1] and fits_temporal_attention(frames_q, frames_kv, d):
+    if (current_routing().temporal_attention and num_heads * d == q.shape[-1]
+            and fits_temporal_attention(frames_q, frames_kv, d)):
         return fused_temporal_attention(q, k, v, **kw)
-    return temporal_attention_reference(q, k, v, **kw)
+    # the plain version, written out rather than called: rebinding q, k, v
+    # here frees the spatial-major operands that a caller passes as
+    # temporaries (the temporal transformers do) before the attention takes
+    # its workspace
+    q, k, v = _time_major(q, k, v, batch, frames_q, frames_kv, num_heads)
+    return _spatial_major(attention_pre_split(q, k, v), batch, num_heads)

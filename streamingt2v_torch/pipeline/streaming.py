@@ -14,9 +14,9 @@
      ``decode_chunk_size`` frames.
 
 All model weights stay resident on the device.  ``image_to_video`` runs
-under the configuration's kernel routing (``PipelineConfig.routing``: K5
-under the per-frame GroupNorms, the JAX package's default kernels
-elsewhere).  Noise comes from a
+under the configuration's kernel routing (``PipelineConfig.routing``: the
+JAX package's default kernels) and without autograd, so its per-frame
+GroupNorms take K5.  Noise comes from a
 ``noise(generation, stream, shape)`` function (``utils/rng.py``), so a
 caller can inject the draws of another implementation.
 

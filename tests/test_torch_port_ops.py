@@ -8,6 +8,7 @@ plain versions and the norms (f32 with a different summation order on
 each side), 1e-4 where the JAX side takes one-pass statistics."""
 
 import ast
+import dataclasses
 import functools
 import importlib
 import pathlib
@@ -37,7 +38,8 @@ from streamingt2v_torch.ops.flash_attention import (
 from streamingt2v_torch.ops import fused_ff
 from streamingt2v_torch.ops.fused_ff import (
     G_CHUNK_BYTES, ROW_TILE, chunk_plan, chunk_size, down_cols, geglu_ff, geglu_ff_reference)
-from streamingt2v_torch.ops.fused_group_norm import fused_group_norm, fused_group_norm_affine
+from streamingt2v_torch.ops.fused_group_norm import (
+    fits_fused, fused_group_norm, fused_group_norm_affine)
 from streamingt2v_torch.ops.routing import current_routing, use_routing
 from streamingt2v_torch.ops.temporal_attention import (
     fused_temporal_attention, temporal_attention)
@@ -359,18 +361,26 @@ def test_fused_group_norm_affine_plain_keeps_a_large_offset():
 @pytest.mark.parametrize("shape,groups,act", [
     ((2, 6, 6, 64), 32, "silu"), ((3, 4, 5, 16), 8, None), ((2, 4, 4, 12), 4, "silu"),
 ])
-def test_group_norm_fused_route_matches_plain(shape, groups, act):
-    """Under the fused_group_norm routing a 4-D GroupNorm takes the K5
-    wrapper (its plain version on the CPU) where the kernel's gate allows,
-    and gives what the plain path gives."""
+def test_group_norm_fused_route_matches_plain(monkeypatch, shape, groups, act):
+    """Without a graph to record a 4-D GroupNorm takes the K5 wrapper (its
+    plain version on the CPU) where the kernel's gate allows, and gives what
+    the plain version gives under grad, for the same inputs."""
     rng = np.random.RandomState(12)
-    x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
-    s = (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32)
-    b = (0.1 * rng.randn(shape[-1])).astype(np.float32)
-    off = port_norms.group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5, act=act)
-    with use_routing(KernelRouting(fused_group_norm=True)):
-        on = port_norms.group_norm(t(x), t(s), t(b), num_groups=groups, eps=1e-5, act=act)
-    assert_close(on, off.numpy(), KERNEL_TOL, "fused route")
+    x, s, b = (t(v).requires_grad_() for v in (
+        (rng.randn(*shape) * 2 + 0.5).astype(np.float32),
+        (1 + 0.1 * rng.randn(shape[-1])).astype(np.float32),
+        (0.1 * rng.randn(shape[-1])).astype(np.float32)))
+    calls = []
+    wrapper = port_norms.fused_group_norm
+    monkeypatch.setattr(port_norms, "fused_group_norm",
+                        lambda *args, **kw: calls.append(kw) or wrapper(*args, **kw))
+    plain = port_norms.group_norm(x, s, b, num_groups=groups, eps=1e-5, act=act)
+    assert plain.grad_fn is not None and not calls
+    with torch.no_grad():
+        fused = port_norms.group_norm(x, s, b, num_groups=groups, eps=1e-5, act=act)
+    n, hh, ww, c = shape
+    assert len(calls) == fits_fused(hh * ww, c, min(groups, c))
+    assert_close(fused, plain.detach().numpy(), KERNEL_TOL, "fused route")
 
 
 # ---------------------------------------------------------------- K6 -----
@@ -413,9 +423,12 @@ def test_temporal_attention_outside_the_gate_takes_the_plain_version():
 def test_routing_defaults_to_the_jax_switches_and_resets():
     from streamingt2v_torch.config import EnhanceConfig, PipelineConfig
 
+    assert [f.name for f in dataclasses.fields(KernelRouting)] == [
+        "flash_packed", "temporal_attention", "ring_attention"]
     assert current_routing() == KernelRouting()
-    assert PipelineConfig().routing == KernelRouting(fused_group_norm=True)
-    assert EnhanceConfig().routing == KernelRouting(True, True, True)
+    assert PipelineConfig().routing == KernelRouting()
+    assert EnhanceConfig().routing == KernelRouting(flash_packed=True, temporal_attention=True,
+                                                   ring_attention=True)
     with use_routing(KernelRouting(flash_packed=True)):
         assert current_routing().flash_packed
         with pytest.raises(RuntimeError):

@@ -1,13 +1,14 @@
-"""PyTorch port, stage 1's kernel routing on the CPU: which GroupNorms take
+"""PyTorch port, stage 1's kernel routes on the CPU: which GroupNorms take
 the K5 wrapper (``ops/fused_group_norm.fused_group_norm``, its plain version
-on the CPU) under ``PipelineConfig``'s default routing, which statistics of
-K4's prologue take K5's affine entry (``fused_group_norm_affine``), and
-which stay on the plain path of ``ops/norms.py``.
+on the CPU) where autograd records no graph, which statistics of K4's
+prologue take K5's affine entry (``fused_group_norm_affine``), which stay on
+the plain version of ``ops/norms.py``, and that the temporal
+self-attentions reach ``ops.temporal_attention`` under every routing.
 
 The tiny stage-1 pipeline runs ``image_to_video`` once with both ends
-counted: the wrapper's calls and the plain path's (``norms._grouped``, by
-the norm that calls it and the input's rank), each under the network whose
-forward is open (forward hooks).  The full-width pipeline and stage 2's UNet,
+counted: the wrapper's calls and the plain version's
+(``fused_group_norm_reference``, by the norm that calls it and the norm's
+input rank), each under the network whose forward is open (forward hooks).  The full-width pipeline and stage 2's UNet,
 built on the meta device, give the geometries at which ``chip_smoke.check_k5``
 and ``chip_smoke.check_k5_affine`` must hold K5 on the card."""
 
@@ -20,11 +21,13 @@ import pytest
 import torch
 
 import chip_smoke
-from streamingt2v_torch.config import PipelineConfig, VideoUNetConfig
+from streamingt2v_torch.config import (
+    ControlNetConfig, KernelRouting, PipelineConfig, VideoUNetConfig)
 from streamingt2v_torch.diffusion.engine import DiffusionEngine
 from streamingt2v_torch.models import unet_blocks, vae
 from streamingt2v_torch.models.enhance import unet as enhance_unet
 from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet, I2VGenXLUNetConfig
+from streamingt2v_torch.models.controlnet import ControlNet
 from streamingt2v_torch.models.layers import init_random_
 from streamingt2v_torch.models.video_unet import VideoUNet
 from streamingt2v_torch.ops import norms
@@ -36,9 +39,9 @@ NETWORKS = ("svd_unet", "unet", "controlnet", "vae.decoder", "cond_encoder")
 
 class NormCalls:
     """Counts of K5 wrapper calls, keyed (network, rank), of K5's affine
-    entry's, keyed (network, rank), and of plain-path calls (``_grouped``, and
-    the affine's plain version on (N, L, C)), keyed (network, norm, rank),
-    while ``patch`` is in force."""
+    entry's, keyed (network, rank), and of plain-version calls (each on
+    (N, L, C)), keyed (network, norm, the norm's input rank), while
+    ``patch`` is in force."""
 
     def __init__(self):
         self.k5 = collections.Counter()
@@ -47,7 +50,7 @@ class NormCalls:
         self.open = []
 
     def patch(self, mp: pytest.MonkeyPatch) -> None:
-        fused, grouped = norms.fused_group_norm, norms._grouped
+        fused, plain = norms.fused_group_norm, norms.fused_group_norm_reference
         affine, affine_plain = norms.fused_group_norm_affine, norms.group_norm_affine_reference
 
         def counted_fused(x, *args, **kw):
@@ -58,20 +61,18 @@ class NormCalls:
             self.k5_affine[self.where(), x.ndim] += 1
             return affine(x, *args, **kw)
 
-        def counted_grouped(x, num_groups):
-            caller = sys._getframe(1).f_code.co_name
-            self.plain[self.where(), caller, x.ndim] += 1
-            return grouped(x, num_groups)
-
-        def counted_affine_plain(x, *args, **kw):
-            caller = sys._getframe(1).f_code.co_name
-            self.plain[self.where(), caller, x.ndim] += 1
-            return affine_plain(x, *args, **kw)
+        def counted(version):
+            def call(x, *args, **kw):
+                caller = sys._getframe(1)
+                self.plain[self.where(), caller.f_code.co_name,
+                           caller.f_locals["x"].ndim] += 1
+                return version(x, *args, **kw)
+            return call
 
         mp.setattr(norms, "fused_group_norm", counted_fused)
         mp.setattr(norms, "fused_group_norm_affine", counted_affine)
-        mp.setattr(norms, "_grouped", counted_grouped)
-        mp.setattr(norms, "group_norm_affine_reference", counted_affine_plain)
+        mp.setattr(norms, "fused_group_norm_reference", counted(plain))
+        mp.setattr(norms, "group_norm_affine_reference", counted(affine_plain))
 
     def where(self):
         return self.open[-1] if self.open else None
@@ -90,7 +91,7 @@ class NormCalls:
 @pytest.fixture(scope="module")
 def stage1_calls():
     """The tiny stage-1 product (a first chunk, one AR chunk, the bf16
-    decode) under its configuration's default routing."""
+    decode), without autograd as the pipeline runs it."""
     cfg = PipelineConfig.tiny()
     pipe = build_pipeline(cfg, device="cpu")
     calls = NormCalls()
@@ -111,7 +112,7 @@ def stage1_calls():
 @pytest.mark.parametrize("network", NETWORKS)
 def test_every_per_frame_group_norm_takes_k5(stage1_calls, network):
     """Each network's 4-D GroupNorms reach the K5 wrapper as (N, L, C),
-    none the plain path."""
+    none the plain version."""
     k5 = {key: n for key, n in stage1_calls.k5.items() if key[0] == network}
     assert k5 and set(k5) == {(network, 3)}, stage1_calls.k5
     assert stage1_calls.plain[network, "group_norm", 4] == 0, stage1_calls.plain
@@ -120,7 +121,7 @@ def test_every_per_frame_group_norm_takes_k5(stage1_calls, network):
 @pytest.mark.parametrize("network", ("svd_unet", "unet", "controlnet", "vae.decoder"))
 def test_the_5d_group_norms_stay_plain(stage1_calls, network):
     """CAM's norm and the time stacks' norms over (T, H, W) keep the plain
-    path: K5 normalises each (N, L, C) row, never a 5-D input."""
+    version: K5 normalises each (N, L, C) row, never a 5-D input."""
     assert stage1_calls.plain[network, "group_norm", 5] > 0, stage1_calls.plain
     assert all(rank == 3 for _, rank in stage1_calls.k5)
 
@@ -143,17 +144,16 @@ def _assert_affine_form(x, a, b, want):
 
 @pytest.mark.parametrize("shape", [(2, 3, 4, 4, 32), (6, 4, 4, 32)])
 def test_group_norm_affine_takes_k5_affine(monkeypatch, shape):
-    """Under the stage-1 routing the statistics K4's prologue applies reach
-    K5's affine entry as (N, L, C), whatever the input's rank, none the plain
-    chain, and give the affine of the GroupNorm that the routing computes."""
+    """Without a graph to record, the statistics K4's prologue applies reach
+    K5's affine entry as (N, L, C), whatever the input's rank, none the
+    plain version, and give the affine of the GroupNorm."""
     calls = NormCalls()
     calls.patch(monkeypatch)
     x, scale, bias = _affine_case(shape)
-    with use_routing(PipelineConfig().routing):
-        a, b = norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
-        want = norms.group_norm(x, scale, bias, num_groups=8, eps=1e-5)
+    a, b = norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
+    want = norms.group_norm(x, scale, bias, num_groups=8, eps=1e-5)
     assert calls.k5_affine == {(None, 3): 1}, calls.k5_affine
-    assert calls.plain[None, "group_norm_affine", 3] == 0, calls.plain
+    assert calls.plain[None, "group_norm_affine", len(shape)] == 0, calls.plain
     assert sum(calls.k5.values()) == (1 if len(shape) == 4 else 0)
     assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape == (shape[0], shape[-1])
     _assert_affine_form(x, a, b, want)
@@ -161,22 +161,19 @@ def test_group_norm_affine_takes_k5_affine(monkeypatch, shape):
 
 @pytest.mark.parametrize("shape", [(2, 3, 4, 4, 32), (6, 4, 4, 32)])
 def test_group_norm_affine_stays_plain(monkeypatch, shape):
-    """Outside any routing (training's) the statistics K4's prologue applies
-    keep the plain chain, on (N, L, C) whatever the input's rank: they give
-    the GroupNorm's affine, and for inputs that require grad under grad mode
-    (a, b) keep their autograd graph, with the plain GroupNorm's
-    gradients."""
+    """Under grad, for inputs that require grad (training's), the statistics
+    K4's prologue applies keep the plain version, on (N, L, C) whatever the
+    input's rank: (a, b) keep their autograd graph, give the GroupNorm's
+    affine and the plain GroupNorm's gradients."""
     calls = NormCalls()
     calls.patch(monkeypatch)
-    x, scale, bias = _affine_case(shape)
-    a, b = norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
-    assert calls.plain[None, "group_norm_affine", 3] == 1
-    _assert_affine_form(x, a, b, norms.group_norm(x, scale, bias, num_groups=8, eps=1e-5))
     x, scale, bias = _affine_case(shape, requires_grad=True)
     a, b = norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
-    assert calls.plain[None, "group_norm_affine", 3] == 2
+    assert calls.plain[None, "group_norm_affine", len(shape)] == 1, calls.plain
     assert not calls.k5_affine, calls.k5_affine
     assert a.grad_fn is not None and b.grad_fn is not None
+    with torch.no_grad():
+        _assert_affine_form(x, a, b, norms.group_norm(x, scale, bias, num_groups=8, eps=1e-5))
     n, c = shape[0], shape[-1]
     lead = (n,) + (1,) * (len(shape) - 2) + (c,)
     got = torch.autograd.grad((x * a.reshape(lead) + b.reshape(lead)).square().sum(),
@@ -190,27 +187,34 @@ def test_group_norm_affine_stays_plain(monkeypatch, shape):
 
 @pytest.mark.parametrize("shape", [(2, 3, 4, 4, 32), (6, 4, 4, 32)])
 def test_group_norm_affine_refuses_grad_under_routing(monkeypatch, shape):
-    """Under the stage-1 routing an input that requires grad under grad mode
-    reaches K5's affine entry and raises there, as ``group_norm``'s K5 route
-    does on the card (no VJP); under ``no_grad`` the same inputs take the
-    entry and give the plain affine."""
+    """``group_norm_affine`` keeps grad away from K5's affine entry, which
+    raises under grad for an input that requires grad (no VJP): the same
+    inputs take the entry under ``no_grad`` and the plain version under
+    ``enable_grad``, with the same affine, whatever the routing."""
     calls = NormCalls()
     calls.patch(monkeypatch)
     x, scale, bias = _affine_case(shape, requires_grad=True)
-    with use_routing(PipelineConfig().routing):
-        with pytest.raises(RuntimeError, match="no backward"):
-            norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
+    with use_routing(KernelRouting.all_on()):
         with torch.no_grad():
             a, b = norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
-    assert calls.k5_affine == {(None, 3): 2}, calls.k5_affine
-    assert calls.plain[None, "group_norm_affine", 3] == 0, calls.plain
+        assert calls.k5_affine == {(None, 3): 1}, calls.k5_affine
+        assert calls.plain[None, "group_norm_affine", len(shape)] == 0, calls.plain
+        with torch.enable_grad():
+            ga, gb = norms.group_norm_affine(x, scale, bias, num_groups=8, eps=1e-5)
+        assert calls.k5_affine == {(None, 3): 1}, calls.k5_affine
+        assert calls.plain[None, "group_norm_affine", len(shape)] == 1, calls.plain
+        with pytest.raises(RuntimeError, match="no backward"):
+            norms.fused_group_norm_affine(x.reshape(shape[0], -1, shape[-1]), scale, bias,
+                                          num_groups=8, eps=1e-5)
+    assert ga.grad_fn is not None and a.grad_fn is None
+    torch.testing.assert_close((ga.detach(), gb.detach()), (a, b), rtol=1e-6, atol=1e-6)
     with torch.no_grad():
         _assert_affine_form(x, a, b, norms.group_norm(x, scale, bias, num_groups=8, eps=1e-5))
 
 
 def test_training_takes_no_k5(monkeypatch):
-    """A tiny training step runs outside every pipeline's routing: its 4-D
-    GroupNorms take the plain path (K5 has no backward)."""
+    """A tiny training step records a graph through parameters that require
+    grad: its 4-D GroupNorms take the plain version (K5 has no backward)."""
     calls = NormCalls()
     calls.patch(monkeypatch)
     ucfg = VideoUNetConfig.tiny(controlnet_mode=False)
@@ -227,6 +231,60 @@ def test_training_takes_no_k5(monkeypatch):
     assert sum(calls.k5.values()) == 0, calls.k5
     assert sum(calls.k5_affine.values()) == 0, calls.k5_affine
     assert calls.plain[None, "group_norm", 4] > 0, calls.plain
+
+
+@pytest.mark.parametrize("controlnet_mode", [False, True])
+def test_stage1_temporal_attention_takes_the_op_under_every_routing(monkeypatch,
+                                                                    controlnet_mode):
+    """The tiny VideoUNet (the first-chunk one, or the streaming one fed the
+    ControlNet's features through CAM): every temporal self-attention hands
+    ``ops.temporal_attention`` its spatial-major (B*T, S, H*D) q/k/v, under
+    the default routing and under ``KernelRouting.all_on()``, and the two
+    routings compute the same output on the CPU."""
+    ucfg = VideoUNetConfig.tiny(controlnet_mode=controlnet_mode)
+    gen = torch.Generator().manual_seed(3)
+    unet = init_random_(VideoUNet(ucfg, device="cpu"), gen).eval()
+    b, t, h, w = 2, 3, 8, 8
+    x = torch.randn(b, t, h, w, ucfg.in_channels, generator=gen)
+    t_cont = torch.tensor([0.7, 0.3])
+    ctx = torch.randn(b, t, 1, ucfg.context_dim, generator=gen)
+    y = torch.randn(b, t, ucfg.adm_in_channels, generator=gen)
+    control = {}
+    if controlnet_mode:
+        ccfg = ControlNetConfig.tiny()
+        cnet = init_random_(ControlNet(ucfg, ccfg, device="cpu"), gen).eval()
+        scale = 2 ** (len(ccfg.conditioning_embedding_out_channels) - 1)
+        pix = torch.randn(b, 2, h * scale, w * scale, 3, generator=gen)
+        with torch.no_grad():
+            hs, mid = cnet(x[:, :2], t_cont, ctx[:, :2], y[:, :2], pix)
+        control = dict(hs_control=hs, h_control_mid=mid)
+
+    blocks, seen = [], []
+    for module in unet.modules():
+        if isinstance(module, unet_blocks.VideoTransformerBlock):
+            module.register_forward_pre_hook(
+                lambda mod, args, kw: blocks.append((tuple(args[0].shape), kw["batch"],
+                                                     kw["frames"])), with_kwargs=True)
+    real = unet_blocks.temporal_attention
+
+    def spy(q, k, v, **kw):
+        assert q.shape == k.shape == v.shape
+        seen.append((tuple(q.shape), kw["batch"], kw["frames_q"]))
+        assert kw["frames_kv"] == kw["frames_q"]
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(unet_blocks, "temporal_attention", spy)
+    outs = []
+    for routing in (KernelRouting(), KernelRouting.all_on()):
+        blocks.clear()
+        seen.clear()
+        with torch.no_grad(), use_routing(routing):
+            outs.append(unet(x, t_cont, ctx, y, **control))
+        # a temporal transformer in each of the 2 + 4 attention levels' blocks
+        # and one in the middle
+        assert len(blocks) == 7 and seen == blocks, (blocks, seen)
+        assert all(shape[0] == b * t == bb * tt for shape, bb, tt in seen)
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -299,7 +357,7 @@ def test_chip_smoke_holds_k5_affine_at_every_k4_prologue_geometry(meta_stage1):
     """``chip_smoke.check_k5_affine`` holds K5's affine entry at exactly the
     geometries of K4's prologues: full-width stage 1 on the meta device (as
     above) and one call of stage 2's full-width UNet on a 38-frame chunk of
-    90 x 160 latents; each network's launches a call are
+    90 x 160 latents (its K5 wrapper stubbed); each network's launches a call are
     ``k4_prologue_geometries``' counts, and so the launches a unit are
     ``k4_prologue_launches``'."""
     _, prologues, networks = meta_stage1
@@ -309,6 +367,7 @@ def test_chip_smoke_holds_k5_affine_at_every_k4_prologue_geometry(meta_stage1):
     calls.watch("stage-2 UNet", unet)
     z = functools.partial(torch.zeros, device="meta")
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(norms, "fused_group_norm", lambda x, *args, **kw: torch.empty_like(x))
         _record_prologues(mp, calls, prologues)
         with torch.inference_mode():
             unet(z(1, 38, 90, 160, 4), z(1, dtype=torch.int32), z(1), z(1, 38, 90, 160, 4),
