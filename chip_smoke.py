@@ -18,16 +18,18 @@ Phases, one line each:
      (``streamingt2v_torch/native``);
   3. kernels: each hand-written kernel (K1 flash attention, K2 packed flash
      attention, K3 GEGLU FF, K4 temporal conv, K5 fused GroupNorm, K6
-     temporal attention) at the main paths' shapes in bf16 plus f32 cases,
-     against its plain PyTorch version on the same inputs, with both times
+     temporal attention, K7 LayerNorm) at the main paths' shapes in bf16
+     plus f32 cases, against its plain PyTorch version on the same inputs, with both times
      (CUDA events, median of a few runs, each call queued behind a device
      sleep so that the host's work before it is not timed) at one timed
      main-path shape each;
      there also its bound and its library yardstick (below); K5 also at
      every geometry stage 1 sends it (``stage1_k5_geometries``), and its
      affine entry (the statistics of K4's prologue) at every geometry the
-     UNets and the VAE decoder send it (``k4_prologue_geometries``).  The build
-     phase fails if ptxas serialized any kernel's ``wgmma``;
+     UNets and the VAE decoder send it (``k4_prologue_geometries``); K7
+     LayerNorm at every full-width geometry the phases send it: the cells'
+     units, the conditioning towers and stage 3 (``layer_norm_geometries``).
+     The build phase fails if ptxas serialized any kernel's ``wgmma``;
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32), the same with APM (a 3+1-token context, ``apm_alpha``
      drawn non-zero), the tiny first chunk at 64x128 under each other sampler
@@ -154,7 +156,8 @@ Phases, one line each:
      of 49 frames at 480x720 from latent noise and prompt embeddings drawn
      from seed 0: its seconds (the first step, cold), resident and peak
      memory, finite latents that moved, and its launches: K1 once a block
-     at (96, 17776, 64) (42) and no other kernel (``cogvideox_launches``).
+     at (96, 17776, 64) (42), K7 at every LayerNorm (170, 86 of them f32:
+     ``layer_norm_launches``) and no other kernel (``cogvideox_launches``).
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -191,7 +194,12 @@ have records of their own, ``flash_attention_d512`` at (8, 9216, 512) and
 4-frame encode chunk; their ``library_ms`` is the first SDPA backend that
 takes D=512 (``sdpa_backend``), and their ``launches`` are the wrappers'
 ``launches_d512``.  K5's record adds ``vae_ms``, ``vae_bound_ms`` and
-``vae_share`` at the SD VAE's (2, 921600, 128).  K1-K4 carry their backward
+``vae_share`` at the SD VAE's (2, 921600, 128).  K7's (LayerNorm) is at
+stage 1's level 0 (460800, 320) bf16, its ``library_ms`` ``F.layer_norm``
+with the affine in x's dtype, and adds ``level1_*`` and ``level2_*`` at
+(115200, 640) and (28800, 1280), ``stage2_*`` at (547200, 320), ``f32_*`` at
+CogVideoX's f32 stream (35552, 3072) and ``qk_*`` at its q/k norms
+(1706496, 64), each beside its byte bound.  K1-K4 carry their backward
 (the VJP of the plain version in chunks, from the reference phase):
 ``bwd_ms`` at a training shape (``bwd_shape``; K1 and K4 the SVD UNet's
 level 0, K3 level 0 with LN and residual, K2 stage 2's level 1),
@@ -334,6 +342,11 @@ def work_group_norm(n: int, l: int, c: int, elem: int = 2) -> tuple:
 def work_group_norm_affine(n: int, l: int, c: int, elem: int = 2) -> tuple:
     """K5's affine entry: reads x once, writes the f32 affine (a, b)."""
     return 0, elem * n * l * c + 4 * (2 * c + 2 * n * c)
+
+
+def work_layer_norm(rows: int, c: int, elem: int = 2) -> tuple:
+    """K7: reads x once and writes the output once; the f32 scale and bias."""
+    return 0, 2 * elem * rows * c + 4 * 2 * c
 
 
 def work_temporal_attention(b: int, tq: int, tkv: int, s: int, heads: int, d: int,
@@ -1126,6 +1139,143 @@ def check_k5_affine(randn) -> dict:
     return rec
 
 
+def layer_norm_geometries() -> list:
+    """Every LayerNorm that reaches ``norms.layer_norm`` on the card, as
+    (rows, C, dtype, eps, network, calls a network call), in the units the
+    cells time: stage 1's VideoUNet on 2 x 25 frames and ControlNet on 2 x 7
+    (its conditioning embedder's norms at 32 to 512 channels), stage 2's
+    UNet on a 38-frame chunk of 720p (one CFG half), CogVideoX-5B on its CFG
+    batch of 2 (the f32 stream's ``norm1``, ``norm2``, ``norm_final`` and
+    ``AdaLayerNormOut``; the per-head q/k norms in bf16 at eps 1e-6); and in
+    the full-width paths no cell times, which the slice, enhance, product,
+    loader and mesh phases run: the conditioning towers (stage 1's and stage
+    2's CLIP vision tower on one key image, in f32 from the f32 pixels;
+    stage 2's bf16 text tower on its two prompts) and stage 3's EMA-VFI in
+    f32 at eps 1e-6 (one call of 4 pairs of 720p with flip-TTA); the APM
+    phase's ``apm_ln`` (1024 channels in bf16, one row a context) takes the
+    text tower's instance.  The UNets' feed-forward norms are not here: on
+    the card they run inside K3 (its LN pass).  Stage 2's image-latent
+    ``TemporalEncoder`` normalises 4 channels, under K7's 16-byte rows: its
+    one call a UNet call stays plain (``fits_fused_ln``)."""
+    bf16, f32 = "bfloat16", "float32"
+    unet = ((460800, 320, 20), (115200, 640, 20), (28800, 1280, 20), (7200, 1280, 4))
+    controlnet = ((129024, 320, 8), (32256, 640, 8), (8064, 1280, 8), (2016, 1280, 4),
+                  (4128768, 32, 1), (1032192, 96, 2), (258048, 256, 2), (64512, 512, 1))
+    stage2 = ((547200, 320, 20), (136800, 640, 20), (34960, 1280, 20), (9120, 1280, 4),
+              (547200, 512, 2), (547200, 4, 1))
+    vfi = ((230400, 256, 6), (234416, 256, 4), (57600, 512, 6), (65856, 512, 4))
+    rows = [(r, c, bf16, 1e-5, "stage-1 VideoUNet", k) for r, c, k in unet]
+    rows += [(r, c, bf16, 1e-5, "stage-1 ControlNet", k) for r, c, k in controlnet]
+    rows += [(r, c, bf16, 1e-5, "stage-2 UNet", k) for r, c, k in stage2]
+    rows += [(35552, 3072, f32, 1e-5, "CogVideoX-5B", 84), (35100, 3072, f32, 1e-5,
+                                                            "CogVideoX-5B", 2),
+             (1706496, 64, bf16, 1e-6, "CogVideoX-5B", 84)]
+    rows += [(257, 1280, f32, 1e-5, "stage-1 CLIP vision", 66),
+             (257, 1280, f32, 1e-5, "stage-2 CLIP vision", 66),
+             (154, 1024, bf16, 1e-5, "stage-2 CLIP text", 49)]
+    rows += [(r, c, f32, 1e-6, "stage-3 EMA-VFI", k) for r, c, k in vfi]
+    return rows
+
+
+def layer_norm_launches() -> dict:
+    """K7's launches a unit, from ``layer_norm_geometries`` (the calls its
+    gate takes): an AR step (one VideoUNet and one ControlNet call), a
+    stage-2 step as ``step_ms`` counts it (2 UNet calls) and a CogVideoX
+    step (one transformer call; ``t2v_step_f32`` of them in f32)."""
+    import torch
+
+    from streamingt2v_torch.ops.fused_layer_norm import fits_fused_ln
+
+    per_call = collections.Counter()
+    for _, c, dtype, _, network, k in layer_norm_geometries():
+        if fits_fused_ln(c, getattr(torch, dtype)):
+            per_call[network] += k
+            per_call[network, dtype] += k
+    return {"ar_step": per_call["stage-1 VideoUNet"] + per_call["stage-1 ControlNet"],
+            "stage2_step": 2 * per_call["stage-2 UNet"],
+            "t2v_step": per_call["CogVideoX-5B"],
+            "t2v_step_f32": per_call["CogVideoX-5B", "float32"]}
+
+
+# K7's timed geometries (rows, C, dtype, eps) -> key prefix of its record:
+# stage 1's three UNet levels, stage 2's level 0, CogVideoX's f32 stream and
+# its q/k norms
+K7_TIMED = (((460800, 320, "bfloat16", 1e-5), ""), ((115200, 640, "bfloat16", 1e-5), "level1_"),
+            ((28800, 1280, "bfloat16", 1e-5), "level2_"),
+            ((547200, 320, "bfloat16", 1e-5), "stage2_"),
+            ((35552, 3072, "float32", 1e-5), "f32_"), ((1706496, 64, "bfloat16", 1e-6), "qk_"))
+# K7 against its plain version, max |difference| over max |plain|: bf16
+# rounds both outputs to 8 mantissa bits (one unit in the last place at the
+# largest value is 2^-8 of it, 3.9e-3); f32 differs in the order of the sums
+# and in rsqrtf's last bits, about 1e-7 of the largest value at C = 3072
+K7_TOL = {"bf16": 1e-2, "f32": 1e-5}
+
+
+def check_k7(randn) -> dict:
+    """K7 (``fused_layer_norm``) against its plain version
+    (``layer_norm_reference``, the plain path of ``norms.layer_norm``) at
+    every geometry of ``layer_norm_geometries`` that its gate takes (the
+    cells' units, the conditioning towers, stage 3), with scale and bias,
+    and at stage 1's level 0 without them and with the scale alone; timed
+    at ``K7_TIMED`` beside its plain version, ``F.layer_norm`` (the affine
+    in x's dtype: a yardstick only, the port never calls it) and its byte
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from streamingt2v_torch.ops.fused_layer_norm import (
+        fits_fused_ln, fused_layer_norm, layer_norm_reference, launch_plan)
+
+    f32 = torch.float32
+    timed = dict(K7_TIMED)
+    errs, rec = [], {}
+    networks = collections.defaultdict(list)   # one check a geometry, naming its networks
+    for n, c, name, eps, network, _ in layer_norm_geometries():
+        networks[n, c, name, eps].append(network)
+    for (n, c, name, eps), network in networks.items():
+        dtype = getattr(torch, name)
+        if not fits_fused_ln(c, dtype):
+            continue
+        network = " and ".join(network)
+        x = randn(n, c, dtype=dtype, std=2.0, mean=0.5)
+        scale, bias = 1.0 + randn(c, dtype=f32, std=0.1), randn(c, dtype=f32, std=0.1)
+        tol = K7_TOL["f32" if dtype == f32 else "bf16"]
+        plan = launch_plan(c, x.element_size())
+        affines = [(scale, bias)]
+        if (n, c) == (460800, 320):
+            affines += [(None, None), (scale, None)]
+        for s, b in affines:
+            errs.append(_compare(
+                f"K7 {network} {(n, c)} {dtype} eps {eps:g} scale {s is not None} bias "
+                f"{b is not None} ({plan.lanes} lanes x {plan.vpt} vectors)",
+                fused_layer_norm(x, s, b, eps), layer_norm_reference(x, s, b, eps=eps), tol))
+        prefix = timed.get((n, c, name, eps))
+        if prefix is not None:
+            s_lo, b_lo = scale.to(dtype), bias.to(dtype)
+
+            def library():
+                return F.layer_norm(x, (c,), s_lo, b_lo, eps)
+
+            _compare(f"K7 yardstick F.layer_norm {(n, c)} {dtype}", library(),
+                     layer_norm_reference(x, s_lo, b_lo, eps=eps), tol)
+            r = _yardstick(
+                dict(ms=_time_ms(lambda: fused_layer_norm(x, scale, bias, eps)),
+                     plain_ms=_time_ms(lambda: layer_norm_reference(x, scale, bias, eps=eps),
+                                       reps=3),
+                     library_ms=_time_ms(library)), work_layer_norm(n, c, x.element_size()))
+            print(f"  K7 time {(n, c)} {dtype}: kernel {r['ms']:.3f} ms, plain version "
+                  f"{r['plain_ms']:.3f} ms, F.layer_norm {r['library_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}",
+                  flush=True)
+            rec.update({prefix + k: v for k, v in r.items()})
+            if not prefix:
+                rec["shape"] = [n, c]
+        del x
+    print(f"  K7 launches predicted from the geometries: {layer_norm_launches()}", flush=True)
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
 # K6's timed geometries, (batch, frames, pixels, heads) at head dim 64:
 # stage 2's level 0, then stage 1's
 K6_TIMED = ((1, 38, 14400, 5), (2, 25, 9216, 5))
@@ -1264,7 +1414,8 @@ def check_kernels() -> dict:
            "temporal_conv": check_k4(randn, gen),
            "fused_group_norm": check_k5(randn),
            "fused_temporal_attention": check_k6(randn),
-           "fused_group_norm_affine": check_k5_affine(randn)}
+           "fused_group_norm_affine": check_k5_affine(randn),
+           "layer_norm": check_k7(randn)}
     torch.cuda.empty_cache()
     return rec
 
@@ -1310,7 +1461,7 @@ def _reset_launches() -> None:
 def _read_launches(f32: bool = False) -> dict:
     """``utils/profiling.read_launches``: launches per wrapper, the flash
     wrappers' bf16 D=512 launches apart (``<name>_d512``) and, with ``f32``,
-    the f32 launches of K1, K2, K4, K6 and K5's affine entry (``<name>_f32``)."""
+    the f32 launches of K1, K2, K4, K6, K5's affine entry and K7 (``<name>_f32``)."""
     from streamingt2v_torch.utils.profiling import read_launches
 
     return read_launches(f32)
@@ -3832,12 +3983,14 @@ KERNEL_META = {
     # in XLA (``group_norm_affine`` through ``_group_stats_bf16``), no Pallas
     "fused_group_norm_affine": ("streamingt2v_torch/csrc/fused_group_norm.cu",
                                 "streamingt2v_tpu/ops/norms.py:29"),
+    # K7, LayerNorm: the JAX package leaves it to XLA (``layer_norm``), no Pallas
+    "layer_norm": ("streamingt2v_torch/csrc/layer_norm.cu", "streamingt2v_tpu/ops/norms.py:192"),
 }
 
 
 # the rows whose wrappers count their f32 launches apart (``launches_f32``)
 F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_conv_f32",
-               "fused_temporal_attention_f32", "fused_group_norm_affine_f32")
+               "fused_temporal_attention_f32", "fused_group_norm_affine_f32", "layer_norm_f32")
 
 
 def run_cogvideox() -> dict:
@@ -3880,9 +4033,12 @@ def run_cogvideox() -> dict:
     if not moved > 0:
         raise AssertionError("CogVideoX's step left the latents as they were")
     want = dict.fromkeys(launches, 0)
-    want["flash_attention"] = cfg.num_layers
+    per_step = layer_norm_launches()
+    want.update(flash_attention=cfg.num_layers, layer_norm=per_step["t2v_step"],
+                layer_norm_f32=per_step["t2v_step_f32"])
     if launches != want:
-        raise AssertionError(f"launches {launches}, want K1 once a block and nothing else")
+        raise AssertionError(f"launches {launches}, want K1 once a block, K7 at every "
+                             f"LayerNorm and nothing else")
     print(f"  latents {tuple(out.shape)} finite, moved {moved:.4f} of the noise", flush=True)
     return launches
 
@@ -3893,8 +4049,8 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
     kernels and reference phases' records (absent keys null), the launches of every
     pipeline phase, the product's alone and, as ``<phase>_launches``, those
     of each phase in ``phase_launches`` ({phase: {kernel: launches}}); K1, K2,
-    K4, K6 and K5's affine entry also their f32 launches over every pipeline
-    phase (``launches_f32``, from ``launches["<name>_f32"]``)."""
+    K4, K6, K5's affine entry and K7 also their f32 launches over every
+    pipeline phase (``launches_f32``, from ``launches["<name>_f32"]``)."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -3902,7 +4058,8 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  if k in ("bare_ms", "bare_share", "sdpa_backend", "k1_ms")
                  or k in ("bwd_max_abs_err", "bwd_shape")
                  or k.startswith(("ms_level", "share_level", "scratch_mb", "vae_", "b4_",
-                                  "stage2_", "cross_", "t38_", "f32_", "bf16_d"))}
+                                  "stage2_", "cross_", "t38_", "f32_", "bf16_d", "level1_",
+                                  "level2_", "qk_"))}
         if "stage1" in r:   # K6 at the stage-1 geometry
             extra.update({f"stage1_{k}": r["stage1"][k] for k in ("ms", "library_ms", "share")})
         if name + "_f32" in F32_COUNTED:

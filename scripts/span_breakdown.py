@@ -15,7 +15,10 @@ traced device time and operation count; the device seconds by the two
 innermost spans (a norm inside a ResBlock apart from one inside a
 transformer block); the spans the program opened per traced unit by name;
 the operations named like a span (device mirrors of the ranges, which the
-trace must leave out); and the cell's result line.
+trace must leave out); the program's counters when the window ends (kernel
+launches and network calls since the process began, warm-up included, the
+reference check not yet run: the launches a unit are a launch count over
+its network's calls); and the cell's result line.
 ``--cost`` times ``span()`` entered and left with no profiler running,
 against an empty ``with`` and a bare ``record_function``.
 """
@@ -68,7 +71,10 @@ def breakdown(workload: str, seed: int, seconds: float) -> dict:
     class Grab:
         @staticmethod
         def read(ctx):
+            from streamingt2v_torch.utils.profiling import read_counters
+
             seen["ctx"] = ctx
+            seen["counters"] = read_counters()
 
     spec["per_layer"].append(({"name": "_grab", "unit": "-"}, Grab))
     result = run.run_cell(spec, seed, seconds, True, "cuda")
@@ -93,7 +99,7 @@ def breakdown(workload: str, seed: int, seconds: float) -> dict:
             "span_named_ops": sum(o.name.startswith(program_spans.PREFIX) for o in tr.ops),
             "by_innermost_span": table, "by_two_innermost_spans": by_pair,
             "spans_per_unit": {n: c / tr.units for n, c in sorted(counts.items())},
-            "result": result}
+            "counters": seen["counters"], "result": result}
 
 
 def main(argv=None) -> int:

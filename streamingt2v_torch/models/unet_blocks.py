@@ -99,9 +99,7 @@ class FeedForward(nn.Module):
     def _ff(self, x, ln, residual: bool, b2, m: int) -> torch.Tensor:
         """x + (a * gelu(b)) W2 + b2 on this rank's inner width (the gate
         reads the whole width, inner * m)."""
-        inner = self.out.kernel.shape[1]
-        n_rows = x.numel() // x.shape[-1]
-        if x.is_cuda and n_rows >= 256 and (inner * m) % 128 == 0:
+        if x.is_cuda and _k3_geometry(x, self, m):
             return geglu_ff(
                 x.contiguous(), self.proj.kernel.to(x.dtype), self.proj.bias.float(),
                 self.out.kernel.to(x.dtype), b2.float().contiguous(),
@@ -115,6 +113,13 @@ class FeedForward(nn.Module):
         # exact (erf) GELU in f32
         h = self.out.apply_bias(a * F.gelu(b.float()).to(b.dtype), b2)
         return x_in + h if residual else h
+
+
+def _k3_geometry(x: torch.Tensor, ff: FeedForward, m: int) -> bool:
+    """Whether ``FeedForward._ff`` sends x to K3 on a CUDA device: the JAX
+    package's Pallas gate, >= 256 rows and the whole inner width (``m``
+    model ranks of this rank's) a multiple of 128."""
+    return x.numel() // x.shape[-1] >= 256 and (ff.out.kernel.shape[1] * m) % 128 == 0
 
 
 class CrossAttention(nn.Module):

@@ -29,7 +29,7 @@ from streamingt2v_torch.utils.profiling import count, span
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attention.cu", "geglu_ff.cu", "temporal_conv.cu", "fused_group_norm.cu",
-           "temporal_attention.cu")
+           "temporal_attention.cu", "layer_norm.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "st2v_temporal_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "st2v_geglu_ff": ([_P] * 10 + [_I] * 8 + [_P], _I),
     "st2v_temporal_conv": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "st2v_layer_norm": ([_P] * 4 + [_I] * 4 + [_F, _I, _P], _I),
 }
 
 

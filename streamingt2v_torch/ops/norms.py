@@ -8,10 +8,12 @@ one-pass clamped form for LayerNorm, as the JAX package computes it.
 
 Per-frame (4-D) GroupNorm(+SiLU) runs the fused kernel K5
 (``ops/fused_group_norm.py``, the JAX package's ``STREAMINGT2V_FUSED_GN``
-route) and the statistics of K4's prologue (``group_norm_affine``, any rank)
-K5's statistics pass, wherever the kernel's gate holds and autograd records
-no graph (``needs_grad``: K5 has no backward).  Everything else takes the
-one plain version of these statistics, the path autograd goes through.
+route), the statistics of K4's prologue (``group_norm_affine``, any rank)
+K5's statistics pass, and LayerNorm the one-pass kernel K7
+(``ops/fused_layer_norm.py``), wherever the kernel's gate holds and autograd
+records no graph (``needs_grad``: neither has a backward).  Everything else
+takes the one plain version of these statistics, the path autograd goes
+through.
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ from typing import Optional
 
 import torch
 
+from streamingt2v_torch.ops import _native
 from streamingt2v_torch.ops.fused_group_norm import (
     fits_fused, fused_group_norm, fused_group_norm_affine, fused_group_norm_reference,
     group_norm_affine_reference, needs_grad)
+from streamingt2v_torch.ops.fused_layer_norm import (
+    fits_fused_ln, fused_layer_norm, layer_norm_reference)
 from streamingt2v_torch.utils.profiling import span
 
 
@@ -87,12 +92,15 @@ def layer_norm(
     *,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf.square().mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    if scale is not None:
-        out = out * scale.float()
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(x.dtype)
+    """LayerNorm over the last axis, statistics in f32, returned in x's
+    dtype: K7 on the card, else the plain version."""
+    c = x.shape[-1]
+    params = [t for t in (scale, bias) if t is not None]
+    if x.is_cuda and fits_fused_ln(c, x.dtype) and not needs_grad(x, *params):
+        rows = _native.aligned(x.reshape(-1, c).contiguous())
+        return fused_layer_norm(rows, _f32(scale), _f32(bias), eps).view(x.shape)
+    return layer_norm_reference(x, scale, bias, eps=eps)
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else _native.aligned(t.float().contiguous())

@@ -196,7 +196,8 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     """Every row of the kernels JSON line has the keys the check reads; the
     D=512 instances have rows of their own with their D=512 launches, their
     SDPA backend and (K2) the encode chunk's numbers; K5's row carries the
-    SD VAE's shape; every row carries the product phase's launches apart,
+    SD VAE's shape; K7's names the JAX package's XLA ``layer_norm``, which it
+    replaces; every row carries the product phase's launches apart,
     and those of any other phase given (the apm and samplers phases)."""
     rec = dict(ms=2.0, plain_ms=9.0, bound_ms=1.0, bound_by="operations", library_ms=4.0,
                share=0.5, max_abs_err=1e-3)
@@ -218,8 +219,10 @@ def test_chip_smoke_kernel_lines_carry_every_field():
         assert line["product_launches"] == product[line["name"]]
         assert line["apm_launches"] == apm[line["name"]]
         assert (REPO / line["source"]).exists()
-        path, lineno = line["replaces"].split(":")   # the Pallas kernel's def line
-        assert (REPO / path).read_text().splitlines()[int(lineno) - 1].startswith("def _")
+        # the Pallas kernel's def line; K7's, the XLA function it replaces
+        path, lineno = line["replaces"].split(":")
+        want = "def layer_norm(" if line["name"] == "layer_norm" else "def _"
+        assert (REPO / path).read_text().splitlines()[int(lineno) - 1].startswith(want)
     assert by_name["flash_attention_d512"]["sdpa_backend"] == "EFFICIENT_ATTENTION"
     assert by_name["flash_attention_packed_d512"]["b4_share"] == 0.6
     assert by_name["fused_group_norm"]["vae_share"] == 0.47
