@@ -157,7 +157,16 @@ Phases, one line each:
      from seed 0: its seconds (the first step, cold), resident and peak
      memory, finite latents that moved, and its launches: K1 once a block
      at (96, 17776, 64) (42), K7 at every LayerNorm (170, 86 of them f32:
-     ``layer_norm_launches``) and no other kernel (``cogvideox_launches``).
+     ``layer_norm_launches``) and no other kernel (``cogvideox_launches``);
+  16. wan: ``build_wan`` at the published Wan2.1-I2V-14B-480P widths (random
+     bf16 weights), then one guided UniPC step (``WanI2VPipeline.denoise_step``
+     under the configuration's routing) of 81 frames at 480x832 from latent
+     noise, an image latent, CLIP features and prompt embeddings drawn from
+     seed 0: its seconds (the first step, cold), resident and peak memory,
+     finite latents that moved, and its launches (``WAN_LAUNCHES``): K1's
+     bf16 D=128 body three times a block (120: the self-attention at
+     (80, 32760, 128) and the two cross-attentions), K7 at the image
+     projector's 1280-wide LayerNorm (1) and no other kernel.
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -175,11 +184,16 @@ could take for the same work, computed from the shape (``work_*``: the
 matrix products' flops over 989 TFLOP/s bf16, each input read and each
 output written once over 3.35 TB/s, the larger), ``bound_by`` which of the
 two, ``share`` = bound_ms / ms, and ``launches`` the count from the slice,
-bench, apm, samplers, train, enhance, product, loader, mesh and cogvideox
-phases (``product_launches``, ``bench_launches``, ``apm_launches``,
-``samplers_launches``, ``train_launches``, ``mesh_launches`` and
-``cogvideox_launches`` those phases' alone; the bench's in its timed
-calls).
+bench, apm, samplers, train, enhance, product, loader, mesh, cogvideox and
+wan phases (``product_launches``, ``bench_launches``, ``apm_launches``,
+``samplers_launches``, ``train_launches``, ``mesh_launches``,
+``cogvideox_launches`` and ``wan_launches`` those phases' alone; the
+bench's in its timed calls).  K1's bf16 D=128 body has a row of its own,
+``flash_attention_d128``, at Wan's self-attention (80, 32760, 128) with
+``cross_text_*`` and ``cross_image_*`` at its 512- and 257-key
+cross-attentions, each beside the first SDPA backend that takes it
+(``sdpa_backend``; no plain time: the plain version of the self-attention
+is 343 GB of scores).
 K3's record adds ``ms_level0/1/2`` and ``share_level0/1/2`` at the three
 stage-1 UNet widths and ``scratch_mb_level0/1/2``, the peak
 memory one call adds beyond its output (its G and LN(x) scratch), and its
@@ -233,7 +247,8 @@ import time
 from typing import Optional
 
 ALL_PHASES = ("card", "build", "kernels", "reference", "slice", "bench", "apm", "samplers",
-              "train", "enhance", "interpolate", "product", "loader", "mesh", "cogvideox")
+              "train", "enhance", "interpolate", "product", "loader", "mesh", "cogvideox",
+              "wan")
 SLICE_FRAMES = 43
 # Sampler step cuts for the slice phase (full: 25 first-chunk, 30 AR).
 FIRST_CHUNK_STEPS = 25
@@ -592,6 +607,68 @@ def check_k1(randn) -> dict:
     rec.update(f32_rec, max_abs_err=max(errs))
     rec512["max_abs_err"] = max(errs512)
     return {"flash_attention": rec, "flash_attention_d512": rec512}
+
+
+# K1's bf16 D=128 body at Wan2.1-I2V-14B's attentions, (B*H, Lq, Lk): the
+# self-attention over 32,760 video tokens (the record's own keys) and the two
+# cross-attentions from the same queries, to the 512 text rows
+# (``cross_text_*``) and the 257 CLIP tokens (``cross_image_*``)
+K1_D128_TIMED = ((80, 32760, 32760, ""), (80, 32760, 512, "cross_text_"),
+                 (80, 32760, 257, "cross_image_"))
+
+
+def d128_record(randn, bh: int, lq: int, lk: int) -> dict:
+    """K1 at bf16 D=128 on (bh, lq, 128) queries and (bh, lk, 128) keys:
+    checked against its plain version on the first two rows, timed beside
+    the first SDPA backend that takes the (B*H, 1, L, 128) views and its
+    bound."""
+    from streamingt2v_torch.ops import flash_attention as fa
+
+    q = randn(bh, lq, 128)
+    k, v = (randn(bh, lk, 128) for _ in range(2))
+    ref = fa.flash_attention_reference(q[:2], k[:2], v[:2])
+    err = _compare(f"K1 D=128 {(bh, lq, lk)}", fa.flash_attention(q, k, v)[:2], ref, TOL["bf16"])
+    library, backend = _sdpa_backend(q[:, None], k[:, None], v[:, None])
+    _compare(f"K1 D=128 yardstick SDPA ({backend})", library()[:2, 0], ref, TOL["bf16"])
+    rec = _yardstick(dict(ms=_time_ms(lambda: fa.flash_attention(q, k, v)),
+                          library_ms=_time_ms(library), sdpa_backend=backend,
+                          shape=[bh, lq, lk, 128], max_abs_err=err),
+                     work_flash(bh, 1, lq, lk, 128))
+    print(f"  K1 D=128 time {(bh, lq, lk)} bf16: kernel {rec['ms']:.3f} ms, SDPA ({backend}) "
+          f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+          f"share {rec['share']:.3f}", flush=True)
+    return rec
+
+
+def check_k1_d128(randn) -> dict:
+    """K1's bf16 D=128 body: ragged geometries (the KV edge inside a tile, a
+    single key, fewer keys than a tile), then Wan's three attentions
+    (``K1_D128_TIMED``), each within the bf16 tolerance of its plain
+    version; f32 at D=128 has no body and raises."""
+    import torch
+
+    from streamingt2v_torch.ops import flash_attention as fa
+
+    errs = []
+    for bh, lq, lk in ((3, 130, 97), (5, 1000, 1), (4, 1000, 257), (2, 77, 1000)):
+        q = randn(bh, lq, 128)
+        k, v = (randn(bh, lk, 128) for _ in range(2))
+        errs.append(_compare(f"K1 D=128 ragged {(bh, lq, lk)}", fa.flash_attention(q, k, v),
+                             fa.flash_attention_reference(q, k, v), TOL["bf16"]))
+    try:
+        fa.flash_attention(*(randn(2, 64, 128, dtype=torch.float32) for _ in range(3)))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K1 took f32 at D=128, which has no body")
+    rec = {}
+    for bh, lq, lk, prefix in K1_D128_TIMED:
+        r = d128_record(randn, bh, lq, lk)
+        errs.append(r.pop("max_abs_err"))
+        rec.update({prefix + key: value for key, value in r.items()})
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(errs)
+    return rec
 
 
 def check_k2(randn) -> dict:
@@ -1409,7 +1486,8 @@ def check_kernels() -> dict:
     import torch
 
     randn, gen = _randn_factory(0)
-    rec = {**check_k1(randn), **check_k2(randn),
+    rec = {**check_k1(randn), "flash_attention_d128": check_k1_d128(randn),
+           **check_k2(randn),
            "geglu_ff": check_k3(randn),
            "temporal_conv": check_k4(randn, gen),
            "fused_group_norm": check_k5(randn),
@@ -1519,9 +1597,11 @@ def check_enhance_reference() -> float:
           flush=True)
     if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
         raise AssertionError(f"small-input stage 2 disagrees with the plain path ({err:.3e})")
-    # stage 2 runs K2, not K1, and the narrow VAE's attention has head dim 64
+    # stage 2 runs K2, not K1, the narrow VAE's attention has head dim 64 and
+    # no stage runs a 128-wide head
     dead = [k for k, v in launches.items() if v <= 0 and k not in (
-        "flash_attention", "flash_attention_d512", "flash_attention_packed_d512")]
+        "flash_attention", "flash_attention_d512", "flash_attention_packed_d512",
+        "flash_attention_d128")]
     if dead:
         raise AssertionError(f"the small-input stage 2 skipped kernels: {dead}")
     return err
@@ -2871,16 +2951,18 @@ def _check_native_writer(stages: dict, what: str) -> None:
 
 
 def _check_product_launches(cfg, launches: dict, what: str) -> None:
-    """Every kernel row launched in a product run, K6 where its gate admits
-    stage 2's chunk."""
+    """Every kernel row launched in a product run but K1's D=128 body (the
+    product runs no 128-wide head), K6 where its gate admits stage 2's
+    chunk."""
     from streamingt2v_torch.ops.temporal_attention import MAX_FRAMES, fits_temporal_attention
 
     # K6 takes temporal attention over at most MAX_FRAMES frames: stage 2's
     # chunk is the whole video without blending (100 frames in the product)
     chunk = cfg.enhance.chunk_size if cfg.use_randomized_blending else cfg.stage1_frames
-    expected = [k for k in KERNEL_META if k != "fused_temporal_attention"
+    rows = [k for k in KERNEL_META if k != "flash_attention_d128"]
+    expected = [k for k in rows if k != "fused_temporal_attention"
                 or fits_temporal_attention(chunk, chunk, 64)]
-    if expected != list(KERNEL_META):
+    if expected != rows:
         print(f"  stage 2's {chunk}-frame chunk is past K6's {MAX_FRAMES} frames: its "
               f"temporal attention takes the plain path", flush=True)
     dead = [k for k in expected if launches[k] <= 0]
@@ -3972,6 +4054,9 @@ KERNEL_META = {
                              "streamingt2v_tpu/ops/flash_attention.py:38"),
     "flash_attention_packed_d512": ("streamingt2v_torch/csrc/flash_attention.cu",
                                     "streamingt2v_tpu/ops/flash_attention.py:201"),
+    # K1's bf16 D=128 body (the video DiTs' heads), counted apart
+    "flash_attention_d128": ("streamingt2v_torch/csrc/flash_attention.cu",
+                             "streamingt2v_tpu/ops/flash_attention.py:38"),
     "geglu_ff": ("streamingt2v_torch/csrc/geglu_ff.cu", "streamingt2v_tpu/ops/fused_ff.py:65"),
     "temporal_conv": ("streamingt2v_torch/csrc/temporal_conv.cu",
                       "streamingt2v_tpu/ops/temporal_conv.py:49"),
@@ -4043,6 +4128,62 @@ def run_cogvideox() -> dict:
     return launches
 
 
+# a Wan2.1-I2V-14B step's launches: K1's D=128 body for the self-attention
+# and the two cross-attentions of every block, K7 at the image projector's
+# 1280-wide LayerNorm (its 5120-wide ones and the blocks' are past K7's
+# widest row and take the plain chain)
+WAN_LAUNCHES = {"flash_attention": 120, "flash_attention_d128": 120, "layer_norm": 1}
+
+
+def run_wan() -> dict:
+    """Phase 16: one guided step of Wan2.1-I2V-14B-480P at the published
+    widths."""
+    import torch
+
+    from streamingt2v_torch.config import WanConfig
+    from streamingt2v_torch.diffusion.flow_unipc import UniPCState
+    from streamingt2v_torch.pipeline.build import build_wan
+
+    dev = torch.device("cuda")
+    _release_earlier_phases()
+    cfg = WanConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = build_wan(cfg, seed=0, device=dev, bf16=True)
+    torch.cuda.synchronize()
+    print(f"  build_wan: {time.perf_counter() - t0:.1f} s, resident weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    g = torch.Generator(dev).manual_seed(0)
+    noise, image_latent = (torch.randn(cfg.latent_shape(1), generator=g, device=dev)
+                           for _ in range(2))
+    clip = torch.randn((1, cfg.clip_tokens, cfg.clip_dim), generator=g, device=dev)
+    prompt = torch.randn((1, 96, cfg.text_dim), generator=g, device=dev)
+    negative = torch.randn((1, 128, cfg.text_dim), generator=g, device=dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = pipe.condition(image_latent)
+        out, _ = pipe.denoise_step(noise, UniPCState(), 0, prompt, negative, clip, y)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _read_launches(f32=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  one guided step at t={pipe.timesteps()[0]} (cold): {step_s:.2f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if tuple(out.shape) != cfg.latent_shape(1) or out.dtype != torch.float32:
+        raise AssertionError(f"latents {tuple(out.shape)} {out.dtype}")
+    if not torch.isfinite(out).all():
+        raise AssertionError("Wan's step left non-finite latents")
+    moved = ((out - noise).norm() / noise.norm()).item()
+    if not moved > 0:
+        raise AssertionError("Wan's step left the latents as they were")
+    want = {**dict.fromkeys(launches, 0), **WAN_LAUNCHES}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {WAN_LAUNCHES} and nothing else")
+    print(f"  latents {tuple(out.shape)} finite, moved {moved:.4f} of the noise", flush=True)
+    return launches
+
+
 def kernel_lines(records: dict, launches: dict, product_launches: dict,
                  phase_launches: Optional[dict] = None) -> list:
     """The kernels JSON line's entries: one per KERNEL_META row, with the
@@ -4050,7 +4191,10 @@ def kernel_lines(records: dict, launches: dict, product_launches: dict,
     pipeline phase, the product's alone and, as ``<phase>_launches``, those
     of each phase in ``phase_launches`` ({phase: {kernel: launches}}); K1, K2,
     K4, K6, K5's affine entry and K7 also their f32 launches over every
-    pipeline phase (``launches_f32``, from ``launches["<name>_f32"]``)."""
+    pipeline phase (``launches_f32``, from ``launches["<name>_f32"]``).  A
+    flash wrapper's row counts the launches of every instance of its kernel,
+    the D=512 and D=128 ones too, which have rows of their own; its times
+    are those of the D=64 body."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records.get(name, {})
@@ -4156,7 +4300,7 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(KERNEL_META, 0)
     phase_launches = {p: dict.fromkeys(KERNEL_META, 0)
                       for p in ("product", "bench", "apm", "samplers", "train", "mesh",
-                                "cogvideox")}
+                                "cogvideox", "wan")}
     runs = [("slice", lambda: run_slice(args.first_steps, args.ar_steps)),
             ("bench", run_bench),
             ("apm", lambda: run_apm(APM_STEPS)),
@@ -4168,7 +4312,8 @@ def main(argv=None) -> int:
             ("loader", lambda: run_loader(args.enhance_steps, LOADER_FRAMES,
                                           LOADER_SAMPLER_STEPS, LOADER_SAMPLER_STEPS)),
             ("mesh", lambda: run_mesh(args.enhance_steps)),
-            ("cogvideox", run_cogvideox)]
+            ("cogvideox", run_cogvideox),
+            ("wan", run_wan)]
     for phase, run in runs:
         if phase not in phases:
             continue

@@ -28,6 +28,9 @@ this one (run parent, change, change, parent in one call).  Kernels
   k6    temporal attention at ``chip_smoke``'s timed geometries;
   d512  flash attention at D=512 (the VAE mid-block attention): K1 at
         (8, 9216, 512), K2 at (2, 14400, 1x512) and (4, 14400, 1x512);
+  d128  K1's bf16 D=128 body at ``chip_smoke.K1_D128_TIMED``: Wan2.1-I2V's
+        self-attention (80, 32760, 128) and its 512- and 257-key
+        cross-attentions, each beside the first SDPA backend that takes it;
   k5    fused GroupNorm at (38, 14400, 320) with SiLU and without, and at
         the SD VAE's (2, 921600, 128) with SiLU;
   k5a   K5's affine entry (the statistics of K4's prologue) at the stage-1
@@ -53,7 +56,7 @@ this one (run parent, change, change, parent in one call).  Kernels
 
 Inputs from seed 0; ``chip_smoke``'s timer (CUDA events, median of
 ``--reps`` after one warm-up) and tolerances; each time beside its bound.
-The first call at each d64, k4, d512, k5, f32, fma and k3f32 shape is checked
+The first call at each d64, k4, d512, d128, k5, f32, fma and k3f32 shape is checked
 against the plain version; k5 also prints the device time of each of its two
 passes (``torch.profiler``).  ``--no-check`` skips the fma and k3f32 shapes'
 checks, for timing a copy of the port whose kernels were cut down on purpose
@@ -108,7 +111,7 @@ def sweep_budgets(chip_smoke, randn, shapes, budgets, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = ("d64", "k4", "k3", "k6", "d512", "k5", "k5a", "k7", "f32", "fma", "k3f32")
+KERNELS = ("d64", "k4", "k3", "k6", "d512", "d128", "k5", "k5a", "k7", "f32", "fma", "k3f32")
 CHECK = True   # --no-check clears it
 
 
@@ -232,6 +235,14 @@ def time_d512(chip_smoke, randn, reps: int) -> None:
         print(f"  D512 {name} {(b, length, 512)} bf16: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
               f"share {bd['bound_ms'] / ms:.3f}", flush=True)
         del q, k, v, ref
+
+
+def time_d128(chip_smoke, randn, reps: int) -> None:
+    import torch
+
+    for bh, lq, lk, _ in chip_smoke.K1_D128_TIMED:
+        chip_smoke.d128_record(randn, bh, lq, lk)
+        torch.cuda.empty_cache()
 
 
 def time_f32(chip_smoke, randn, reps: int) -> None:
@@ -462,7 +473,8 @@ def main() -> int:
         sweep_budgets(chip_smoke, randn, chip_smoke.K3_LEVELS + ((547200, 320),),
                       [int(b) for b in args.budgets_mib.split(",")], args.reps)
         return 0
-    timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512, k5=time_k5,
+    timers = dict(d64=time_d64, k4=time_k4, k3=time_k3, k6=time_k6, d512=time_d512,
+                  d128=time_d128, k5=time_k5,
                   k5a=time_k5a, k7=time_k7, f32=time_f32, fma=time_fma, k3f32=time_k3f32)
     for name in kernels:
         timers[name](chip_smoke, randn, args.reps)

@@ -22,6 +22,7 @@ from typing import Any, Tuple
 import torch
 
 from streamingt2v_torch.diffusion.ddim import DDIMConfig
+from streamingt2v_torch.diffusion.flow_unipc import FlowUniPCConfig
 
 
 def _replace(cfg, **kw):
@@ -339,6 +340,74 @@ class CogVideoXConfig:
         return cls(num_layers=2, num_attention_heads=2, text_embed_dim=32,
                    max_text_seq_length=8, time_embed_dim=32, frames=9, height=32, width=48,
                    num_steps=3, dtypes=DTypePolicy.fp32())
+
+
+@dataclass(frozen=True)
+class WanConfig:
+    """Wan2.1-I2V-14B-480P image-to-video: the transformer (Wan-AI/
+    Wan2.1-I2V-14B-480P ``config.json``; ``wan/modules/model.py``
+    ``WanModel`` with ``model_type`` "i2v"), its flow-matching UniPC
+    scheduler and ``wan/image2video.py``'s defaults at ``generate.py``'s
+    480p settings: 81 frames at 480x832, 40 steps, guidance 5.0, shift 3.0,
+    both CFG halves in one batch-2 call.  The pipeline takes umT5 prompt
+    embeddings, CLIP ViT-H image features and the VAE latent of the
+    conditioning clip, and returns latents (no text or image encoder, no
+    VAE)."""
+
+    dim: int = 5120
+    ffn_dim: int = 13824
+    num_heads: int = 40
+    num_layers: int = 40
+    in_dim: int = 36
+    out_dim: int = 16
+    freq_dim: int = 256
+    text_dim: int = 4096
+    text_len: int = 512
+    eps: float = 1e-6
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    # the CLIP ViT-H image tokens and their width (``MLPProj(1280, dim)``),
+    # and the projector's LayerNorm eps (torch's default)
+    clip_dim: int = 1280
+    clip_tokens: int = 257
+    image_eps: float = 1e-5
+    frames: int = 81
+    height: int = 480
+    width: int = 832
+    vae_stride: Tuple[int, int, int] = (4, 8, 8)
+    num_steps: int = 40
+    guidance_scale: float = 5.0
+    scheduler: FlowUniPCConfig = field(default_factory=FlowUniPCConfig)
+    dtypes: DTypePolicy = field(default_factory=DTypePolicy)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+    @property
+    def rope_dims(self) -> Tuple[int, int, int]:
+        """The head's RoPE channels for t, h and w (``WanModel``'s
+        d - 4 (d // 6), 2 (d // 6), 2 (d // 6): 44, 42, 42 at d = 128)."""
+        d = self.head_dim
+        return (d - 4 * (d // 6), 2 * (d // 6), 2 * (d // 6))
+
+    @property
+    def latent_frames(self) -> int:
+        return (self.frames - 1) // self.vae_stride[0] + 1
+
+    def latent_shape(self, batch: int = 1) -> Tuple[int, ...]:
+        """(B, C, F, H, W) of the latents, as ``image2video.py`` lays them
+        out (without the batch)."""
+        return (batch, self.out_dim, self.latent_frames, self.height // self.vae_stride[1],
+                self.width // self.vae_stride[2])
+
+    @classmethod
+    def tiny(cls) -> "WanConfig":
+        """2 blocks of 256 (2 heads of 128), FFN 512, text 32 wide x 8
+        tokens, 5 CLIP tokens of 32, time 32; latents of 2 frames, 4 x 6, 16
+        channels; 4 steps; f32."""
+        return cls(dim=256, ffn_dim=512, num_heads=2, num_layers=2, freq_dim=32, text_dim=32,
+                   text_len=8, clip_dim=32, clip_tokens=5, frames=5, height=32, width=48,
+                   num_steps=4, dtypes=DTypePolicy.fp32())
 
 
 @dataclass(frozen=True)

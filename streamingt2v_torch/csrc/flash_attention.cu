@@ -34,6 +34,11 @@
 // and each warp accumulates 64 of the 512 output columns on `mma.sync`.
 // Each K/V byte fetched feeds 64 query rows.
 //
+// The bf16 D=128 instance (the video DiTs' heads: Wan2.1's 40 of 128) is the
+// D=64 outline at twice the width (`flash_kernel_bf16_d128_wgmma`, below): O
+// doubles to 64 f32 a thread, so its KV tiles halve to 64 keys to keep two
+// blocks an SM.
+//
 // The f32 D=512 instance (the stage-1 VAE's mid-block attention under the
 // reference's f32, FMA units, no TF32) does the same 4*L^2*512 flops at the
 // FP32 rate, so it is bound by the FMA units.  Its body (`flash_kernel_f32_d512`,
@@ -730,6 +735,203 @@ static int launch_flash_bf16_d64_wgmma(const void* q, const void* k, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16, D = 128 on wgmma: the D = 64 outline at twice the width ----
+//
+// The video DiTs' heads (Wan2.1: 40 heads of 128).  The outline is the D = 64
+// body's: two consumer warpgroups of 64 query rows, S = Q K^T and O += P V on
+// `wgmma`, P kept in registers as the A operand of P V, K/V tiles
+// double-buffered by `cp.async`, the ragged KV edge masked on the last tile.
+// What D = 128 changes is the register budget: O is 64 f32 a thread, twice the
+// D = 64 body's, so the KV tile halves to 64 keys (S 32 f32 a thread) to keep
+// the two at D = 64's 96 and two blocks an SM (128 registers, no spill).
+// 128-key tiles at one block an SM (186 registers) ran as fast at the
+// self-attention and 29% slower at 257 keys, whose last tile holds one key.
+// A row of Q, K or V is 256 bytes: two column blocks of 64 in the 128-byte
+// swizzle, block c of a ROWS-row tile at byte c * ROWS * 128, so S's eight
+// k16 slices walk block 0 then block 1, and P V runs as two N = 64 products a
+// k16 slice, one into each half of O (each the D = 64 body's P V, V read
+// N-major).
+constexpr int FH_D = 128;
+constexpr int FH_THREADS = 256;               // two consumer warpgroups
+constexpr int FH_BQ = 128;                    // query rows per block: 64 per warpgroup
+constexpr int FH_BK = 64;                     // keys per KV tile
+constexpr int FH_STAGES = 2;                  // K/V tiles: this one and the next
+constexpr int FH_BLOCKS = 2;                  // blocks per SM: at most 128 registers a thread
+constexpr int FH_Q_BYTES = FH_BQ * FH_D * 2;  // two column blocks of 64
+constexpr int FH_TILE_BYTES = FH_BK * FH_D * 2;  // a K or V tile, the same layout
+constexpr size_t FH_SMEM = 1024 + FH_Q_BYTES + size_t(FH_STAGES) * 2 * FH_TILE_BYTES;
+static_assert(FH_BLOCKS * (FH_SMEM + 1024) <= 233472, "two blocks' shared memory per SM");
+
+// ROWS rows x 128 columns from rows [row0, row0 + ROWS) at stride ld into two
+// column blocks of the 128-byte swizzle; rows at or past `rows` are
+// zero-filled.  Sixteen neighbouring threads copy one 256-byte row, so thread
+// i's copies are rows i / 16 + 16 it of column block (i % 16) / 8.
+template <int ROWS>
+__device__ __forceinline__ void fh_load(unsigned char* dst, const bf16* src, int row0, int rows,
+                                        int ld) {
+  const int cr = threadIdx.x >> 4, cc = threadIdx.x & 15;
+  unsigned char* d = dst + (cc >> 3) * (ROWS * 128) + sw128_off(cr, cc & 7);
+  const bf16* p = src + size_t(row0 + cr) * ld + cc * 8;
+  const size_t step = size_t(16) * ld;
+#pragma unroll
+  for (int it = 0; it < ROWS / 16; ++it, p += step) {
+    const bool ok = row0 + cr + 16 * it < rows;
+    cp_async_16(d + 2048 * it, ok ? p : src, ok);
+  }
+}
+
+// A block owns 128 query rows; warpgroup wg owns rows [64 wg, 64 wg + 64).
+// Per KV tile j: S = Q K_j^T over the eight k16 slices of the two column
+// blocks, the online softmax in registers (exponentials as `ex2.approx.ftz`),
+// then per k16 slice of P its A fragments packed and O's two halves
+// accumulated from V_j's two column blocks.  Each product group is waited for
+// at once, as in the D = 64 body.
+__global__ void __launch_bounds__(FH_THREADS, FH_BLOCKS)
+flash_kernel_bf16_d128_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, bf16* __restrict__ o, int lq, int lk,
+                             int heads, int ld, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  unsigned char* Qs = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  unsigned char* KV = Qs + FH_Q_BYTES;  // stage s: K at KV + 2 s FH_TILE_BYTES, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2;
+  const int q0 = blockIdx.x * FH_BQ;
+  const size_t bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const bf16* qb = q + bi * lq * ld + hi * FH_D;
+  const bf16* kb = k + bi * lk * ld + hi * FH_D;
+  const bf16* vb = v + bi * lk * ld + hi * FH_D;
+  bf16* ob = o + bi * lq * ld + hi * FH_D;
+
+  fh_load<FH_BQ>(Qs, qb, q0, lq, ld);
+  fh_load<FH_BK>(KV, kb, 0, lk, ld);
+  fh_load<FH_BK>(KV + FH_TILE_BYTES, vb, 0, lk, ld);
+  cp_async_commit();
+
+  const float neg_inf = __int_as_float(0xff800000);
+  float acc[FH_D / 2];     // O: rows g (elements 4n, 4n+1) and g+8 (4n+2, 4n+3), columns 8n + 2t
+  float s[FH_BK / 2];      // S of this tile, the same layout over its keys
+  uint32_t pa[FH_BK / 4];  // P in bf16: the A fragments of the k16 slices of P V
+  float mx[2] = {neg_inf, neg_inf};  // running max (log2 units) of rows g and g+8
+  float den[2] = {0.f, 0.f};         // this lane's share of their denominators
+#pragma unroll
+  for (int i = 0; i < FH_D / 2; ++i) acc[i] = 0.f;
+
+  // descriptors: this warpgroup's 64 rows of Q's column block 0 (block 1 is
+  // FH_BQ * 128 bytes on); stage 0's K and V (block 1 FH_BK * 128 bytes on).
+  // A k16 slice of Q or K is 32 bytes (2 units) along the row; one of V is 16
+  // rows (2048 bytes, 128 units) down.
+  const uint64_t q_desc = gmma_desc(smem_u32(Qs) + wg * 64 * 128);
+  const uint64_t kv_desc = gmma_desc(smem_u32(KV));
+  constexpr uint64_t Q_BLOCK_UNITS = (FH_BQ * 128) >> 4;
+  constexpr uint64_t KV_BLOCK_UNITS = (FH_BK * 128) >> 4;
+  constexpr uint64_t TILE_UNITS = FH_TILE_BYTES >> 4;
+  const int tiles = (lk + FH_BK - 1) / FH_BK;
+  int stage = 0;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait_all();  // this thread's copies of tile j (and Q) landed
+    fence_proxy_async();  // ... and are visible to wgmma
+    __syncthreads();      // for all; tile j - 1 is done everywhere
+    if (j + 1 < tiles) {
+      unsigned char* next = KV + (stage == FH_STAGES - 1 ? 0 : stage + 1) * 2 * FH_TILE_BYTES;
+      fh_load<FH_BK>(next, kb, (j + 1) * FH_BK, lk, ld);
+      fh_load<FH_BK>(next + FH_TILE_BYTES, vb, (j + 1) * FH_BK, lk, ld);
+    }
+    cp_async_commit();  // empty on the last tile
+
+    const uint64_t k_desc = kv_desc + stage * 2 * TILE_UNITS;
+    gmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FH_D / 16; ++kk)
+      wgmma_m64n64k16(s, q_desc + (kk >> 2) * Q_BLOCK_UNITS + 2 * (kk & 3),
+                k_desc + (kk >> 2) * KV_BLOCK_UNITS + 2 * (kk & 3), kk > 0);
+    gmma_commit();
+    gmma_wait<0>();
+    fence_regs(s);
+
+    if ((j + 1) * FH_BK > lk) {  // the ragged last tile
+#pragma unroll
+      for (int n = 0; n < FH_BK / 8; ++n) {
+        const int key = j * FH_BK + n * 8 + 2 * t;
+        if (key >= lk) s[4 * n] = s[4 * n + 2] = neg_inf;
+        if (key + 1 >= lk) s[4 * n + 1] = s[4 * n + 3] = neg_inf;
+      }
+    }
+    // online softmax: a row's scores sit in the four lanes of a quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float r = neg_inf;
+#pragma unroll
+      for (int n = 0; n < FH_BK / 8; ++n) r = fmaxf(r, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+      // every tile has a key in range, so r is finite
+      const float mnew = fmaxf(mx[h], r * scale_log2);
+      const float alpha = ex2_ftz(mx[h] - mnew);
+      mx[h] = mnew;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < FH_BK / 8; ++n) {
+        s[4 * n + 2 * h] = ex2_ftz(fmaf(s[4 * n + 2 * h], scale_log2, -mnew));
+        s[4 * n + 2 * h + 1] = ex2_ftz(fmaf(s[4 * n + 2 * h + 1], scale_log2, -mnew));
+        sum += s[4 * n + 2 * h] + s[4 * n + 2 * h + 1];
+      }
+      den[h] = den[h] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < FH_D / 8; ++n) {
+        acc[4 * n + 2 * h] *= alpha;
+        acc[4 * n + 2 * h + 1] *= alpha;
+      }
+    }
+    // P's accumulator layout is the A-fragment layout: keys 16kk .. 16kk + 15
+    // are column blocks 2kk and 2kk + 1 of S
+    const uint64_t v_desc = k_desc + TILE_UNITS;
+#pragma unroll
+    for (int kk = 0; kk < FH_BK / 16; ++kk) {
+      pa[4 * kk] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+      pa[4 * kk + 1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[4 * kk + 2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[4 * kk + 3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+      gmma_fence();  // this slice's P registers, to wgmma
+      wgmma_m64n64k16_rt(acc, pa + 4 * kk, v_desc + 128 * kk);
+      wgmma_m64n64k16_rt(acc + FH_D / 4, pa + 4 * kk, v_desc + KV_BLOCK_UNITS + 128 * kk);
+    }
+    gmma_commit();
+    gmma_wait<0>();
+    fence_regs(acc);
+    stage = stage == FH_STAGES - 1 ? 0 : stage + 1;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = den[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+    const int row = q0 + wg * 64 + (warp & 3) * 16 + g + 8 * h;
+    if (row >= lq) continue;
+#pragma unroll
+    for (int n = 0; n < FH_D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(ob + size_t(row) * ld + n * 8 + 2 * t) =
+          pack_bf16x2(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv);
+  }
+  cp_async_wait_all();  // the last (empty) group
+}
+
+static int launch_flash_bf16_d128_wgmma(const void* q, const void* k, const void* v, void* o,
+                                        int batch, int heads, int lq, int lk, float scale_log2,
+                                        cudaStream_t stream) {
+  auto kernel = flash_kernel_bf16_d128_wgmma;
+  cudaError_t err = set_smem(kernel, FH_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((lq + FH_BQ - 1) / FH_BQ, batch * heads);
+  kernel<<<grid, FH_THREADS, FH_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lq, lk, heads, heads * FH_D, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- bf16, D = 512: the VAE bottleneck body ----
 constexpr int FB_D = 512;
 constexpr int FB_BQ = 64;                        // query rows per block: one wgmma M
@@ -1006,6 +1208,8 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
   if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && d == 64) return launch_flash_bf16_d64_wgmma(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 1 && d == 512) return launch_flash_bf16_d512(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
+  if (dtype == 1 && d == 128)
+    return launch_flash_bf16_d128_wgmma(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   if (dtype == 0 && d == 64)
     return launch_flash_f32_d64(q, k, v, o, batch, heads, lq, lk, scale_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1014,7 +1218,8 @@ static int dispatch_flash(const void* q, const void* k, const void* v, void* o, 
 }  // namespace st2v
 
 // K1.  q/o (bh, lq, d), k/v (bh, lk, d).  dtype: 0 = float32, 1 = bfloat16.
-// d must be 64 or 512 (the wrapper pads other head dims with zeros).  f32 at
+// d must be 64 or 512, or 128 in bf16 (the wrapper pads head dims below 64
+// with zeros).  f32 at
 // d = 512 runs `splits` blocks a row block over `tiles_per_split` 16-key
 // tiles each, the partial rows in o_part (splits, bh, lq, 512) and ml_part
 // (splits, bh, lq, 2) f32 when splits > 1; every other case takes splits = 1
@@ -1027,7 +1232,7 @@ extern "C" int st2v_flash_attention(const void* q, const void* k, const void* v,
                               tiles_per_split, o_part, ml_part, stream);
 }
 
-// K2.  q/o (batch, lq, heads*d), k/v (batch, lk, heads*d); d is 64 or 512;
+// K2.  q/o (batch, lq, heads*d), k/v (batch, lk, heads*d); d as K1's;
 // the split and scratch as K1's, over batch * heads.
 extern "C" int st2v_flash_attention_packed(const void* q, const void* k, const void* v,
                                            void* o, int batch, int heads, int lq, int lk,

@@ -15,7 +15,9 @@ tokens split by the seq axis goes around the ring (``_maybe_ring``), or,
 with the routing's ``ring_attention`` off, against k/v gathered over seq;
 a flash geometry whose rows are whole on several ranks splits its
 batch*heads rows over them (``_flash_sharded``), each rank running K1 on
-its slice.
+its slice.  A flash geometry at a head dim that K1 runs in bf16 alone, in
+another dtype (f32 at D=128), takes plain attention in blocks
+(``chunked_attention``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 
 from streamingt2v_torch.ops.flash_attention import (
-    flash_attention, flash_attention_packed, packed_applicable)
+    bf16_only, flash_attention, flash_attention_packed, packed_applicable)
 from streamingt2v_torch.ops.routing import current_routing
 from streamingt2v_torch.parallel.mesh import AXIS_SEQ
 from streamingt2v_torch.parallel.sharding import (
@@ -58,6 +60,19 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s + bias
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v)
+
+
+def chunked_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+    """Plain attention over (B*H, L, D), a batch*head row and a block of
+    queries at a time, each block's f32 scores within
+    ``_FLASH_MIN_SCORE_BYTES``."""
+    bh, lq, _ = qf.shape
+    rows = max(1, _FLASH_MIN_SCORE_BYTES // (4 * kf.shape[1]))
+    out = torch.empty_like(qf)
+    for i in range(bh):
+        for s in range(0, lq, rows):
+            out[i, s:s + rows] = dot_product_attention(qf[i, s:s + rows], kf[i], vf[i])
+    return out
 
 
 def _grouped_tiny_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
@@ -139,9 +154,11 @@ def attention_pre_split(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor) ->
     """Attention on head-folded (B*H, L, D) tensors; returns the same layout.
     Flash on its geometries (its rows split over the ranks that hold the
     same rows, where an active mesh has them), else the plain paths."""
-    bh, lq, _ = qf.shape
+    bh, lq, d = qf.shape
     lk = kf.shape[1]
     if _use_flash(bh, lq, lk, qf.device):
+        if bf16_only(d, qf.dtype):
+            return chunked_attention(qf, kf, vf)
         scope = current_scope()
         axes = scope.replicated() if scope is not None else ()
         if axes:

@@ -33,10 +33,14 @@ body blocks 128 query rows, walks 64-key tiles with K and V copied by
 ``cp.async`` under the products, and feeds its FMAs from 8 x 8 register
 microtiles (S and P V alike), two blocks an SM.  Head dims below 64 are
 zero-padded to 64
-(``pad_head_dim``), with the scale of the true head dim.  Each wrapper
-counts its launches (``utils/profiling.read_launches``) and, apart, those
-of the bf16 D=512 instance (``<name>_d512``) and those in f32
-(``<name>_f32``).
+(``pad_head_dim``), with the scale of the true head dim.  K1 also runs
+bf16 at D=128 (the video DiTs' heads): the D=64 outline with 64-key tiles
+(``flash_kernel_bf16_d128_wgmma``).  D=128 has no f32 body and no K2 route:
+``ops/attention.py`` sends f32 at D=128 to its chunked plain path
+(``bf16_only``).  Each wrapper counts its launches
+(``utils/profiling.read_launches``) and, apart, those of the bf16 D=512
+instance (``<name>_d512``), of the bf16 D=128 one (``<name>_d128``) and
+those in f32 (``<name>_f32``).
 
 Gradients: on the card each wrapper is a ``torch.autograd.Function`` whose
 forward launches the kernel and saves q, k and v, and whose backward is the
@@ -60,6 +64,8 @@ from streamingt2v_torch.ops._backward import BWD_CHUNK_BYTES
 from streamingt2v_torch.utils.profiling import count_launch
 
 _HEAD_DIMS = (64, 512)
+# head dims that only the bf16 instances run (K1 alone)
+_BF16_HEAD_DIMS = (128,)
 # the JAX package's cap on the packed lane width (PACKED_MAX_LANES)
 PACKED_MAX_LANES = 1280
 # the f32 D=512 body's query rows a block and keys a tile (``FF_BQ``,
@@ -78,19 +84,27 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     return torch.matmul(p, v.float()).to(v.dtype)
 
 
-def _kernel_head_dim(d: int) -> int:
-    """Head dims up to 64 run zero-padded to 64; 512 runs as is."""
+def _kernel_head_dim(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Head dims up to 64 run zero-padded to 64; 512 runs as is, and 128 in
+    bf16."""
     kd = 64 if d <= 64 else d
-    if kd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} is not supported (<= 64 or 512)")
+    if kd not in _HEAD_DIMS and not (kd in _BF16_HEAD_DIMS and dtype == torch.bfloat16):
+        raise ValueError(f"flash_attention: head dim {d} in {dtype} is not supported "
+                         f"(<= 64 or 512, or 128 in bf16)")
     return kd
+
+
+def bf16_only(d: int, dtype: torch.dtype) -> bool:
+    """Whether head dim ``d`` has a K1 instance in bf16 alone and ``dtype``
+    is another (f32 at D=128)."""
+    return d in _BF16_HEAD_DIMS and dtype != torch.bfloat16
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     """q, k, v with their head dim zero-padded to the kernel's: zero columns
     add nothing to q k^T, and the output's padded columns are zero."""
     d = q.shape[-1]
-    kd = _kernel_head_dim(d)
+    kd = _kernel_head_dim(d, q.dtype)
     if kd == d:
         return q, k, v
     return tuple(torch.nn.functional.pad(t, (0, kd - d)) for t in (q, k, v))
@@ -133,14 +147,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return dq, dk, dv, chunks
 
 
-def kernel_geometry(q_shape: tuple, k_shape: tuple, num_heads: int = 1) -> dict:
-    """What the kernel is told about (B, L, H*D) operands (K1: H = 1 over
-    (B*H, L, D)): ``batch``, ``heads``, ``lq``, ``lk`` and the head dim it
-    runs ``d`` (64 or 512, ``_kernel_head_dim``).  The kernel reads head h of
-    batch row b at the row stride H*d from element (b*L)*H*d + h*d: in K2's
-    packed layout a head is a d-wide column slice."""
+def kernel_geometry(q_shape: tuple, k_shape: tuple, num_heads: int = 1,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """What the kernel is told about (B, L, H*D) operands of ``dtype`` (K1:
+    H = 1 over (B*H, L, D)): ``batch``, ``heads``, ``lq``, ``lk`` and the head
+    dim it runs ``d`` (64 or 512, or 128 in bf16: ``_kernel_head_dim``).  The
+    kernel reads head h of batch row b at the row stride H*d from element
+    (b*L)*H*d + h*d: in K2's packed layout a head is a d-wide column slice."""
     batch, lq, hd = q_shape
-    d = _kernel_head_dim(hd // num_heads)
+    d = _kernel_head_dim(hd // num_heads, dtype)
     return dict(batch=batch, heads=num_heads, lq=lq, lk=k_shape[1], d=d)
 
 
@@ -189,7 +204,7 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     """One K1 launch on checked inputs."""
     d = q.shape[-1]
     q, k, v = pad_head_dim(q, k, v)
-    geo = kernel_geometry(q.shape, k.shape)
+    geo = kernel_geometry(q.shape, k.shape, dtype=q.dtype)
     out = torch.empty_like(q)
     splits, per, part, ml = _split_scratch(q, geo)
     rc = _native.library().st2v_flash_attention(
@@ -198,7 +213,7 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         splits, per, _ptr(part), _ptr(ml), _native.stream_of(q))
     _native.check(rc, "flash_attention")
     count_launch("flash_attention", d512=geo["d"] == 512 and q.dtype == torch.bfloat16,
-                 f32=q.dtype == torch.float32)
+                 d128=geo["d"] == 128, f32=q.dtype == torch.float32)
     return out[..., :d] if geo["d"] != d else out
 
 
@@ -235,7 +250,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("flash_attention: q, k and v must be contiguous")
     if not 0 < q.shape[0] <= 65535:
         raise ValueError(f"flash_attention: batch*heads {q.shape[0]} outside (0, 65535]")
-    _kernel_head_dim(q.shape[-1])
+    _kernel_head_dim(q.shape[-1], q.dtype)
     return _FlashAttention.apply(q, k, v)
 
 
@@ -325,7 +340,7 @@ def flash_attention_packed_backward(q: torch.Tensor, k: torch.Tensor, v: torch.T
 def _launch_flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
     """One K2 launch on checked inputs."""
-    geo = kernel_geometry(q.shape, k.shape, num_heads)
+    geo = kernel_geometry(q.shape, k.shape, num_heads, q.dtype)
     d = geo["d"]
     out = torch.empty_like(q)
     splits, per, part, ml = _split_scratch(q, geo)

@@ -13,7 +13,7 @@ K5's statistics pass, and LayerNorm the one-pass kernel K7
 (``ops/fused_layer_norm.py``), wherever the kernel's gate holds and autograd
 records no graph (``needs_grad``: neither has a backward).  Everything else
 takes the one plain version of these statistics, the path autograd goes
-through.
+through.  RMSNorm (Wan's q/k norm) is plain.
 """
 
 from __future__ import annotations
@@ -104,3 +104,12 @@ def layer_norm(
 
 def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else _native.aligned(t.float().contiguous())
+
+
+@span("st2v.norm")
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis (all of a token's channels: Wan's q/k norm
+    across heads), in f32, times ``scale``, returned in x's dtype."""
+    xf = x.float()
+    r = xf.square().mean(dim=-1, keepdim=True).add_(eps).rsqrt_()
+    return (xf * r).mul_(scale.float()).to(x.dtype)

@@ -23,7 +23,8 @@ import dataclasses
 
 import torch
 
-from streamingt2v_torch.config import CogVideoXConfig, EnhanceConfig, PipelineConfig, VAEConfig
+from streamingt2v_torch.config import (
+    CogVideoXConfig, EnhanceConfig, PipelineConfig, VAEConfig, WanConfig)
 from streamingt2v_torch.diffusion.ddim import DDIMScheduler
 from streamingt2v_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
 from streamingt2v_torch.models.clip_text import CLIPTextConfig, CLIPTextTower, CLIPTokenizer
@@ -35,12 +36,14 @@ from streamingt2v_torch.models.layers import init_random_
 from streamingt2v_torch.models.vae import AutoencoderKL
 from streamingt2v_torch.models.vfi import MultiScaleFlow
 from streamingt2v_torch.models.video_unet import VideoUNet
+from streamingt2v_torch.models.wan import WanTransformer3D
 from streamingt2v_torch.parallel.sharding import shard_params
 from streamingt2v_torch.pipeline.cogvideox import CogVideoXPipeline
 from streamingt2v_torch.pipeline.enhance import EnhanceModels, EnhancePipeline
 from streamingt2v_torch.pipeline.full import StreamingT2VPipeline
 from streamingt2v_torch.pipeline.interpolate import InterpolatePipeline
 from streamingt2v_torch.pipeline.streaming import Stage1Pipeline, StreamingModels
+from streamingt2v_torch.pipeline.wan import WanI2VPipeline
 
 
 def _device(device) -> torch.device:
@@ -157,3 +160,15 @@ def build_cogvideox(cfg: CogVideoXConfig = CogVideoXConfig(), seed: int = 0, *, 
     transformer = CogVideoXTransformer3D(cfg, device=device, dtype=dtype).eval()
     init_random_(transformer, torch.Generator(device).manual_seed(seed * 1000 + 300))
     return CogVideoXPipeline(cfg, transformer)
+
+
+def build_wan(cfg: WanConfig = WanConfig(), seed: int = 0, *, device="cuda",
+              bf16: bool = True) -> WanI2VPipeline:
+    """``WanI2VPipeline`` over the transformer of ``cfg`` on ``device``
+    (bfloat16 when ``bf16``, else the config's parameter dtype), its weights
+    random from ``seed``."""
+    device = _device(device)
+    dtype = torch.bfloat16 if bf16 else cfg.dtypes.param_dtype
+    transformer = WanTransformer3D(cfg, device=device, dtype=dtype).eval()
+    init_random_(transformer, torch.Generator(device).manual_seed(seed * 1000 + 400))
+    return WanI2VPipeline(cfg, transformer)

@@ -31,7 +31,7 @@ Counters (``count``, ``read_counters``, ``reset_counters``) count what
 the program did whether or not a profiler runs: ``steps``, ``unet_calls``,
 ``controlnet_calls``, ``vae_decoder_calls``, ``dit_calls``, ``decode_pieces``,
 ``rope_tables`` (rotary tables built), ``kernel_builds`` and
-``kernel_build_s``, and the six kernels' launches (``launches.<wrapper>``,
+``kernel_build_s``, and the kernels' launches (``launches.<wrapper>``,
 read by ``read_launches``).
 """
 
@@ -49,13 +49,15 @@ import torch
 _STAGE_TIMES: Dict[str, List[float]] = defaultdict(list)
 _COUNTERS: Dict[str, float] = defaultdict(int)
 
-# the six kernels' wrappers (K1-K6; K5's statistics alone, for K4's prologue,
-# as ``fused_group_norm_affine``), with whether each counts its bf16 D=512
-# launches (``<name>_d512``) and its f32 launches (``<name>_f32``) apart
-KERNELS = (("flash_attention", True, True), ("flash_attention_packed", True, True),
-           ("geglu_ff", False, False), ("temporal_conv", False, True),
-           ("fused_group_norm", False, False), ("fused_temporal_attention", False, True),
-           ("fused_group_norm_affine", False, True), ("layer_norm", False, True))
+# the kernels' wrappers (K1-K7; K5's statistics alone, for K4's prologue, as
+# ``fused_group_norm_affine``), with the bf16 instances each counts apart
+# (``<name>_d512``, ``<name>_d128``) and whether it counts its f32 launches
+# (``<name>_f32``) apart
+KERNELS = (("flash_attention", ("d512", "d128"), True),
+           ("flash_attention_packed", ("d512",), True), ("geglu_ff", (), False),
+           ("temporal_conv", (), True), ("fused_group_norm", (), False),
+           ("fused_temporal_attention", (), True), ("fused_group_norm_affine", (), True),
+           ("layer_norm", (), True))
 LAUNCHES = "launches."
 
 
@@ -177,12 +179,16 @@ def reset_counters() -> None:
     _COUNTERS.clear()
 
 
-def count_launch(name: str, *, d512: bool = False, f32: bool = False) -> None:
+def count_launch(name: str, *, d512: bool = False, d128: bool = False,
+                 f32: bool = False) -> None:
     """One launch of the kernel behind wrapper ``name``; ``d512``: of its bf16
-    D=512 instance, ``f32``: in f32 (each also counted apart)."""
+    D=512 instance, ``d128``: of its bf16 D=128 one, ``f32``: in f32 (each
+    also counted apart)."""
     count(LAUNCHES + name)
     if d512:
         count(LAUNCHES + name + "_d512")
+    if d128:
+        count(LAUNCHES + name + "_d128")
     if f32:
         count(LAUNCHES + name + "_f32")
 
@@ -193,13 +199,14 @@ def reset_launches() -> None:
 
 
 def read_launches(f32: bool = False) -> Dict[str, int]:
-    """Launches per wrapper, and the flash wrappers' bf16 D=512 launches apart
-    (``<name>_d512``, also counted in ``<name>``); with ``f32``, also the f32
-    launches of the wrappers that count them (``<name>_f32``: K1, K2, K4, K6,
-    K5's affine entry and K7)."""
+    """Launches per wrapper, and the flash wrappers' bf16 D=512 launches and
+    K1's bf16 D=128 ones apart (``<name>_d512``, ``<name>_d128``, also counted
+    in ``<name>``); with ``f32``, also the f32 launches of the wrappers that
+    count them (``<name>_f32``: K1, K2, K4, K6, K5's affine entry and K7)."""
     out = {}
-    for name, d512, counts_f32 in KERNELS:
-        keys = [name] + [name + "_d512"] * d512 + [name + "_f32"] * (f32 and counts_f32)
+    for name, instances, counts_f32 in KERNELS:
+        keys = ([name] + [f"{name}_{i}" for i in instances]
+                + [name + "_f32"] * (f32 and counts_f32))
         for key in keys:
             out[key] = int(_COUNTERS.get(LAUNCHES + key, 0))
     return out

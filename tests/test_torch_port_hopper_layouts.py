@@ -219,6 +219,52 @@ def test_flash_wgmma_body_fits_shared_memory():
     assert const["FW_BLOCKS"] * (smem + 1024) <= 233472
 
 
+def _sw128_off(r: int, c: int) -> int:
+    """``common.cuh``'s ``sw128_off``: row r's 16-byte chunk c."""
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+def test_flash_d128_body_layout():
+    """The bf16 D=128 body: two warpgroups of 64 query rows, 64-key tiles, Q
+    and two stages of K and V tiles as two 64-column blocks of the 128-byte
+    swizzle fit two blocks an SM; ``fh_load``'s 256 threads copy every
+    16-byte chunk of a tile once, into distinct bytes of the tile; and the k16
+    slice kk of S's contraction starts at columns 16 kk of every row."""
+    const = _consts("flash_attention.cu", "FH_")
+    d, bq, bk, stages = const["FH_D"], const["FH_BQ"], const["FH_BK"], const["FH_STAGES"]
+    assert (d, const["FH_THREADS"], bq, bk) == (128, 256, 128, 64) and stages == 2
+    smem = 1024 + bq * d * 2 + stages * 2 * bk * d * 2
+    assert const["FH_BLOCKS"] * (smem + 1024) <= 233472 and (bk * 128) % 1024 == 0
+    for rows in (bq, bk):
+        seen = {}
+        for tid in range(const["FH_THREADS"]):
+            cr, cc = tid >> 4, tid & 15
+            for it in range(rows // 16):
+                row, chunk = cr + 16 * it, cc
+                off = (cc >> 3) * rows * 128 + _sw128_off(cr, cc & 7) + 2048 * it
+                assert off == (chunk >> 3) * rows * 128 + _sw128_off(row, chunk & 7)
+                seen[(row, chunk)] = off
+        assert len(seen) == rows * 16 and len(set(seen.values())) == rows * 16
+        assert max(seen.values()) < rows * d * 2
+        for kk in range(d // 16):
+            start = (kk >> 2) * rows * 128 + 32 * (kk & 3)
+            assert start == seen[(0, 2 * kk)]
+
+
+@pytest.mark.parametrize("bh,lq,lk", [(2, 130, 257), (1, 77, 1), (3, 200, 512)])
+def test_flash_d128_tile_walk_keeps_the_function(bh, lq, lk):
+    """K1 at bf16 D=128: the geometry the kernel is told (one head, D=128 as
+    is), walked over its 64-key tiles with the ragged edge masked, gives the
+    plain version's output."""
+    rng = np.random.RandomState(9)
+    q, k, v = (t(rng.randn(bh, n, 128)) for n in (lq, lk, lk))
+    geo = fa.kernel_geometry(q.shape, k.shape, dtype=torch.bfloat16)
+    assert geo == dict(batch=bh, heads=1, lq=lq, lk=lk, d=128)
+    bk = _consts("flash_attention.cu", "FH_")["FH_BK"]
+    got = _flash_as_the_kernel_walks(q, k, v, lk, 128 ** -0.5, bk)
+    assert_close(got, fa.flash_attention_reference(q, k, v).numpy(), TOL, "K1 D=128 tile walk")
+
+
 # ---------------------------------------------------------- chip_smoke ---
 
 def test_chip_smoke_flags_serialized_wgmma():

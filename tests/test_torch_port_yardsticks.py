@@ -246,6 +246,21 @@ def test_chip_smoke_counts_d512_launches_apart():
     assert all(v == 0 for v in chip_smoke._read_launches().values())
 
 
+def test_chip_smoke_product_check_leaves_out_the_d128_body():
+    """The product, loader and mesh runs run no 128-wide head: their launch
+    check takes K1's D=128 row out of what must launch, and no other."""
+    from types import SimpleNamespace
+
+    cfg = SimpleNamespace(enhance=SimpleNamespace(chunk_size=24), use_randomized_blending=True,
+                          stage1_frames=16)
+    launches = {**dict.fromkeys(chip_smoke.KERNEL_META, 1), "flash_attention_d128": 0}
+    chip_smoke._check_product_launches(cfg, launches, "the product")
+    for name in chip_smoke.KERNEL_META:
+        if name != "flash_attention_d128":
+            with pytest.raises(AssertionError, match=name):
+                chip_smoke._check_product_launches(cfg, {**launches, name: 0}, "the product")
+
+
 def test_chip_smoke_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script would run")
