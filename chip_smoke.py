@@ -18,7 +18,7 @@ Phases, one line each:
      (``streamingt2v_torch/native``);
   3. kernels: each hand-written kernel (K1 flash attention, K2 packed flash
      attention, K3 GEGLU FF, K4 temporal conv, K5 fused GroupNorm, K6
-     temporal attention, K7 LayerNorm) at the main paths' shapes in bf16
+     temporal attention, K7 LayerNorm and RMSNorm) at the main paths' shapes in bf16
      plus f32 cases, against its plain PyTorch version on the same inputs, with both times
      (CUDA events, median of a few runs, each call queued behind a device
      sleep so that the host's work before it is not timed) at one timed
@@ -28,7 +28,8 @@ Phases, one line each:
      affine entry (the statistics of K4's prologue) at every geometry the
      UNets and the VAE decoder send it (``k4_prologue_geometries``); K7
      LayerNorm at every full-width geometry the phases send it: the cells'
-     units, the conditioning towers and stage 3 (``layer_norm_geometries``).
+     units, the conditioning towers and stage 3 (``layer_norm_geometries``),
+     and its RMS entry at Wan's q/k norms (``rms_norm_geometries``).
      The build phase fails if ptxas serialized any kernel's ``wgmma``;
   4. reference: stage 1 end to end on a small input (the tiny config at
      96x192, f32), the same with APM (a 3+1-token context, ``apm_alpha``
@@ -163,10 +164,11 @@ Phases, one line each:
      under the configuration's routing) of 81 frames at 480x832 from latent
      noise, an image latent, CLIP features and prompt embeddings drawn from
      seed 0: its seconds (the first step, cold), resident and peak memory,
-     finite latents that moved, and its launches (``WAN_LAUNCHES``): K1's
-     bf16 D=128 body three times a block (120: the self-attention at
-     (80, 32760, 128) and the two cross-attentions), K7 at the image
-     projector's 1280-wide LayerNorm (1) and no other kernel.
+     finite latents that moved, and its launches (``wan_step_launches``):
+     K1's bf16 D=128 body three times a block (120: the self-attention at
+     (80, 32760, 128) and the two cross-attentions), K7 at every LayerNorm
+     (123, 121 of them on the f32 stream at 5120), its RMS entry at every
+     q/k norm (200) and no other kernel.
 Then one JSON line with the kernel records and, last, the result line.
 
 Each kernel record: ``ms`` the kernel, ``plain_ms`` its plain version (which
@@ -212,8 +214,10 @@ takes D=512 (``sdpa_backend``), and their ``launches`` are the wrappers'
 stage 1's level 0 (460800, 320) bf16, its ``library_ms`` ``F.layer_norm``
 with the affine in x's dtype, and adds ``level1_*`` and ``level2_*`` at
 (115200, 640) and (28800, 1280), ``stage2_*`` at (547200, 320), ``f32_*`` at
-CogVideoX's f32 stream (35552, 3072) and ``qk_*`` at its q/k norms
-(1706496, 64), each beside its byte bound.  K1-K4 carry their backward
+CogVideoX's f32 stream (35552, 3072), ``qk_*`` at its q/k norms
+(1706496, 64) and ``wan_*`` at Wan's f32 stream (65520, 5120), each beside
+its byte bound.  K7's RMS entry (``rms_norm``) is at Wan's q/k norm
+(65520, 5120) bf16, its ``library_ms`` ``F.rms_norm``.  K1-K4 carry their backward
 (the VJP of the plain version in chunks, from the reference phase):
 ``bwd_ms`` at a training shape (``bwd_shape``; K1 and K4 the SVD UNet's
 level 0, K3 level 0 with LN and residual, K2 stage 2's level 1),
@@ -362,6 +366,12 @@ def work_group_norm_affine(n: int, l: int, c: int, elem: int = 2) -> tuple:
 def work_layer_norm(rows: int, c: int, elem: int = 2) -> tuple:
     """K7: reads x once and writes the output once; the f32 scale and bias."""
     return 0, 2 * elem * rows * c + 4 * 2 * c
+
+
+def work_rms_norm(rows: int, c: int, elem: int = 2) -> tuple:
+    """K7's RMS entry: reads x once and writes the output once; the f32
+    scale."""
+    return 0, 2 * elem * rows * c + 4 * c
 
 
 def work_temporal_attention(b: int, tq: int, tkv: int, s: int, heads: int, d: int,
@@ -1233,7 +1243,11 @@ def layer_norm_geometries() -> list:
     text tower's instance.  The UNets' feed-forward norms are not here: on
     the card they run inside K3 (its LN pass).  Stage 2's image-latent
     ``TemporalEncoder`` normalises 4 channels, under K7's 16-byte rows: its
-    one call a UNet call stays plain (``fits_fused_ln``)."""
+    one call a UNet call stays plain (``fits_fused_ln``).  Wan2.1-I2V-14B on
+    its CFG batch of 2 (one transformer call a step): the f32 stream's three
+    norms a block and the head's at eps 1e-6 over 2 x 32,760 tokens of 5120
+    (past one warp: K7's wide plan), and the image projector's two affine
+    norms in bf16 at eps 1e-5 over 2 x 257 CLIP tokens."""
     bf16, f32 = "bfloat16", "float32"
     unet = ((460800, 320, 20), (115200, 640, 20), (28800, 1280, 20), (7200, 1280, 4))
     controlnet = ((129024, 320, 8), (32256, 640, 8), (8064, 1280, 8), (2016, 1280, 4),
@@ -1251,36 +1265,64 @@ def layer_norm_geometries() -> list:
              (257, 1280, f32, 1e-5, "stage-2 CLIP vision", 66),
              (154, 1024, bf16, 1e-5, "stage-2 CLIP text", 49)]
     rows += [(r, c, f32, 1e-6, "stage-3 EMA-VFI", k) for r, c, k in vfi]
+    rows += [(65520, 5120, f32, 1e-6, "Wan2.1-I2V-14B", 121),
+             (514, 1280, bf16, 1e-5, "Wan2.1-I2V-14B", 1),
+             (514, 5120, bf16, 1e-5, "Wan2.1-I2V-14B", 1)]
     return rows
 
 
+def rms_norm_geometries() -> list:
+    """Every RMSNorm that reaches ``norms.rms_norm`` on the card, as (rows,
+    C, dtype, eps, network, calls a network call): Wan2.1-I2V-14B's q/k
+    norms across all 40 heads on its CFG batch of 2, in bf16 at eps 1e-6:
+    the self-attention's q and k and the cross-attention's q over the 2 x
+    32,760 video tokens, the text keys over 2 x 512 rows, the image keys
+    over 2 x 257 CLIP tokens, once a block each."""
+    bf16, net = "bfloat16", "Wan2.1-I2V-14B"
+    return [(65520, 5120, bf16, 1e-6, net, 120), (1024, 5120, bf16, 1e-6, net, 40),
+            (514, 5120, bf16, 1e-6, net, 40)]
+
+
 def layer_norm_launches() -> dict:
-    """K7's launches a unit, from ``layer_norm_geometries`` (the calls its
-    gate takes): an AR step (one VideoUNet and one ControlNet call), a
-    stage-2 step as ``step_ms`` counts it (2 UNet calls) and a CogVideoX
-    step (one transformer call; ``t2v_step_f32`` of them in f32)."""
+    """K7's launches a unit, from ``layer_norm_geometries`` and
+    ``rms_norm_geometries`` (the calls its gate takes): an AR step (one
+    VideoUNet and one ControlNet call), a stage-2 step as ``step_ms`` counts
+    it (2 UNet calls), a CogVideoX step (one transformer call;
+    ``t2v_step_f32`` of them in f32) and a Wan step (one transformer call:
+    ``i2v_step`` LayerNorms, ``i2v_step_f32`` of them in f32, and
+    ``i2v_step_rms`` launches of the RMS entry)."""
     import torch
 
     from streamingt2v_torch.ops.fused_layer_norm import fits_fused_ln
 
     per_call = collections.Counter()
-    for _, c, dtype, _, network, k in layer_norm_geometries():
-        if fits_fused_ln(c, getattr(torch, dtype)):
-            per_call[network] += k
-            per_call[network, dtype] += k
-    return {"ar_step": per_call["stage-1 VideoUNet"] + per_call["stage-1 ControlNet"],
-            "stage2_step": 2 * per_call["stage-2 UNet"],
-            "t2v_step": per_call["CogVideoX-5B"],
-            "t2v_step_f32": per_call["CogVideoX-5B", "float32"]}
+    for kind, geometries in (("layer", layer_norm_geometries()), ("rms", rms_norm_geometries())):
+        for _, c, dtype, _, network, k in geometries:
+            if fits_fused_ln(c, getattr(torch, dtype)):
+                per_call[kind, network] += k
+                per_call[kind, network, dtype] += k
+    return {"ar_step": per_call["layer", "stage-1 VideoUNet"]
+            + per_call["layer", "stage-1 ControlNet"],
+            "stage2_step": 2 * per_call["layer", "stage-2 UNet"],
+            "t2v_step": per_call["layer", "CogVideoX-5B"],
+            "t2v_step_f32": per_call["layer", "CogVideoX-5B", "float32"],
+            "i2v_step": per_call["layer", "Wan2.1-I2V-14B"],
+            "i2v_step_f32": per_call["layer", "Wan2.1-I2V-14B", "float32"],
+            "i2v_step_rms": per_call["rms", "Wan2.1-I2V-14B"]}
 
 
-# K7's timed geometries (rows, C, dtype, eps) -> key prefix of its record:
+# K7's timed geometries (rows, C, dtype, eps, norm) -> key prefix of its
+# record (the LayerNorm's, ``layer_norm``, or the RMS entry's, ``rms_norm``):
 # stage 1's three UNet levels, stage 2's level 0, CogVideoX's f32 stream and
-# its q/k norms
-K7_TIMED = (((460800, 320, "bfloat16", 1e-5), ""), ((115200, 640, "bfloat16", 1e-5), "level1_"),
-            ((28800, 1280, "bfloat16", 1e-5), "level2_"),
-            ((547200, 320, "bfloat16", 1e-5), "stage2_"),
-            ((35552, 3072, "float32", 1e-5), "f32_"), ((1706496, 64, "bfloat16", 1e-6), "qk_"))
+# its q/k norms, Wan's f32 stream and its q/k RMSNorm (the wide plan)
+K7_TIMED = (((460800, 320, "bfloat16", 1e-5, "layer"), ""),
+            ((115200, 640, "bfloat16", 1e-5, "layer"), "level1_"),
+            ((28800, 1280, "bfloat16", 1e-5, "layer"), "level2_"),
+            ((547200, 320, "bfloat16", 1e-5, "layer"), "stage2_"),
+            ((35552, 3072, "float32", 1e-5, "layer"), "f32_"),
+            ((1706496, 64, "bfloat16", 1e-6, "layer"), "qk_"),
+            ((65520, 5120, "float32", 1e-6, "layer"), "wan_"),
+            ((65520, 5120, "bfloat16", 1e-6, "rms"), ""))
 # K7 against its plain version, max |difference| over max |plain|: bf16
 # rounds both outputs to 8 mantissa bits (one unit in the last place at the
 # largest value is 2^-8 of it, 3.9e-3); f32 differs in the order of the sums
@@ -1288,15 +1330,31 @@ K7_TIMED = (((460800, 320, "bfloat16", 1e-5), ""), ((115200, 640, "bfloat16", 1e
 K7_TOL = {"bf16": 1e-2, "f32": 1e-5}
 
 
+def _k7_timed(norm: str) -> dict:
+    """``K7_TIMED``'s rows of one entry, (rows, C, dtype, eps) -> prefix."""
+    return {key[:4]: prefix for key, prefix in K7_TIMED if key[4] == norm}
+
+
+def _time_k7(name: str, kernel, plain, library, work: tuple) -> dict:
+    """One timed row of K7: the kernel, its plain version and the library
+    call, beside the byte bound."""
+    r = _yardstick(dict(ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=3),
+                        library_ms=_time_ms(library)), work)
+    print(f"  K7 time {name}: kernel {r['ms']:.3f} ms, plain version {r['plain_ms']:.3f} ms, "
+          f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+          f"share {r['share']:.3f}", flush=True)
+    return r
+
+
 def check_k7(randn) -> dict:
     """K7 (``fused_layer_norm``) against its plain version
     (``layer_norm_reference``, the plain path of ``norms.layer_norm``) at
     every geometry of ``layer_norm_geometries`` that its gate takes (the
     cells' units, the conditioning towers, stage 3), with scale and bias,
-    and at stage 1's level 0 without them and with the scale alone; timed
-    at ``K7_TIMED`` beside its plain version, ``F.layer_norm`` (the affine
-    in x's dtype: a yardstick only, the port never calls it) and its byte
-    bound."""
+    and at stage 1's level 0 and Wan's f32 stream without them and with the
+    scale alone; timed at ``K7_TIMED`` beside its plain version,
+    ``F.layer_norm`` (the affine in x's dtype: a yardstick only, the port
+    never calls it) and its byte bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1304,7 +1362,7 @@ def check_k7(randn) -> dict:
         fits_fused_ln, fused_layer_norm, layer_norm_reference, launch_plan)
 
     f32 = torch.float32
-    timed = dict(K7_TIMED)
+    timed = _k7_timed("layer")
     errs, rec = [], {}
     networks = collections.defaultdict(list)   # one check a geometry, naming its networks
     for n, c, name, eps, network, _ in layer_norm_geometries():
@@ -1319,7 +1377,7 @@ def check_k7(randn) -> dict:
         tol = K7_TOL["f32" if dtype == f32 else "bf16"]
         plan = launch_plan(c, x.element_size())
         affines = [(scale, bias)]
-        if (n, c) == (460800, 320):
+        if (n, c) in ((460800, 320), (65520, 5120)):
             affines += [(None, None), (scale, None)]
         for s, b in affines:
             errs.append(_compare(
@@ -1335,20 +1393,59 @@ def check_k7(randn) -> dict:
 
             _compare(f"K7 yardstick F.layer_norm {(n, c)} {dtype}", library(),
                      layer_norm_reference(x, s_lo, b_lo, eps=eps), tol)
-            r = _yardstick(
-                dict(ms=_time_ms(lambda: fused_layer_norm(x, scale, bias, eps)),
-                     plain_ms=_time_ms(lambda: layer_norm_reference(x, scale, bias, eps=eps),
-                                       reps=3),
-                     library_ms=_time_ms(library)), work_layer_norm(n, c, x.element_size()))
-            print(f"  K7 time {(n, c)} {dtype}: kernel {r['ms']:.3f} ms, plain version "
-                  f"{r['plain_ms']:.3f} ms, F.layer_norm {r['library_ms']:.3f} ms, bound "
-                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}",
-                  flush=True)
+            r = _time_k7(f"{(n, c)} {dtype}", lambda: fused_layer_norm(x, scale, bias, eps),
+                         lambda: layer_norm_reference(x, scale, bias, eps=eps), library,
+                         work_layer_norm(n, c, x.element_size()))
             rec.update({prefix + k: v for k, v in r.items()})
             if not prefix:
                 rec["shape"] = [n, c]
         del x
     print(f"  K7 launches predicted from the geometries: {layer_norm_launches()}", flush=True)
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def check_k7_rms(randn) -> dict:
+    """K7's RMS entry (``fused_rms_norm``) against its plain version
+    (``rms_norm_reference``, the plain path of ``norms.rms_norm``) at every
+    geometry of ``rms_norm_geometries``, timed at ``K7_TIMED``'s RMS row
+    beside its plain version, ``F.rms_norm`` (the scale in x's dtype: a
+    yardstick only) and its byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from streamingt2v_torch.ops.fused_layer_norm import (
+        fused_rms_norm, launch_plan, rms_norm_reference)
+
+    f32 = torch.float32
+    timed = _k7_timed("rms")
+    errs, rec = [], {}
+    for n, c, name, eps, network, _ in rms_norm_geometries():
+        dtype = getattr(torch, name)
+        x = randn(n, c, dtype=dtype, std=2.0, mean=0.5)
+        scale = 1.0 + randn(c, dtype=f32, std=0.1)
+        tol = K7_TOL["f32" if dtype == f32 else "bf16"]
+        plan = launch_plan(c, x.element_size())
+        errs.append(_compare(
+            f"K7 RMS {network} {(n, c)} {dtype} eps {eps:g} ({plan.lanes} lanes x {plan.vpt} "
+            f"vectors)", fused_rms_norm(x, scale, eps), rms_norm_reference(x, scale, eps=eps),
+            tol))
+        prefix = timed.get((n, c, name, eps))
+        if prefix is not None:
+            s_lo = scale.to(dtype)
+
+            def library():
+                return F.rms_norm(x, (c,), s_lo, eps)
+
+            _compare(f"K7 yardstick F.rms_norm {(n, c)} {dtype}", library(),
+                     rms_norm_reference(x, s_lo, eps=eps), tol)
+            r = _time_k7(f"RMS {(n, c)} {dtype}", lambda: fused_rms_norm(x, scale, eps),
+                         lambda: rms_norm_reference(x, scale, eps=eps), library,
+                         work_rms_norm(n, c, x.element_size()))
+            rec.update({prefix + k: v for k, v in r.items()})
+            if not prefix:
+                rec["shape"] = [n, c]
+        del x
     rec["max_abs_err"] = max(errs)
     return rec
 
@@ -1493,7 +1590,8 @@ def check_kernels() -> dict:
            "fused_group_norm": check_k5(randn),
            "fused_temporal_attention": check_k6(randn),
            "fused_group_norm_affine": check_k5_affine(randn),
-           "layer_norm": check_k7(randn)}
+           "layer_norm": check_k7(randn),
+           "rms_norm": check_k7_rms(randn)}
     torch.cuda.empty_cache()
     return rec
 
@@ -1598,10 +1696,9 @@ def check_enhance_reference() -> float:
     if not torch.isfinite(got).all() or err > REFERENCE_ATOL:
         raise AssertionError(f"small-input stage 2 disagrees with the plain path ({err:.3e})")
     # stage 2 runs K2, not K1, the narrow VAE's attention has head dim 64 and
-    # no stage runs a 128-wide head
+    # no stage runs a 128-wide head or an RMSNorm
     dead = [k for k, v in launches.items() if v <= 0 and k not in (
-        "flash_attention", "flash_attention_d512", "flash_attention_packed_d512",
-        "flash_attention_d128")]
+        "flash_attention", "flash_attention_d512", "flash_attention_packed_d512", *WAN_ONLY)]
     if dead:
         raise AssertionError(f"the small-input stage 2 skipped kernels: {dead}")
     return err
@@ -2950,16 +3047,20 @@ def _check_native_writer(stages: dict, what: str) -> None:
           flush=True)
 
 
+# the kernel rows only Wan launches: K1's D=128 body (its 128-wide heads)
+# and K7's RMS entry (its q/k norm); no stage of the product runs either
+WAN_ONLY = ("flash_attention_d128", "rms_norm")
+
+
 def _check_product_launches(cfg, launches: dict, what: str) -> None:
-    """Every kernel row launched in a product run but K1's D=128 body (the
-    product runs no 128-wide head), K6 where its gate admits stage 2's
-    chunk."""
+    """Every kernel row launched in a product run but ``WAN_ONLY``'s, K6
+    where its gate admits stage 2's chunk."""
     from streamingt2v_torch.ops.temporal_attention import MAX_FRAMES, fits_temporal_attention
 
     # K6 takes temporal attention over at most MAX_FRAMES frames: stage 2's
     # chunk is the whole video without blending (100 frames in the product)
     chunk = cfg.enhance.chunk_size if cfg.use_randomized_blending else cfg.stage1_frames
-    rows = [k for k in KERNEL_META if k != "flash_attention_d128"]
+    rows = [k for k in KERNEL_META if k not in WAN_ONLY]
     expected = [k for k in rows if k != "fused_temporal_attention"
                 or fits_temporal_attention(chunk, chunk, 64)]
     if expected != rows:
@@ -4070,12 +4171,16 @@ KERNEL_META = {
                                 "streamingt2v_tpu/ops/norms.py:29"),
     # K7, LayerNorm: the JAX package leaves it to XLA (``layer_norm``), no Pallas
     "layer_norm": ("streamingt2v_torch/csrc/layer_norm.cu", "streamingt2v_tpu/ops/norms.py:192"),
+    # K7's RMS entry: the JAX package has no RMSNorm (Wan runs only in the
+    # port); the row names the XLA ``layer_norm`` whose kernel body it shares
+    "rms_norm": ("streamingt2v_torch/csrc/layer_norm.cu", "streamingt2v_tpu/ops/norms.py:192"),
 }
 
 
 # the rows whose wrappers count their f32 launches apart (``launches_f32``)
 F32_COUNTED = ("flash_attention_f32", "flash_attention_packed_f32", "temporal_conv_f32",
-               "fused_temporal_attention_f32", "fused_group_norm_affine_f32", "layer_norm_f32")
+               "fused_temporal_attention_f32", "fused_group_norm_affine_f32", "layer_norm_f32",
+               "rms_norm_f32")
 
 
 def run_cogvideox() -> dict:
@@ -4128,11 +4233,16 @@ def run_cogvideox() -> dict:
     return launches
 
 
-# a Wan2.1-I2V-14B step's launches: K1's D=128 body for the self-attention
-# and the two cross-attentions of every block, K7 at the image projector's
-# 1280-wide LayerNorm (its 5120-wide ones and the blocks' are past K7's
-# widest row and take the plain chain)
-WAN_LAUNCHES = {"flash_attention": 120, "flash_attention_d128": 120, "layer_norm": 1}
+def wan_step_launches() -> dict:
+    """A Wan2.1-I2V-14B step's launches: K1's D=128 body for the
+    self-attention and the two cross-attentions of every block, K7 at every
+    LayerNorm (the f32 stream's 121 and the image projector's two in bf16)
+    and its RMS entry at every q/k norm (5 a block), as
+    ``layer_norm_launches`` predicts them."""
+    per_step = layer_norm_launches()
+    return {"flash_attention": 120, "flash_attention_d128": 120,
+            "layer_norm": per_step["i2v_step"], "layer_norm_f32": per_step["i2v_step_f32"],
+            "rms_norm": per_step["i2v_step_rms"]}
 
 
 def run_wan() -> dict:
@@ -4177,9 +4287,9 @@ def run_wan() -> dict:
     moved = ((out - noise).norm() / noise.norm()).item()
     if not moved > 0:
         raise AssertionError("Wan's step left the latents as they were")
-    want = {**dict.fromkeys(launches, 0), **WAN_LAUNCHES}
+    want = {**dict.fromkeys(launches, 0), **wan_step_launches()}
     if launches != want:
-        raise AssertionError(f"launches {launches}, want {WAN_LAUNCHES} and nothing else")
+        raise AssertionError(f"launches {launches}, want {wan_step_launches()} and nothing else")
     print(f"  latents {tuple(out.shape)} finite, moved {moved:.4f} of the noise", flush=True)
     return launches
 

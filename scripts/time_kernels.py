@@ -37,11 +37,13 @@ this one (run parent, change, change, parent in one call).  Kernels
         decode's level-0 piece (1, 8x589824, 128) and stage 2's level 0
         (1, 38x14400, 320) in bf16, the decode's also in f32, beside the
         plain chain;
-  k7    LayerNorm through ``ops.norms.layer_norm`` (K7 where the checkout has
-        it, else its plain chain) at ``chip_smoke.K7_TIMED``: stage 1's three
-        UNet widths, stage 2's level 0 and CogVideoX's f32 stream and q/k
-        norms, each checked against ``F.layer_norm`` in f32 and beside its
-        byte bound, then the device time of each kernel of one call;
+  k7    LayerNorm through ``ops.norms.layer_norm`` and RMSNorm through
+        ``ops.norms.rms_norm`` (K7 where the checkout has it, else the plain
+        chain) at ``chip_smoke.K7_TIMED``: stage 1's three UNet widths, stage
+        2's level 0, CogVideoX's f32 stream and q/k norms, Wan's f32 stream
+        and q/k RMSNorm, each checked against ``F.layer_norm`` or
+        ``F.rms_norm`` in f32 and beside its byte bound, then the device
+        time of each kernel of one call;
   f32   the f32 instances of the stage-1 VAE (full f32, TF32 off): K1 at
         (1, 9216, 512) (the encoder's mid attention) and (8, 9216, 512) (the
         temporal decoder's, one 8-frame chunk) beside SDPA f32, and K4 bare and
@@ -415,23 +417,29 @@ def time_k7(chip_smoke, randn, reps: int) -> None:
     import torch
     import torch.nn.functional as F
 
-    from streamingt2v_torch.ops.norms import layer_norm
+    from streamingt2v_torch.ops.norms import layer_norm, rms_norm
 
     f32 = torch.float32
-    for (n, c, name, eps), _ in chip_smoke.K7_TIMED:
+    for (n, c, name, eps, norm), _ in chip_smoke.K7_TIMED:
         dtype = getattr(torch, name)
         x = randn(n, c, dtype=dtype, std=2.0, mean=0.5)
         scale, bias = 1.0 + randn(c, dtype=f32, std=0.1), randn(c, dtype=f32, std=0.1)
-        call = lambda: layer_norm(x, scale, bias, eps=eps)  # noqa: E731
+        if norm == "rms":
+            label, work = "RMSNorm", chip_smoke.work_rms_norm(n, c, x.element_size())
+            call = lambda: rms_norm(x, scale, eps=eps)  # noqa: E731
+            want = lambda: F.rms_norm(x.float(), (c,), scale, eps).to(dtype)  # noqa: E731
+        else:
+            label, work = "LayerNorm", chip_smoke.work_layer_norm(n, c, x.element_size())
+            call = lambda: layer_norm(x, scale, bias, eps=eps)  # noqa: E731
+            want = lambda: F.layer_norm(x.float(), (c,), scale, bias, eps).to(dtype)  # noqa: E731
         if CHECK:
-            chip_smoke._compare(f"LayerNorm {(n, c)} {name}", call(),
-                                F.layer_norm(x.float(), (c,), scale, bias, eps).to(dtype),
+            chip_smoke._compare(f"{label} {(n, c)} {name}", call(), want(),
                                 chip_smoke.K7_TOL["f32" if dtype == f32 else "bf16"])
         ms = chip_smoke._time_ms(call, reps=reps)
-        bd = chip_smoke.bound(chip_smoke.work_layer_norm(n, c, x.element_size()))
-        print(f"  LayerNorm {(n, c)} {name}: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
+        bd = chip_smoke.bound(work)
+        print(f"  {label} {(n, c)} {name}: {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
               f"share {bd['bound_ms'] / ms:.3f}", flush=True)
-        device_times(call, "LayerNorm")
+        device_times(call, label)
         del x
 
 

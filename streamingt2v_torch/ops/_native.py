@@ -52,6 +52,7 @@ _SIGNATURES = {
     "st2v_geglu_ff": ([_P] * 10 + [_I] * 8 + [_P], _I),
     "st2v_temporal_conv": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "st2v_layer_norm": ([_P] * 4 + [_I] * 4 + [_F, _I, _P], _I),
+    "st2v_rms_norm": ([_P] * 3 + [_I] * 4 + [_F, _I, _P], _I),
 }
 
 

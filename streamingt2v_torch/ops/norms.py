@@ -9,11 +9,12 @@ one-pass clamped form for LayerNorm, as the JAX package computes it.
 Per-frame (4-D) GroupNorm(+SiLU) runs the fused kernel K5
 (``ops/fused_group_norm.py``, the JAX package's ``STREAMINGT2V_FUSED_GN``
 route), the statistics of K4's prologue (``group_norm_affine``, any rank)
-K5's statistics pass, and LayerNorm the one-pass kernel K7
-(``ops/fused_layer_norm.py``), wherever the kernel's gate holds and autograd
-records no graph (``needs_grad``: neither has a backward).  Everything else
-takes the one plain version of these statistics, the path autograd goes
-through.  RMSNorm (Wan's q/k norm) is plain.
+K5's statistics pass, and LayerNorm and RMSNorm (Wan's q/k norm across
+heads) the one-pass kernel K7 (``ops/fused_layer_norm.py``; rows up to
+8192 channels, past 4096 split over several warps), wherever the kernel's
+gate holds and autograd records no graph (``needs_grad``: none has a
+backward).  Everything else takes the one plain version of these
+statistics, the path autograd goes through.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from streamingt2v_torch.ops.fused_group_norm import (
     fits_fused, fused_group_norm, fused_group_norm_affine, fused_group_norm_reference,
     group_norm_affine_reference, needs_grad)
 from streamingt2v_torch.ops.fused_layer_norm import (
-    fits_fused_ln, fused_layer_norm, layer_norm_reference)
+    fits_fused_ln, fused_layer_norm, fused_rms_norm, layer_norm_reference, rms_norm_reference)
 from streamingt2v_torch.utils.profiling import span
 
 
@@ -109,7 +110,10 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 @span("st2v.norm")
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis (all of a token's channels: Wan's q/k norm
-    across heads), in f32, times ``scale``, returned in x's dtype."""
-    xf = x.float()
-    r = xf.square().mean(dim=-1, keepdim=True).add_(eps).rsqrt_()
-    return (xf * r).mul_(scale.float()).to(x.dtype)
+    across heads), in f32, times ``scale``, returned in x's dtype: K7's RMS
+    entry on the card, else the plain version."""
+    c = x.shape[-1]
+    if x.is_cuda and fits_fused_ln(c, x.dtype) and not needs_grad(x, scale):
+        rows = _native.aligned(x.reshape(-1, c).contiguous())
+        return fused_rms_norm(rows, _f32(scale), eps).view(x.shape)
+    return rms_norm_reference(x, scale, eps=eps)

@@ -50,14 +50,14 @@ _STAGE_TIMES: Dict[str, List[float]] = defaultdict(list)
 _COUNTERS: Dict[str, float] = defaultdict(int)
 
 # the kernels' wrappers (K1-K7; K5's statistics alone, for K4's prologue, as
-# ``fused_group_norm_affine``), with the bf16 instances each counts apart
-# (``<name>_d512``, ``<name>_d128``) and whether it counts its f32 launches
-# (``<name>_f32``) apart
+# ``fused_group_norm_affine``; K7's RMS entry as ``rms_norm``), with the bf16
+# instances each counts apart (``<name>_d512``, ``<name>_d128``) and whether
+# it counts its f32 launches (``<name>_f32``) apart
 KERNELS = (("flash_attention", ("d512", "d128"), True),
            ("flash_attention_packed", ("d512",), True), ("geglu_ff", (), False),
            ("temporal_conv", (), True), ("fused_group_norm", (), False),
            ("fused_temporal_attention", (), True), ("fused_group_norm_affine", (), True),
-           ("layer_norm", (), True))
+           ("layer_norm", (), True), ("rms_norm", (), True))
 LAUNCHES = "launches."
 
 
@@ -202,7 +202,8 @@ def read_launches(f32: bool = False) -> Dict[str, int]:
     """Launches per wrapper, and the flash wrappers' bf16 D=512 launches and
     K1's bf16 D=128 ones apart (``<name>_d512``, ``<name>_d128``, also counted
     in ``<name>``); with ``f32``, also the f32 launches of the wrappers that
-    count them (``<name>_f32``: K1, K2, K4, K6, K5's affine entry and K7)."""
+    count them (``<name>_f32``: K1, K2, K4, K6, K5's affine entry and both
+    of K7's entries)."""
     out = {}
     for name, instances, counts_f32 in KERNELS:
         keys = ([name] + [f"{name}_{i}" for i in instances]

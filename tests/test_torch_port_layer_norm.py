@@ -1,9 +1,11 @@
-"""PyTorch port, K7 (one-pass LayerNorm, ``ops/fused_layer_norm.py`` over
-``csrc/layer_norm.cu``) on the CPU: ``ops.norms.layer_norm`` against its plain
-version, the route it takes on the card (a CPU tensor dressed as a CUDA one,
-the wrapper spied), the kernel's gate, the wrapper's refusals, the launch
-plan walked lane by lane as the kernel walks it, and the LayerNorms one unit
-of each timed cell runs, counted on the meta device at production widths."""
+"""PyTorch port, K7 (one-pass LayerNorm and RMSNorm, ``ops/fused_layer_norm.py``
+over ``csrc/layer_norm.cu``) on the CPU: ``ops.norms.layer_norm`` and
+``ops.norms.rms_norm`` against their plain versions, the route each takes on
+the card (a CPU tensor dressed as a CUDA one, the wrapper spied), the
+kernel's gate, the wrappers' refusals, the launch plan walked lane by lane
+(and, past one warp, warp by warp) as the kernel walks it, and the norms one
+unit of each timed cell runs, counted on the meta device at production
+widths."""
 
 import collections
 import dataclasses
@@ -16,10 +18,11 @@ import pytest
 import torch
 
 import chip_smoke
-from streamingt2v_torch.config import CogVideoXConfig, PipelineConfig
+from streamingt2v_torch.config import CogVideoXConfig, PipelineConfig, WanConfig
 from streamingt2v_torch.models import unet_blocks
 from streamingt2v_torch.models.cogvideox import CogVideoXTransformer3D
 from streamingt2v_torch.models.enhance.unet import I2VGenXLUNet, I2VGenXLUNetConfig
+from streamingt2v_torch.models.wan import WanTransformer3D
 from streamingt2v_torch.ops import fused_layer_norm as k7
 from streamingt2v_torch.ops import norms
 from streamingt2v_torch.pipeline.build import (
@@ -61,6 +64,21 @@ def spied(monkeypatch):
         return k7.layer_norm_reference(x.as_subclass(torch.Tensor), scale, bias, eps=eps)
 
     monkeypatch.setattr(norms, "fused_layer_norm", wrapper)
+    return calls
+
+
+@pytest.fixture
+def spied_rms(monkeypatch):
+    """Replaces K7's RMS wrapper in ``ops.norms`` by its plain version on the
+    rows it is handed, recording (shape, dtype, contiguous, scale dtype,
+    eps) of each call."""
+    calls = []
+
+    def wrapper(x, scale, eps):
+        calls.append((tuple(x.shape), x.dtype, x.is_contiguous(), scale.dtype, eps))
+        return k7.rms_norm_reference(x.as_subclass(torch.Tensor), scale, eps=eps)
+
+    monkeypatch.setattr(norms, "fused_rms_norm", wrapper)
     return calls
 
 
@@ -128,12 +146,15 @@ def test_layer_norm_under_grad_takes_the_plain_path(spied, needs):
     (8, torch.bfloat16, True), (64, torch.bfloat16, True), (320, torch.bfloat16, True),
     (1280, torch.bfloat16, True), (3072, torch.float32, True), (4096, torch.float32, True),
     (4, torch.bfloat16, False),      # stage 2's TemporalEncoder: under 16 bytes a row
-    (12, torch.float32, False), (4104, torch.bfloat16, False),
+    (12, torch.float32, False), (4104, torch.bfloat16, True),
+    (5120, torch.float32, True), (5120, torch.bfloat16, True),    # Wan's stream, its q/k
+    (8192, torch.float32, True), (8200, torch.bfloat16, False), (5124, torch.float32, False),
     (64, torch.float16, False), (64, torch.float64, False),
 ])
 def test_the_gate_takes_16_byte_rows_of_bf16_and_f32(spied, c, dtype, takes):
-    """``fits_fused_ln``: C % 8 == 0, C at most 4096, bf16 or f32; what it
-    refuses takes the plain version on the card too."""
+    """``fits_fused_ln``: C % 8 == 0, C at most 8192 (past 4096 on the wide
+    plan), bf16 or f32; what it refuses takes the plain version on the card
+    too."""
     assert k7.fits_fused_ln(c, dtype) == takes
     x, s, b = _draw((4, c), dtype)
     with torch.no_grad():
@@ -179,11 +200,15 @@ def test_the_wrapper_raises_on_what_the_kernel_does_not_take(case):
 
 def test_the_plan_matches_the_kernel_source():
     """The instances the wrapper may choose are the ones ``layer_norm.cu``
-    builds, with its block size and widest row."""
+    builds (a row in one warp and, WIDE, over several), with its block size,
+    its widest row in one warp and its widest row."""
     src = CSRC.read_text()
     assert tuple(int(v) for v in re.findall(r"ST2V_LN_CASE\((\d+)\)\n", src)) == \
         k7.VPT_INSTANCES
+    assert tuple(int(v) for v in re.findall(r"ST2V_LN_WIDE_CASE\((\d+)\)\n", src)) == \
+        k7.WIDE_VPT_INSTANCES
     assert f"LN_THREADS = {k7.BLOCK_THREADS};" in src
+    assert f"LN_NARROW_C = {k7.NARROW_CHANNELS};" in src
     assert f"LN_MAX_C = {k7.MAX_CHANNELS};" in src
     assert "(vpt + 3) / vpt" in src   # the rows a lane takes, as launch_plan's
 
@@ -194,19 +219,24 @@ def test_the_launch_plan_covers_every_row_once(itemsize):
     exactly one (lane, slot) of the plan, at least 4 loads are in flight a
     lane, and the widths the cells run take the fewest idle lanes: a row of
     64 four rows a warp, stage 1's three widths 5 vectors a lane, the f32
-    stream of 3072 one warp of 24 vectors a lane."""
+    stream of 3072 one warp of 24 vectors a lane; past 4096 a row spans
+    warps, Wan's 5120 128 lanes of 5 in bf16 and 256 of 5 in f32."""
     vec = 16 // itemsize
     for c in range(8, k7.MAX_CHANNELS + 1, 8):
         p = k7.launch_plan(c, itemsize)
         vectors = c // vec
-        assert p.lanes in (1, 2, 4, 8, 16, 32) and p.vpt in k7.VPT_INSTANCES
+        if c > k7.NARROW_CHANNELS:
+            assert p.lanes in (64, 128, 256) and p.vpt in k7.WIDE_VPT_INSTANCES
+        else:
+            assert p.lanes in (1, 2, 4, 8, 16, 32) and p.vpt in k7.VPT_INSTANCES
         owned = sorted(sub + i * p.lanes for sub in range(p.lanes) for i in range(p.vpt)
                        if sub + i * p.lanes < vectors)
         assert owned == list(range(vectors)), c
         assert p.vpt * p.rows >= 4 and p.rows_per_block == 256 // p.lanes * p.rows
     want = {2: {64: (8, 1, 4), 320: (8, 5, 1), 640: (16, 5, 1), 1280: (32, 5, 1),
-                32: (4, 1, 4), 96: (4, 3, 2), 256: (32, 1, 4), 512: (32, 2, 2)},
-            4: {3072: (32, 24, 1), 64: (16, 1, 4)}}[itemsize]
+                32: (4, 1, 4), 96: (4, 3, 2), 256: (32, 1, 4), 512: (32, 2, 2),
+                5120: (128, 5, 1)},
+            4: {3072: (32, 24, 1), 64: (16, 1, 4), 5120: (256, 5, 1)}}[itemsize]
     for c, plan in want.items():
         assert k7.launch_plan(c, itemsize)[:3] == plan, c
 
@@ -218,10 +248,61 @@ def test_the_kernel_walk_normalises_every_row_once(rows, c):
     and the one-pass clamped statistics give every row exactly once, within
     f32 rounding of the plain version."""
     x, s, b = _draw((rows, c))
-    xs = x.numpy()
-    p = k7.launch_plan(c, 4)
-    vec, slots = 4, k7.BLOCK_THREADS // p.lanes
-    out, written = np.zeros_like(xs), np.zeros(rows, int)
+    out, written = _walk(x.numpy(), s.numpy(), b.numpy(), 1e-5, 4, rms=False)
+    assert (written == 1).all()
+    np.testing.assert_allclose(out, k7.layer_norm_reference(x, s, b).numpy(), rtol=0, atol=2e-5)
+
+
+# the plans the cells' narrow rows (C <= 4096) ran on before the wide plan,
+# (C, dtype) -> (lanes, vpt, rows): every (C, dtype) of
+# ``layer_norm_geometries`` that K7 takes at or under one warp's row
+NARROW_PLANS = {
+    (320, "bfloat16"): (8, 5, 1), (640, "bfloat16"): (16, 5, 1),
+    (1280, "bfloat16"): (32, 5, 1), (32, "bfloat16"): (4, 1, 4), (96, "bfloat16"): (4, 3, 2),
+    (256, "bfloat16"): (32, 1, 4), (512, "bfloat16"): (32, 2, 2), (64, "bfloat16"): (8, 1, 4),
+    (1024, "bfloat16"): (32, 4, 1), (3072, "float32"): (32, 24, 1),
+    (1280, "float32"): (32, 12, 1), (256, "float32"): (32, 2, 2), (512, "float32"): (32, 4, 1)}
+
+
+def _one_warp_plan(c: int, itemsize: int) -> tuple:
+    """The one-warp search as it was before the wide plan: the fewest idle
+    slots over 32 to 1 lanes and ``VPT_INSTANCES``, then the most lanes."""
+    vectors = c // (16 // itemsize)
+    best = None
+    for lanes in (32, 16, 8, 4, 2, 1):
+        need = -(-vectors // lanes)
+        vpt = next((v for v in (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32) if v >= need), None)
+        if vpt is not None and (best is None or lanes * vpt - vectors < best[0]):
+            best = (lanes * vpt - vectors, lanes, vpt)
+    return best[1], best[2], -(-4 // best[2])
+
+
+def test_the_narrow_plans_stay_as_they_were():
+    """The wide plan leaves every C up to 4096 on the one-warp plan it had:
+    the same lanes, vectors and rows at every C the gate takes there, in
+    both dtypes, and so at every narrow (C, dtype) the cells send."""
+    for itemsize in (2, 4):
+        for c in range(8, k7.NARROW_CHANNELS + 1, 8):
+            assert k7.launch_plan(c, itemsize)[:3] == _one_warp_plan(c, itemsize), c
+    sent = {(c, dtype) for _, c, dtype, _, _, _ in chip_smoke.layer_norm_geometries()
+            if c <= k7.NARROW_CHANNELS and k7.fits_fused_ln(c, getattr(torch, dtype))}
+    assert sent == set(NARROW_PLANS)
+    for (c, dtype), plan in NARROW_PLANS.items():
+        assert k7.launch_plan(c, getattr(torch, dtype).itemsize)[:3] == plan
+
+
+def _walk(x: np.ndarray, scale, bias, eps: float, itemsize: int, rms: bool) -> tuple:
+    """The kernel's walk in f32 numpy over rows of f32 values (bf16 ones
+    held as f32), lane by lane and block by block: each lane's loads and
+    sums, the xor butterfly within a warp's (or a row's) lanes, and past 32
+    lanes the warps' parts added in warp order; then the statistics of
+    either entry and the output in f32.  Returns (output, times each row was
+    written)."""
+    rows, c = x.shape
+    p = k7.launch_plan(c, itemsize)
+    vec, slots = 16 // itemsize, k7.BLOCK_THREADS // p.lanes
+    warp = min(p.lanes, 32)
+    out, written = np.zeros_like(x), np.zeros(rows, int)
     for block in range(-(-rows // p.rows_per_block)):
         base = block * p.rows_per_block
         for r in range(p.rows):
@@ -233,22 +314,153 @@ def test_the_kernel_walk_normalises_every_row_once(rows, c):
                 for sub in range(p.lanes):
                     js = [sub + i * p.lanes for i in range(p.vpt)
                           if sub + i * p.lanes < c // vec]
-                    v = np.concatenate([xs[row, j * vec:(j + 1) * vec] for j in js]) \
+                    v = np.concatenate([x[row, j * vec:(j + 1) * vec] for j in js]) \
                         if js else np.zeros(0, np.float32)
-                    lane_sums.append((np.float32(v.sum(dtype=np.float32)),
+                    lane_sums.append((np.float32(0 if rms else v.sum(dtype=np.float32)),
                                       np.float32((v * v).sum(dtype=np.float32))))
-                o = p.lanes // 2
-                while o:    # the xor butterfly: each lane ends with the row's sums
-                    lane_sums = [(a + lane_sums[i ^ o][0], q + lane_sums[i ^ o][1])
-                                 for i, (a, q) in enumerate(lane_sums)]
-                    o //= 2
-                s1, s2 = lane_sums[0]
-                mean = np.float32(s1 / c)
-                rstd = np.float32(1 / np.sqrt(max(s2 / c - mean * mean, 0) + 1e-5))
-                out[row] = (xs[row] - mean) * rstd * s.numpy() + b.numpy()
+                parts = []
+                for w in range(0, p.lanes, warp):    # each warp's butterfly
+                    sums = lane_sums[w:w + warp]
+                    o = warp // 2
+                    while o:
+                        sums = [(a + sums[i ^ o][0], q + sums[i ^ o][1])
+                                for i, (a, q) in enumerate(sums)]
+                        o //= 2
+                    assert len(set(sums)) == 1    # every lane holds its warp's sums
+                    parts.append(sums[0])
+                s1, s2 = np.float32(0), np.float32(0)
+                for a, q in parts:    # in warp order
+                    s1, s2 = np.float32(s1 + a), np.float32(s2 + q)
+                inv_c = np.float32(1) / np.float32(c)
+                if rms:
+                    y = x[row] * np.float32(1 / np.sqrt(s2 * inv_c + np.float32(eps)))
+                else:
+                    mean = np.float32(s1 * inv_c)
+                    rstd = np.float32(1 / np.sqrt(max(s2 * inv_c - mean * mean, 0) + eps))
+                    y = (x[row] - mean) * rstd
+                out[row] = y * scale if bias is None else y * scale + bias
                 written[row] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("rows,c,dtype", [
+    (9, 5120, torch.float32), (11, 5120, torch.bfloat16),    # Wan's stream, its q/k rows
+    (7, 4104, torch.float32), (13, 4104, torch.bfloat16),    # ragged, past one warp
+    (5, 8192, torch.float32), (6, 6144, torch.bfloat16), (40, 320, torch.bfloat16)])
+@pytest.mark.parametrize("norm", ["layer", "rms"])
+def test_the_wide_walk_normalises_every_row_once(rows, c, dtype, norm):
+    """Past 4096 channels a row spans 2 to 8 warps: walked as the kernel
+    walks it, each of a row's 16-byte vectors is loaded by one lane, each
+    warp's butterfly gives its part, the parts added in warp order give the
+    row's sums, and every row is written exactly once, within f32 rounding
+    of the plain version, in the LayerNorm and the RMS entry alike (and on
+    a one-warp row, 320, the RMS entry too)."""
+    x, s, b = _draw((rows, c), dtype)
+    xs = x.float().numpy()
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    p = k7.launch_plan(c, itemsize)
+    if c > k7.NARROW_CHANNELS:
+        assert p.lanes > 32 and p.rows_per_block == k7.BLOCK_THREADS // p.lanes * p.rows
+    if norm == "rms":
+        got, written = _walk(xs, s.numpy(), None, 1e-6, itemsize, rms=True)
+        want = k7.rms_norm_reference(x.float(), s, eps=1e-6)
+    else:
+        got, written = _walk(xs, s.numpy(), b.numpy(), 1e-6, itemsize, rms=False)
+        want = k7.layer_norm_reference(x.float(), s, b, eps=1e-6)
     assert (written == 1).all()
-    np.testing.assert_allclose(out, k7.layer_norm_reference(x, s, b).numpy(), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_on_the_cpu_is_the_plain_version(spied_rms, dtype):
+    """On the CPU ``norms.rms_norm`` is ``rms_norm_reference``, bit for bit,
+    in x's dtype (the scale in its own dtype); the wrapper is never
+    reached."""
+    for shape in ((2, 5, 64), (3, 4, 2, 40), (7, 5120)):
+        x, s, _ = _draw(shape, dtype)
+        for scale in (s, s.to(dtype)):
+            got = norms.rms_norm(x, scale, eps=1e-6)
+            assert got.dtype == dtype and got.shape == x.shape
+            assert torch.equal(got, k7.rms_norm_reference(x, scale, eps=1e-6))
+    assert not spied_rms
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_takes_k7_on_the_card_without_grad(spied_rms, dtype):
+    """On the card, where autograd records no graph, an RMSNorm whose C the
+    gate takes reaches K7's RMS wrapper once, as contiguous (rows, C) with
+    an f32 scale, and comes back in x's shape and dtype; a slice is copied
+    first; a C the gate refuses takes the plain version."""
+    x, s, _ = _draw((2, 6, 5, 64), dtype)
+    with torch.no_grad():
+        got = norms.rms_norm(x.as_subclass(_OnCard), s.to(dtype), eps=1e-6)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.equal(got.as_subclass(torch.Tensor),
+                       k7.rms_norm_reference(x, s.to(dtype), eps=1e-6))
+    assert spied_rms == [((60, 64), dtype, True, torch.float32, 1e-6)]
+    with torch.inference_mode():
+        got = norms.rms_norm(x[:, 1:].as_subclass(_OnCard), s)
+        assert torch.equal(got.as_subclass(torch.Tensor), k7.rms_norm_reference(x[:, 1:], s))
+        odd, so, _ = _draw((3, 12), dtype)
+        got = norms.rms_norm(odd.as_subclass(_OnCard), so)
+        assert torch.equal(got.as_subclass(torch.Tensor), k7.rms_norm_reference(odd, so))
+    assert [call[:3] for call in spied_rms] == [((60, 64), dtype, True), ((50, 64), dtype, True)]
+
+
+@pytest.mark.parametrize("needs", ["x", "scale"])
+def test_rms_norm_under_grad_takes_the_plain_path(spied_rms, needs):
+    """Under grad, with x or the scale requiring grad, the card's route is
+    the plain version: the wrapper is not called, and the gradients flow as
+    through ``rms_norm_reference``."""
+    x, s, _ = _draw((3, 10, 64))
+    leaves = {"x": x, "scale": s}
+    leaves[needs].requires_grad_()
+    got = norms.rms_norm(leaves["x"].as_subclass(_OnCard), leaves["scale"])
+    assert not spied_rms and got.grad_fn is not None
+    g = torch.from_numpy(np.random.RandomState(4).randn(3, 10, 64).astype(np.float32))
+    (grad,) = torch.autograd.grad(got, leaves[needs], g)
+    (ref,) = torch.autograd.grad(k7.rms_norm_reference(leaves["x"], leaves["scale"]),
+                                 leaves[needs], g)
+    assert torch.allclose(grad, ref, rtol=1e-5, atol=1e-6) and grad.abs().max() > 0
+    with torch.no_grad():
+        norms.rms_norm(x.as_subclass(_OnCard), leaves["scale"])
+    assert len(spied_rms) == 1
+
+
+def _rms_refused(case):
+    """(error, message, call) of one input the RMS wrapper refuses."""
+    x, s, _ = _draw((6, 64))
+    card = x.as_subclass(_OnCard)
+    wide = torch.cat([card, card], 1)
+    rms = k7.fused_rms_norm
+    return {
+        "cpu tensor": (ValueError, "CUDA tensor", lambda: rms(x, s, 1e-6)),
+        "no scale": (TypeError, "scale is required", lambda: rms(card, None, 1e-6)),
+        "non-contiguous rows": (ValueError, "contiguous", lambda: rms(wide[:, ::2], s, 1e-6)),
+        "3-D input": (ValueError, "rows, C", lambda: rms(card.view(2, 3, 64), s, 1e-6)),
+        "C % 8": (ValueError, "not supported", lambda: rms(card[:, :60].contiguous(),
+                                                           s[:60], 1e-6)),
+        "C past 8192": (ValueError, "not supported", lambda: rms(
+            torch.zeros(2, 8200).as_subclass(_OnCard), torch.ones(8200), 1e-6)),
+        "f16 input": (TypeError, "f32 or bf16", lambda: rms(card.half(), s, 1e-6)),
+        "bf16 scale": (TypeError, "scale must", lambda: rms(card, s.bfloat16(), 1e-6)),
+        "short scale": (TypeError, "scale must", lambda: rms(card, s[:32], 1e-6)),
+        "grad": (RuntimeError, "no backward", lambda: rms(card, s.requires_grad_(), 1e-6)),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["cpu tensor", "no scale", "non-contiguous rows", "3-D input",
+                                  "C % 8", "C past 8192", "f16 input", "bf16 scale",
+                                  "short scale", "grad"])
+def test_the_rms_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    """``fused_rms_norm`` launches K7's RMS entry or raises, as the
+    LayerNorm's wrapper does, and also without a scale: no launch is
+    counted."""
+    error, match, call = _rms_refused(case)
+    before = chip_smoke._read_launches(f32=True)
+    with pytest.raises(error, match=match):
+        call()
+    assert chip_smoke._read_launches(f32=True) == before
 
 
 def _count_layer_norms(monkeypatch, networks: dict):
@@ -395,7 +607,56 @@ def test_meta_count_gives_k7_launches_a_unit(monkeypatch, cell, run, on_k3):
              if not k7.fits_fused_ln(c, getattr(torch, dtype))}
     assert plain == ({("stage-2 UNet", 547200, 4)} if cell.startswith("i2vgen") else set())
     assert chip_smoke.layer_norm_launches() == {
-        "ar_step": 98, "stage2_step": 132, "t2v_step": 170, "t2v_step_f32": 86}
+        "ar_step": 98, "stage2_step": 132, "t2v_step": 170, "t2v_step_f32": 86,
+        "i2v_step": 123, "i2v_step_f32": 121, "i2v_step_rms": 200}
+
+
+def test_meta_count_gives_k7_launches_a_wan_step(monkeypatch):
+    """One call of Wan2.1-I2V-14B's transformer on the CFG batch of 2 (a
+    step), counted on the meta device at the published widths: its
+    LayerNorms (the f32 stream's three a block and the head's at 5120, the
+    image projector's two in bf16) are ``chip_smoke``'s
+    ``layer_norm_geometries`` of that network and its q/k RMSNorms (five a
+    block) its ``rms_norm_geometries``; K7's gate takes every one, so a step
+    launches 123 LayerNorms (121 f32) and 200 RMSNorms, as
+    ``layer_norm_launches`` and ``wan_step_launches`` predict."""
+    cfg = WanConfig()
+    dit = WanTransformer3D(cfg, device="meta", dtype=torch.bfloat16).eval()
+    seen = collections.Counter()
+    plain_ln, plain_rms = norms.layer_norm_reference, norms.rms_norm_reference
+
+    def ln(x, scale=None, bias=None, *, eps=1e-5):
+        seen["layer", x.numel() // x.shape[-1], x.shape[-1], str(x.dtype).split(".")[-1],
+             eps] += 1
+        return plain_ln(x, scale, bias, eps=eps)
+
+    def rms(x, scale, *, eps=1e-6):
+        seen["rms", x.numel() // x.shape[-1], x.shape[-1], str(x.dtype).split(".")[-1],
+             eps] += 1
+        return plain_rms(x, scale, eps=eps)
+
+    monkeypatch.setattr(norms, "layer_norm_reference", ln)
+    monkeypatch.setattr(norms, "rms_norm_reference", rms)
+    z = functools.partial(torch.zeros, device="meta")
+    _, c, f, h, w = cfg.latent_shape(2)
+    with torch.inference_mode():
+        dit(z(cfg.latent_shape(2)), torch.zeros(2, dtype=torch.int64, device="meta"),
+            z(2, cfg.text_len, cfg.text_dim), z(2, cfg.clip_tokens, cfg.clip_dim),
+            z(2, cfg.in_dim - c, f, h, w))
+    want = collections.Counter()
+    for norm, geometries in (("layer", chip_smoke.layer_norm_geometries()),
+                             ("rms", chip_smoke.rms_norm_geometries())):
+        for n, c, dtype, eps, network, k in geometries:
+            if network == "Wan2.1-I2V-14B":
+                want[norm, n, c, dtype, eps] += k
+    assert seen == want
+    assert all(k7.fits_fused_ln(c, getattr(torch, dtype)) for _, _, c, dtype, _ in seen)
+    per_step = chip_smoke.layer_norm_launches()
+    assert (per_step["i2v_step"], per_step["i2v_step_f32"], per_step["i2v_step_rms"]) == \
+        (123, 121, 200)
+    assert chip_smoke.wan_step_launches() == {
+        "flash_attention": 120, "flash_attention_d128": 120, "layer_norm": 123,
+        "layer_norm_f32": 121, "rms_norm": 200}
 
 
 @pytest.mark.parametrize("run", [_stage2_conditioning, _stage3])

@@ -197,7 +197,8 @@ def test_chip_smoke_kernel_lines_carry_every_field():
     D=512 instances have rows of their own with their D=512 launches, their
     SDPA backend and (K2) the encode chunk's numbers; K5's row carries the
     SD VAE's shape; K7's names the JAX package's XLA ``layer_norm``, which it
-    replaces; every row carries the product phase's launches apart,
+    replaces, and so does its RMS entry's (the JAX package has no RMSNorm;
+    the entry shares K7's body); every row carries the product phase's launches apart,
     and those of any other phase given (the apm and samplers phases)."""
     rec = dict(ms=2.0, plain_ms=9.0, bound_ms=1.0, bound_by="operations", library_ms=4.0,
                share=0.5, max_abs_err=1e-3)
@@ -221,7 +222,7 @@ def test_chip_smoke_kernel_lines_carry_every_field():
         assert (REPO / line["source"]).exists()
         # the Pallas kernel's def line; K7's, the XLA function it replaces
         path, lineno = line["replaces"].split(":")
-        want = "def layer_norm(" if line["name"] == "layer_norm" else "def _"
+        want = "def layer_norm(" if line["name"] in ("layer_norm", "rms_norm") else "def _"
         assert (REPO / path).read_text().splitlines()[int(lineno) - 1].startswith(want)
     assert by_name["flash_attention_d512"]["sdpa_backend"] == "EFFICIENT_ATTENTION"
     assert by_name["flash_attention_packed_d512"]["b4_share"] == 0.6
@@ -247,16 +248,18 @@ def test_chip_smoke_counts_d512_launches_apart():
 
 
 def test_chip_smoke_product_check_leaves_out_the_d128_body():
-    """The product, loader and mesh runs run no 128-wide head: their launch
-    check takes K1's D=128 row out of what must launch, and no other."""
+    """The product, loader and mesh runs run no 128-wide head and no
+    RMSNorm: their launch check takes K1's D=128 row and K7's RMS entry out
+    of what must launch, and no other."""
     from types import SimpleNamespace
 
     cfg = SimpleNamespace(enhance=SimpleNamespace(chunk_size=24), use_randomized_blending=True,
                           stage1_frames=16)
-    launches = {**dict.fromkeys(chip_smoke.KERNEL_META, 1), "flash_attention_d128": 0}
+    launches = {**dict.fromkeys(chip_smoke.KERNEL_META, 1), "flash_attention_d128": 0,
+                "rms_norm": 0}
     chip_smoke._check_product_launches(cfg, launches, "the product")
     for name in chip_smoke.KERNEL_META:
-        if name != "flash_attention_d128":
+        if name not in ("flash_attention_d128", "rms_norm"):
             with pytest.raises(AssertionError, match=name):
                 chip_smoke._check_product_launches(cfg, {**launches, name: 0}, "the product")
 
